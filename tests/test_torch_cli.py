@@ -1,0 +1,133 @@
+"""``python -m tpu_life_torch run`` end to end on the CPU: the reference
+workload at its golden sha256, byte equality with ``python -m tpu_life run
+--backend numpy``, and the tidy error lines."""
+
+import gzip
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_life import cli as jcli
+from tpu_life_torch import cli
+from tpu_life_torch.io.codec import write_board, write_config
+
+ROOT = Path(__file__).resolve().parent.parent
+FIXTURES = ROOT / "tests" / "fixtures"
+# the reference workload's output.txt after 100 Conway steps (tests/test_golden.py)
+GOLDEN_SHA = "ea69597f6ada6271b4b182c592f36395652fee9cf2d28a2e17c80fb5eca79215"
+
+
+def port(*args, cwd, cuda_visible=None):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    if cuda_visible is not None:
+        env["CUDA_VISIBLE_DEVICES"] = cuda_visible
+    return subprocess.run(
+        [sys.executable, "-m", "tpu_life_torch", *args],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=300,
+    )
+
+
+@pytest.fixture
+def reference_dir(tmp_path):
+    with gzip.open(FIXTURES / "reference_data.txt.gz", "rb") as f:
+        (tmp_path / "data.txt").write_bytes(f.read())
+    shutil.copy(FIXTURES / "reference_grid_size_data.txt", tmp_path / "grid_size_data.txt")
+    return tmp_path
+
+
+def test_reference_workload_golden_on_cpu(reference_dir):
+    proc = port("run", "--device", "cpu", cwd=reference_dir)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("Total time = ")
+    raw = (reference_dir / "output.txt").read_bytes()
+    assert len(raw) == 751_500
+    assert hashlib.sha256(raw).hexdigest() == GOLDEN_SHA
+
+
+@pytest.mark.parametrize(
+    "rule,backend",
+    [("conway", "auto"), ("highlife", "torch"), ("brians_brain", "numpy"), ("R2,C2,S2..4,B3,NN", "numpy")],
+)
+def test_bytes_equal_jax_numpy_backend(tmp_path, rule, backend):
+    rng = np.random.default_rng(11)
+    states = 3 if rule == "brians_brain" else 2
+    write_board(tmp_path / "data.txt", rng.integers(0, states, size=(37, 45), dtype=np.int8))
+    write_config(tmp_path / "grid_size_data.txt", 37, 45, 23)
+    files = ["--config-file", str(tmp_path / "grid_size_data.txt"),
+             "--input-file", str(tmp_path / "data.txt")]
+    assert jcli.main(["run", *files, "--rule", rule, "--backend", "numpy",
+                      "--output-file", str(tmp_path / "jax.txt")]) == 0
+    assert cli.main(["run", *files, "--rule", rule, "--backend", backend, "--device", "cpu",
+                     "--block-steps", "5", "--sync-every", "10",
+                     "--output-file", str(tmp_path / "port.txt")]) == 0
+    assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "jax.txt").read_bytes()
+
+
+def test_jax_output_is_a_valid_port_input(tmp_path, reference_dir):
+    # chain: 40 steps in the JAX package, then 60 in the port == 100 steps
+    assert jcli.main(["run", "--config-file", str(reference_dir / "grid_size_data.txt"),
+                      "--input-file", str(reference_dir / "data.txt"), "--steps", "40",
+                      "--backend", "numpy", "--output-file", str(tmp_path / "mid.txt")]) == 0
+    rc = cli.main(["run", "--config-file", str(reference_dir / "grid_size_data.txt"),
+                   "--input-file", str(tmp_path / "mid.txt"), "--steps", "60",
+                   "--device", "cpu", "--output-file", str(tmp_path / "out.txt")])
+    assert rc == 0
+    assert hashlib.sha256((tmp_path / "out.txt").read_bytes()).hexdigest() == GOLDEN_SHA
+
+
+@pytest.mark.parametrize(
+    "args,match",
+    [
+        (["--rule", "B9x/S"], "unrecognized rule spec"),
+        (["--rule", "ising"], "not yet ported"),
+        (["--config-file", "missing.txt"], "config file 'missing.txt' not found"),
+        (["--rule", "brians_brain", "--device", "cpu"], "not yet ported to the cuda backend"),
+        ([], "pass --device cpu"),
+    ],
+)
+def test_tidy_error_lines(tmp_path, monkeypatch, capsys, args, match):
+    write_board(tmp_path / "data.txt", np.zeros((8, 8), np.int8))
+    write_config(tmp_path / "grid_size_data.txt", 8, 8, 2)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", ["tpu_life_torch", "run", *args])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.console_main() == 1
+    lines = capsys.readouterr().err.strip().splitlines()
+    assert len(lines) == 1 and lines[0].startswith("tpu_life_torch: error: "), lines
+    assert match in lines[0]
+    assert not (tmp_path / "output.txt").exists()
+
+
+def test_no_card_error_from_the_module_entry_point(tmp_path):
+    write_board(tmp_path / "data.txt", np.zeros((8, 8), np.int8))
+    write_config(tmp_path / "grid_size_data.txt", 8, 8, 2)
+    proc = port("run", cwd=tmp_path, cuda_visible="")
+    assert proc.returncode == 1
+    assert proc.stderr.strip() == (
+        "tpu_life_torch: error: no CUDA device is available; pass --device cpu "
+        "to run the plain PyTorch version on the CPU, or --backend numpy"
+    )
+    assert proc.stdout == ""
+
+
+def test_geometry_error_exits_2(tmp_path, capsys):
+    write_board(tmp_path / "data.txt", np.zeros((5, 5), np.int8))
+    rc = cli.main(["run", "--input-file", str(tmp_path / "data.txt"), "--height", "5",
+                   "--width", "5", "--steps", "1", "--rule", "bugs", "--backend", "numpy",
+                   "--output-file", str(tmp_path / "o.txt")])
+    assert rc == 2
+    assert "kernel diameter" in capsys.readouterr().err
+
+
+def test_info_lists_backends_and_rules(capsys):
+    assert cli.main(["info"]) == 0
+    out = capsys.readouterr().out
+    assert "backends: cuda, numpy, torch" in out
+    assert "conway" in out and "torch " in out

@@ -1,0 +1,84 @@
+"""tpu_life_torch stands alone: it imports neither jax nor tpu_life.
+
+``tests/conftest.py`` loads jax into every test process, so the import
+check runs in a subprocess; the AST scan reads every source file of the
+package (and ``chip_smoke.py``) for such imports.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tpu_life_torch.backends.base import CudaUnavailableError, get_backend, resolve_device
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "tpu_life_torch"
+SOURCES = sorted(PKG.rglob("*.py"))
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in SOURCES
+    if p.name != "__main__.py"
+)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top == "jax" or top == "jaxlib" or top == "tpu_life"
+
+
+def test_every_module_imports_without_jax_or_tpu_life():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_life'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    assert len(MODULES) >= 20  # the scan found the package
+
+
+@pytest.mark.parametrize(
+    "path", [*SOURCES, ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_source_imports_nothing_of_jax_or_tpu_life(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert bad == [], f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("name", ["auto", "cuda", "torch"])
+def test_card_backends_refuse_to_run_on_the_cpu_unasked(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(CudaUnavailableError, match="--device cpu"):
+        get_backend(name)
+    # asking for the CPU explicitly is the one way onto it
+    assert get_backend(name, device="cpu").device == torch.device("cpu")
+
+
+def test_numpy_backend_needs_no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert get_backend("numpy").name == "numpy"
+
+
+def test_resolve_device_rejects_other_devices():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        resolve_device("meta")

@@ -1,0 +1,204 @@
+"""The Backend interface and registry (from ``tpu_life/backends/base.py``).
+
+A backend advances a board ``steps`` steps; all backends are bit-identical
+on the same (board, rule, steps) and differ only in where the work runs:
+
+- ``numpy``  the pure-NumPy truth executor, on the host
+- ``torch``  the plain PyTorch bit-sliced step, on an explicit device
+- ``cuda``   the hand-written packed stripe kernel on the card (the
+             plain version when the caller asks for the CPU)
+
+Only deterministic rules exist here: the stochastic and continuous rule
+specs are refused when parsed (``models.rules.NotPortedError``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Protocol
+
+import numpy as np
+import torch
+
+from tpu_life_torch.models.rules import Rule
+
+# callback(step_index, get_board) where get_board() lazily materializes the
+# current board as np.int8
+ChunkCallback = Callable[[int, Callable[[], np.ndarray]], None]
+
+
+class CudaUnavailableError(RuntimeError):
+    """A run asked for the card (``auto``/``cuda``/``torch`` on the default
+    device) on a machine where ``torch.cuda.is_available()`` is false."""
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The device a backend runs on: the card unless the caller asks for
+    the CPU.  Never falls back from the card to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise CudaUnavailableError(
+                "no CUDA device is available; pass --device cpu to run the "
+                "plain PyTorch version on the CPU, or --backend numpy"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    return dev
+
+
+class Runner(Protocol):
+    """Device-resident run handle: state stays on the device between
+    advances.  ``advance`` queues work with no host round-trip; ``sync``
+    forces completion; ``fetch`` materializes the board on the host."""
+
+    def advance(self, steps: int) -> None: ...
+
+    def sync(self) -> None: ...
+
+    def fetch(self) -> np.ndarray: ...
+
+    def snapshot(self) -> Callable[[], np.ndarray]:
+        """A ``get_board`` thunk bound to the *current* state."""
+        ...
+
+    def live_count(self) -> int:
+        """Exact count of live (state 1) cells."""
+        ...
+
+
+class HostRunner:
+    """Runner for host backends (numpy): state is a host array and
+    ``advance`` calls ``backend.run`` on it."""
+
+    def __init__(self, backend: "Backend", board: np.ndarray, rule: Rule):
+        self.backend = backend
+        self.board = np.asarray(board, np.int8)
+        self.rule = rule
+
+    def advance(self, steps: int) -> None:
+        self.board = self.backend.run(self.board, self.rule, steps)
+
+    def sync(self) -> None:
+        pass
+
+    def fetch(self) -> np.ndarray:
+        return self.board
+
+    def snapshot(self) -> Callable[[], np.ndarray]:
+        return lambda board=self.board: board
+
+    def live_count(self) -> int:
+        return int(np.count_nonzero(self.board == 1))
+
+
+class Backend(Protocol):
+    name: str
+
+    def run(
+        self,
+        board: np.ndarray,
+        rule: Rule,
+        steps: int,
+        *,
+        chunk_steps: int = 0,
+        callback: ChunkCallback | None = None,
+    ) -> np.ndarray: ...
+
+
+def make_runner(backend: "Backend", board: np.ndarray, rule: Rule) -> Runner:
+    """Stage ``board`` on the backend's device and return a Runner:
+    ``backend.prepare`` where the backend has device state, else a
+    ``HostRunner``."""
+    prep = getattr(backend, "prepare", None)
+    if prep is not None:
+        return prep(board, rule)
+    return HostRunner(backend, board, rule)
+
+
+def drive_runner(
+    r: Runner,
+    steps: int,
+    *,
+    chunk_steps: int = 0,
+    callback: ChunkCallback | None = None,
+) -> None:
+    """The chunked epoch loop over a Runner (no final fetch)."""
+    done = 0
+    for n in chunk_sizes(steps, chunk_steps):
+        r.advance(n)
+        done += n
+        if callback is not None:
+            callback(done, r.snapshot())
+    r.sync()
+
+
+def run_with_runner(
+    backend: "Backend",
+    board: np.ndarray,
+    rule: Rule,
+    steps: int,
+    *,
+    chunk_steps: int = 0,
+    callback: ChunkCallback | None = None,
+) -> np.ndarray:
+    """Chunked ``run`` over a fresh Runner, returning the final board."""
+    r = make_runner(backend, board, rule)
+    drive_runner(r, steps, chunk_steps=chunk_steps, callback=callback)
+    return r.fetch()
+
+
+def measure_throughput(
+    backend: "Backend",
+    board: np.ndarray,
+    rule: Rule,
+    steps: int,
+    base_steps: int,
+    repeats: int = 3,
+) -> float:
+    """Cells/s of a backend on one device via delta timing
+    (``utils.timing.delta_seconds_per_step``)."""
+    from tpu_life_torch.utils.timing import delta_seconds_per_step
+
+    runner = make_runner(backend, board, rule)
+    per_step = delta_seconds_per_step(runner, steps, base_steps, repeats=repeats)
+    h, w = board.shape
+    return h * w / per_step
+
+
+BACKENDS: dict[str, Callable[..., Backend]] = {}
+
+
+def register_backend(name: str):
+    def deco(factory):
+        BACKENDS[name] = factory
+        return factory
+
+    return deco
+
+
+def get_backend(name: str, **kwargs) -> Backend:
+    """Instantiate a backend by name; ``auto`` is the ``cuda`` backend.
+
+    ``auto`` never picks the CPU by itself: without a card it raises
+    :class:`CudaUnavailableError` unless the caller passes ``device="cpu"``.
+    """
+    # import for registration side effects
+    from tpu_life_torch.backends import cuda_backend, numpy_backend, torch_backend  # noqa: F401
+
+    if name == "auto":
+        name = "cuda"
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r}; available: {sorted(BACKENDS)}")
+    return BACKENDS[name](**kwargs)
+
+
+def chunk_sizes(steps: int, chunk_steps: int) -> list[int]:
+    """Split ``steps`` into host-sync chunks (0 or >= steps -> one chunk)."""
+    if steps <= 0:
+        return []
+    if chunk_steps <= 0 or chunk_steps >= steps:
+        return [steps]
+    out = [chunk_steps] * (steps // chunk_steps)
+    if steps % chunk_steps:
+        out.append(steps % chunk_steps)
+    return out

@@ -1,0 +1,125 @@
+"""Command-line interface: ``python -m tpu_life_torch``.
+
+``run`` with no flags reproduces the reference contract, like
+``python -m tpu_life run``: it reads ``grid_size_data.txt`` + ``data.txt``,
+writes ``output.txt`` and prints ``Total time = <s>``.  It runs on the
+card; ``--device cpu`` asks for the plain PyTorch version on the CPU.
+``info`` shows the torch build, the CUDA devices, backends and rules.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from tpu_life_torch.config import RunConfig
+
+PROG = "tpu_life_torch"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog=PROG, description="cellular-automaton engine, PyTorch/CUDA port"
+    )
+    sub = p.add_subparsers(dest="command")
+    r = sub.add_parser("run", help="run a simulation (default command)")
+    r.add_argument("--config-file", default="grid_size_data.txt")
+    r.add_argument("--input-file", default="data.txt")
+    r.add_argument("--output-file", default="output.txt")
+    r.add_argument("--height", type=int, default=None)
+    r.add_argument("--width", type=int, default=None)
+    r.add_argument("--steps", type=int, default=None)
+    r.add_argument("--rule", default="conway", help="name or B/S / LtL spec")
+    r.add_argument(
+        "--backend", default="auto", choices=["auto", "cuda", "torch", "numpy"],
+        help="auto = cuda: the hand-written kernel for life-like rules; "
+        "torch = the plain PyTorch step; numpy = the host oracle (every "
+        "deterministic rule)",
+    )
+    r.add_argument(
+        "--device", default=None,
+        help="device of the cuda/torch backends (default: the card); "
+        "'cpu' runs the plain PyTorch version on the CPU",
+    )
+    r.add_argument(
+        "--block-steps", type=int, default=None,
+        help="CA steps per kernel launch (1..32; default 8)",
+    )
+    r.add_argument("--sync-every", type=int, default=0,
+                   help="steps per host sync chunk (0 = one run)")
+    sub.add_parser("info", help="show torch, CUDA devices, backends and rules")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+    if not argv or argv[0].startswith("-"):
+        argv = ["run", *argv]  # default command
+    args = parser.parse_args(argv)
+    if args.command == "info":
+        return _info()
+    cfg = RunConfig(
+        height=args.height,
+        width=args.width,
+        steps=args.steps,
+        config_file=args.config_file,
+        input_file=args.input_file,
+        output_file=args.output_file,
+        rule=args.rule,
+        backend=args.backend,
+        device=args.device,
+        block_steps=args.block_steps,
+        sync_every=args.sync_every,
+    )
+    from tpu_life_torch.models.rules import GeometryError
+    from tpu_life_torch.runtime.driver import run
+
+    try:
+        run(cfg)
+    except GeometryError as e:
+        print(f"{PROG}: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def _info() -> int:
+    import torch
+
+    from tpu_life_torch.backends.base import BACKENDS, get_backend
+    from tpu_life_torch.models.rules import RULE_REGISTRY
+
+    get_backend("numpy")  # registers every backend
+    print(f"torch {torch.__version__} (cuda {torch.version.cuda})")
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    print(f"cuda devices: {n}")
+    for i in range(n):
+        print(f"  device {i}: {torch.cuda.get_device_name(i)}")
+    print("backends:", ", ".join(sorted(BACKENDS)), "(auto = cuda)")
+    print("rules:", ", ".join(sorted(RULE_REGISTRY)))
+    print(
+        "cuda/torch run clamped life-like rules; numpy runs every "
+        "deterministic rule (B/S, Generations, LtL, NN, ':T'); ising, "
+        "noisy: and lenia are not ported yet"
+    )
+    return 0
+
+
+def console_main() -> int:
+    """Process entry point: user-facing errors become one tidy stderr line
+    + exit 1 instead of a traceback.  ``main`` itself keeps raising so
+    library callers (and tests) see the real exceptions."""
+    try:
+        return main()
+    except KeyboardInterrupt:
+        print(f"{PROG}: interrupted", file=sys.stderr)
+        return 130
+    except (ValueError, RuntimeError, OSError) as e:
+        # bad config/flags/rules, missing files, no card, rules not yet
+        # ported (NotImplementedError is a RuntimeError)
+        print(f"{PROG}: error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(console_main())

@@ -1,0 +1,45 @@
+"""Run configuration: the reference's 3-int config file plus the flags of
+``python -m tpu_life_torch run`` (a subset of ``tpu_life/config.py``)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+
+from tpu_life_torch.io.codec import read_config
+
+
+@dataclass
+class RunConfig:
+    # board geometry + steps; None -> taken from config_file
+    height: int | None = None
+    width: int | None = None
+    steps: int | None = None
+
+    # I/O contract files
+    config_file: str = "grid_size_data.txt"
+    input_file: str = "data.txt"
+    output_file: str = "output.txt"
+
+    rule: str = "conway"
+
+    # execution
+    backend: str = "auto"  # auto | cuda | torch | numpy
+    device: str | None = None  # None = the card; "cpu" runs the plain version
+    block_steps: int | None = None  # kernel substeps per launch; None = backend default
+    sync_every: int = 0  # steps per host sync chunk; 0 = one run
+
+    def resolved_geometry(self) -> tuple[int, int, int]:
+        """(height, width, steps), reading the config file for any None."""
+        h, w, s = self.height, self.width, self.steps
+        if h is None or w is None or s is None:
+            if not Path(self.config_file).exists():
+                raise FileNotFoundError(
+                    f"config file {self.config_file!r} not found and geometry "
+                    f"not fully specified by flags"
+                )
+            fh, fw, fs = read_config(self.config_file)
+            h = fh if h is None else h
+            w = fw if w is None else w
+            s = fs if s is None else s
+        return h, w, s
