@@ -178,17 +178,20 @@ def main() -> int:
         check_output(tmp / "out_inproc.txt", "in-process run")
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+        t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "tpu_life_torch", *args,
              "--output-file", str(tmp / "output.txt")],
             cwd=tmp, env=env, capture_output=True, text=True, timeout=600,
         )
+        wall_s = time.perf_counter() - t0
         if proc.returncode != 0:
             fail(f"python -m tpu_life_torch run exited {proc.returncode}: {proc.stderr[-2000:]}")
         check_output(tmp / "output.txt", "subprocess run")
         print(f"main path: reference workload at the golden sha256 "
               f"({main_launches} kernel launches); subprocess: "
-              f"{proc.stdout.strip().splitlines()[-1]}", flush=True)
+              f"{proc.stdout.strip().splitlines()[-1]}, {wall_s:.3f} s wall "
+              f"clock for the whole process", flush=True)
 
     # -- 5. full size through the cuda backend -----------------------------
     rule = get_rule("conway")

@@ -93,19 +93,23 @@ def test_wrapper_rejects_bad_inputs():
     rule = get_rule("conway")
     x = torch.zeros((4, 2), dtype=torch.int32)
     with pytest.raises(TypeError):
-        ps.packed_multi_step(x.to(torch.int64), rule, (4, 40), 1)
+        ps.packed_multi_step(x.to(torch.int64), rule, (4, 40), 1, block_steps=8)
     with pytest.raises(ValueError, match="shape"):
-        ps.packed_multi_step(x, rule, (4, 70), 1)
+        ps.packed_multi_step(x, rule, (4, 70), 1, block_steps=8)
     with pytest.raises(ValueError, match="contiguous"):
-        ps.packed_multi_step(torch.zeros((2, 4), dtype=torch.int32).t(), rule, (4, 40), 1)
+        ps.packed_multi_step(
+            torch.zeros((2, 4), dtype=torch.int32).t(), rule, (4, 40), 1, block_steps=8
+        )
     with pytest.raises(ValueError, match="block_steps"):
         ps.packed_multi_step(x, rule, (4, 40), 1, block_steps=33)
     with pytest.raises(ValueError, match="block_steps"):
         ps.packed_multi_step(x, rule, (4, 40), 1, block_steps=0)
+    with pytest.raises(ValueError, match="steps"):
+        ps.packed_multi_step(x, rule, (4, 40), -1, block_steps=8)
     with pytest.raises(ValueError, match="life-like"):
-        ps.packed_multi_step(x, get_rule("brians_brain"), (4, 40), 1)
+        ps.packed_multi_step(x, get_rule("brians_brain"), (4, 40), 1, block_steps=8)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        ps.packed_multi_step(x.to("meta"), rule, (4, 40), 1)
+        ps.packed_multi_step(x.to("meta"), rule, (4, 40), 1, block_steps=8)
 
 
 def test_cpu_tensor_takes_the_plain_version_without_launching():

@@ -23,6 +23,7 @@ it.  Without a card, the default device raises ``CudaUnavailableError``.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tpu_life_torch.backends.base import (
     ChunkCallback,
@@ -61,14 +62,15 @@ class CudaBackend:
         x = to_words(board, self.device)
         # the second buffer of the ping-pong; the plain version on the CPU
         # allocates its own results instead
-        spare = [x.new_empty(x.shape) if x.is_cuda else None]
+        spare = torch.empty_like(x) if x.is_cuda else None
 
         def advance(x, n):
+            nonlocal spare
             out = packed_multi_step(
-                x, rule, (h, w), n, block_steps=self.block_steps, scratch=spare[0]
+                x, rule, (h, w), n, block_steps=self.block_steps, scratch=spare
             )
             if x.is_cuda and out is not x:
-                spare[0] = x
+                spare = x
             return out
 
         return DeviceRunner(x, advance, w)

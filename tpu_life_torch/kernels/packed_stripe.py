@@ -155,7 +155,7 @@ def packed_multi_step(
     logical_shape: tuple[int, int],
     steps: int,
     *,
-    block_steps: int = 8,
+    block_steps: int,
     scratch: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``steps`` masked life-like steps of the packed board ``x``.

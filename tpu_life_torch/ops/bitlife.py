@@ -197,9 +197,9 @@ def word_mask(
     cols[: min(full, wp)] = 0xFFFFFFFF
     if rem and full < wp:
         cols[full] = (1 << rem) - 1
-    rows = (np.arange(h) < lh).astype(np.uint32)
-    m = (rows[:, None] * cols[None, :]).astype(np.uint32)
-    return torch.from_numpy(m.view(np.int32)).to(device)
+    cols = torch.from_numpy(cols.view(np.int32)).to(device)
+    rows = torch.arange(h, device=device) < lh
+    return torch.where(rows[:, None], cols[None, :], torch.zeros_like(cols[:1]))
 
 
 def make_masked_packed_step(
