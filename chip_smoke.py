@@ -21,7 +21,10 @@ Phases (any failure exits non-zero and prints no result line):
 5. full size — a 16384^2 Conway board for 256 steps through the ``cuda``
    backend's Runner, held to the plain version; then its cell updates per
    second through the Runner (host clock, delta timing), and the kernel
-   timed with CUDA events against its plain version and its bound.
+   timed with CUDA events against its plain version and its bound; at
+   16384^2 and at the reference's 1500x500 also its device time from the
+   profiler's kernel records, at 1500x500 with board-sized and with
+   full-height tiles.
 
 The line before the last is the kernels record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,7 +49,7 @@ FIXTURES = ROOT / "tests" / "fixtures"
 GOLDEN_SHA = "ea69597f6ada6271b4b182c592f36395652fee9cf2d28a2e17c80fb5eca79215"
 GOLDEN_BYTES = 751_500
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-INT_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer lanes of a Hopper SM
+INT_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer/logic results per clock per Hopper SM
 FULL = 16384
 FULL_STEPS = 256
 BLOCK_STEPS = 8
@@ -63,21 +66,6 @@ def nvidia_smi(fields: str) -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def sop_ops(sop) -> int:
-    """Two-input logic ops of one SOP evaluation: the ANDs inside each
-    product, the ORs between products, one NOT per complemented literal."""
-    ands = sum(max(0, bin(mask).count("1") - 1) for mask, _ in sop)
-    nots = {b for mask, value in sop for b in range(5) if mask >> b & 1 and not value >> b & 1}
-    return ands + max(0, len(sop) - 1) + len(nots)
-
-
-def ops_per_word_step(sop) -> int:
-    """32-bit ops a word needs per step: the vertical carry-save add (5),
-    four neighbour-plane funnel shifts (4), two horizontal carry-save adds
-    (10), the total's bitplanes (4), the rule, and the board mask (1)."""
-    return 5 + 4 + 10 + 4 + sop_ops(sop) + 1
 
 
 def main() -> int:
@@ -100,7 +88,6 @@ def main() -> int:
         from tpu_life_torch.kernels import packed_stripe as ps
         from tpu_life_torch.models.rules import get_rule
         from tpu_life_torch.ops import bitlife
-        from tpu_life_torch.ops.boolmin import rule_sop
     except ImportError as e:
         fail(f"the tpu_life_torch package is not beside this script: {e}")
     if not (FIXTURES / "reference_data.txt.gz").exists():
@@ -131,7 +118,9 @@ def main() -> int:
     # -- 3. kernel vs plain on the card -----------------------------------
     rng = np.random.default_rng(2024)
     rules = ["conway", "highlife", "day_and_night", "seeds"]
-    shapes = [(1, 1), (3, 33), (31, 32), (257, 1000), (1500, 500), (FULL, FULL)]
+    # 5000x2000 keeps full-height tiles with a ragged last one; the smaller
+    # boards run halved tiles (tile_rows) to fill the SMs
+    shapes = [(1, 1), (3, 33), (31, 32), (257, 1000), (1500, 500), (5000, 2000), (FULL, FULL)]
     max_err = 0
     cases = 0
     t0 = time.perf_counter()
@@ -233,7 +222,8 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
-    def kernel_ms(shape, k: int, reps: int) -> float:
+    def launcher(shape, k: int):
+        """One k-step launch per call on a random board, ping-ponging."""
         bufs = [words(rng.integers(0, 2, size=shape, dtype=np.int8)), None]
         bufs[1] = torch.empty_like(bufs[0])
 
@@ -242,26 +232,57 @@ def main() -> int:
             if out is not bufs[0]:
                 bufs[0], bufs[1] = out, bufs[0]
 
-        return cuda_ms(launch, reps)
+        return launch
 
-    full_words = FULL * bitlife.packed_width(FULL)
-    sop = rule_sop(rule.birth, rule.survive)
+    def kernel_ms(shape, k: int, reps: int) -> float:
+        return cuda_ms(launcher(shape, k), reps)
+
+    def device_ms(shape, k: int, reps: int) -> float | None:
+        """Mean time of one launch on the device, from the profiler's
+        kernel records: free of the host's gaps between launches.  None
+        where the profiler records no kernel."""
+        from torch.profiler import ProfilerActivity, profile
+
+        launch = launcher(shape, k)
+        launch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                launch()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if "packed_stripe_kernel" in e.name]
+        return sum(us) / len(us) / 1e3 if us else None
+
+    def fmt(v: float | None) -> str:
+        return "not measured (no kernel records)" if v is None else f"{v:.4f}"
+
+    ops_per_word = ps.logic_ops_per_word_step(rule)
     int_ops_per_s = n_sm * INT_OPS_PER_CLOCK_PER_SM * sm_clock_mhz * 1e6
 
-    def bound(n_words: int, k: int) -> tuple[float, str]:
+    def bound(shape, k: int) -> tuple[float, str]:
+        """The larger of the words read and written once over the memory
+        rate and the logic instructions over the integer issue rate (one
+        more per step on each row's partial last word, for the mask)."""
+        h, w = shape
+        n_words = h * bitlife.packed_width(w)
         mem_ms = 2 * n_words * 4 / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops_per_word_step(sop) * n_words * k / int_ops_per_s * 1e3
+        ops = ops_per_word * n_words * k + (h * k if w % bitlife.WORD else 0)
+        ops_ms = ops / int_ops_per_s * 1e3
         return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
 
     ms = kernel_ms((FULL, FULL), BLOCK_STEPS, 40)
     xp = words(board)
     plain_ms = cuda_ms(lambda: ps.packed_multi_step_plain(xp, rule, (FULL, FULL), BLOCK_STEPS), 3)
-    bound_ms, bound_by = bound(full_words, BLOCK_STEPS)
+    bound_ms, bound_by = bound((FULL, FULL), BLOCK_STEPS)
     cells_per_s = FULL * FULL * BLOCK_STEPS / (ms * 1e-3)
-    print(f"timing {FULL}^2 conway, k={BLOCK_STEPS}: kernel {ms:.4f} ms/launch "
-          f"({ms / BLOCK_STEPS:.4f} ms/step, {cells_per_s:.4e} cells/s); plain "
+    full_words = FULL * bitlife.packed_width(FULL)
+    print(f"timing {FULL}^2 conway, k={BLOCK_STEPS}, "
+          f"{ps.tile_rows(BLOCK_STEPS, FULL, bitlife.packed_width(FULL), n_sm)}-row tiles: "
+          f"kernel {ms:.4f} ms/launch ({ms / BLOCK_STEPS:.4f} ms/step, "
+          f"{cells_per_s:.4e} cells/s, {bound_ms / ms:.1%} of the bound); plain "
           f"{plain_ms / BLOCK_STEPS:.4f} ms/step; bound {bound_ms:.4f} ms/launch "
-          f"({bound_by}: {ops_per_word_step(sop)} ops/word/step at "
+          f"({bound_by}: {ops_per_word} logic ops/word/step at "
           f"{int_ops_per_s:.4e} int ops/s; {2 * full_words * 4} bytes at "
           f"{HBM_BYTES_PER_S:.3e} B/s)", flush=True)
     sweep = {}
@@ -269,10 +290,23 @@ def main() -> int:
         sweep[k] = kernel_ms((FULL, FULL), k, max(4, 64 // k)) / k
     print("ms/step by block_steps at 16384^2: " + ", ".join(
         f"k={k}: {v:.4f}" for k, v in sweep.items()), flush=True)
-    ref_ms = kernel_ms((1500, 500), BLOCK_STEPS, 200)
-    print(f"timing 1500x500 conway, k={BLOCK_STEPS}: kernel {ref_ms:.4f} ms/launch "
-          f"(bound {bound(1500 * bitlife.packed_width(500), BLOCK_STEPS)[0]:.4f} ms)",
-          flush=True)
+    full_dev_ms = device_ms((FULL, FULL), BLOCK_STEPS, 20)
+    print(f"device time {FULL}^2, k={BLOCK_STEPS}: {fmt(full_dev_ms)} ms/launch "
+          f"(profiler kernel records)", flush=True)
+    ref = (1500, 500)
+    ref_ms = kernel_ms(ref, BLOCK_STEPS, 200)
+    ref_dev_ms = device_ms(ref, BLOCK_STEPS, 200)
+    board_sized = ps.tile_rows
+    ps.tile_rows = lambda k, h, nwords, n_sm: 4 * max(16, k)  # full-height tiles
+    try:
+        fixed_dev_ms = device_ms(ref, BLOCK_STEPS, 200)
+    finally:
+        ps.tile_rows = board_sized
+    print(f"timing 1500x500 conway, k={BLOCK_STEPS}: {ref_ms:.4f} ms/launch by CUDA "
+          f"events over back-to-back calls; device time {fmt(ref_dev_ms)} ms/launch "
+          f"with {ps.tile_rows(BLOCK_STEPS, ref[0], bitlife.packed_width(ref[1]), n_sm)}"
+          f"-row tiles, {fmt(fixed_dev_ms)} with {4 * max(16, BLOCK_STEPS)}-row "
+          f"tiles (bound {bound(ref, BLOCK_STEPS)[0]:.6f} ms)", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "packed_stripe_multi_step",
@@ -280,7 +314,6 @@ def main() -> int:
         "source": "tpu_life_torch/csrc/packed_stripe.cu",
         "replaces": "tpu_life/backends/pallas_backend.py:320",
         "launches": main_launches,
-        "launches_full_size": full_launches,
         "max_abs_err": max_err,
         "equal_to_plain": max_err == 0,
         "shape": [FULL, FULL],

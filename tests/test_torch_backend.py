@@ -5,14 +5,16 @@ oracle.  Mirrors ``tests/test_pallas.py``'s packed cases."""
 
 import numpy as np
 import pytest
+import torch
 
 from tpu_life.backends.pallas_backend import PallasBackend
 from tpu_life.models.rules import get_rule as jget_rule
 from tpu_life_torch.backends import cuda_backend
 from tpu_life_torch.backends.base import get_backend, make_runner
 from tpu_life_torch.backends.cuda_backend import CudaBackend
-from tpu_life_torch.backends.torch_backend import TorchBackend
+from tpu_life_torch.backends.torch_backend import DeviceRunner, TorchBackend, to_words
 from tpu_life_torch.models.rules import get_rule
+from tpu_life_torch.ops import bitlife
 from tpu_life_torch.ops.reference import run_np
 
 
@@ -106,6 +108,25 @@ def test_tiny_board_stays_on_the_kernel_path(shape, monkeypatch):
     assert calls == [5, 4]
     np.testing.assert_array_equal(runner.fetch(), run_np(b, get_rule("conway"), 9))
     assert runner.live_count() == int(run_np(b, get_rule("conway"), 9).sum())
+
+
+def test_snapshot_survives_later_advances():
+    # an advance that writes over its input buffer, as the cuda backend's
+    # ping-pong does on the card: a kept snapshot must not follow it
+    b = _board((12, 40), seed=8)
+    rule = get_rule("conway")
+
+    def in_place(x, n):
+        x.copy_(bitlife.multi_step_packed(x, rule=rule, steps=n, logical_shape=b.shape))
+        return x
+
+    runner = DeviceRunner(to_words(b, torch.device("cpu")), in_place, b.shape[1])
+    runner.advance(2)
+    snap = runner.snapshot()
+    runner.advance(3)
+    runner.advance(1)
+    np.testing.assert_array_equal(snap(), run_np(b, rule, 2))
+    np.testing.assert_array_equal(runner.fetch(), run_np(b, rule, 6))
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])

@@ -122,5 +122,23 @@ def test_cpu_tensor_takes_the_plain_version_without_launching():
 
 
 def test_tile_rows_cover_the_halo():
+    # a full-size board keeps tiles of at least four halos; a small one
+    # halves its tiles (down to 8 rows) until the grid fills 132 SMs
     for k in range(1, ps.MAX_BLOCK_STEPS + 1):
-        assert ps.tile_rows(k) >= 4 * k
+        assert ps.tile_rows(k, 16384, 512, 132) >= 4 * k
+        for h, nwords in [(1, 1), (1500, 16), (257, 32), (5000, 63)]:
+            rows = ps.tile_rows(k, h, nwords, 132)
+            blocks = -(-nwords // ps.TILE_WORDS) * -(-h // rows)
+            assert rows >= 8 and (rows == 8 or blocks >= 132)
+            if rows < 4 * max(16, k):
+                assert -(-nwords // ps.TILE_WORDS) * -(-h // (2 * rows)) < 132
+    assert ps.tile_rows(8, 1500, 16, 132) == 8
+
+
+@pytest.mark.parametrize(
+    "name,ops", [("conway", 15), ("highlife", 17), ("day_and_night", 19), ("seeds", 14)]
+)
+def test_logic_ops_per_word_step(name, ops):
+    # conway: carry-save adds 2 + 4, shifts 4, planes b1 and b2, and its
+    # 7-literal SOP (b0 b1 ~b2 | x ~b0 ~b1 b2) in 3 three-input instructions
+    assert ps.logic_ops_per_word_step(get_rule(name)) == ops

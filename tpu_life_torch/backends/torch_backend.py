@@ -82,10 +82,10 @@ class DeviceRunner:
         return int(bitlife.live_count_packed(self.x))
 
     def snapshot(self) -> Callable[[], np.ndarray]:
-        """Thunk bound to the current device buffer.  Valid until the next
-        ``advance`` may overwrite that buffer — materialize it within the
-        chunk callback."""
-        return lambda x=self.x: from_words(x, self.width)
+        """Thunk over a device copy of the current board: later advances
+        (which may reuse the current buffer) leave it unchanged, like the
+        reference Runner's immutable snapshots."""
+        return lambda x=self.x.clone(): from_words(x, self.width)
 
 
 def packed_device_runner(

@@ -25,13 +25,16 @@
 // of products from boolmin.rule_sop, so one build serves every life-like
 // rule.
 //
-// What bounds it on an H100: per step a word costs about 33 two-input
-// 32-bit logic ops (CSA tree 19, shifts 4, rule ~9, mask 1) against 8 bytes
-// of device-memory traffic per k steps.  Running k steps per pass cuts the
+// What bounds it on an H100: per step a word needs about 15 32-bit logic
+// instructions for Conway, counting one LOP3 for any three-input function
+// (carry-save adds 6, funnel shifts 4, total planes 2, rule 3; see
+// logic_ops_per_word_step in kernels/packed_stripe.py), against 8 bytes of
+// device-memory traffic per k steps.  Running k steps per pass cuts the
 // device-memory traffic k-fold (at k = 8, 16384^2 moves 64 MiB per 8 steps,
-// about 20 us at 3.35 TB/s, against about 130 us of integer issue), so
-// integer-op issue is the limit, and the design spends no more than the
-// halo recompute (k rows and one word per tile) beyond it.
+// about 20 us at 3.35 TB/s, against about 60 us of integer issue), so
+// integer-op issue is the limit.  Beyond that count the kernel spends the
+// halo recompute (k rows and one word per tile), warp shuffles, shared
+// memory traffic and the data-driven rule.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -44,6 +45,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 MAX_BLOCK_STEPS = 32  # the one-word horizontal halo covers 32 substeps
+TILE_WORDS = 30  # output words per tile row: kInterior in the CUDA source
 _MAX_TERMS = 32
 _LITERALS = 5
 _ONES = 0xFFFFFFFF
@@ -73,10 +75,38 @@ def sop_table(rule: Rule) -> _Sop:
     return table
 
 
-def tile_rows(block_steps: int) -> int:
-    """Output rows per block: at least four times the row halo, so the
-    halo recompute stays a minor share of the block's work."""
-    return 4 * max(16, block_steps)
+def logic_ops_per_word_step(rule: Rule) -> int:
+    """The 32-bit logic instructions one word needs per step, where one
+    Hopper ``LOP3`` computes any function of three inputs: the vertical
+    carry-save add (sum and majority, 2); the funnel shifts that build the
+    left and right neighbour planes (2 for ones, 2 for twos); the
+    horizontal carry-save adds (b0 = sum of the ones, and the carries c1,
+    s1, c2); the planes b1 = c1^s1, b2 = c2^(c1&s1), b3 = c2&c1&s1, one each;
+    and the rule's SOP as one read-once formula of L literals, L // 2
+    instructions.  A plane the SOP does not read is not counted.  The board
+    mask, needed only on a partial last word, is counted by the caller."""
+    sop = rule_sop(rule.birth, rule.survive)
+    read = functools.reduce(operator.or_, (mask for mask, _ in sop), 0)
+    high = bool(read & 0b1110)  # b1..b3 need the twos plane and the carries
+    literals = sum(bin(mask).count("1") for mask, _ in sop)
+    return (
+        2
+        + 2 + 2 * high
+        + (read & 1) + 3 * high
+        + bin(read & 0b1110).count("1")
+        + literals // 2
+    )
+
+
+def tile_rows(block_steps: int, height: int, nwords: int, n_sm: int) -> int:
+    """Output rows per block: four times the row halo (at least 64), so the
+    halo recompute stays a minor share of the block's work; halved, down
+    to 8, while the grid would have fewer blocks than the card has SMs."""
+    rows = 4 * max(16, block_steps)
+    cols = -(-nwords // TILE_WORDS)
+    while rows > 8 and cols * -(-height // rows) < n_sm:
+        rows = max(8, rows // 2)
+    return rows
 
 
 def _nvcc() -> str:
@@ -187,13 +217,14 @@ def packed_multi_step(
     ks = [block_steps] * blocks + ([rem] if rem else [])
     fn = _library().packed_stripe_multi_step
     sop = sop_table(rule)
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     src, dst = x, scratch
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for k in ks:
             err = fn(
                 src.data_ptr(), dst.data_ptr(), lh, x.shape[1], lw % bitlife.WORD,
-                k, tile_rows(k), ctypes.byref(sop), stream,
+                k, tile_rows(k, lh, x.shape[1], n_sm), ctypes.byref(sop), stream,
             )
             if err != 0:
                 raise RuntimeError(f"packed_stripe_multi_step launch failed: CUDA error {err}")
