@@ -9,22 +9,34 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. probe — a CUDA device must be present; prints its name and
    ``nvidia-smi``'s name and power limit;
-2. build — compiles every kernel of the main path from ``tpu_life_torch/csrc``
-   (nvcc, at first use) and prints the build seconds and ptxas report;
-3. kernel vs plain — holds each kernel bit-identical (``torch.equal`` on
-   the words) to its plain PyTorch version on the card, over rules, ragged
-   shapes up to 16384^2 and block depths with a remainder;
-4. main path — ``python -m tpu_life_torch run`` on the reference workload
-   (1500x500, 100 steps), in process with the launch counts set to 0 just
-   before and read just after, then as a subprocess; the output.txt must
-   have the golden sha256 and 751,500 bytes;
-5. full size — a 16384^2 Conway board for 256 steps through the ``cuda``
-   backend's Runner, held to the plain version; then its cell updates per
-   second through the Runner (host clock, delta timing), and the kernel
-   timed with CUDA events against its plain version and its bound; at
-   16384^2 and at the reference's 1500x500 also its device time from the
-   profiler's kernel records, at 1500x500 with board-sized and with
-   full-height tiles.
+2. build — compiles both kernels of the main paths from
+   ``tpu_life_torch/csrc`` (one nvcc each, started together, at first use),
+   prints the build seconds and each ptxas report, and holds the CUDA
+   source's shared-memory count of K2 to the wrapper's;
+3. kernel vs plain — holds each kernel bit-identical (``torch.equal``) to
+   its plain PyTorch version on the card: K1 over life-like rules, ragged
+   shapes up to 16384^2 and block depths with a remainder; K2 over six
+   clamped Moore rules (life-like, Generations, Larger-than-Life with and
+   without the centre), shapes from 11x11 to 8192^2, block depths 1, 8 and
+   32 as the radius clamp allows, each with a remainder launch, and boards
+   whose live cells touch all four edges;
+4. main paths — ``python -m tpu_life_torch run`` on the reference workload
+   (1500x500, 100 steps), in process with every launch count set to 0 just
+   before and read just after, then as a subprocess; and ``run
+   --no-bitpack`` in process, which must go through K2 and not K1.  Every
+   output.txt must have the golden sha256 and 751,500 bytes;
+5. full size, K1 — a 16384^2 Conway board for 256 steps through the
+   ``cuda`` backend's Runner, held to the plain version; then its cell
+   updates per second through the Runner (host clock, delta timing), and
+   the kernel timed with CUDA events against its plain version and its
+   bound; at 16384^2 and at the reference's 1500x500 also its device time
+   from the profiler's kernel records, at 1500x500 with board-sized and
+   with full-height tiles;
+6. full size, K2 — ``bugs`` (R5) at 8192^2 and ``brians_brain`` (C3) at
+   16384^2 through the Runner, each held to the plain version after its
+   steps, with cell updates per second through the Runner; then K2 timed
+   at both shapes with CUDA events and the profiler's kernel records,
+   against its plain version and its bound.
 
 The line before the last is the kernels record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -41,6 +53,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -53,6 +66,10 @@ INT_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer/logic results per clock per Hopp
 FULL = 16384
 FULL_STEPS = 256
 BLOCK_STEPS = 8
+# K2's full-size cells: (rule, side, steps through the Runner)
+K2_FULL = [("bugs", 8192, 64), ("brians_brain", 16384, 64)]
+K2_RULES = ["conway", "brians_brain", "star_wars", "bugs", "bugs_decay", "R2,C2,M1,S5..10,B5..8"]
+K2_SHAPES = [(11, 11), (257, 1000), (1500, 500), (5000, 2000), (8192, 8192)]
 
 
 def fail(msg: str) -> None:
@@ -85,6 +102,7 @@ def main() -> int:
             make_runner,
             measure_throughput,
         )
+        from tpu_life_torch.kernels import int8_tiled as kt
         from tpu_life_torch.kernels import packed_stripe as ps
         from tpu_life_torch.models.rules import get_rule
         from tpu_life_torch.ops import bitlife
@@ -103,10 +121,24 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    lib = ps.build()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        libs = list(pool.map(lambda m: m.build(), (ps, kt)))
     ps._library()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    print((lib.parent / "build.log").read_text().strip(), flush=True)
+    k2_lib = kt._library()
+    print(f"build: {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        print((lib.parent / "build.log").read_text().strip(), flush=True)
+    for name in K2_RULES:
+        rule = get_rule(name)
+        for k in (1, 8):
+            k = kt.clamp_block_steps(rule, k)
+            for rows, cols in ((32, 128), (8, 128), (80, 144)):
+                c = k2_lib.int8_tiled_shared_bytes(
+                    rule.radius, k, int(rule.include_center), rule.states, rows, cols)
+                if c != kt.shared_bytes(rule, k, rows, cols):
+                    fail(f"K2 shared memory: the CUDA source counts {c} bytes, the "
+                         f"wrapper {kt.shared_bytes(rule, k, rows, cols)} ({name}, k={k})")
 
     def words(board):
         return torch.from_numpy(bitlife.pack_np(board).view(np.int32).copy()).to(dev)
@@ -141,6 +173,50 @@ def main() -> int:
     print(f"kernel vs plain: {cases} cases bit-identical "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    def cells(board):
+        return torch.from_numpy(np.ascontiguousarray(board, np.int8)).to(dev)
+
+    def states_board(shape, rule):
+        return (rng.integers(0, rule.states, size=shape, dtype=np.int8)
+                * rng.integers(0, 2, size=shape, dtype=np.int8))
+
+    def int8_err(a, b) -> int:
+        """Max |state difference| between two int8 boards."""
+        return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+
+    k2_max_err = 0
+    k2_cases = 0
+
+    def k2_case(x0, rule, shape, k, steps, what):
+        nonlocal k2_max_err, k2_cases
+        want = kt.int8_multi_step_plain(x0, rule, shape, steps)
+        got = kt.int8_multi_step(x0.clone(), rule, shape, steps, block_steps=k)
+        torch.cuda.synchronize()
+        err = int8_err(got, want)
+        k2_max_err = max(k2_max_err, err)
+        k2_cases += 1
+        if err:
+            fail(f"K2 != plain: {what}, {shape[0]}x{shape[1]}, k={k}, {steps} steps")
+
+    t0 = time.perf_counter()
+    for h, w in K2_SHAPES:
+        for name in K2_RULES:
+            rule = get_rule(name)
+            x0 = cells(states_board((h, w), rule))
+            for k in sorted({kt.clamp_block_steps(rule, k) for k in (1, BLOCK_STEPS, 32)}):
+                steps = 5 if k == 1 else 2 * k + 3  # a remainder launch
+                k2_case(x0, rule, (h, w), k, steps, f"rule {name}")
+    # live cells on all four edges, also at depths past the clamp (bugs at
+    # k > 1, brians_brain at 32), where a birth just past a full edge would
+    # feed the next substep's counts unless it is pinned dead
+    edge = np.zeros((300, 1000), np.int8)
+    edge[:7], edge[-7:], edge[:, :7], edge[:, -7:] = 1, 1, 1, 1
+    for name, ks in (("bugs", (1, 2, 3)), ("brians_brain", (1, 8, 32)), ("R2,C2,M1,S5..10,B5..8", (4,))):
+        for k in ks:
+            k2_case(cells(edge), get_rule(name), edge.shape, k, 2 * k + 1, f"edge board, {name}")
+    print(f"K2 vs plain: {k2_cases} cases bit-identical "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     # -- 4. the main path: the reference contract through the CLI ----------
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -157,14 +233,26 @@ def main() -> int:
                 fail(f"{what}: output.txt is {len(raw)} bytes, sha256 {sha}; "
                      f"want {GOLDEN_BYTES} bytes, {GOLDEN_SHA}")
 
-        ps.packed_multi_step.launches = 0
+        ps.packed_multi_step.launches = kt.int8_multi_step.launches = 0
         rc = cli.main([*args, "--output-file", str(tmp / "out_inproc.txt")])
         main_launches = ps.packed_multi_step.launches
+        k2_in_k1_run = kt.int8_multi_step.launches
         if rc != 0:
             fail(f"in-process run exited {rc}")
-        if main_launches <= 0:
-            fail("the reference run launched the packed stripe kernel 0 times")
+        if main_launches <= 0 or k2_in_k1_run:
+            fail(f"the reference run launched the packed stripe kernel {main_launches} "
+                 f"times and the int8 kernel {k2_in_k1_run} times")
         check_output(tmp / "out_inproc.txt", "in-process run")
+        ps.packed_multi_step.launches = kt.int8_multi_step.launches = 0
+        rc = cli.main([*args, "--no-bitpack", "--output-file", str(tmp / "out_int8.txt")])
+        k2_main_launches = kt.int8_multi_step.launches
+        k1_in_k2_run = ps.packed_multi_step.launches
+        if rc != 0:
+            fail(f"in-process --no-bitpack run exited {rc}")
+        if k2_main_launches <= 0 or k1_in_k2_run:
+            fail(f"the --no-bitpack run launched the int8 kernel {k2_main_launches} "
+                 f"times and the packed stripe kernel {k1_in_k2_run} times")
+        check_output(tmp / "out_int8.txt", "in-process --no-bitpack run")
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
         t0 = time.perf_counter()
@@ -181,6 +269,9 @@ def main() -> int:
               f"({main_launches} kernel launches); subprocess: "
               f"{proc.stdout.strip().splitlines()[-1]}, {wall_s:.3f} s wall "
               f"clock for the whole process", flush=True)
+        print(f"main path --no-bitpack: reference workload at the golden sha256 "
+              f"through K2 ({k2_main_launches} K2 launches, {k1_in_k2_run} K1)",
+              flush=True)
 
     # -- 5. full size through the cuda backend -----------------------------
     rule = get_rule("conway")
@@ -222,37 +313,44 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
-    def launcher(shape, k: int):
-        """One k-step launch per call on a random board, ping-ponging."""
-        bufs = [words(rng.integers(0, 2, size=shape, dtype=np.int8)), None]
-        bufs[1] = torch.empty_like(bufs[0])
+    def pingpong(step, x):
+        """One launch per call of ``step(src, scratch)``, ping-ponging two
+        buffers."""
+        bufs = [x, torch.empty_like(x)]
 
         def launch():
-            out = ps.packed_multi_step(bufs[0], rule, shape, k, block_steps=k, scratch=bufs[1])
+            out = step(bufs[0], bufs[1])
             if out is not bufs[0]:
                 bufs[0], bufs[1] = out, bufs[0]
 
         return launch
 
+    def launcher(shape, k: int):
+        """One k-step K1 launch per call on a random board."""
+        return pingpong(
+            lambda a, b: ps.packed_multi_step(a, rule, shape, k, block_steps=k, scratch=b),
+            words(rng.integers(0, 2, size=shape, dtype=np.int8)))
+
     def kernel_ms(shape, k: int, reps: int) -> float:
         return cuda_ms(launcher(shape, k), reps)
 
-    def device_ms(shape, k: int, reps: int) -> float | None:
+    def profiled_ms(launch, kernel: str, reps: int) -> float | None:
         """Mean time of one launch on the device, from the profiler's
         kernel records: free of the host's gaps between launches.  None
         where the profiler records no kernel."""
         from torch.profiler import ProfilerActivity, profile
 
-        launch = launcher(shape, k)
         launch()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 launch()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if "packed_stripe_kernel" in e.name]
+        us = [e.time_range.elapsed_us() for e in prof.events() if kernel in e.name]
         return sum(us) / len(us) / 1e3 if us else None
+
+    def device_ms(shape, k: int, reps: int) -> float | None:
+        return profiled_ms(launcher(shape, k), "packed_stripe_kernel", reps)
 
     def fmt(v: float | None) -> str:
         return "not measured (no kernel records)" if v is None else f"{v:.4f}"
@@ -308,6 +406,66 @@ def main() -> int:
           f"-row tiles, {fmt(fixed_dev_ms)} with {4 * max(16, BLOCK_STEPS)}-row "
           f"tiles (bound {bound(ref, BLOCK_STEPS)[0]:.6f} ms)", flush=True)
 
+    # -- 6. K2 at full size through the cuda backend ------------------------
+    k2_rows = []
+    for name, side, steps in K2_FULL:
+        rule = get_rule(name)
+        shape = (side, side)
+        board = states_board(shape, rule)
+        k = kt.clamp_block_steps(rule, BLOCK_STEPS)
+        runner = make_runner(backend, board, rule)
+        x0 = runner.x.clone()
+        kt.int8_multi_step.launches = 0
+        t0 = time.perf_counter()
+        drive_runner(runner, steps)
+        drive_s = time.perf_counter() - t0
+        launches = kt.int8_multi_step.launches
+        if launches <= 0:
+            fail(f"the full-size {name} run launched the int8 kernel 0 times")
+        want = kt.int8_multi_step_plain(x0, rule, shape, steps)
+        err = int8_err(runner.x, want)
+        k2_max_err = max(k2_max_err, err)
+        if err:
+            fail(f"full-size {name} run != plain after {steps} steps")
+        live = runner.live_count()
+        if live != int((want == 1).sum()) or live <= 0:
+            fail(f"full-size {name} live count {live} disagrees with the plain version")
+        print(f"full size: {name} {side}^2 x {steps} steps through the cuda backend "
+              f"({launches} launches of k={k}, {drive_s:.3f} s host clock incl. first "
+              f"launch) equal to plain; live cells {live}", flush=True)
+        cps = measure_throughput(backend, board, rule, steps, steps // 4)
+        print(f"cell_updates_per_sec_per_chip {cps:.6e} ({side}^2 {name} through the "
+              f"Runner, host clock, delta of {steps} and {steps // 4} steps)", flush=True)
+
+        launch = pingpong(
+            lambda a, b, rule=rule, shape=shape, k=k: kt.int8_multi_step(
+                a, rule, shape, k, block_steps=k, scratch=b),
+            cells(board))
+        k2_ms = cuda_ms(launch, max(4, 64 // k))
+        k2_dev_ms = profiled_ms(launch, "int8_tiled_kernel", max(4, 32 // k))
+        xp = cells(board)
+        k2_plain_ms = cuda_ms(lambda: kt.int8_multi_step_plain(xp, rule, shape, k), 2)
+        n_cells = side * side
+        mem_ms = 2 * n_cells / HBM_BYTES_PER_S * 1e3
+        ops_ms = kt.int_ops_per_cell_step(rule) * n_cells * k / int_ops_per_s * 1e3
+        k2_bound, k2_by = (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
+        rows, cols = kt.tile_shape(rule, k, side, side, n_sm)
+        print(f"timing K2 {side}^2 {name}, k={k}, {rows}x{cols} tiles: kernel "
+              f"{k2_ms:.4f} ms/launch by CUDA events ({k2_ms / k:.4f} ms/step, "
+              f"{n_cells * k / (k2_ms * 1e-3):.4e} cells/s, {k2_bound / k2_ms:.1%} of "
+              f"the bound); device time {fmt(k2_dev_ms)} ms/launch (profiler kernel "
+              f"records); plain {k2_plain_ms:.4f} ms per {k} steps; bound "
+              f"{k2_bound:.4f} ms/launch ({k2_by}: {kt.int_ops_per_cell_step(rule)} int "
+              f"ops/cell/step at {int_ops_per_s:.4e} int ops/s = {ops_ms:.4f} ms; "
+              f"{2 * n_cells} bytes at {HBM_BYTES_PER_S:.3e} B/s = {mem_ms:.4f} ms)",
+              flush=True)
+        k2_rows.append(dict(rule=name, shape=[side, side], steps_per_launch=k, ms=k2_ms,
+                            device_ms=k2_dev_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound,
+                            bound_by=k2_by, full_size_launches=launches))
+        del runner, x0, want, xp, launch
+        torch.cuda.empty_cache()
+    k2 = k2_rows[-1]  # brians_brain at 16384^2: the deeper block, k = 8
+
     print(json.dumps({"kernels": [{
         "name": "packed_stripe_multi_step",
         "route": "cuda",
@@ -323,6 +481,23 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "int8_tiled_multi_step",
+        "route": "cuda",
+        "source": "tpu_life_torch/csrc/int8_tiled.cu",
+        "replaces": "tpu_life/backends/pallas_backend.py:104",
+        "launches": k2_main_launches,
+        "max_abs_err": k2_max_err,
+        "equal_to_plain": k2_max_err == 0,
+        "rule": k2["rule"],
+        "shape": k2["shape"],
+        "steps_per_launch": k2["steps_per_launch"],
+        "ms": k2["ms"],
+        "kernel_ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

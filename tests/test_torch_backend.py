@@ -12,7 +12,12 @@ from tpu_life.models.rules import get_rule as jget_rule
 from tpu_life_torch.backends import cuda_backend
 from tpu_life_torch.backends.base import get_backend, make_runner
 from tpu_life_torch.backends.cuda_backend import CudaBackend
-from tpu_life_torch.backends.torch_backend import DeviceRunner, TorchBackend, to_words
+from tpu_life_torch.backends.torch_backend import (
+    DeviceRunner,
+    TorchBackend,
+    from_words,
+    to_words,
+)
 from tpu_life_torch.models.rules import get_rule
 from tpu_life_torch.ops import bitlife
 from tpu_life_torch.ops.reference import run_np
@@ -120,7 +125,10 @@ def test_snapshot_survives_later_advances():
         x.copy_(bitlife.multi_step_packed(x, rule=rule, steps=n, logical_shape=b.shape))
         return x
 
-    runner = DeviceRunner(to_words(b, torch.device("cpu")), in_place, b.shape[1])
+    runner = DeviceRunner(
+        to_words(b, torch.device("cpu")), in_place, lambda x: from_words(x, b.shape[1]),
+        bitlife.live_count_packed,
+    )
     runner.advance(2)
     snap = runner.snapshot()
     runner.advance(3)
@@ -135,9 +143,17 @@ def test_snapshot_survives_later_advances():
     [("brians_brain", "K2"), ("bugs", "K2"), ("conway:T", "torus"), ("R1,C2,S1,B1,NN", "diamond")],
 )
 def test_other_rules_raise_not_implemented(backend, spec, match):
+    # Generations and Larger-than-Life now run on cuda (kernel K2) and must
+    # match the oracle there; everywhere else each rule still raises the
+    # typed error naming where it is queued or which backend runs it
     b = _board((16, 16), seed=2)
+    rule = get_rule(spec)
+    if backend == "cuda" and match == "K2":
+        got = get_backend(backend, device="cpu").run(b, rule, 3)
+        np.testing.assert_array_equal(got, run_np(b, rule, 3))
+        return
     with pytest.raises(NotImplementedError, match=match) as e:
-        get_backend(backend, device="cpu").run(b, get_rule(spec), 1)
+        get_backend(backend, device="cpu").run(b, rule, 1)
     assert "ROADMAP" in str(e.value)
 
 

@@ -16,7 +16,10 @@ import torch
 
 from tpu_life import cli as jcli
 from tpu_life_torch import cli
+from tpu_life_torch.backends import base as backends_base
 from tpu_life_torch.io.codec import write_board, write_config
+from tpu_life_torch.models.rules import get_rule
+from tpu_life_torch.runtime import driver
 
 ROOT = Path(__file__).resolve().parent.parent
 FIXTURES = ROOT / "tests" / "fixtures"
@@ -70,6 +73,63 @@ def test_bytes_equal_jax_numpy_backend(tmp_path, rule, backend):
     assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "jax.txt").read_bytes()
 
 
+def test_no_bitpack_reference_run_is_golden_and_equals_jax_numpy(reference_dir):
+    # the reference contract through the int8 path (kernel K2's plain
+    # version on the CPU): the same bytes as the bit-sliced path
+    files = ["--config-file", str(reference_dir / "grid_size_data.txt"),
+             "--input-file", str(reference_dir / "data.txt")]
+    assert cli.main(["run", *files, "--device", "cpu", "--no-bitpack",
+                     "--output-file", str(reference_dir / "port.txt")]) == 0
+    assert jcli.main(["run", *files, "--backend", "numpy",
+                      "--output-file", str(reference_dir / "jax.txt")]) == 0
+    raw = (reference_dir / "port.txt").read_bytes()
+    assert hashlib.sha256(raw).hexdigest() == GOLDEN_SHA
+    assert raw == (reference_dir / "jax.txt").read_bytes()
+
+
+@pytest.mark.parametrize(
+    "rule,extra",
+    [("bugs_decay", []), ("star_wars", ["--block-steps", "3"]), ("R2,C2,M1,S5..10,B5..8", []),
+     ("highlife", ["--no-bitpack"])],
+)
+def test_int8_rules_bytes_equal_jax_numpy_backend(tmp_path, rule, extra):
+    # a multi-state board through `run --device cpu` (the cuda backend's
+    # int8 route) against `python -m tpu_life run --backend numpy`
+    states = get_rule(rule).states
+    rng = np.random.default_rng(12)
+    board = rng.integers(0, states, size=(41, 53), dtype=np.int8) * rng.integers(
+        0, 2, size=(41, 53), dtype=np.int8
+    )
+    write_board(tmp_path / "data.txt", board)
+    write_config(tmp_path / "grid_size_data.txt", 41, 53, 9)
+    files = ["--config-file", str(tmp_path / "grid_size_data.txt"),
+             "--input-file", str(tmp_path / "data.txt"), "--rule", rule]
+    assert jcli.main(["run", *files, "--backend", "numpy",
+                      "--output-file", str(tmp_path / "jax.txt")]) == 0
+    assert cli.main(["run", *files, "--device", "cpu", *extra, "--sync-every", "4",
+                     "--output-file", str(tmp_path / "port.txt")]) == 0
+    assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "jax.txt").read_bytes()
+
+
+def test_no_bitpack_flag_reaches_the_backend(tmp_path, monkeypatch):
+    seen = []
+    real = backends_base.get_backend
+
+    def recording(name, **kw):
+        seen.append(kw.get("bitpack"))
+        return real(name, **kw)
+
+    monkeypatch.setattr(driver, "get_backend", recording)
+    write_board(tmp_path / "data.txt", np.zeros((8, 8), np.int8))
+    write_config(tmp_path / "grid_size_data.txt", 8, 8, 2)
+    files = ["--config-file", str(tmp_path / "grid_size_data.txt"),
+             "--input-file", str(tmp_path / "data.txt"), "--device", "cpu",
+             "--output-file", str(tmp_path / "o.txt")]
+    assert cli.main(["run", *files]) == 0
+    assert cli.main(["run", *files, "--no-bitpack"]) == 0
+    assert seen == [True, False]
+
+
 def test_jax_output_is_a_valid_port_input(tmp_path, reference_dir):
     # chain: 40 steps in the JAX package, then 60 in the port == 100 steps
     assert jcli.main(["run", "--config-file", str(reference_dir / "grid_size_data.txt"),
@@ -88,7 +148,7 @@ def test_jax_output_is_a_valid_port_input(tmp_path, reference_dir):
         (["--rule", "B9x/S"], "unrecognized rule spec"),
         (["--rule", "ising"], "not yet ported"),
         (["--config-file", "missing.txt"], "config file 'missing.txt' not found"),
-        (["--rule", "brians_brain", "--device", "cpu"], "not yet ported to the cuda backend"),
+        (["--rule", "conway:T", "--device", "cpu"], "not yet ported to the cuda backend"),
         ([], "pass --device cpu"),
     ],
 )

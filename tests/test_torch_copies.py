@@ -4,6 +4,7 @@ the numpy oracle.  Inputs come from ``np.random.default_rng``; every
 comparison is exact."""
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -12,11 +13,12 @@ from tpu_life.io import codec as jcodec
 from tpu_life.models import rules as jrules
 from tpu_life.ops import bitlife as jbitlife
 from tpu_life.ops import boolmin as jboolmin
+from tpu_life.ops import common as jcommon
 from tpu_life.ops import reference as jref
 from tpu_life_torch import interop
 from tpu_life_torch.io import codec
 from tpu_life_torch.models import rules
-from tpu_life_torch.ops import bitlife, boolmin, reference
+from tpu_life_torch.ops import bitlife, boolmin, common, reference
 
 NOT_PORTED = {"ising", "lenia"}
 FIELDS = [f.name for f in dataclasses.fields(rules.Rule)]
@@ -162,3 +164,15 @@ def test_run_np_copy(spec, shape, steps):
         * rng.integers(0, 2, size=shape, dtype=np.int8)
     )
     np.testing.assert_array_equal(reference.run_np(board, r, steps), jref.run_np(board, jr, steps))
+
+
+def test_common_is_a_verbatim_copy():
+    assert inspect.getsource(common) == inspect.getsource(jcommon)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_contiguous_ranges_copy(seed):
+    rng = np.random.default_rng(seed)
+    values = {int(v) for v in rng.integers(0, 60, size=int(rng.integers(0, 25)))}
+    assert common.contiguous_ranges(values) == jcommon.contiguous_ranges(values)
+    assert common.contiguous_ranges(frozenset()) == []

@@ -65,6 +65,16 @@ def test_source_imports_nothing_of_jax_or_tpu_life(path):
     assert bad == [], f"{path} imports {bad}"
 
 
+def test_scan_covers_the_int8_slice():
+    # the modules the int8 slice added are among those both checks read
+    assert {
+        "tpu_life_torch.ops.common",
+        "tpu_life_torch.ops.stencil",
+        "tpu_life_torch.kernels._build",
+        "tpu_life_torch.kernels.int8_tiled",
+    } <= set(MODULES)
+
+
 @pytest.mark.parametrize("name", ["auto", "cuda", "torch"])
 def test_card_backends_refuse_to_run_on_the_cpu_unasked(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -3,8 +3,9 @@
 The counterpart of ``tpu_life/backends/jax_backend.py``'s packed path
 (``DeviceRunner``, ``packed_device_runner``): the board lives on the
 device as int32 words in the ``pack_np`` layout, and ``advance`` runs
-``ops.bitlife.multi_step_packed`` there.  It is the plain version the
-``cuda`` backend's kernel is held to, on any explicit device.
+``ops.bitlife.multi_step_packed`` there.  It runs clamped life-like rules
+only; the ``cuda`` backend runs the rest of the clamped Moore rules.
+``DeviceRunner`` serves both backends, over packed words or int8 boards.
 """
 
 from __future__ import annotations
@@ -24,21 +25,37 @@ from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.ops import bitlife
 
 
+def require_clamped_moore(rule: Rule, backend: str) -> None:
+    """Raise the typed ``NotImplementedError`` for the rules no backend of
+    this package runs on the card yet, naming where they are queued."""
+    if rule.boundary == "torus":
+        what = "the packed and int8 torus steps (':T' rules)"
+    elif rule.neighborhood == "von_neumann":
+        what = (
+            "von Neumann rules (the diamond mode of the packed stripe kernel "
+            "K1 and the int8 von Neumann path)"
+        )
+    else:
+        return
+    raise NotImplementedError(
+        f"rule {rule.name!r} is not yet ported to the {backend} backend; "
+        f"{what} are queued as ROADMAP.md item A5b (the next slice of the "
+        f"port).  Use --backend numpy for it."
+    )
+
+
 def require_life_like(rule: Rule, backend: str) -> None:
     """Raise the typed ``NotImplementedError`` for every rule the packed
-    path does not run yet, naming where it is queued."""
+    path does not run."""
+    require_clamped_moore(rule, backend)
     if bitlife.supports(rule):
         return
-    if rule.boundary == "torus":
-        what = "the packed torus step (':T' rules)"
-    elif rule.neighborhood == "von_neumann":
-        what = "von Neumann rules (the diamond mode of the packed stripe kernel, or the int8 kernel K2)"
-    else:
-        what = "Generations and Larger-than-Life rules (the int8 tiled kernel K2)"
     raise NotImplementedError(
-        f"rule {rule.name!r} is not yet ported to the {backend} backend, which "
-        f"runs clamped life-like rules only; {what} is queued as ROADMAP.md "
-        f"item A5 (slice 2).  Use --backend numpy for it."
+        f"rule {rule.name!r} does not run on the {backend} backend, which "
+        f"runs clamped life-like rules only (ROADMAP.md A5 keeps it so).  "
+        f"Generations and Larger-than-Life rules run on the cuda backend "
+        f"through the int8 tiled kernel K2 (add --device cpu for its plain "
+        f"version on the CPU), or on --backend numpy."
     )
 
 
@@ -55,14 +72,22 @@ def from_words(x: torch.Tensor, width: int) -> np.ndarray:
 
 
 class DeviceRunner:
-    """Runner over a device-resident packed board: ``advance`` queues work
-    with no host round-trip; ``sync`` waits for the card and reads one
-    element back."""
+    """Runner over a device-resident board (packed words or int8 cells):
+    ``advance`` queues work with no host round-trip; ``sync`` waits for the
+    card and reads one element back; ``to_np`` gathers the board to the
+    host and ``count_live`` reduces its live cells on the device."""
 
-    def __init__(self, x: torch.Tensor, advance: Callable, width: int):
+    def __init__(
+        self,
+        x: torch.Tensor,
+        advance: Callable[[torch.Tensor, int], torch.Tensor],
+        to_np: Callable[[torch.Tensor], np.ndarray],
+        count_live: Callable[[torch.Tensor], torch.Tensor],
+    ):
         self.x = x
         self._advance = advance
-        self.width = width
+        self._to_np = to_np
+        self._count_live = count_live
 
     def advance(self, steps: int) -> None:
         if steps > 0:
@@ -74,18 +99,18 @@ class DeviceRunner:
         self.x[:1, :1].cpu()
 
     def fetch(self) -> np.ndarray:
-        return from_words(self.x, self.width)
+        return self._to_np(self.x)
 
     def live_count(self) -> int:
         """Exact live-cell count, reduced on the device; one scalar
         crosses to the host."""
-        return int(bitlife.live_count_packed(self.x))
+        return int(self._count_live(self.x))
 
     def snapshot(self) -> Callable[[], np.ndarray]:
         """Thunk over a device copy of the current board: later advances
         (which may reuse the current buffer) leave it unchanged, like the
         reference Runner's immutable snapshots."""
-        return lambda x=self.x.clone(): from_words(x, self.width)
+        return lambda x=self.x.clone(): self._to_np(x)
 
 
 def packed_device_runner(
@@ -98,7 +123,10 @@ def packed_device_runner(
         advance = lambda x, n: bitlife.multi_step_packed(
             x, rule=rule, steps=n, logical_shape=(h, w)
         )
-    return DeviceRunner(to_words(board, device), advance, w)
+    return DeviceRunner(
+        to_words(board, device), advance, lambda x: from_words(x, w),
+        bitlife.live_count_packed,
+    )
 
 
 @register_backend("torch")

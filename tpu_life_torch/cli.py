@@ -32,9 +32,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--rule", default="conway", help="name or B/S / LtL spec")
     r.add_argument(
         "--backend", default="auto", choices=["auto", "cuda", "torch", "numpy"],
-        help="auto = cuda: the hand-written kernel for life-like rules; "
-        "torch = the plain PyTorch step; numpy = the host oracle (every "
-        "deterministic rule)",
+        help="auto = cuda: the hand-written kernels for clamped Moore rules "
+        "(life-like, Generations, Larger-than-Life); torch = the plain "
+        "PyTorch bit-sliced step (life-like); numpy = the host oracle "
+        "(every deterministic rule)",
     )
     r.add_argument(
         "--device", default=None,
@@ -44,6 +45,11 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument(
         "--block-steps", type=int, default=None,
         help="CA steps per kernel launch (1..32; default 8)",
+    )
+    r.add_argument(
+        "--no-bitpack", dest="bitpack", action="store_false",
+        help="run life-like rules on the int8 path (kernel K2) in place of "
+        "the bit-sliced one (kernel K1); bit-identical",
     )
     r.add_argument("--sync-every", type=int, default=0,
                    help="steps per host sync chunk (0 = one run)")
@@ -70,6 +76,7 @@ def main(argv: list[str] | None = None) -> int:
         backend=args.backend,
         device=args.device,
         block_steps=args.block_steps,
+        bitpack=args.bitpack,
         sync_every=args.sync_every,
     )
     from tpu_life_torch.models.rules import GeometryError
@@ -98,9 +105,10 @@ def _info() -> int:
     print("backends:", ", ".join(sorted(BACKENDS)), "(auto = cuda)")
     print("rules:", ", ".join(sorted(RULE_REGISTRY)))
     print(
-        "cuda/torch run clamped life-like rules; numpy runs every "
-        "deterministic rule (B/S, Generations, LtL, NN, ':T'); ising, "
-        "noisy: and lenia are not ported yet"
+        "cuda runs clamped Moore rules (life-like, Generations, LtL); "
+        "torch runs clamped life-like rules; numpy runs every "
+        "deterministic rule (also NN and ':T'); ising, noisy: and lenia "
+        "are not ported yet"
     )
     return 0
 

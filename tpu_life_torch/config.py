@@ -27,6 +27,7 @@ class RunConfig:
     backend: str = "auto"  # auto | cuda | torch | numpy
     device: str | None = None  # None = the card; "cpu" runs the plain version
     block_steps: int | None = None  # kernel substeps per launch; None = backend default
+    bitpack: bool = True  # False: life-like rules run the int8 path (kernel K2)
     sync_every: int = 0  # steps per host sync chunk; 0 = one run
 
     def resolved_geometry(self) -> tuple[int, int, int]:

@@ -18,21 +18,38 @@ from tpu_life_torch.ops import bitlife
 
 
 def board_from_reference(
-    board: np.ndarray, logical_shape: tuple[int, int]
+    board: np.ndarray, logical_shape: tuple[int, int], layout: str = "words"
 ) -> torch.Tensor:
     """A JAX-package board — packed ``uint32[H, ceil(W/32)]`` words (the
-    ``pack_np`` layout) or ``int8[H, W]`` states — as this package's
-    int32 words on the CPU."""
+    ``pack_np`` layout) or ``int8[H, W]`` states — as a CPU tensor of this
+    package, in one of its two layouts:
+
+    - ``"words"``: int32 words, the layout of kernel K1.  Only states 0
+      and 1 pack into words, so an int8 board holding any other state
+      raises ``ValueError`` instead of losing it;
+    - ``"cells"``: the int8[H, W] board whole, the layout of kernel K2.
+    """
     h, w = logical_shape
     board = np.asarray(board)
+    if layout not in ("words", "cells"):
+        raise ValueError(f"layout must be 'words' or 'cells', got {layout!r}")
     if board.dtype == np.uint32:
         want = (h, bitlife.packed_width(w))
         if board.shape != want:
             raise ValueError(f"packed board has shape {board.shape}, want {want}")
+        if layout == "cells":
+            return torch.from_numpy(bitlife.unpack_np(board, w))
         words = np.ascontiguousarray(board)
     elif board.dtype == np.int8:
         if board.shape != (h, w):
             raise ValueError(f"board has shape {board.shape}, want {(h, w)}")
+        if layout == "cells":
+            return torch.from_numpy(board.copy())
+        if board.size and (board.min() < 0 or board.max() > 1):
+            raise ValueError(
+                "an int8 board with states other than 0 and 1 does not pack into "
+                "words (only state 1 is a set bit); use layout='cells'"
+            )
         words = bitlife.pack_np(board)
     else:
         raise TypeError(f"board must be uint32 words or int8 states, got {board.dtype}")
@@ -40,7 +57,12 @@ def board_from_reference(
 
 
 def board_to_reference(x: torch.Tensor, logical_shape: tuple[int, int]) -> np.ndarray:
-    """This package's int32 words (any device) as an ``int8[H, W]`` board."""
+    """This package's board (any device) — int32 words or an int8 board —
+    as an ``int8[H, W]`` board."""
+    if x.dtype == torch.int8:
+        if tuple(x.shape) != tuple(logical_shape):
+            raise ValueError(f"board has shape {tuple(x.shape)}, want {tuple(logical_shape)}")
+        return x.cpu().numpy().copy()
     return from_words(x, logical_shape[1])
 
 

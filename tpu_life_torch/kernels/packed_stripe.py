@@ -3,8 +3,8 @@
 Replaces the TPU kernel ``make_pallas_packed_multi_step`` and its body
 ``_packed_tile_advance`` (``tpu_life/backends/pallas_backend.py``, Moore
 mode).  The source is ``tpu_life_torch/csrc/packed_stripe.cu``; it is
-compiled by ``nvcc`` for ``sm_90a`` at first use into
-``tpu_life_torch/_build/<source hash>/`` and called through ``ctypes``.
+compiled by ``nvcc`` for ``sm_90a`` at first use (``kernels._build``) and
+called through ``ctypes``.
 
 The function both versions compute: ``steps`` masked life-like steps of a
 packed board — int32 words in the ``bitlife.pack_np`` layout, shape
@@ -24,26 +24,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import operator
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from tpu_life_torch.kernels import _build
 from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.ops import bitlife
 from tpu_life_torch.ops.boolmin import rule_sop
 
-_PACKAGE = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE / "csrc" / "packed_stripe.cu"
-BUILD_ROOT = _PACKAGE / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = _build.CSRC / "packed_stripe.cu"
 MAX_BLOCK_STEPS = 32  # the one-word horizontal halo covers 32 substeps
 TILE_WORDS = 30  # output words per tile row: kInterior in the CUDA source
 _MAX_TERMS = 32
@@ -109,45 +100,15 @@ def tile_rows(block_steps: int, height: int, nwords: int, n_sm: int) -> int:
     return rows
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found: the packed stripe kernel is built from "
-            f"{SOURCE.name} at first use and needs the CUDA toolkit"
-        )
-    return nvcc
-
-
 def build() -> Path:
-    """Compile the kernel library (once per source and flags) and return
-    its path; ``build.log`` beside it keeps nvcc's ``-Xptxas -v`` report.
-    A missing nvcc or a failed build raises."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out_dir = BUILD_ROOT / key.hexdigest()[:16]
-    lib = out_dir / "libpacked_stripe.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libpacked_stripe.{os.getpid()}.so"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True,
-        text=True,
-    )
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
-    return lib
+    """Compile the kernel library (``_build.build``) and return its path;
+    ``build.log`` beside it keeps nvcc's ``-Xptxas -v`` report."""
+    return _build.build(SOURCE)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = _build.library(SOURCE)
     fn = lib.packed_stripe_multi_step
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

@@ -51,7 +51,7 @@ def run(cfg: RunConfig) -> RunResult:
     validate_rule_geometry(rule, (height, width))
 
     timer = Timer()  # spans I/O too, like the reference's Wtime bracket
-    kwargs = {"device": cfg.device}
+    kwargs = {"device": cfg.device, "bitpack": cfg.bitpack}
     if cfg.block_steps is not None:
         kwargs["block_steps"] = cfg.block_steps
     backend = get_backend(cfg.backend, **kwargs)
