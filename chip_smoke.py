@@ -11,15 +11,16 @@ Phases (any failure exits non-zero and prints no result line):
    ``nvidia-smi``'s name and power limit;
 2. build — compiles both kernels of the main paths from
    ``tpu_life_torch/csrc`` (one nvcc each, started together, at first use),
-   prints the build seconds and each ptxas report, and holds the CUDA
-   source's shared-memory count of K2 to the wrapper's;
+   prints the build seconds and each ptxas report;
 3. kernel vs plain — holds each kernel bit-identical (``torch.equal``) to
    its plain PyTorch version on the card: K1 over life-like rules, ragged
    shapes up to 16384^2 and block depths with a remainder; K2 over six
    clamped Moore rules (life-like, Generations, Larger-than-Life with and
    without the centre), shapes from 11x11 to 8192^2, block depths 1, 8 and
-   32 as the radius clamp allows, each with a remainder launch, and boards
-   whose live cells touch all four edges;
+   32 as the radius clamp allows, each with a remainder launch, boards
+   whose live cells touch all four edges, and wide radii up to the largest
+   whose tile fits shared memory (tiles shrunk to fit, with and without
+   16-byte loads and stores);
 4. main paths — ``python -m tpu_life_torch run`` on the reference workload
    (1500x500, 100 steps), in process with every launch count set to 0 just
    before and read just after, then as a subprocess; and ``run
@@ -36,7 +37,9 @@ Phases (any failure exits non-zero and prints no result line):
    16384^2 through the Runner, each held to the plain version after its
    steps, with cell updates per second through the Runner; then K2 timed
    at both shapes with CUDA events and the profiler's kernel records,
-   against its plain version and its bound.
+   against its plain version and its bound; and its device time at the
+   reference's 1500x500 (``conway`` at k = 8 as ``--no-bitpack`` runs it,
+   ``bugs`` at k = 1) from the profiler's kernel records.
 
 The line before the last is the kernels record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -70,6 +73,17 @@ BLOCK_STEPS = 8
 K2_FULL = [("bugs", 8192, 64), ("brians_brain", 16384, 64)]
 K2_RULES = ["conway", "brians_brain", "star_wars", "bugs", "bugs_decay", "R2,C2,M1,S5..10,B5..8"]
 K2_SHAPES = [(11, 11), (257, 1000), (1500, 500), (5000, 2000), (8192, 8192)]
+# K2 at wide radii (depth 1), where the tile grows with the halo and then
+# shrinks to fit shared memory: widths that are and are not a multiple of 16,
+# and the largest radius that fits for 2 and for 10 states
+K2_WIDE = [
+    ("R60,C2,S1500..9000,B3400..3700", (1024, 1024)),
+    ("R50,C2,S1000..6000,B2400..2600", (1024, 1024)),
+    ("R50,C2,S1000..6000,B2400..2600", (1024, 1000)),
+    ("R60,C2,S1500..9000,B3400..3700", (4096, 4096)),
+    ("R92,C2,S3000..20000,B8000..8600", (512, 512)),
+    ("R61,C10,S300..3000,B700..780", (512, 512)),
+]
 
 
 def fail(msg: str) -> None:
@@ -124,21 +138,11 @@ def main() -> int:
     with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
         libs = list(pool.map(lambda m: m.build(), (ps, kt)))
     ps._library()
-    k2_lib = kt._library()
+    kt._library()
     print(f"build: {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
         print((lib.parent / "build.log").read_text().strip(), flush=True)
-    for name in K2_RULES:
-        rule = get_rule(name)
-        for k in (1, 8):
-            k = kt.clamp_block_steps(rule, k)
-            for rows, cols in ((32, 128), (8, 128), (80, 144)):
-                c = k2_lib.int8_tiled_shared_bytes(
-                    rule.radius, k, int(rule.include_center), rule.states, rows, cols)
-                if c != kt.shared_bytes(rule, k, rows, cols):
-                    fail(f"K2 shared memory: the CUDA source counts {c} bytes, the "
-                         f"wrapper {kt.shared_bytes(rule, k, rows, cols)} ({name}, k={k})")
 
     def words(board):
         return torch.from_numpy(bitlife.pack_np(board).view(np.int32).copy()).to(dev)
@@ -214,8 +218,18 @@ def main() -> int:
     for name, ks in (("bugs", (1, 2, 3)), ("brians_brain", (1, 8, 32)), ("R2,C2,M1,S5..10,B5..8", (4,))):
         for k in ks:
             k2_case(cells(edge), get_rule(name), edge.shape, k, 2 * k + 1, f"edge board, {name}")
+    wide = []
+    for name, shape in K2_WIDE:
+        rule = get_rule(name)
+        k = kt.clamp_block_steps(rule, BLOCK_STEPS)
+        rows, cols = kt.tile_shape(rule, k, *shape, n_sm)
+        k2_case(cells(states_board(shape, rule)), rule, shape, k, 5, f"rule {name}")
+        wide.append(f"R{rule.radius} C{rule.states} {shape[0]}x{shape[1]}: {rows}x{cols} "
+                    f"tiles, {kt.shared_bytes(rule, k, rows, cols)} B, "
+                    f"{'16-byte' if kt.io16(shape[1], cols) else 'byte'} I/O")
     print(f"K2 vs plain: {k2_cases} cases bit-identical "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({time.perf_counter() - t0:.1f} s); wide radii at k=1: " + "; ".join(wide),
+          flush=True)
 
     # -- 4. the main path: the reference contract through the CLI ----------
     with tempfile.TemporaryDirectory() as tmp:
@@ -465,6 +479,22 @@ def main() -> int:
         del runner, x0, want, xp, launch
         torch.cuda.empty_cache()
     k2 = k2_rows[-1]  # brians_brain at 16384^2: the deeper block, k = 8
+    small = []
+    for name in ("conway", "bugs"):
+        rule = get_rule(name)
+        k = kt.clamp_block_steps(rule, BLOCK_STEPS)
+        launch = pingpong(
+            lambda a, b, rule=rule, k=k: kt.int8_multi_step(a, rule, ref, k, block_steps=k, scratch=b),
+            cells(states_board(ref, rule)))
+        ev_ms = cuda_ms(launch, 200)
+        small_dev_ms = profiled_ms(launch, "int8_tiled_kernel", 200)
+        mem_ms = 2 * ref[0] * ref[1] / HBM_BYTES_PER_S * 1e3
+        ops_ms = kt.int_ops_per_cell_step(rule) * ref[0] * ref[1] * k / int_ops_per_s * 1e3
+        rows, cols = kt.tile_shape(rule, k, *ref, n_sm)
+        small.append(f"{name} k={k}, {rows}x{cols} tiles: device time {fmt(small_dev_ms)} ms/launch, "
+                     f"{ev_ms:.4f} by CUDA events over back-to-back calls, bound "
+                     f"{max(mem_ms, ops_ms):.6f} ms ({'operations' if ops_ms >= mem_ms else 'bytes'})")
+    print("timing K2 1500x500: " + "; ".join(small), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "packed_stripe_multi_step",

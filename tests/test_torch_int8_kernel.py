@@ -166,12 +166,42 @@ def test_tile_shape_fills_the_card_and_fits_shared_memory():
     rows, cols = kt.tile_shape(big, 1, 4096, 4096, 132)
     assert rows >= 80 and cols >= 128
     assert kt.shared_bytes(big, 1, rows, cols) <= kt.MAX_SHARED_BYTES
-    # wider still, the tile shrinks to fit shared memory
+    # wider still, the tile shrinks to fit shared memory, its columns a
+    # multiple of 16 (240 -> 128 at 1024^2, not 120)
     huge = get_rule("R60,C2,S2..4,B3")
     rows, cols = kt.tile_shape(huge, 1, 4096, 4096, 132)
+    assert cols % 16 == 0
     assert kt.shared_bytes(huge, 1, rows, cols) <= kt.MAX_SHARED_BYTES
+    assert kt.tile_shape(huge, 1, 1024, 1024, 132) == (30, 128)
     with pytest.raises(ValueError, match="shared memory"):
         kt.tile_shape(get_rule("R120,C2,S2..4,B3"), 1, 4096, 4096, 132)
+
+
+@pytest.mark.parametrize("states", [2, 10])
+@pytest.mark.parametrize("side", [512, 1000, 1024, 4096, 16384])
+def test_tile_columns_stay_a_multiple_of_16(states, side):
+    # every radius that fits gets 16-byte aligned tile columns, so a board
+    # whose width is a multiple of 16 may take 16-byte stores; the largest
+    # radius is 92 with 2 states and 61 with 10
+    last = 0
+    for r in range(1, 100):
+        rule = get_rule(f"R{r},C{states},S2..4,B3")
+        k = kt.clamp_block_steps(rule, 8)
+        try:
+            rows, cols = kt.tile_shape(rule, k, side, side, 132)
+        except ValueError:
+            break
+        assert cols % 16 == 0 and cols >= 16 and rows >= 8
+        assert kt.shared_bytes(rule, k, rows, cols) <= kt.MAX_SHARED_BYTES
+        last = r
+    assert last == {2: 92, 10: 61}[states]
+
+
+def test_io16_needs_aligned_rows_tiles_and_buffers():
+    assert kt.io16(1024, 128, 0, 4096)
+    assert not kt.io16(1000, 128, 0, 4096)  # rows start off 16-byte boundaries
+    assert not kt.io16(1024, 120, 0, 4096)  # odd tiles start off them
+    assert not kt.io16(1024, 128, 0, 4104)  # a buffer does
 
 
 def test_shared_bytes_counts_the_window():
@@ -180,6 +210,8 @@ def test_shared_bytes_counts_the_window():
     assert kt.shared_bytes(get_rule("conway"), 8, 32, 128) == 2 * 48 * 148 + 2 * 48 * 150 + 18
     # bugs, k = 1: 42 rows x 144 columns -> 148 (37 words), sums at 146
     assert kt.shared_bytes(get_rule("bugs"), 1, 32, 128) == 2 * 42 * 148 + 2 * 42 * 146 + 2 * 121
+    assert kt.window(get_rule("conway"), 8, 128) == (148, 148, 150)
+    assert kt.window(get_rule("bugs"), 1, 128) == (144, 148, 146)
 
 
 @pytest.mark.parametrize(

@@ -13,6 +13,9 @@
 // Layout of one block: an output tile of tile_rows x tile_cols cells,
 // loaded with a halo of h = r*k cells on every side into shared memory
 // (window column 0 is rounded down to a multiple of 4 for word stores).
+// The wrapper (kernels/int8_tiled.py: window, shared_bytes) picks the
+// window's columns, its row pitches and the bytes of shared memory, and
+// passes them in; the kernel places its buffers from them.
 // Loads outside the board read zero, in place of the TPU kernel's zero
 // frame, so the board needs no frame and nothing re-zeroes one.  The block
 // then runs k substeps in shared memory, ping-ponging two int8 buffers.
@@ -54,45 +57,19 @@ constexpr int kThreads = 256;            // threads per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kSeg = 16;                 // cells per running-window segment
 
-__host__ __device__ __forceinline__ int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-// Window columns: the tile, the halo on both sides, and up to 3 columns
-// from rounding the window's first column down to a multiple of 4.
-__host__ __device__ __forceinline__ int window_cols(int tile_cols, int halo) {
-  return round_up(tile_cols + 2 * halo + 3, 4);
-}
-
-// Row pitches chosen so that consecutive rows start in different shared
-// memory banks: an odd number of 32-bit words per row.
-__host__ __device__ __forceinline__ int pitch_int8(int cols) {
-  const int words = cols / 4;
-  return 4 * (words % 2 ? words : words + 1);
-}
-
-__host__ __device__ __forceinline__ int pitch_int16(int cols) {
-  const int words = cols / 2;
-  return 2 * (words % 2 ? words : words + 1);
-}
-
-__host__ __device__ __forceinline__ int table_cols(int radius, int include_center) {
-  const int d = 2 * radius + 1;
-  return d * d + (include_center ? 1 : 0);  // max_count + 1
-}
-
+// ext_c: window columns (a multiple of 4, at least tile_cols + 2*halo + 3);
+// p8, pv: the row pitches of the int8 buffers and of the int16 sums in
+// bytes (multiples of 4 and of 2); ncount: the table's columns,
+// max_count + 1.
 __global__ void __launch_bounds__(kThreads)
 int8_tiled_kernel(const int8_t* __restrict__ src, int8_t* __restrict__ dst,
                   const int8_t* __restrict__ lut, int height, int width,
-                  int radius, int k, int include_center, int states,
-                  int tile_rows, int tile_cols, int vec) {
+                  int radius, int k, int include_center, int states, int ncount,
+                  int tile_rows, int tile_cols, int ext_c, int p8, int pv,
+                  int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int halo = radius * k;
   const int ext_r = tile_rows + 2 * halo;
-  const int ext_c = window_cols(tile_cols, halo);
-  const int p8 = pitch_int8(ext_c);
-  const int pv = pitch_int16(ext_c);
-  const int ncount = table_cols(radius, include_center);
   int8_t* cur = reinterpret_cast<int8_t*>(smem);
   int8_t* nxt = cur + ext_r * p8;
   int16_t* vsum = reinterpret_cast<int16_t*>(smem + 2 * ext_r * p8);
@@ -242,29 +219,20 @@ int8_tiled_kernel(const int8_t* __restrict__ src, int8_t* __restrict__ dst,
 
 extern "C" {
 
-// Dynamic shared memory of one block: two int8 window buffers, the int16
-// vertical sums and the rule's table.
-int int8_tiled_shared_bytes(int radius, int k, int include_center, int states,
-                            int tile_rows, int tile_cols) {
-  const int halo = radius * k;
-  const int ext_r = tile_rows + 2 * halo;
-  const int ext_c = window_cols(tile_cols, halo);
-  return 2 * ext_r * pitch_int8(ext_c) + 2 * ext_r * pitch_int16(ext_c) +
-         states * table_cols(radius, include_center);
-}
-
 // k masked steps from src into dst (distinct contiguous int8[height, width]
 // buffers on the current device), with lut the rule's transition table
-// int8[states, max_count + 1] on the device, on `stream`.  vec != 0 asks for
-// 16-byte loads and stores: width % 16 == 0, 16-byte aligned buffers and
-// tile_cols % 16 == 0.  Returns cudaGetLastError() (or the error of setting
-// the shared-memory size).
+// int8[states, ncount] on the device, on `stream`.  ext_c, p8 and pv are
+// the window's layout (see the kernel) and smem its dynamic shared memory:
+// two buffers of (tile_rows + 2*radius*k) x p8 bytes, the int16 sums at
+// pitch pv and the table.  vec != 0 asks for 16-byte loads and stores:
+// width % 16 == 0, tile_cols % 16 == 0 and 16-byte aligned buffers.
+// Returns cudaGetLastError() (or the error of setting the shared-memory
+// size).
 int int8_tiled_multi_step(const void* src, void* dst, const void* lut,
                           int height, int width, int radius, int k,
-                          int include_center, int states, int tile_rows,
-                          int tile_cols, int vec, void* stream) {
-  const int smem = int8_tiled_shared_bytes(radius, k, include_center, states,
-                                           tile_rows, tile_cols);
+                          int include_center, int states, int ncount,
+                          int tile_rows, int tile_cols, int ext_c, int p8,
+                          int pv, int smem, int vec, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       int8_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -273,7 +241,7 @@ int int8_tiled_multi_step(const void* src, void* dst, const void* lut,
   int8_tiled_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(src), static_cast<int8_t*>(dst),
       static_cast<const int8_t*>(lut), height, width, radius, k, include_center,
-      states, tile_rows, tile_cols, vec);
+      states, ncount, tile_rows, tile_cols, ext_c, p8, pv, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

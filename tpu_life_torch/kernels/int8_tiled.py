@@ -61,23 +61,31 @@ def _ceil_to(x: int, m: int) -> int:
     return ceil_div(x, m) * m
 
 
+def window(rule: Rule, block_steps: int, cols: int) -> tuple[int, int, int]:
+    """The shared-memory window of a tile ``cols`` wide, as the kernel lays
+    it out: its columns (the tile, the halo on both sides and up to 3
+    columns from rounding its first column down to a multiple of 4), the
+    row pitch of its int8 buffers and that of its int16 vertical sums in
+    bytes, each an odd number of 32-bit words so that consecutive rows
+    start in different banks."""
+    ext_c = _ceil_to(cols + 2 * rule.radius * block_steps + 3, 4)
+    return ext_c, 4 * (ext_c // 4 | 1), 2 * (ext_c // 2 | 1)
+
+
 def shared_bytes(rule: Rule, block_steps: int, rows: int, cols: int) -> int:
-    """Dynamic shared memory of one block (mirrors
-    ``int8_tiled_shared_bytes`` in the CUDA source): two int8 window
-    buffers and the int16 vertical sums, each row at an odd number of
-    32-bit words, and the rule's transition table."""
-    halo = rule.radius * block_steps
-    ext_r = rows + 2 * halo
-    ext_c = _ceil_to(cols + 2 * halo + 3, 4)
-    p8 = 4 * (ext_c // 4 | 1)
-    pv = 2 * (ext_c // 2 | 1)
+    """Dynamic shared memory of one block: two int8 window buffers and the
+    int16 vertical sums (:func:`window`), and the rule's transition
+    table."""
+    _, p8, pv = window(rule, block_steps, cols)
+    ext_r = rows + 2 * rule.radius * block_steps
     return 2 * ext_r * p8 + 2 * ext_r * pv + rule.states * (rule.max_count + 1)
 
 
 def tile_shape(
     rule: Rule, block_steps: int, height: int, width: int, n_sm: int
 ) -> tuple[int, int]:
-    """Output rows and columns of one block.  The base tile grows to four
+    """Output rows and columns of one block; the columns are always a
+    multiple of 16, as 16-byte stores need.  The base tile grows to four
     halos where the halo is deep (large radius); on a board too small to
     give every SM a block its height halves, down to 8 rows; where the
     window would not fit in shared memory the tile shrinks, down to 8 x 16.
@@ -94,7 +102,7 @@ def tile_shape(
         if rows >= cols or cols == 16:
             rows = max(8, rows // 2)
         else:
-            cols = max(16, cols // 2)
+            cols = max(16, _ceil_to(cols // 2, 16))
     need = shared_bytes(rule, block_steps, rows, cols)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
@@ -104,6 +112,14 @@ def tile_shape(
             f"a Hopper block may use"
         )
     return rows, cols
+
+
+def io16(width: int, cols: int, *ptrs: int) -> bool:
+    """Whether a launch may load and store 16 bytes at a time: every row
+    and every tile then starts on a 16-byte boundary of aligned buffers,
+    so each 16-byte chunk lies wholly inside or wholly outside the board
+    and the tile."""
+    return width % 16 == 0 and cols % 16 == 0 and all(p % 16 == 0 for p in ptrs)
 
 
 def int_ops_per_cell_step(rule: Rule) -> int:
@@ -121,14 +137,8 @@ def int_ops_per_cell_step(rule: Rule) -> int:
 def _library() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
     fn = lib.int8_tiled_multi_step
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.int8_tiled_shared_bytes.argtypes = [ctypes.c_int] * 6
-    lib.int8_tiled_shared_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -207,7 +217,6 @@ def int8_multi_step(
     for rows, _ in tiles.values():
         if ceil_div(lh, rows) > MAX_GRID_ROWS:
             raise ValueError(f"a board of {lh} rows needs more than {MAX_GRID_ROWS} row tiles")
-    vec = int(lw % 16 == 0 and x.data_ptr() % 16 == 0 and scratch.data_ptr() % 16 == 0)
     fn = _library().int8_tiled_multi_step
     table = _table(rule, x.device)
     src, dst = x, scratch
@@ -217,8 +226,9 @@ def int8_multi_step(
             rows, cols = tiles[k]
             err = fn(
                 src.data_ptr(), dst.data_ptr(), table.data_ptr(), lh, lw,
-                rule.radius, k, int(rule.include_center), rule.states, rows, cols,
-                vec, stream,
+                rule.radius, k, int(rule.include_center), rule.states, table.shape[1],
+                rows, cols, *window(rule, k, cols), shared_bytes(rule, k, rows, cols),
+                int(io16(lw, cols, x.data_ptr(), scratch.data_ptr())), stream,
             )
             if err != 0:
                 raise RuntimeError(f"int8_tiled_multi_step launch failed: CUDA error {err}")
