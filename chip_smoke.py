@@ -9,23 +9,33 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. probe — a CUDA device must be present; prints its name and
    ``nvidia-smi``'s name and power limit;
-2. build — compiles both kernels of the main paths from
+2. build — compiles the kernel sources of the main paths from
    ``tpu_life_torch/csrc`` (one nvcc each, started together, at first use),
-   prints the build seconds and each ptxas report;
+   prints the build seconds and each ptxas report: K1's Moore kernel and
+   its two diamond kernels (radius 1 and 2), and K2;
 3. kernel vs plain — holds each kernel bit-identical (``torch.equal``) to
    its plain PyTorch version on the card: K1 over life-like rules, ragged
-   shapes up to 16384^2 and block depths with a remainder; K2 over six
+   shapes up to 16384^2 and block depths with a remainder; K1's diamond
+   mode over three von Neumann rules (r = 1, r = 2, r = 2 with the centre),
+   shapes from 11x11 to 16384^2, widths with W % 32 of 0, 1 and 31, a
+   board whose live cells touch all four edges, and depths 1, 2, 8 and the
+   clamp (32 / r), each with a remainder launch; K2 over six
    clamped Moore rules (life-like, Generations, Larger-than-Life with and
    without the centre), shapes from 11x11 to 8192^2, block depths 1, 8 and
    32 as the radius clamp allows, each with a remainder launch, boards
    whose live cells touch all four edges, and wide radii up to the largest
    whose tile fits shared memory (tiles shrunk to fit, with and without
-   16-byte loads and stores);
+   16-byte loads and stores).  The two routes that have no kernel in
+   either package (the packed torus step and the int8 stencil, plain
+   PyTorch ops on the card) are held to the numpy oracle at 257x1000;
 4. main paths — ``python -m tpu_life_torch run`` on the reference workload
    (1500x500, 100 steps), in process with every launch count set to 0 just
    before and read just after, then as a subprocess; and ``run
    --no-bitpack`` in process, which must go through K2 and not K1.  Every
-   output.txt must have the golden sha256 and 751,500 bytes;
+   output.txt must have the golden sha256 and 751,500 bytes.  Then ``run
+   --rule R2,C2,S2..4,B2..3,NN``, which must take route ``k1_diamond`` with
+   13 diamond launches, and ``run --rule conway:T``, route ``packed_torus``
+   with no launch; each output must equal the numpy oracle's bytes;
 5. full size, K1 — a 16384^2 Conway board for 256 steps through the
    ``cuda`` backend's Runner, held to the plain version; then its cell
    updates per second through the Runner (host clock, delta timing), and
@@ -39,7 +49,16 @@ Phases (any failure exits non-zero and prints no result line):
    at both shapes with CUDA events and the profiler's kernel records,
    against its plain version and its bound; and its device time at the
    reference's 1500x500 (``conway`` at k = 8 as ``--no-bitpack`` runs it,
-   ``bugs`` at k = 1) from the profiler's kernel records.
+   ``bugs`` at k = 1) from the profiler's kernel records;
+7. full size, von Neumann and torus — ``R2,C2,S2..4,B2..3,NN`` at 16384^2
+   for 256 steps through the Runner (K1's diamond mode), held to the plain
+   version; ``conway:T`` at 16384^2 (packed torus ops, held to the int8
+   torus ops on the same board) and ``R2,C2,S2..4,B2..3,NN:T`` and
+   ``brians_brain:T`` at 8192^2 (int8 stencil ops, held to the torus's
+   translation symmetry); cell updates per second through the Runner for
+   all four; the diamond mode timed at 16384^2 (r = 2 and r = 1) and at
+   1500x500 with CUDA events and the profiler's kernel records, against
+   its plain version and its bound; the two ops routes' ms per step.
 
 The line before the last is the kernels record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -73,6 +92,23 @@ BLOCK_STEPS = 8
 K2_FULL = [("bugs", 8192, 64), ("brians_brain", 16384, 64)]
 K2_RULES = ["conway", "brians_brain", "star_wars", "bugs", "bugs_decay", "R2,C2,M1,S5..10,B5..8"]
 K2_SHAPES = [(11, 11), (257, 1000), (1500, 500), (5000, 2000), (8192, 8192)]
+# K1's diamond mode: the rules (r = 2, r = 1, r = 2 counting the centre), the
+# shapes (the last three have W % 32 of 0, 1 and 31) and the depths asked for
+# (the wrapper clamps 32 to 16 at r = 2)
+DIAMOND = "R2,C2,S2..4,B2..3,NN"
+DIAMOND_R1 = "R1,C2,S2..3,B3,NN"
+DIAMOND_RULES = [DIAMOND, DIAMOND_R1, "R2,C2,M1,S3..6,B3..5,NN"]
+DIAMOND_SHAPES = [(11, 11), (257, 1000), (1500, 500), (5000, 2000), (300, 992), (300, 993),
+                  (300, 1023), (FULL, FULL)]
+DIAMOND_DEPTHS = (1, 2, BLOCK_STEPS, 32)
+# the routes with no kernel in either package, held to the numpy oracle
+OPS_SHAPE, OPS_STEPS = (257, 1000), 5
+OPS_RULES = [("conway:T", "packed_torus"), ("R2,C2,S2..4,B2..3,NN:T", "stencil"),
+             ("brians_brain:T", "stencil"), ("R3,C2,S6..10,B6..8,NN", "stencil"),
+             ("R1,C3,S1..2,B2,NN", "stencil")]
+# their full-size runs: (rule, side, steps through the Runner)
+TORUS_FULL = ("conway:T", FULL, 32)
+STENCIL_FULL = [("R2,C2,S2..4,B2..3,NN:T", 8192, 8), ("brians_brain:T", 8192, 8)]
 # K2 at wide radii (depth 1), where the tile grows with the halo and then
 # shrinks to fit shared memory: widths that are and are not a multiple of 16,
 # and the largest radius that fits for 2 and for 10 states
@@ -116,10 +152,13 @@ def main() -> int:
             make_runner,
             measure_throughput,
         )
+        from tpu_life_torch.io.codec import encode_board, read_board, read_config
         from tpu_life_torch.kernels import int8_tiled as kt
         from tpu_life_torch.kernels import packed_stripe as ps
         from tpu_life_torch.models.rules import get_rule
-        from tpu_life_torch.ops import bitlife
+        from tpu_life_torch.ops import bitlife, stencil
+        from tpu_life_torch.ops.reference import run_np
+        from tpu_life_torch.runtime import driver
     except ImportError as e:
         fail(f"the tpu_life_torch package is not beside this script: {e}")
     if not (FIXTURES / "reference_data.txt.gz").exists():
@@ -143,6 +182,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
         print((lib.parent / "build.log").read_text().strip(), flush=True)
+    k1_log = (libs[0].parent / "build.log").read_text()
+    for kernel in ("packed_stripe_kernel", "packed_diamond_kernelILi1E", "packed_diamond_kernelILi2E"):
+        if kernel not in k1_log:
+            fail(f"the ptxas report of packed_stripe.cu does not name {kernel}")
 
     def words(board):
         return torch.from_numpy(bitlife.pack_np(board).view(np.int32).copy()).to(dev)
@@ -175,6 +218,43 @@ def main() -> int:
                 if err:
                     fail(f"kernel != plain: rule {name}, {h}x{w}, k={k}, {steps} steps")
     print(f"kernel vs plain: {cases} cases bit-identical "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    diamond_max_err = 0
+    diamond_cases = 0
+
+    def diamond_case(x0, rule, shape, k, what):
+        nonlocal diamond_max_err, diamond_cases
+        depth = ps.clamp_block_steps(rule, k)
+        steps = 5 if depth == 1 else 2 * depth + 3  # a remainder launch
+        before = ps.packed_multi_step.diamond_launches
+        want = ps.packed_multi_step_plain(x0, rule, shape, steps)
+        got = ps.packed_multi_step(x0.clone(), rule, shape, steps, block_steps=k)
+        torch.cuda.synchronize()
+        launched = ps.packed_multi_step.diamond_launches - before
+        if launched != -(-steps // depth):
+            fail(f"diamond mode: {launched} launches for {steps} steps at depth {depth}")
+        err = diff_cells(got, want)
+        diamond_max_err = max(diamond_max_err, err)
+        diamond_cases += 1
+        if err:
+            fail(f"diamond mode != plain: {what}, {shape[0]}x{shape[1]}, k={k} "
+                 f"(depth {depth}), {steps} steps")
+
+    t0 = time.perf_counter()
+    for h, w in DIAMOND_SHAPES:
+        x0 = words(rng.integers(0, 2, size=(h, w), dtype=np.int8))
+        for name in DIAMOND_RULES:
+            for k in DIAMOND_DEPTHS:
+                diamond_case(x0, get_rule(name), (h, w), k, f"rule {name}")
+    # live cells on all four edges: a birth just past an edge must stay dead
+    # through every substep, rows and columns both
+    edge = np.zeros((300, 1000), np.int8)
+    edge[:7], edge[-7:], edge[:, :7], edge[:, -7:] = 1, 1, 1, 1
+    for name in DIAMOND_RULES:
+        for k in DIAMOND_DEPTHS:
+            diamond_case(words(edge), get_rule(name), edge.shape, k, f"edge board, {name}")
+    print(f"K1 diamond mode vs plain: {diamond_cases} cases bit-identical "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     def cells(board):
@@ -231,6 +311,23 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s); wide radii at k=1: " + "; ".join(wide),
           flush=True)
 
+    # the routes that have no kernel in either package: plain ops on the card,
+    # held to the numpy oracle
+    t0 = time.perf_counter()
+    ops_backend = get_backend("cuda")
+    for name, route in OPS_RULES:
+        rule = get_rule(name)
+        board = states_board(OPS_SHAPE, rule)
+        runner = make_runner(ops_backend, board, rule)
+        if runner.route != route or not runner.x.is_cuda:
+            fail(f"rule {name} took route {runner.route!r} on {runner.x.device}, want {route!r} on the card")
+        drive_runner(runner, OPS_STEPS)
+        if not np.array_equal(runner.fetch(), run_np(board, rule, OPS_STEPS)):
+            fail(f"route {route} != numpy oracle: rule {name}, {OPS_SHAPE}, {OPS_STEPS} steps")
+    print(f"ops routes vs numpy oracle: {len(OPS_RULES)} rules equal at "
+          f"{OPS_SHAPE[0]}x{OPS_SHAPE[1]}, {OPS_STEPS} steps ({time.perf_counter() - t0:.1f} s): "
+          + ", ".join(f"{n} by {r}" for n, r in OPS_RULES), flush=True)
+
     # -- 4. the main path: the reference contract through the CLI ----------
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -267,6 +364,43 @@ def main() -> int:
             fail(f"the --no-bitpack run launched the int8 kernel {k2_main_launches} "
                  f"times and the packed stripe kernel {k1_in_k2_run} times")
         check_output(tmp / "out_int8.txt", "in-process --no-bitpack run")
+
+        # the von Neumann and torus paths through the same entry point; each
+        # run's RunResult names the route its runner took
+        results = []
+        real_run = driver.run
+
+        def recording_run(cfg):
+            results.append(real_run(cfg))
+            return results[-1]
+
+        ref_h, ref_w, ref_steps = read_config(tmp / "grid_size_data.txt")
+        ref_board = read_board(tmp / "data.txt", ref_h, ref_w)
+        rule_runs = {}
+        driver.run = recording_run
+        try:
+            for name, route in ((DIAMOND, "k1_diamond"), ("conway:T", "packed_torus")):
+                out = tmp / f"out_{route}.txt"
+                ps.packed_multi_step.launches = ps.packed_multi_step.diamond_launches = 0
+                kt.int8_multi_step.launches = 0
+                rc = cli.main([*args, "--rule", name, "--output-file", str(out)])
+                counts = (ps.packed_multi_step.launches, ps.packed_multi_step.diamond_launches,
+                          kt.int8_multi_step.launches)
+                if rc != 0:
+                    fail(f"in-process run --rule {name} exited {rc}")
+                if results[-1].route != route:
+                    fail(f"run --rule {name} took route {results[-1].route!r}, want {route!r}")
+                # 100 steps at the default depth of 8: 12 launches of 8 and one of 4
+                want_counts = (13, 13, 0) if route == "k1_diamond" else (0, 0, 0)
+                if counts != want_counts:
+                    fail(f"run --rule {name} launched (K1, of them diamond, K2) = {counts}, "
+                         f"want {want_counts}")
+                if out.read_bytes() != encode_board(run_np(ref_board, get_rule(name), ref_steps)):
+                    fail(f"run --rule {name}: output differs from the numpy oracle's bytes")
+                rule_runs[route] = counts
+        finally:
+            driver.run = real_run
+        diamond_main_launches = rule_runs["k1_diamond"][1]
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
         t0 = time.perf_counter()
@@ -285,6 +419,11 @@ def main() -> int:
               f"clock for the whole process", flush=True)
         print(f"main path --no-bitpack: reference workload at the golden sha256 "
               f"through K2 ({k2_main_launches} K2 launches, {k1_in_k2_run} K1)",
+              flush=True)
+        print(f"main path --rule {DIAMOND}: reference workload equal to the numpy "
+              f"oracle's bytes by route k1_diamond ({diamond_main_launches} diamond "
+              f"launches, {rule_runs['k1_diamond'][2]} K2); --rule conway:T: equal by "
+              f"route packed_torus (launches K1, diamond, K2: {rule_runs['packed_torus']})",
               flush=True)
 
     # -- 5. full size through the cuda backend -----------------------------
@@ -339,14 +478,20 @@ def main() -> int:
 
         return launch
 
-    def launcher(shape, k: int):
-        """One k-step K1 launch per call on a random board."""
+    conway = rule
+
+    random_words = {}  # one random packed board per shape, made on the host once
+
+    def launcher(shape, k: int, rule=conway):
+        """One k-step K1 launch per call, from a copy of a random board."""
+        if shape not in random_words:
+            random_words[shape] = words(rng.integers(0, 2, size=shape, dtype=np.int8))
         return pingpong(
             lambda a, b: ps.packed_multi_step(a, rule, shape, k, block_steps=k, scratch=b),
-            words(rng.integers(0, 2, size=shape, dtype=np.int8)))
+            random_words[shape].clone())
 
-    def kernel_ms(shape, k: int, reps: int) -> float:
-        return cuda_ms(launcher(shape, k), reps)
+    def kernel_ms(shape, k: int, reps: int, rule=conway) -> float:
+        return cuda_ms(launcher(shape, k, rule), reps)
 
     def profiled_ms(launch, kernel: str, reps: int) -> float | None:
         """Mean time of one launch on the device, from the profiler's
@@ -363,8 +508,9 @@ def main() -> int:
         us = [e.time_range.elapsed_us() for e in prof.events() if kernel in e.name]
         return sum(us) / len(us) / 1e3 if us else None
 
-    def device_ms(shape, k: int, reps: int) -> float | None:
-        return profiled_ms(launcher(shape, k), "packed_stripe_kernel", reps)
+    def device_ms(shape, k: int, reps: int, rule=conway,
+                  kernel: str = "packed_stripe_kernel") -> float | None:
+        return profiled_ms(launcher(shape, k, rule), kernel, reps)
 
     def fmt(v: float | None) -> str:
         return "not measured (no kernel records)" if v is None else f"{v:.4f}"
@@ -372,14 +518,15 @@ def main() -> int:
     ops_per_word = ps.logic_ops_per_word_step(rule)
     int_ops_per_s = n_sm * INT_OPS_PER_CLOCK_PER_SM * sm_clock_mhz * 1e6
 
-    def bound(shape, k: int) -> tuple[float, str]:
+    def bound(shape, k: int, rule=conway) -> tuple[float, str]:
         """The larger of the words read and written once over the memory
         rate and the logic instructions over the integer issue rate (one
         more per step on each row's partial last word, for the mask)."""
         h, w = shape
         n_words = h * bitlife.packed_width(w)
         mem_ms = 2 * n_words * 4 / HBM_BYTES_PER_S * 1e3
-        ops = ops_per_word * n_words * k + (h * k if w % bitlife.WORD else 0)
+        ops = (ps.logic_ops_per_word_step(rule) * n_words * k
+               + (h * k if w % bitlife.WORD else 0))
         ops_ms = ops / int_ops_per_s * 1e3
         return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
 
@@ -409,7 +556,7 @@ def main() -> int:
     ref_ms = kernel_ms(ref, BLOCK_STEPS, 200)
     ref_dev_ms = device_ms(ref, BLOCK_STEPS, 200)
     board_sized = ps.tile_rows
-    ps.tile_rows = lambda k, h, nwords, n_sm: 4 * max(16, k)  # full-height tiles
+    ps.tile_rows = lambda k, h, nwords, n_sm, radius=1: 4 * max(16, radius * k)  # full-height tiles
     try:
         fixed_dev_ms = device_ms(ref, BLOCK_STEPS, 200)
     finally:
@@ -496,6 +643,148 @@ def main() -> int:
                      f"{max(mem_ms, ops_ms):.6f} ms ({'operations' if ops_ms >= mem_ms else 'bytes'})")
     print("timing K2 1500x500: " + "; ".join(small), flush=True)
 
+    # -- 7. von Neumann and torus rules at full size --------------------------
+    rule = get_rule(DIAMOND)
+    board = rng.integers(0, 2, size=(FULL, FULL), dtype=np.int8)
+    runner = make_runner(backend, board, rule)
+    if runner.route != "k1_diamond":
+        fail(f"rule {DIAMOND} took route {runner.route!r}, want 'k1_diamond'")
+    x0 = runner.x.clone()
+    ps.packed_multi_step.launches = ps.packed_multi_step.diamond_launches = 0
+    t0 = time.perf_counter()
+    drive_runner(runner, FULL_STEPS)
+    drive_s = time.perf_counter() - t0
+    diamond_full_launches = ps.packed_multi_step.diamond_launches
+    if diamond_full_launches != FULL_STEPS // BLOCK_STEPS:
+        fail(f"the full-size diamond run launched the diamond mode "
+             f"{diamond_full_launches} times, want {FULL_STEPS // BLOCK_STEPS}")
+    want = ps.packed_multi_step_plain(x0, rule, (FULL, FULL), FULL_STEPS)
+    err = diff_cells(runner.x, want)
+    diamond_max_err = max(diamond_max_err, err)
+    if err:
+        fail(f"full-size diamond run != plain after {FULL_STEPS} steps")
+    live = runner.live_count()
+    if live != int(bitlife.live_count_packed(want)) or live <= 0:
+        fail(f"full-size diamond live count {live} disagrees with the plain version")
+    print(f"full size: {DIAMOND} {FULL}^2 x {FULL_STEPS} steps through the cuda backend "
+          f"(route k1_diamond, {diamond_full_launches} launches, {drive_s:.3f} s host clock) "
+          f"equal to plain; live cells {live}", flush=True)
+    cps = measure_throughput(backend, board, rule, FULL_STEPS, FULL_STEPS // 4)
+    print(f"cell_updates_per_sec_per_chip {cps:.6e} ({FULL}^2 {DIAMOND} through the "
+          f"Runner, host clock, delta of {FULL_STEPS} and {FULL_STEPS // 4} steps)", flush=True)
+    del runner, x0, want
+    torch.cuda.empty_cache()
+
+    diamond_rows = {}
+    for name in (DIAMOND, DIAMOND_R1):
+        rule = get_rule(name)
+        d_ms = kernel_ms((FULL, FULL), BLOCK_STEPS, 40, rule)
+        d_dev_ms = device_ms((FULL, FULL), BLOCK_STEPS, 20, rule, "packed_diamond_kernel")
+        xp = words(board)
+        d_plain_ms = cuda_ms(
+            lambda: ps.packed_multi_step_plain(xp, rule, (FULL, FULL), BLOCK_STEPS), 2)
+        d_bound, d_by = bound((FULL, FULL), BLOCK_STEPS, rule)
+        d_ops = ps.logic_ops_per_word_step(rule)
+        print(f"timing K1 diamond mode {FULL}^2 {name}, k={BLOCK_STEPS}, "
+              f"{ps.tile_rows(BLOCK_STEPS, FULL, bitlife.packed_width(FULL), n_sm, rule.radius)}"
+              f"-row tiles: kernel {d_ms:.4f} ms/launch by CUDA events "
+              f"({d_ms / BLOCK_STEPS:.4f} ms/step, "
+              f"{FULL * FULL * BLOCK_STEPS / (d_ms * 1e-3):.4e} cells/s, "
+              f"{d_bound / d_ms:.1%} of the bound); device time {fmt(d_dev_ms)} ms/launch "
+              f"(profiler kernel records); plain {d_plain_ms:.4f} ms per {BLOCK_STEPS} steps; "
+              f"bound {d_bound:.4f} ms/launch ({d_by}: {d_ops} logic ops/word/step at "
+              f"{int_ops_per_s:.4e} int ops/s; {2 * full_words * 4} bytes at "
+              f"{HBM_BYTES_PER_S:.3e} B/s)", flush=True)
+        depths = sorted({ps.clamp_block_steps(rule, k) for k in (1, 2, 4, 8, 16, 32)})
+        d_sweep = {k: kernel_ms((FULL, FULL), k, max(4, 64 // k), rule) / k for k in depths}
+        print(f"ms/step by block_steps at {FULL}^2, {name}: " + ", ".join(
+            f"k={k}: {v:.4f}" for k, v in d_sweep.items()), flush=True)
+        diamond_rows[name] = dict(ms=d_ms, device_ms=d_dev_ms, plain_ms=d_plain_ms,
+                                  bound_ms=d_bound, bound_by=d_by)
+        del xp
+    rule = get_rule(DIAMOND)
+    d_ref_ms = kernel_ms(ref, BLOCK_STEPS, 200, rule)
+    d_ref_dev_ms = device_ms(ref, BLOCK_STEPS, 200, rule, "packed_diamond_kernel")
+    xp = words(rng.integers(0, 2, size=ref, dtype=np.int8))
+    d_ref_plain_ms = cuda_ms(lambda: ps.packed_multi_step_plain(xp, rule, ref, BLOCK_STEPS), 3)
+    print(f"timing K1 diamond mode 1500x500 {DIAMOND}, k={BLOCK_STEPS}, "
+          f"{ps.tile_rows(BLOCK_STEPS, ref[0], bitlife.packed_width(ref[1]), n_sm, 2)}-row "
+          f"tiles: {d_ref_ms:.4f} ms/launch by CUDA events over back-to-back calls; device "
+          f"time {fmt(d_ref_dev_ms)} ms/launch; plain {d_ref_plain_ms:.4f} ms per "
+          f"{BLOCK_STEPS} steps; bound {bound(ref, BLOCK_STEPS, rule)[0]:.6f} ms", flush=True)
+    del xp
+    torch.cuda.empty_cache()
+
+    # the packed torus ops: held to the int8 torus ops on the same board
+    name, side, steps = TORUS_FULL
+    rule = get_rule(name)
+    board = rng.integers(0, 2, size=(side, side), dtype=np.int8)
+    kernel_counts = lambda: (ps.packed_multi_step.launches, kt.int8_multi_step.launches)
+    before = kernel_counts()
+    runner = make_runner(backend, board, rule)
+    other = make_runner(get_backend("cuda", bitpack=False), board, rule)
+    if (runner.route, other.route) != ("packed_torus", "stencil"):
+        fail(f"rule {name} took routes {runner.route!r} and (bitpack off) {other.route!r}")
+    t0 = time.perf_counter()
+    drive_runner(runner, steps)
+    drive_s = time.perf_counter() - t0
+    drive_runner(other, steps)
+    if not np.array_equal(runner.fetch(), other.fetch()):
+        fail(f"full-size {name}: the packed torus ops and the int8 torus ops disagree "
+             f"after {steps} steps")
+    live = runner.live_count()
+    if live != other.live_count() or live <= 0:
+        fail(f"full-size {name} live count {live} disagrees with the int8 torus ops")
+    print(f"full size: {name} {side}^2 x {steps} steps through the cuda backend (route "
+          f"packed_torus, no kernel, {drive_s:.3f} s host clock) equal to the int8 torus "
+          f"ops; live cells {live}", flush=True)
+    del other
+    torch.cuda.empty_cache()
+    cps = measure_throughput(backend, board, rule, steps, steps // 4)
+    step = bitlife.make_packed_torus_step(rule, side)
+    torus_ms = cuda_ms(lambda: step(runner.x), 5)
+    print(f"cell_updates_per_sec_per_chip {cps:.6e} ({side}^2 {name} through the Runner, "
+          f"host clock, delta of {steps} and {steps // 4} steps); packed torus ops "
+          f"{torus_ms:.4f} ms/step by CUDA events", flush=True)
+    del runner
+    torch.cuda.empty_cache()
+
+    # the int8 stencil ops on the torus: a torus has no edge, so the run of
+    # a rolled board is the rolled run
+    shift = (1234, -4321)
+    for name, side, steps in STENCIL_FULL:
+        rule = get_rule(name)
+        board = states_board((side, side), rule)
+        runner = make_runner(backend, board, rule)
+        if runner.route != "stencil":
+            fail(f"rule {name} took route {runner.route!r}, want 'stencil'")
+        rolled = stencil.multi_step(torch.roll(runner.x, shift, dims=(0, 1)), rule=rule, steps=steps)
+        t0 = time.perf_counter()
+        drive_runner(runner, steps)
+        drive_s = time.perf_counter() - t0
+        if not torch.equal(torch.roll(runner.x, shift, dims=(0, 1)), rolled):
+            fail(f"full-size {name}: the run of the rolled board is not the rolled run")
+        live = runner.live_count()
+        states_seen = int(runner.x.max()), int(runner.x.min())
+        if live <= 0 or states_seen[0] >= rule.states or states_seen[1] < 0:
+            fail(f"full-size {name}: live cells {live}, states {states_seen[1]}..{states_seen[0]}")
+        del rolled
+        torch.cuda.empty_cache()
+        print(f"full size: {name} {side}^2 x {steps} steps through the cuda backend (route "
+              f"stencil, no kernel, {drive_s:.3f} s host clock) equal under a roll by "
+              f"{shift}; live cells {live}", flush=True)
+        cps = measure_throughput(backend, board, rule, steps, steps // 4)
+        step = stencil.make_step(rule)
+        stencil_ms = cuda_ms(lambda: step(runner.x), 3)
+        print(f"cell_updates_per_sec_per_chip {cps:.6e} ({side}^2 {name} through the "
+              f"Runner, host clock, delta of {steps} and {steps // 4} steps); int8 stencil "
+              f"ops {stencil_ms:.4f} ms/step by CUDA events", flush=True)
+        del runner
+        torch.cuda.empty_cache()
+    if kernel_counts() != before:
+        fail(f"the ops routes launched a kernel: counts {before} -> {kernel_counts()}")
+
+    diamond = diamond_rows[DIAMOND]
     print(json.dumps({"kernels": [{
         "name": "packed_stripe_multi_step",
         "route": "cuda",
@@ -511,6 +800,23 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "packed_diamond_multi_step",
+        "route": "cuda",
+        "source": "tpu_life_torch/csrc/packed_stripe.cu",
+        "replaces": "tpu_life/backends/pallas_backend.py:276",
+        "launches": diamond_main_launches,
+        "max_abs_err": diamond_max_err,
+        "equal_to_plain": diamond_max_err == 0,
+        "rule": DIAMOND,
+        "shape": [FULL, FULL],
+        "steps_per_launch": BLOCK_STEPS,
+        "ms": diamond["ms"],
+        "kernel_ms": diamond["ms"],
+        "plain_ms": diamond["plain_ms"],
+        "bound_ms": diamond["bound_ms"],
+        "bound_by": diamond["bound_by"],
         "library_ms": None,
     }, {
         "name": "int8_tiled_multi_step",

@@ -143,18 +143,22 @@ def test_snapshot_survives_later_advances():
     [("brians_brain", "K2"), ("bugs", "K2"), ("conway:T", "torus"), ("R1,C2,S1,B1,NN", "diamond")],
 )
 def test_other_rules_raise_not_implemented(backend, spec, match):
-    # Generations and Larger-than-Life now run on cuda (kernel K2) and must
-    # match the oracle there; everywhere else each rule still raises the
-    # typed error naming where it is queued or which backend runs it
+    # these rules once raised a typed "not yet ported" error (``match`` was
+    # the word it carried: the kernel, or the mode still to come).  Every
+    # deterministic rule now runs on both backends: each case holds the
+    # result to the oracle and names the route it takes.
+    routes = {
+        ("cuda", "K2"): "k2", ("cuda", "torus"): "packed_torus", ("cuda", "diamond"): "k1_diamond",
+        ("torch", "K2"): "stencil", ("torch", "torus"): "packed_torus",
+        ("torch", "diamond"): "packed_diamond",
+    }
     b = _board((16, 16), seed=2)
     rule = get_rule(spec)
-    if backend == "cuda" and match == "K2":
-        got = get_backend(backend, device="cpu").run(b, rule, 3)
-        np.testing.assert_array_equal(got, run_np(b, rule, 3))
-        return
-    with pytest.raises(NotImplementedError, match=match) as e:
-        get_backend(backend, device="cpu").run(b, rule, 1)
-    assert "ROADMAP" in str(e.value)
+    runner = make_runner(get_backend(backend, device="cpu"), b, rule)
+    assert runner.route == routes[backend, match]
+    runner.advance(3)
+    np.testing.assert_array_equal(runner.fetch(), run_np(b, rule, 3))
+    np.testing.assert_array_equal(get_backend(backend, device="cpu").run(b, rule, 3), run_np(b, rule, 3))
 
 
 @pytest.mark.parametrize("spec", ["brians_brain", "conway:T", "R1,C2,S1,B1,NN"])

@@ -148,7 +148,8 @@ def test_jax_output_is_a_valid_port_input(tmp_path, reference_dir):
         (["--rule", "B9x/S"], "unrecognized rule spec"),
         (["--rule", "ising"], "not yet ported"),
         (["--config-file", "missing.txt"], "config file 'missing.txt' not found"),
-        (["--rule", "conway:T", "--device", "cpu"], "not yet ported to the cuda backend"),
+        (["--rule", "conway:T", "--device", "cpu", "--block-steps", "40"], "block_steps must be in [1, 32]"),
+        (["--rule", "noisy:0.1/conway:T", "--device", "cpu"], "not yet ported"),
         ([], "pass --device cpu"),
     ],
 )

@@ -4,9 +4,11 @@ A backend advances a board ``steps`` steps; all backends are bit-identical
 on the same (board, rule, steps) and differ only in where the work runs:
 
 - ``numpy``  the pure-NumPy truth executor, on the host
-- ``torch``  the plain PyTorch bit-sliced step, on an explicit device
-- ``cuda``   the hand-written packed stripe kernel on the card (the
-             plain version when the caller asks for the CPU)
+- ``torch``  plain PyTorch ops (bit-sliced where the rule allows, else the
+             int8 stencil), on an explicit device
+- ``cuda``   the hand-written kernels on the card, and plain PyTorch ops
+             there for the rules no kernel counts (the plain versions
+             when the caller asks for the CPU)
 
 Only deterministic rules exist here: the stochastic and continuous rule
 specs are refused when parsed (``models.rules.NotPortedError``).

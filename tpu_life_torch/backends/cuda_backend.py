@@ -1,25 +1,35 @@
-"""The ``cuda`` backend: clamped Moore rules through the hand-written kernels.
+"""The ``cuda`` backend: every deterministic rule on the card, through the
+hand-written kernels where the TPU backend had one.
 
 The counterpart of ``tpu_life/backends/pallas_backend.py``'s
-``PallasBackend`` (``prepare``, ``_prepare_packed``, ``_make_runner``),
-rebuilt for the GPU:
+``PallasBackend`` (``prepare``, ``_prepare_packed``, ``_make_runner``,
+``_xla_scan_runner``), rebuilt for the GPU.  ``prepare`` routes in that
+backend's order and records the route in the runner (``runner.route``):
 
-- clamped life-like rules with ``bitpack`` on (the default) go through
-  kernel K1 (``kernels.packed_stripe.packed_multi_step``) on the unframed
-  ``pack_np`` words, int32[H, ceil(W/32)];
-- every other clamped Moore rule — Generations, Larger-than-Life, and
-  life-like rules with ``bitpack=False`` — goes through kernel K2
+- ``k1_diamond``: clamped 2-state von Neumann rules of radius <= 2 with
+  ``bitpack`` on go through the diamond mode of kernel K1
+  (``kernels.packed_stripe.packed_multi_step``), the depth clamped to
+  ``32 // radius``;
+- ``packed_torus`` and ``stencil``: every other von Neumann rule and every
+  torus rule has no kernel in either package (the TPU backend sends them
+  to its fused XLA scan) and runs the plain torch ops on the card,
+  routed by ``torch_backend.plain_runner``: life-like torus rules on the
+  packed words, the rest on the int8 board at its exact shape;
+- ``k1``: clamped life-like rules with ``bitpack`` on (the default) go
+  through the Moore mode of kernel K1 on the unframed ``pack_np`` words,
+  int32[H, ceil(W/32)];
+- ``k2``: every other clamped Moore rule — Generations, Larger-than-Life,
+  and life-like rules with ``bitpack=False`` — goes through kernel K2
   (``kernels.int8_tiled.int8_multi_step``) on the unframed int8[H, W]
   board, its block depth clamped to the rule's radius as the TPU backend
-  clamps it;
-- both at every board size: the TPU backend's small-board fallback existed
-  for Mosaic's alignment rules, which a CUDA kernel does not have.  Each
-  kernel loads zeros outside the board, so there is no frame to pad or to
-  re-zero;
-- each advance of n steps is ``n // block_steps`` launches plus one
-  remainder launch, ping-ponging two buffers allocated once;
-- von Neumann and torus rules raise ``NotImplementedError`` naming their
-  ROADMAP item.
+  clamps it.
+
+The kernels run at every board size: the TPU backend's small-board
+fallback existed for Mosaic's alignment rules, which a CUDA kernel does
+not have.  Each kernel loads zeros outside the board, so there is no frame
+to pad or to re-zero.  Each advance of n steps is ``n // block_steps``
+launches plus one remainder launch, ping-ponging two buffers allocated
+once.  No route catches an error of another and carries on.
 
 ``CudaBackend(device="cpu")`` runs the same dispatch, blocking and
 remainder logic over the plain versions; that is how the CPU tests reach
@@ -40,7 +50,7 @@ from tpu_life_torch.backends.base import (
 from tpu_life_torch.backends.torch_backend import (
     DeviceRunner,
     from_words,
-    require_clamped_moore,
+    plain_runner,
     to_words,
 )
 from tpu_life_torch.kernels.int8_tiled import clamp_block_steps, int8_multi_step
@@ -70,13 +80,17 @@ class CudaBackend:
         self.bitpack = bitpack
 
     def prepare(self, board: np.ndarray, rule: Rule) -> DeviceRunner:
-        require_clamped_moore(rule, self.name)
+        if self.bitpack and bitlife.supports_diamond(rule):
+            return self._prepare_packed(board, rule, "k1_diamond")
+        if rule.neighborhood != "moore" or rule.boundary != "clamped":
+            # no kernel counts these: the plain ops are their executor
+            return plain_runner(board, rule, self.device, self.bitpack)
         if self.bitpack and bitlife.supports(rule):
-            return self._prepare_packed(board, rule)
+            return self._prepare_packed(board, rule, "k1")
         return self._prepare_int8(board, rule)
 
-    def _prepare_packed(self, board: np.ndarray, rule: Rule) -> DeviceRunner:
-        """Kernel K1 over the packed words."""
+    def _prepare_packed(self, board: np.ndarray, rule: Rule, route: str) -> DeviceRunner:
+        """Kernel K1 (the mode the rule selects) over the packed words."""
         h, w = board.shape
         x = to_words(board, self.device)
         # the second buffer of the ping-pong; the plain version on the CPU
@@ -93,7 +107,7 @@ class CudaBackend:
             return out
 
         return DeviceRunner(
-            x, advance, lambda x: from_words(x, w), bitlife.live_count_packed
+            x, advance, lambda x: from_words(x, w), bitlife.live_count_packed, route
         )
 
     def _prepare_int8(self, board: np.ndarray, rule: Rule) -> DeviceRunner:
@@ -111,7 +125,7 @@ class CudaBackend:
                 spare = x
             return out
 
-        return DeviceRunner(x, advance, lambda x: x.cpu().numpy(), live_count_cells)
+        return DeviceRunner(x, advance, lambda x: x.cpu().numpy(), live_count_cells, "k2")
 
     def run(
         self,

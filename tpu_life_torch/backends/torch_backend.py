@@ -1,11 +1,16 @@
-"""The ``torch`` backend: the plain PyTorch bit-sliced step on one device.
+"""The ``torch`` backend: every deterministic rule in plain PyTorch ops.
 
-The counterpart of ``tpu_life/backends/jax_backend.py``'s packed path
-(``DeviceRunner``, ``packed_device_runner``): the board lives on the
-device as int32 words in the ``pack_np`` layout, and ``advance`` runs
-``ops.bitlife.multi_step_packed`` there.  It runs clamped life-like rules
-only; the ``cuda`` backend runs the rest of the clamped Moore rules.
-``DeviceRunner`` serves both backends, over packed words or int8 boards.
+The counterpart of ``tpu_life/backends/jax_backend.py`` (``DeviceRunner``,
+``packed_device_runner``, ``JaxBackend.prepare``).  :func:`plain_runner`
+decides the route in the JAX backend's order: with ``bitpack`` on, clamped
+life-like rules, clamped 2-state von Neumann rules of radius <= 2 and
+life-like torus rules run bit-sliced on int32 words in the ``pack_np``
+layout (``ops.bitlife``); every other rule, and every rule with
+``bitpack`` off, runs the int8 stencil (``ops.stencil.multi_step``) on the
+board at its exact shape, which is what a torus needs.  The ``cuda``
+backend hands the rules it has no kernel for to the same function, so one
+place decides them.  ``DeviceRunner`` serves both backends, over packed
+words or int8 boards, and names the route it was built for.
 """
 
 from __future__ import annotations
@@ -23,40 +28,7 @@ from tpu_life_torch.backends.base import (
 )
 from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.ops import bitlife
-
-
-def require_clamped_moore(rule: Rule, backend: str) -> None:
-    """Raise the typed ``NotImplementedError`` for the rules no backend of
-    this package runs on the card yet, naming where they are queued."""
-    if rule.boundary == "torus":
-        what = "the packed and int8 torus steps (':T' rules)"
-    elif rule.neighborhood == "von_neumann":
-        what = (
-            "von Neumann rules (the diamond mode of the packed stripe kernel "
-            "K1 and the int8 von Neumann path)"
-        )
-    else:
-        return
-    raise NotImplementedError(
-        f"rule {rule.name!r} is not yet ported to the {backend} backend; "
-        f"{what} are queued as ROADMAP.md item A5b (the next slice of the "
-        f"port).  Use --backend numpy for it."
-    )
-
-
-def require_life_like(rule: Rule, backend: str) -> None:
-    """Raise the typed ``NotImplementedError`` for every rule the packed
-    path does not run."""
-    require_clamped_moore(rule, backend)
-    if bitlife.supports(rule):
-        return
-    raise NotImplementedError(
-        f"rule {rule.name!r} does not run on the {backend} backend, which "
-        f"runs clamped life-like rules only (ROADMAP.md A5 keeps it so).  "
-        f"Generations and Larger-than-Life rules run on the cuda backend "
-        f"through the int8 tiled kernel K2 (add --device cpu for its plain "
-        f"version on the CPU), or on --backend numpy."
-    )
+from tpu_life_torch.ops.stencil import live_count_cells, multi_step
 
 
 def to_words(board: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -75,7 +47,10 @@ class DeviceRunner:
     """Runner over a device-resident board (packed words or int8 cells):
     ``advance`` queues work with no host round-trip; ``sync`` waits for the
     card and reads one element back; ``to_np`` gathers the board to the
-    host and ``count_live`` reduces its live cells on the device."""
+    host and ``count_live`` reduces its live cells on the device.
+    ``route`` names the executor ``advance`` runs: a kernel (``k1``,
+    ``k1_diamond``, ``k2``) or plain ops (``packed``, ``packed_diamond``,
+    ``packed_torus``, ``stencil``)."""
 
     def __init__(
         self,
@@ -83,11 +58,13 @@ class DeviceRunner:
         advance: Callable[[torch.Tensor, int], torch.Tensor],
         to_np: Callable[[torch.Tensor], np.ndarray],
         count_live: Callable[[torch.Tensor], torch.Tensor],
+        route: str = "",
     ):
         self.x = x
         self._advance = advance
         self._to_np = to_np
         self._count_live = count_live
+        self.route = route
 
     def advance(self, steps: int) -> None:
         if steps > 0:
@@ -114,18 +91,50 @@ class DeviceRunner:
 
 
 def packed_device_runner(
-    board: np.ndarray, rule: Rule, device: torch.device, advance=None
+    board: np.ndarray, device: torch.device, advance, route: str
 ) -> DeviceRunner:
-    """DeviceRunner over the packed board; ``advance`` defaults to the
-    plain masked multi-step."""
-    h, w = board.shape
-    if advance is None:
-        advance = lambda x, n: bitlife.multi_step_packed(
-            x, rule=rule, steps=n, logical_shape=(h, w)
-        )
+    """DeviceRunner over the packed board."""
+    w = board.shape[1]
     return DeviceRunner(
         to_words(board, device), advance, lambda x: from_words(x, w),
-        bitlife.live_count_packed,
+        bitlife.live_count_packed, route,
+    )
+
+
+def plain_runner(
+    board: np.ndarray, rule: Rule, device: torch.device, bitpack: bool = True
+) -> DeviceRunner:
+    """The plain-ops runner of ``rule``, routed as ``JaxBackend.prepare``
+    routes it: packed Moore, packed diamond, packed torus, else the int8
+    stencil on the unpadded board."""
+    h, w = board.shape
+    if bitpack and bitlife.supports(rule):
+        return packed_device_runner(
+            board, device,
+            lambda x, n: bitlife.multi_step_packed(x, rule=rule, steps=n, logical_shape=(h, w)),
+            "packed",
+        )
+    if bitpack and bitlife.supports_diamond(rule):
+        return packed_device_runner(
+            board, device,
+            lambda x, n: bitlife.multi_step_packed_diamond(
+                x, rule=rule, steps=n, logical_shape=(h, w)
+            ),
+            "packed_diamond",
+        )
+    if bitpack and bitlife.supports_torus(rule):
+        return packed_device_runner(
+            board, device,
+            lambda x, n: bitlife.multi_step_packed_torus(x, rule=rule, steps=n, width=w),
+            "packed_torus",
+        )
+    # the board at its exact shape: nothing to mask on a clamped board, and
+    # on a torus padding would sit between the edges it glues together.  A
+    # copy even on the CPU: the runner's board is not the caller's array
+    x = torch.from_numpy(np.ascontiguousarray(board, np.int8)).to(device, copy=True)
+    return DeviceRunner(
+        x, lambda x, n: multi_step(x, rule=rule, steps=n),
+        lambda x: x.cpu().numpy(), live_count_cells, "stencil",
     )
 
 
@@ -133,12 +142,12 @@ def packed_device_runner(
 class TorchBackend:
     name = "torch"
 
-    def __init__(self, *, device=None, **_):
+    def __init__(self, *, device=None, bitpack: bool = True, **_):
         self.device = resolve_device(device)
+        self.bitpack = bitpack
 
     def prepare(self, board: np.ndarray, rule: Rule) -> DeviceRunner:
-        require_life_like(rule, self.name)
-        return packed_device_runner(board, rule, self.device)
+        return plain_runner(board, rule, self.device, self.bitpack)
 
     def run(
         self,

@@ -33,9 +33,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument(
         "--backend", default="auto", choices=["auto", "cuda", "torch", "numpy"],
         help="auto = cuda: the hand-written kernels for clamped Moore rules "
-        "(life-like, Generations, Larger-than-Life); torch = the plain "
-        "PyTorch bit-sliced step (life-like); numpy = the host oracle "
-        "(every deterministic rule)",
+        "(life-like, Generations, Larger-than-Life) and clamped 2-state von "
+        "Neumann rules of radius <= 2, plain PyTorch ops on the card for the "
+        "other von Neumann rules and the torus (':T') rules; torch = plain "
+        "PyTorch ops for every rule; numpy = the host oracle",
     )
     r.add_argument(
         "--device", default=None,
@@ -44,12 +45,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     r.add_argument(
         "--block-steps", type=int, default=None,
-        help="CA steps per kernel launch (1..32; default 8)",
+        help="CA steps per kernel launch (1..32; default 8; clamped to what "
+        "the rule's radius allows)",
     )
     r.add_argument(
         "--no-bitpack", dest="bitpack", action="store_false",
-        help="run life-like rules on the int8 path (kernel K2) in place of "
-        "the bit-sliced one (kernel K1); bit-identical",
+        help="run the rules that have a bit-sliced path (life-like, clamped "
+        "or torus, and 2-state von Neumann of radius <= 2) on the int8 path "
+        "instead: kernel K2 for clamped Moore rules, the int8 stencil ops "
+        "for the rest; bit-identical",
     )
     r.add_argument("--sync-every", type=int, default=0,
                    help="steps per host sync chunk (0 = one run)")
@@ -105,10 +109,11 @@ def _info() -> int:
     print("backends:", ", ".join(sorted(BACKENDS)), "(auto = cuda)")
     print("rules:", ", ".join(sorted(RULE_REGISTRY)))
     print(
-        "cuda runs clamped Moore rules (life-like, Generations, LtL); "
-        "torch runs clamped life-like rules; numpy runs every "
-        "deterministic rule (also NN and ':T'); ising, noisy: and lenia "
-        "are not ported yet"
+        "cuda, torch and numpy run every deterministic rule: cuda through "
+        "the hand-written kernels K1 (life-like; 2-state NN of radius <= 2) "
+        "and K2 (other clamped Moore rules) and through PyTorch ops on the "
+        "card for the other NN and the ':T' rules; torch through PyTorch "
+        "ops alone; ising, noisy: and lenia are not ported yet"
     )
     return 0
 
@@ -123,8 +128,8 @@ def console_main() -> int:
         print(f"{PROG}: interrupted", file=sys.stderr)
         return 130
     except (ValueError, RuntimeError, OSError) as e:
-        # bad config/flags/rules, missing files, no card, rules not yet
-        # ported (NotImplementedError is a RuntimeError)
+        # bad config/flags/rules, missing files, no card, rule tiers not
+        # yet ported
         print(f"{PROG}: error: {e}", file=sys.stderr)
         return 1
 

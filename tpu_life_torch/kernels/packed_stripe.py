@@ -1,20 +1,24 @@
-"""Kernel K1: k bit-sliced life-like steps per pass, hand-written CUDA.
+"""Kernel K1: k bit-sliced steps per pass, hand-written CUDA, in two modes.
 
 Replaces the TPU kernel ``make_pallas_packed_multi_step`` and its body
-``_packed_tile_advance`` (``tpu_life/backends/pallas_backend.py``, Moore
-mode).  The source is ``tpu_life_torch/csrc/packed_stripe.cu``; it is
-compiled by ``nvcc`` for ``sm_90a`` at first use (``kernels._build``) and
-called through ``ctypes``.
+``_packed_tile_advance`` (``tpu_life/backends/pallas_backend.py``): the
+Moore mode for clamped life-like rules, and the diamond mode for clamped
+2-state von Neumann rules of radius 1 or 2 (``bitlife.supports_diamond``).
+The source is ``tpu_life_torch/csrc/packed_stripe.cu``, one kernel per
+mode; it is compiled by ``nvcc`` for ``sm_90a`` at first use
+(``kernels._build``) and called through ``ctypes``.
 
-The function both versions compute: ``steps`` masked life-like steps of a
-packed board — int32 words in the ``bitlife.pack_np`` layout, shape
+The function both versions compute: ``steps`` masked steps of a packed
+board — int32 words in the ``bitlife.pack_np`` layout, shape
 ``(lh, ceil(lw / 32))``, no frame — each step equal to
-``bitlife.make_masked_packed_step(rule, (lh, lw))``.
+``bitlife.make_masked_packed_step(rule, (lh, lw))``, which picks the Moore
+or the diamond step by the rule.
 
 - :func:`packed_multi_step` launches the kernel for a CUDA tensor:
   ``steps // block_steps`` launches of ``block_steps`` substeps each, then
-  one launch for the remainder.  For a CPU tensor it runs the plain
-  version.  Any other device raises; nothing falls back.
+  one launch for the remainder.  A diamond of radius r reaches r cells a
+  substep, so its depth is clamped to ``32 // r``.  For a CPU tensor it
+  runs the plain version.  Any other device raises; nothing falls back.
 - :func:`packed_multi_step_plain` is the plain PyTorch version, on any
   device: the CPU tests use it, and ``chip_smoke.py`` holds the kernel to
   it on the card.
@@ -32,10 +36,10 @@ import torch
 from tpu_life_torch.kernels import _build
 from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.ops import bitlife
-from tpu_life_torch.ops.boolmin import rule_sop
+from tpu_life_torch.ops.boolmin import membership_rule_sop, rule_sop
 
 SOURCE = _build.CSRC / "packed_stripe.cu"
-MAX_BLOCK_STEPS = 32  # the one-word horizontal halo covers 32 substeps
+MAX_BLOCK_STEPS = 32  # the one-word horizontal halo covers 32 cells of reach
 TILE_WORDS = 30  # output words per tile row: kInterior in the CUDA source
 _MAX_TERMS = 32
 _LITERALS = 5
@@ -52,23 +56,63 @@ class _Sop(ctypes.Structure):
     ]
 
 
+def _rule_sop(rule: Rule) -> tuple[tuple[tuple[int, int], ...], list[int]]:
+    """The rule's minimized SOP and, for each of its input bits, the
+    kernel literal (b0..b3 = 0..3, the cell = 4) that carries it.  A
+    life-like rule reads the total's four planes and the cell at bit 4
+    (``boolmin.rule_sop``); a diamond reads the raw count's ``nplanes``
+    planes and the cell right after them, at bit ``nplanes``
+    (``boolmin.membership_rule_sop``)."""
+    if bitlife.supports_diamond(rule):
+        nplanes, sop = membership_rule_sop(
+            rule.birth, rule.survive, bitlife.diamond_count_max(rule)
+        )
+        return sop, [*range(nplanes), _LITERALS - 1]
+    return rule_sop(rule.birth, rule.survive), list(range(_LITERALS))
+
+
 def sop_table(rule: Rule) -> _Sop:
-    """The rule's minimized SOP (``boolmin.rule_sop``) as kernel data:
-    term t = AND_i ((lit_i ^ flip[t][i]) | loose[t][i])."""
-    sop = rule_sop(rule.birth, rule.survive)
+    """The rule's minimized SOP as kernel data:
+    term t = AND_i ((lit_i ^ flip[t][i]) | loose[t][i]).  A literal the
+    SOP has no bit for (a count plane a small diamond never reaches) is
+    loose in every term."""
+    sop, literal_of_bit = _rule_sop(rule)
     if len(sop) > _MAX_TERMS:
         raise ValueError(f"rule {rule.name!r} needs {len(sop)} SOP terms (> {_MAX_TERMS})")
     table = _Sop(n_terms=len(sop))
     for t, (mask, value) in enumerate(sop):
         for i in range(_LITERALS):
-            table.flip[t][i] = 0 if value >> i & 1 else _ONES
-            table.loose[t][i] = 0 if mask >> i & 1 else _ONES
+            table.flip[t][i] = table.loose[t][i] = _ONES
+        for bit, i in enumerate(literal_of_bit):
+            table.flip[t][i] = 0 if value >> bit & 1 else _ONES
+            table.loose[t][i] = 0 if mask >> bit & 1 else _ONES
     return table
+
+
+def _diamond_logic_ops(rule: Rule) -> int:
+    """:func:`logic_ops_per_word_step` for a diamond.  Radius 1: two
+    funnel shifts (L1, R1); two carry-save adds over up, down, L1, R1 and
+    the centre (sum and majority, 2 each); the planes b1 and b2, one each.
+    Radius 2: four funnel shifts (L1, R1, L2, R2 of the row, formed once and
+    used first in the box of the row above); the row's 3-wide box, one
+    carry-save add (2); four carry-save adds of the nine weight-1 planes
+    (8); two of the six weight-2 planes (4), then b1 and the carry beside
+    it (2); one of the weight-4 planes (b2 and b3, one each).  Then the
+    rule's SOP as one read-once formula of L literals, L // 2 instructions.
+    A top plane the SOP does not read is not counted."""
+    sop, literal_of_bit = _rule_sop(rule)
+    read = functools.reduce(operator.or_, (mask for mask, _ in sop), 0)
+    planes_read = {i for bit, i in enumerate(literal_of_bit) if read >> bit & 1}
+    literals = sum(bin(mask).count("1") for mask, _ in sop)
+    if rule.radius == 1:
+        return 2 + 4 + (1 in planes_read) + (2 in planes_read) + literals // 2
+    return 4 + 2 + 8 + 4 + 2 + (2 in planes_read) + (3 in planes_read) + literals // 2
 
 
 def logic_ops_per_word_step(rule: Rule) -> int:
     """The 32-bit logic instructions one word needs per step, where one
-    Hopper ``LOP3`` computes any function of three inputs: the vertical
+    Hopper ``LOP3`` computes any function of three inputs.  For a diamond
+    see :func:`_diamond_logic_ops`.  For a life-like rule: the vertical
     carry-save add (sum and majority, 2); the funnel shifts that build the
     left and right neighbour planes (2 for ones, 2 for twos); the
     horizontal carry-save adds (b0 = sum of the ones, and the carries c1,
@@ -76,6 +120,8 @@ def logic_ops_per_word_step(rule: Rule) -> int:
     and the rule's SOP as one read-once formula of L literals, L // 2
     instructions.  A plane the SOP does not read is not counted.  The board
     mask, needed only on a partial last word, is counted by the caller."""
+    if bitlife.supports_diamond(rule):
+        return _diamond_logic_ops(rule)
     sop = rule_sop(rule.birth, rule.survive)
     read = functools.reduce(operator.or_, (mask for mask, _ in sop), 0)
     high = bool(read & 0b1110)  # b1..b3 need the twos plane and the carries
@@ -89,11 +135,18 @@ def logic_ops_per_word_step(rule: Rule) -> int:
     )
 
 
-def tile_rows(block_steps: int, height: int, nwords: int, n_sm: int) -> int:
-    """Output rows per block: four times the row halo (at least 64), so the
-    halo recompute stays a minor share of the block's work; halved, down
-    to 8, while the grid would have fewer blocks than the card has SMs."""
-    rows = 4 * max(16, block_steps)
+def clamp_block_steps(rule: Rule, block_steps: int) -> int:
+    """The substeps of one launch: a rule of radius r reaches r cells a
+    substep, and the one-word sideways halo covers 32 of them."""
+    return min(block_steps, MAX_BLOCK_STEPS // rule.radius)
+
+
+def tile_rows(block_steps: int, height: int, nwords: int, n_sm: int, radius: int = 1) -> int:
+    """Output rows per block: four times the row halo of ``radius *
+    block_steps`` rows (at least 64), so the halo recompute stays a minor
+    share of the block's work; halved, down to 8, while the grid would have
+    fewer blocks than the card has SMs."""
+    rows = 4 * max(16, radius * block_steps)
     cols = -(-nwords // TILE_WORDS)
     while rows > 8 and cols * -(-height // rows) < n_sm:
         rows = max(8, rows // 2)
@@ -109,13 +162,14 @@ def build() -> Path:
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
-    fn = lib.packed_stripe_multi_step
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Sop),
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    ints = [ctypes.c_int] * 5  # height, nwords, rem_bits, k, tile_rows
+    for fn, mode in ((lib.packed_stripe_multi_step, []),
+                     (lib.packed_diamond_multi_step, [ctypes.c_int] * 2)):  # radius, center
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, *ints, *mode, ctypes.POINTER(_Sop),
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -133,8 +187,9 @@ def _check(x: torch.Tensor, logical_shape: tuple[int, int], name: str) -> None:
 def packed_multi_step_plain(
     x: torch.Tensor, rule: Rule, logical_shape: tuple[int, int], steps: int
 ) -> torch.Tensor:
-    """The plain PyTorch version: ``bitlife``'s masked packed step applied
-    ``steps`` times, on ``x``'s device.  Returns a new tensor."""
+    """The plain PyTorch version: ``bitlife``'s masked packed step (Moore
+    or diamond, by the rule) applied ``steps`` times, on ``x``'s device.
+    Returns a new tensor."""
     return bitlife.multi_step_packed(
         x, rule=rule, steps=steps, logical_shape=tuple(logical_shape)
     )
@@ -149,7 +204,8 @@ def packed_multi_step(
     block_steps: int,
     scratch: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """``steps`` masked life-like steps of the packed board ``x``.
+    """``steps`` masked steps of the packed board ``x``, for a clamped
+    life-like rule or a clamped 2-state von Neumann rule of radius <= 2.
 
     On a CUDA tensor each launch reads one buffer and writes the other,
     ping-ponging between ``x`` and ``scratch`` (allocated when None), and
@@ -157,8 +213,12 @@ def packed_multi_step(
     contents of ``x`` and ``scratch`` are unspecified.  On a CPU tensor it
     returns the plain version's new tensor.
     """
-    if not bitlife.supports(rule):
-        raise ValueError(f"the packed stripe kernel runs clamped life-like rules only, got {rule}")
+    diamond = bitlife.supports_diamond(rule)
+    if not (diamond or bitlife.supports(rule)):
+        raise ValueError(
+            f"the packed stripe kernel runs clamped life-like rules and clamped "
+            f"2-state von Neumann rules of radius <= 2 only, got {rule}"
+        )
     if not 1 <= block_steps <= MAX_BLOCK_STEPS:
         raise ValueError(f"block_steps must be in [1, {MAX_BLOCK_STEPS}], got {block_steps}")
     if steps < 0:
@@ -174,9 +234,14 @@ def packed_multi_step(
     if scratch.device != x.device or scratch.data_ptr() == x.data_ptr():
         raise ValueError("scratch must be a second buffer on x's device")
     lh, lw = logical_shape
+    block_steps = clamp_block_steps(rule, block_steps)
     blocks, rem = divmod(steps, block_steps)
     ks = [block_steps] * blocks + ([rem] if rem else [])
-    fn = _library().packed_stripe_multi_step
+    lib = _library()
+    if diamond:
+        fn, mode = lib.packed_diamond_multi_step, (rule.radius, int(rule.include_center))
+    else:
+        fn, mode = lib.packed_stripe_multi_step, ()
     sop = sop_table(rule)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     src, dst = x, scratch
@@ -185,13 +250,17 @@ def packed_multi_step(
         for k in ks:
             err = fn(
                 src.data_ptr(), dst.data_ptr(), lh, x.shape[1], lw % bitlife.WORD,
-                k, tile_rows(k, lh, x.shape[1], n_sm), ctypes.byref(sop), stream,
+                k, tile_rows(k, lh, x.shape[1], n_sm, rule.radius), *mode,
+                ctypes.byref(sop), stream,
             )
             if err != 0:
-                raise RuntimeError(f"packed_stripe_multi_step launch failed: CUDA error {err}")
+                raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
             packed_multi_step.launches += 1
+            packed_multi_step.diamond_launches += diamond
             src, dst = dst, src
     return src
 
 
+# launches of either mode, and those of them that ran the diamond mode
 packed_multi_step.launches = 0
+packed_multi_step.diamond_launches = 0

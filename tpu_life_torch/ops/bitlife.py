@@ -1,9 +1,12 @@
 """Bit-sliced Life in plain PyTorch: 32 cells per word, counts as bitplanes.
 
-The clamped Moore part of ``tpu_life/ops/bitlife.py`` on torch tensors.
-It is the plain version the hand-written kernel
-(``tpu_life_torch/kernels/packed_stripe.py``) is held to, and the
-executor of the ``torch`` backend on any device.
+The single-device part of ``tpu_life/ops/bitlife.py`` on torch tensors:
+the clamped Moore step, the clamped von Neumann diamond (2 states,
+r <= 2) and the life-like torus step.  The clamped steps are the plain
+versions the hand-written kernel
+(``tpu_life_torch/kernels/packed_stripe.py``) is held to; the torus step
+has no kernel in either package and is what runs on the card.  All three
+are executors of the ``torch`` backend on any device.
 
 Layout: the ``pack_np`` layout of the JAX package — a board row of W cells
 is ``ceil(W/32)`` 32-bit words, column ``c = 32*j + b`` is bit ``b``
@@ -12,11 +15,15 @@ zero.  The words are held as **int32** views of those uint32 words: torch
 on the CPU implements no ``>>`` for uint32, so a logical right shift is an
 arithmetic one with the sign-extended bits masked off (:func:`_lsr`).
 
-Counting: vertical 3-row sums as (ones, twos) planes through carry-save
-adders, a horizontal 3-column add of those planes giving the total
-(center + 8 neighbors, 0..9) as bitplanes b0..b3, then the rule as the
-Quine-McCluskey sum of products of ``alive'(b0..b3, x)``
-(``tpu_life_torch.ops.boolmin``).
+Counting (Moore): vertical 3-row sums as (ones, twos) planes through
+carry-save adders, a horizontal 3-column add of those planes giving the
+total (center + 8 neighbors, 0..9) as bitplanes b0..b3, then the rule as
+the Quine-McCluskey sum of products of ``alive'(b0..b3, x)``
+(``tpu_life_torch.ops.boolmin``).  The torus only swaps the shifts for
+ones that wrap at the logical width.  The diamond is a stack of 2r+1
+horizontal boxes of half-width ``r - |dy|``, all reduced by one carry-save
+tree to the raw count's bitplanes, and the rule is the SOP over that count
+(``boolmin.membership_rule_sop``).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import numpy as np
 import torch
 
 from tpu_life_torch.models.rules import Rule
-from tpu_life_torch.ops.boolmin import rule_sop
+from tpu_life_torch.ops.boolmin import membership_rule_sop, rule_sop
 from tpu_life_torch.utils.padding import ceil_div
 
 WORD = 32
@@ -42,15 +49,45 @@ def packed_width(width: int) -> int:
     return ceil_div(width, WORD)
 
 
-def supports(rule: Rule) -> bool:
-    """Life-like rules (2-state, Moore r=1, no center) on the clamped
-    board: the family the bitplane adder tree computes."""
+def supports_family(rule: Rule) -> bool:
+    """Life-like structure (2-state, Moore r=1, no center): the family the
+    bitplane adder tree computes, whatever the boundary.  The boundary
+    lives in the neighbor-plane shifts plugged into
+    :func:`make_total_planes`."""
     return (
         rule.states == 2
         and rule.radius == 1
         and not rule.include_center
         and rule.neighborhood == "moore"
+    )
+
+
+def supports(rule: Rule) -> bool:
+    """Life-like rules on the clamped board."""
+    return supports_family(rule) and rule.boundary == "clamped"
+
+
+def supports_torus(rule: Rule) -> bool:
+    """Life-like rules on the torus: wrap carries replace the clamped
+    shifts' zero fill, at any width."""
+    return supports_family(rule) and rule.boundary == "torus"
+
+
+def diamond_count_max(rule: Rule) -> int:
+    """The largest raw count of a von Neumann rule: ``2r(r+1)``, one more
+    where the rule counts the center (``M1``)."""
+    return 2 * rule.radius * (rule.radius + 1) + (1 if rule.include_center else 0)
+
+
+def supports_diamond(rule: Rule) -> bool:
+    """2-state clamped von Neumann rules whose largest count fits the four
+    count planes the SOP applier reads: ``2r(r+1) (+1 with center) <= 15``,
+    that is r <= 2.  Larger radii run on the int8 stencil."""
+    return (
+        rule.states == 2
+        and rule.neighborhood == "von_neumann"
         and rule.boundary == "clamped"
+        and diamond_count_max(rule) <= 15
     )
 
 
@@ -88,7 +125,9 @@ def unpack_np(packed: np.ndarray, width: int) -> np.ndarray:
 # --- the step (torch, int32 words) -----------------------------------------------
 
 def _lsr(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Logical right shift of int32 words by ``1 <= k <= 31``."""
+    """Logical right shift of int32 words by ``0 <= k <= 31``."""
+    if k == 0:
+        return x
     return (x >> k) & ((1 << (WORD - k)) - 1)
 
 
@@ -142,17 +181,26 @@ def make_total_planes(
 _total_planes = make_total_planes(_hshift_left, _hshift_right, _vshift)
 
 
-def make_packed_step(rule: Rule) -> Callable[[torch.Tensor], torch.Tensor]:
-    """One life-like CA step on a packed bitboard (clamped boundary), the
-    rule applied as its minimized sum of products."""
-    if not supports(rule):
-        raise ValueError(
-            f"bit-sliced path supports clamped life-like rules only, got {rule}"
-        )
+def make_packed_step(
+    rule: Rule, total_planes: Callable | None = None
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """One life-like CA step on a packed bitboard, the rule applied as its
+    minimized sum of products.  ``total_planes`` swaps in another bitplane
+    counter (the torus one); the default counts with the clamped shifts."""
+    if not supports_family(rule):
+        raise ValueError(f"bit-sliced path supports life-like rules only, got {rule}")
+    if total_planes is None:
+        if rule.boundary != "clamped":
+            raise ValueError(
+                f"the default shifts are clamped: the life-like "
+                f"{rule.boundary} rule {rule} needs its own total_planes "
+                f"(make_packed_torus_step)"
+            )
+        total_planes = _total_planes
     sop = rule_sop(rule.birth, rule.survive)
 
     def step(x: torch.Tensor) -> torch.Tensor:
-        planes = _total_planes(x)
+        planes = total_planes(x)
         # input bits 0..3 = total planes, bit 4 = x
         return _apply_sop(sop, (*planes, x))
 
@@ -184,6 +232,202 @@ def _apply_sop(
     return torch.zeros_like(literals[-1]) if out is None else out
 
 
+# --- torus shifts ---------------------------------------------------------------
+
+def column_mask(width: int) -> np.ndarray:
+    """uint32[ceil(width/32)] with exactly the valid-column bits set."""
+    m = np.full(packed_width(width), 0xFFFFFFFF, np.uint32)
+    rem = width % WORD
+    if rem:
+        m[-1] = np.uint32((1 << rem) - 1)
+    return m
+
+
+def make_torus_hshifts(width: int) -> tuple[Callable, Callable]:
+    """(left, right) neighbor-plane shifts that wrap at the logical width.
+
+    The in-word shift and adjacent-word carry of the clamped shifts; at the
+    seam the true opposite-edge bit replaces the zero fill.  Column W-1 is
+    bit ``rem - 1`` of the last word when the width is not word-aligned, so
+    the seam words address that bit.  Inputs must carry zero padding bits
+    (``pack_np`` and the column re-mask of every step see to it).  The
+    seam words are built beside the input, never written into it.
+    """
+    wp = packed_width(width)
+    rem = width % WORD
+    top = (rem or WORD) - 1  # bit index of column width-1 in the last word
+
+    def hshift_left_t(x: torch.Tensor) -> torch.Tensor:
+        """L[c] = x[(c-1) mod width]."""
+        if wp == 1:
+            return (x << 1) | (_lsr(x, top) & 1)
+        carry = torch.roll(x, 1, dims=1)  # carry[j] = x[j-1]; [0] = x[wp-1]
+        if rem:
+            # bit rem-1 of the last word lands at bit 31 of the virtual
+            # word left of word 0
+            carry = torch.cat([x[:, -1:] << (WORD - rem), carry[:, 1:]], dim=1)
+        return (x << 1) | _lsr(carry, WORD - 1)
+
+    def hshift_right_t(x: torch.Tensor) -> torch.Tensor:
+        """R[c] = x[(c+1) mod width]."""
+        if wp == 1:
+            return _lsr(x, 1) | ((x & 1) << top)
+        carry = torch.roll(x, -1, dims=1)  # carry[j] = x[j+1]; [wp-1] = x[0]
+        out = _lsr(x, 1) | (carry << (WORD - 1))
+        if rem:
+            # last word: column width-1 (bit rem-1) receives column 0
+            last = _lsr(x[:, -1:], 1) | ((x[:, :1] & 1) << top)
+            out = torch.cat([out[:, :-1], last], dim=1)
+        return out
+
+    return hshift_left_t, hshift_right_t
+
+
+def _vshift_wrap(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(up, down) row-neighbor planes on the torus: rows wrap."""
+    return torch.roll(x, -1, dims=0), torch.roll(x, 1, dims=0)
+
+
+def make_packed_torus_step(
+    rule: Rule, width: int, *, wrap_rows: bool = True
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """One life-like step on a packed bitboard with torus boundary.
+
+    ``wrap_rows=False`` keeps the rows clamped while the columns wrap in
+    place: the per-shard substep of a sharded torus, whose vertical
+    neighbors arrive as halo rows.  Output padding bits are re-masked dead
+    every step so they can never feed the seam carries.
+    """
+    if not supports_torus(rule):
+        raise ValueError(
+            f"packed torus path supports life-like torus rules only, got {rule}"
+        )
+    hl, hr = make_torus_hshifts(width)
+    step = make_packed_step(
+        rule, total_planes=make_total_planes(hl, hr, _vshift_wrap if wrap_rows else _vshift)
+    )
+    cmask = torch.from_numpy(column_mask(width).view(np.int32))
+    masks: dict[torch.device, torch.Tensor] = {}
+
+    def torus_step(x: torch.Tensor) -> torch.Tensor:
+        if x.device not in masks:
+            masks[x.device] = cmask.to(x.device)[None, :]
+        return step(x) & masks[x.device]
+
+    return torus_step
+
+
+def multi_step_packed_torus(
+    x: torch.Tensor, *, rule: Rule, steps: int, width: int
+) -> torch.Tensor:
+    """``steps`` packed torus steps (single device)."""
+    step = make_packed_torus_step(rule, width)
+    for _ in range(steps):
+        x = step(x)
+    return x
+
+
+# --- bit-sliced von Neumann diamond ---------------------------------------------
+
+def _hshift_left_by(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Plane of k-left neighbors: L[c] = x[c-k], clamped zero; 1 <= k < 32."""
+    carry = torch.nn.functional.pad(x[:, :-1], (1, 0))
+    return (x << k) | _lsr(carry, WORD - k)
+
+
+def _hshift_right_by(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Plane of k-right neighbors: R[c] = x[c+k], clamped zero; 1 <= k < 32."""
+    carry = torch.nn.functional.pad(x[:, 1:], (0, 1))
+    return _lsr(x, k) | (carry << (WORD - k))
+
+
+def _vshift_by(x: torch.Tensor, dy: int) -> torch.Tensor:
+    """Plane of row neighbors at offset dy: V[r] = x[r+dy], clamped zero."""
+    if dy == 0:
+        return x
+    if dy > 0:
+        return torch.nn.functional.pad(x[dy:], (0, 0, 0, dy))
+    return torch.nn.functional.pad(x[:dy], (0, 0, -dy, 0))
+
+
+def _reduce_planes(
+    weighted: list[tuple[torch.Tensor, int]],
+) -> tuple[torch.Tensor, ...]:
+    """Carry-save reduce (plane, weight_log2) pairs to the sum's bitplanes
+    b0, b1, ...: full adders compress three planes of one weight into a sum
+    and a carry of the next weight until every weight holds one plane."""
+    levels: dict[int, list[torch.Tensor]] = {}
+    for plane, w in weighted:
+        levels.setdefault(w, []).append(plane)
+    zero = torch.zeros_like(weighted[0][0])
+    out: list[torch.Tensor] = []
+    w = 0
+    while levels:
+        cur = levels.pop(w, [])
+        while len(cur) >= 3:
+            s, carry = _csa(cur.pop(), cur.pop(), cur.pop())
+            cur.append(s)
+            levels.setdefault(w + 1, []).append(carry)
+        if len(cur) == 2:
+            a, b = cur
+            cur = [a ^ b]
+            levels.setdefault(w + 1, []).append(a & b)
+        out.append(cur[0] if cur else zero)
+        w += 1
+    return tuple(out)
+
+
+def _collapse(
+    weighted: list[tuple[torch.Tensor, int]],
+) -> list[tuple[torch.Tensor, int]]:
+    """Carry-save compress a small (plane, weight) list without finalizing:
+    keeps a box sum narrow before it fans out per row."""
+    return [(p, w) for w, p in enumerate(_reduce_planes(weighted))]
+
+
+def make_packed_diamond_step(rule: Rule) -> Callable[[torch.Tensor], torch.Tensor]:
+    """One 2-state von Neumann step on a packed bitboard (clamped).
+
+    The diamond is a stack of 2r+1 horizontal boxes of half-width
+    ``r - |dy|``.  The box planes of the center row are built once per
+    half-width; each ``|dy| > 0`` row reuses the box of its half-width,
+    row-shifted; the ``dy = 0`` row gives its left and right arms, and the
+    center only for ``M1`` rules.  One carry-save reduction turns all of
+    them into the raw count's bitplanes, and the rule is the SOP over that
+    count with the center as the literal after the last plane.
+    """
+    if not supports_diamond(rule):
+        raise ValueError(
+            f"packed diamond path needs a 2-state clamped von Neumann rule "
+            f"with count_max <= 15, got {rule}"
+        )
+    r = rule.radius
+    nplanes, sop = membership_rule_sop(rule.birth, rule.survive, diamond_count_max(rule))
+
+    def step(x: torch.Tensor) -> torch.Tensor:
+        # box[h] sums columns c-h..c+h of x as (plane, weight) pairs
+        box: dict[int, list[tuple[torch.Tensor, int]]] = {0: [(x, 0)]}
+        arms: list[tuple[torch.Tensor, int]] = []  # L/R shifts, no center
+        for k in range(1, r + 1):
+            arms.append((_hshift_left_by(x, k), 0))
+            arms.append((_hshift_right_by(x, k), 0))
+            if k < r:  # rows use half-widths <= r-1
+                box[k] = _collapse(box[k - 1] + arms[-2:])
+        weighted: list[tuple[torch.Tensor, int]] = []
+        for dy in range(-r, r + 1):
+            if dy == 0:
+                weighted.extend(arms)
+                if rule.include_center:
+                    weighted.append((x, 0))
+            else:
+                weighted.extend((_vshift_by(p, dy), w) for p, w in box[r - abs(dy)])
+        planes = _reduce_planes(weighted)
+        planes = planes[:nplanes] + (torch.zeros_like(x),) * max(0, nplanes - len(planes))
+        return _apply_sop(sop, (*planes, x))
+
+    return step
+
+
 def word_mask(
     shape: tuple[int, int], logical_shape: tuple[int, int], device
 ) -> torch.Tensor:
@@ -203,11 +447,20 @@ def word_mask(
 
 
 def make_masked_packed_step(
-    rule: Rule, logical_shape: tuple[int, int]
+    rule: Rule, logical_shape: tuple[int, int], step: Callable | None = None
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Packed step that pins cells outside the logical board dead: rows at
-    or past ``lh`` and the padding bits of the partial last word."""
-    step = make_packed_step(rule)
+    or past ``lh`` and the padding bits of the partial last word.  ``step``
+    is the unmasked packed step; by default von Neumann rules get the
+    bit-sliced diamond and every other rule the life-like Moore step, so
+    every caller of the masked step runs diamonds with no dispatch of its
+    own."""
+    if step is None:
+        step = (
+            make_packed_diamond_step(rule)
+            if rule.neighborhood == "von_neumann"
+            else make_packed_step(rule)
+        )
     masks: dict[tuple, torch.Tensor] = {}
 
     def masked(x: torch.Tensor) -> torch.Tensor:
@@ -226,8 +479,25 @@ def multi_step_packed(
     steps: int,
     logical_shape: tuple[int, int],
 ) -> torch.Tensor:
-    """``steps`` masked bit-sliced CA steps (packed domain)."""
+    """``steps`` masked bit-sliced CA steps (packed domain, clamped): the
+    Moore step for life-like rules, the diamond for von Neumann rules."""
     masked = make_masked_packed_step(rule, tuple(logical_shape))
+    for _ in range(steps):
+        x = masked(x)
+    return x
+
+
+def multi_step_packed_diamond(
+    x: torch.Tensor,
+    *,
+    rule: Rule,
+    steps: int,
+    logical_shape: tuple[int, int],
+) -> torch.Tensor:
+    """``steps`` masked packed diamond steps (clamped)."""
+    masked = make_masked_packed_step(
+        rule, tuple(logical_shape), step=make_packed_diamond_step(rule)
+    )
     for _ in range(steps):
         x = masked(x)
     return x

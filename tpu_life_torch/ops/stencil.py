@@ -2,7 +2,10 @@
 
 The counterpart of ``tpu_life/ops/stencil.py`` on torch tensors, on any
 device.  It is the plain version the hand-written int8 kernel
-(``tpu_life_torch/kernels/int8_tiled.py``) is held to.
+(``tpu_life_torch/kernels/int8_tiled.py``) is held to, and the executor of
+the rules no kernel counts (the backends' ``stencil`` route: torus rules on
+the unpadded board, and the von Neumann rules the bit-sliced diamond does
+not take).
 
 - the neighbour count is a *separable* box sum over a padded array —
   (2r+1) row shifts then (2r+1) column shifts for Moore boxes, direct

@@ -31,6 +31,7 @@ class RunResult:
     elapsed_s: float
     backend: str
     rule: str
+    route: str  # the executor the runner took (``DeviceRunner.route``), or the backend's name
 
 
 def _write_atomic(path: Path, board: np.ndarray) -> None:
@@ -77,4 +78,5 @@ def run(cfg: RunConfig) -> RunResult:
         elapsed_s=elapsed,
         backend=backend.name,
         rule=rule.name,
+        route=getattr(runner, "route", backend.name),
     )
