@@ -58,7 +58,28 @@ Phases (any failure exits non-zero and prints no result line):
    translation symmetry); cell updates per second through the Runner for
    all four; the diamond mode timed at 16384^2 (r = 2 and r = 1) and at
    1500x500 with CUDA events and the profiler's kernel records, against
-   its plain version and its bound; the two ops routes' ms per step.
+   its plain version and its bound; the two ops routes' ms per step;
+8. the sharded backend at full size — a 16384^2 Conway board for 256
+   steps on 4 shards of the one card (route ``k3``: kernel K3 per shard),
+   held to phase 5's K1 result on the same board, with 128 K3 launches
+   and 192 halo copies; its cell updates per second through the Runner;
+   one shard's K3 launch (4096 x 512 words, k = 8) timed with CUDA events
+   and the profiler's kernel records against its plain version, its bound
+   and K1's launch over the whole board; the halo exchange and one block
+   timed; then ``conway:T`` 16384^2 on 4 shards through ``k3_torus``,
+   held to the ``packed_torus`` ops on the same board, with its ms per
+   step beside phase 7's.
+
+Phases 2-4 cover K3 too: it is built with K1 (same source, its four
+instantiations in the ptxas report); phase 3 holds it bit-identical to its
+plain version (the ``shard_ops`` route on the same mesh) in its three
+modes — Moore clamped, diamond (r = 1, 2) clamped, Moore torus — on meshes
+of 1, 2, 3, 4 and 8 shards of the card, heights that leave padding rows,
+W % 32 of 0, 1 and 31, live cells on all four edges, and depths 1, 2 and
+8 with a remainder block; phase 4 runs ``python -m tpu_life_torch run
+--backend sharded --num-devices 1`` in process (route ``k3``, 13
+launches) and as a subprocess, and ``--device cuda:0 --num-devices 4`` in
+process (52 launches, 78 halo copies), each at the golden sha256.
 
 The line before the last is the kernels record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -109,6 +130,14 @@ OPS_RULES = [("conway:T", "packed_torus"), ("R2,C2,S2..4,B2..3,NN:T", "stencil")
 # their full-size runs: (rule, side, steps through the Runner)
 TORUS_FULL = ("conway:T", FULL, 32)
 STENCIL_FULL = [("R2,C2,S2..4,B2..3,NN:T", 8192, 8), ("brians_brain:T", 8192, 8)]
+# K3 against its plain version: its modes (Moore clamped and torus, the
+# diamond at r = 2 and 1), meshes of shards of the one card, widths with
+# W % 32 of 0, 1 and 31 (heights 300 leave padding rows on 8 shards; torus
+# heights divide by every mesh size), and depths with a remainder block
+K3_RULES = ["conway", "conway:T", DIAMOND, DIAMOND_R1]
+K3_WIDTHS = (992, 993, 1023)
+K3_MESHES = (1, 2, 3, 4, 8)
+K3_DEPTHS = (1, 2, BLOCK_STEPS)
 # K2 at wide radii (depth 1), where the tile grows with the halo and then
 # shrinks to fit shared memory: widths that are and are not a multiple of 16,
 # and the largest radius that fits for 2 and for 10 states
@@ -155,9 +184,12 @@ def main() -> int:
         from tpu_life_torch.io.codec import encode_board, read_board, read_config
         from tpu_life_torch.kernels import int8_tiled as kt
         from tpu_life_torch.kernels import packed_stripe as ps
+        from tpu_life_torch.kernels import sharded_stripe as k3
         from tpu_life_torch.models.rules import get_rule
         from tpu_life_torch.ops import bitlife, stencil
         from tpu_life_torch.ops.reference import run_np
+        from tpu_life_torch.parallel import halo
+        from tpu_life_torch.parallel.mesh import make_mesh
         from tpu_life_torch.runtime import driver
     except ImportError as e:
         fail(f"the tpu_life_torch package is not beside this script: {e}")
@@ -183,7 +215,9 @@ def main() -> int:
     for lib in libs:
         print((lib.parent / "build.log").read_text().strip(), flush=True)
     k1_log = (libs[0].parent / "build.log").read_text()
-    for kernel in ("packed_stripe_kernel", "packed_diamond_kernelILi1E", "packed_diamond_kernelILi2E"):
+    for kernel in ("packed_stripe_kernel", "packed_diamond_kernelILi1E", "packed_diamond_kernelILi2E",
+                   "sharded_stripe_kernelILb0E", "sharded_stripe_kernelILb1E",
+                   "sharded_diamond_kernelILi1E", "sharded_diamond_kernelILi2E"):
         if kernel not in k1_log:
             fail(f"the ptxas report of packed_stripe.cu does not name {kernel}")
 
@@ -328,6 +362,50 @@ def main() -> int:
           f"{OPS_SHAPE[0]}x{OPS_SHAPE[1]}, {OPS_STEPS} steps ({time.perf_counter() - t0:.1f} s): "
           + ", ".join(f"{n} by {r}" for n, r in OPS_RULES), flush=True)
 
+    # K3 against its plain version on the card: the sharded backend's K3
+    # route against its shard_ops route (the plain per-shard block) on the
+    # same mesh of shards of the one card, chunk for chunk
+    k3_max_err = 0
+    k3_cases = 0
+
+    def k3_case(board, rule, n, k, what):
+        nonlocal k3_max_err, k3_cases
+        mesh = make_mesh(devices=[dev] * n)
+        kern = make_runner(get_backend("sharded", mesh=mesh, block_steps=k), board, rule)
+        plain = make_runner(
+            get_backend("sharded", mesh=mesh, block_steps=k, local_kernel="torch"), board, rule)
+        if not kern.route.startswith("k3") or plain.route != "shard_ops":
+            fail(f"K3 case {what}: routes {kern.route!r} and {plain.route!r}")
+        steps = 2 * k + 3  # a remainder block
+        before = k3.sharded_stripe_block.launches
+        drive_runner(kern, steps)
+        drive_runner(plain, steps)
+        if k3.sharded_stripe_block.launches == before:
+            fail(f"K3 case {what}: no K3 launch")
+        err = max(diff_cells(a, b) for a, b in zip(kern.chunks, plain.chunks))
+        k3_max_err = max(k3_max_err, err)
+        k3_cases += 1
+        if err:
+            fail(f"K3 != plain: {what}, {board.shape[0]}x{board.shape[1]} on {n} shards, "
+                 f"k={k}, {steps} steps")
+
+    t0 = time.perf_counter()
+    for name in K3_RULES:
+        rule = get_rule(name)
+        h = 240 if rule.boundary == "torus" else 300
+        boards = [(rng.integers(0, 2, size=(h, w), dtype=np.int8), f"{name}, random")
+                  for w in K3_WIDTHS]
+        edge = np.zeros((h // 5, 70), np.int8)  # live cells on all four edges
+        edge[:5], edge[-5:], edge[:, :5], edge[:, -5:] = 1, 1, 1, 1
+        boards.append((edge, f"{name}, edge board"))
+        for board, what in boards:
+            for n in K3_MESHES:
+                for k in K3_DEPTHS:
+                    k3_case(board, rule, n, k, what)
+    print(f"K3 vs plain: {k3_cases} cases bit-identical on meshes of "
+          f"{', '.join(map(str, K3_MESHES))} shards ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
     # -- 4. the main path: the reference contract through the CLI ----------
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -426,6 +504,51 @@ def main() -> int:
               f"route packed_torus (launches K1, diamond, K2: {rule_runs['packed_torus']})",
               flush=True)
 
+        # the sharded backend's main path: one shard (the one card), then
+        # four shards of the one card; the reference workload is 12 blocks
+        # of 8 steps and one of 4
+        sharded_runs = {}
+        driver.run = recording_run
+        try:
+            for n_shards, extra in ((1, []), (4, ["--device", "cuda:0"])):
+                out = tmp / f"out_sharded_{n_shards}.txt"
+                ps.packed_multi_step.launches = kt.int8_multi_step.launches = 0
+                k3.sharded_stripe_block.launches = halo.exchange_rows.copies = 0
+                rc = cli.main([*args, "--backend", "sharded", "--num-devices", str(n_shards),
+                               *extra, "--output-file", str(out)])
+                counts = (k3.sharded_stripe_block.launches, halo.exchange_rows.copies,
+                          ps.packed_multi_step.launches, kt.int8_multi_step.launches)
+                if rc != 0:
+                    fail(f"in-process run --backend sharded --num-devices {n_shards} exited {rc}")
+                if results[-1].route != "k3":
+                    fail(f"run --backend sharded took route {results[-1].route!r}, want 'k3'")
+                want_counts = (13 * n_shards, 13 * 2 * (n_shards - 1), 0, 0)
+                if counts != want_counts:
+                    fail(f"run --backend sharded --num-devices {n_shards}: (K3 launches, halo "
+                         f"copies, K1, K2) = {counts}, want {want_counts}")
+                check_output(out, f"in-process run --backend sharded --num-devices {n_shards}")
+                sharded_runs[n_shards] = counts
+        finally:
+            driver.run = real_run
+        k3_main_launches = sharded_runs[1][0]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_life_torch", *args, "--backend", "sharded",
+             "--num-devices", "1", "--output-file", str(tmp / "output_sharded.txt")],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600,
+        )
+        sharded_wall_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"python -m tpu_life_torch run --backend sharded exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        check_output(tmp / "output_sharded.txt", "subprocess run --backend sharded")
+        print(f"main path --backend sharded --num-devices 1: reference workload at the golden "
+              f"sha256 by route k3 ({k3_main_launches} K3 launches, {sharded_runs[1][1]} halo "
+              f"copies, K1 and K2 {sharded_runs[1][2:]}); subprocess: "
+              f"{proc.stdout.strip().splitlines()[-1]}, {sharded_wall_s:.3f} s wall clock; "
+              f"--device cuda:0 --num-devices 4: golden sha256, {sharded_runs[4][0]} K3 "
+              f"launches, {sharded_runs[4][1]} halo copies", flush=True)
+
     # -- 5. full size through the cuda backend -----------------------------
     rule = get_rule("conway")
     board = rng.integers(0, 2, size=(FULL, FULL), dtype=np.int8)
@@ -444,6 +567,7 @@ def main() -> int:
     max_err = max(max_err, err)
     if err:
         fail(f"full-size run != plain after {FULL_STEPS} steps")
+    k1_board, k1_final = board, runner.x.clone()  # phase 8 holds the sharded run to it
     live = runner.live_count()
     if live != int(bitlife.live_count_packed(want)) or live <= 0:
         fail(f"full-size live count {live} disagrees with the plain version")
@@ -507,6 +631,36 @@ def main() -> int:
             torch.cuda.synchronize()
         us = [e.time_range.elapsed_us() for e in prof.events() if kernel in e.name]
         return sum(us) / len(us) / 1e3 if us else None
+
+    def device_breakdown(launch, reps: int) -> dict | None:
+        """Per call of ``launch``, from the profiler's device records: the
+        ms of kernels and of memcpys, and the span from the first device
+        record's start to the last one's end; the rest of the span is the
+        card's idle share.  None where the profiler records nothing on the
+        device."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        launch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                launch()
+            torch.cuda.synchronize()
+        recs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not recs:
+            return None
+        copies = sum(e.time_range.elapsed_us() for e in recs if "Memcpy" in e.name)
+        busy = sum(e.time_range.elapsed_us() for e in recs)
+        span = max(e.time_range.end for e in recs) - min(e.time_range.start for e in recs)
+        return dict(kernel_ms=(busy - copies) / reps / 1e3, copy_ms=copies / reps / 1e3,
+                    span_ms=span / reps / 1e3, idle=1 - busy / span, records=len(recs) / reps)
+
+    def fmt_breakdown(b: dict | None) -> str:
+        if b is None:
+            return "device breakdown not measured (no device records)"
+        return (f"device records per block {b['records']:.1f}: kernels {b['kernel_ms']:.4f} ms, "
+                f"copies {b['copy_ms']:.4f} ms, span {b['span_ms']:.4f} ms, idle {b['idle']:.1%}")
 
     def device_ms(shape, k: int, reps: int, rule=conway,
                   kernel: str = "packed_stripe_kernel") -> float | None:
@@ -784,6 +938,140 @@ def main() -> int:
     if kernel_counts() != before:
         fail(f"the ops routes launched a kernel: counts {before} -> {kernel_counts()}")
 
+    # -- 8. the sharded backend at full size, 4 shards of the one card -------
+    rule = conway
+    n_shards = 4
+    sharded = get_backend("sharded", mesh=make_mesh(devices=[dev] * n_shards))
+    runner = make_runner(sharded, k1_board, rule)
+    if runner.route != "k3":
+        fail(f"16384^2 conway took sharded route {runner.route!r}, want 'k3'")
+    k3.sharded_stripe_block.launches = halo.exchange_rows.copies = 0
+    t0 = time.perf_counter()
+    drive_runner(runner, FULL_STEPS)
+    drive_s = time.perf_counter() - t0
+    blocks = FULL_STEPS // BLOCK_STEPS
+    full_counts = (k3.sharded_stripe_block.launches, halo.exchange_rows.copies)
+    if full_counts != (n_shards * blocks, 2 * (n_shards - 1) * blocks):
+        fail(f"the full-size sharded run made (K3 launches, halo copies) = {full_counts}, "
+             f"want {(n_shards * blocks, 2 * (n_shards - 1) * blocks)}")
+    err = diff_cells(runner.gather(), k1_final)
+    k3_max_err = max(k3_max_err, err)
+    if err:
+        fail(f"the full-size sharded run != K1's board after {FULL_STEPS} steps")
+    live = runner.live_count()
+    if live != int(bitlife.live_count_packed(k1_final)):
+        fail(f"full-size sharded live count {live} disagrees with K1's")
+    print(f"full size: {FULL}^2 x {FULL_STEPS} steps through the sharded backend on "
+          f"{n_shards} shards of the card (route k3, {full_counts[0]} K3 launches, "
+          f"{full_counts[1]} halo copies, {drive_s:.3f} s host clock incl. first launch) "
+          f"equal to K1's board; live cells {live}", flush=True)
+    sh_cps = measure_throughput(sharded, k1_board, rule, FULL_STEPS, FULL_STEPS // 4)
+    print(f"cell_updates_per_sec_per_chip {sh_cps:.6e} ({FULL}^2 conway through the sharded "
+          f"Runner on {n_shards} shards of one card, host clock, delta of {FULL_STEPS} and "
+          f"{FULL_STEPS // 4} steps)", flush=True)
+
+    # one shard's launch: the second shard, 4096 x 512 words and its halos
+    hl, nw = runner.chunks[1].shape
+    fr = halo.halo_depth(rule, BLOCK_STEPS)
+    tops, bots = halo.exchange_rows(runner.chunks, fr, periodic=False)
+    row0 = hl - fr
+    shard_launch = pingpong(
+        lambda a, b: k3.sharded_stripe_block(tops[1], a, bots[1], row0, rule, (FULL, FULL),
+                                             BLOCK_STEPS, out=b),
+        runner.chunks[1].clone())
+    k3_ms = cuda_ms(shard_launch, 80)
+    k3_dev_ms = profiled_ms(shard_launch, "sharded_stripe_kernel<false>", 40)
+    k3_plain_ms = cuda_ms(lambda: k3.sharded_stripe_block_plain(
+        tops[1], runner.chunks[1], bots[1], row0, rule, (FULL, FULL), BLOCK_STEPS), 2)
+    # the bound: the rows each substep must compute (the chunk and what its
+    # later substeps read of the halos) at K1's ops per word, and each input
+    # word read once and each output word written once
+    k3_ops = ops_per_word * nw * (BLOCK_STEPS * hl + fr * (BLOCK_STEPS - 1))
+    k3_ops_ms = k3_ops / int_ops_per_s * 1e3
+    k3_mem_ms = (2 * hl + 2 * fr) * nw * 4 / HBM_BYTES_PER_S * 1e3
+    k3_bound, k3_by = (k3_ops_ms, "operations") if k3_ops_ms >= k3_mem_ms else (k3_mem_ms, "bytes")
+    print(f"timing K3 one shard {hl}x{nw} words + 2x{fr} halo rows, conway, k={BLOCK_STEPS}, "
+          f"{ps.tile_rows(BLOCK_STEPS, hl, nw, n_sm)}-row tiles: kernel {k3_ms:.4f} ms/launch by "
+          f"CUDA events ({k3_bound / k3_ms:.1%} of the bound), device time {fmt(k3_dev_ms)} "
+          f"ms/launch (profiler kernel records); {n_shards} shard launches {n_shards * k3_ms:.4f} "
+          f"ms by events against K1's {ms:.4f} over the whole board "
+          f"({n_shards * k3_ms / ms:.3f}x); by device time "
+          + (f"{n_shards * k3_dev_ms:.4f} against {fmt(full_dev_ms)}"
+             if k3_dev_ms is not None else "not measured")
+          + f"; plain {k3_plain_ms:.4f} ms per {BLOCK_STEPS} steps; bound {k3_bound:.4f} ms "
+          f"({k3_by}: {ops_per_word} logic ops/word/step over {BLOCK_STEPS * hl + fr * (BLOCK_STEPS - 1)} "
+          f"word rows = {k3_ops_ms:.4f} ms; {(2 * hl + 2 * fr) * nw * 4} bytes = {k3_mem_ms:.4f} ms)",
+          flush=True)
+    buffers = halo.halo_buffers(runner.chunks, fr)
+    exchange = lambda: halo.exchange_rows(runner.chunks, fr, periodic=False, buffers=buffers)  # noqa: E731
+    xchg_ms = cuda_ms(exchange, 50)
+    copy_dev_ms = profiled_ms(exchange, "Memcpy DtoD", 20)
+    block_ms = cuda_ms(lambda: runner.advance(BLOCK_STEPS), 40)
+    block_split = device_breakdown(lambda: runner.advance(BLOCK_STEPS), 20)
+    t0 = time.perf_counter()
+    for _ in range(40):
+        runner.advance(BLOCK_STEPS)
+    issue_ms = (time.perf_counter() - t0) / 40 * 1e3
+    runner.sync()
+    print(f"timing one block on {n_shards} shards: {block_ms:.4f} ms by CUDA events "
+          f"({block_ms / BLOCK_STEPS:.4f} ms/step; K1 {ms / BLOCK_STEPS:.4f}); the host issues "
+          f"a block in {issue_ms:.4f} ms; the exchange ({2 * (n_shards - 1)} copies of "
+          f"{fr * nw * 4} bytes) {xchg_ms:.4f} ms by CUDA events, "
+          + (f"{copy_dev_ms * 1e3:.2f} us of device time per copy" if copy_dev_ms is not None
+             else "copy device time not measured (no memcpy records)")
+          + f"; {fmt_breakdown(block_split)}; grid {-(-nw // ps.TILE_WORDS)}x"
+          f"{-(-hl // ps.tile_rows(BLOCK_STEPS, hl, nw, n_sm))} blocks per shard launch, "
+          f"{-(-nw // ps.TILE_WORDS)}x{-(-FULL // ps.tile_rows(BLOCK_STEPS, FULL, nw, n_sm))} "
+          f"per K1 launch", flush=True)
+    k3_row = dict(shape=[hl, FULL], ms=k3_ms, device_ms=k3_dev_ms, plain_ms=k3_plain_ms,
+                  bound_ms=k3_bound, bound_by=k3_by)
+    del runner, tops, bots, buffers, shard_launch
+    torch.cuda.empty_cache()
+
+    # conway:T on 4 shards through K3's torus mode, held to the packed torus ops
+    name, side, steps = TORUS_FULL
+    rule = get_rule(name)
+    board = rng.integers(0, 2, size=(side, side), dtype=np.int8)
+    runner = make_runner(sharded, board, rule)
+    other = make_runner(backend, board, rule)
+    if (runner.route, other.route) != ("k3_torus", "packed_torus"):
+        fail(f"rule {name} took routes {runner.route!r} (sharded) and {other.route!r} (cuda)")
+    k3.sharded_stripe_block.launches = 0
+    drive_runner(runner, steps)
+    drive_runner(other, steps)
+    torus_launches = k3.sharded_stripe_block.launches
+    if torus_launches != n_shards * -(-steps // BLOCK_STEPS):
+        fail(f"the sharded {name} run launched K3 {torus_launches} times")
+    err = diff_cells(runner.gather(), other.x)
+    k3_max_err = max(k3_max_err, err)
+    if err:
+        fail(f"full-size {name}: k3_torus on {n_shards} shards != packed_torus after {steps} steps")
+    del other
+    torch.cuda.empty_cache()
+    t_cps = measure_throughput(sharded, board, rule, 4 * steps, steps)
+    t_block_ms = cuda_ms(lambda: runner.advance(BLOCK_STEPS), 20)
+    t_split = device_breakdown(lambda: runner.advance(BLOCK_STEPS), 20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        runner.advance(BLOCK_STEPS)
+    t_issue_ms = (time.perf_counter() - t0) / 20 * 1e3
+    runner.sync()
+    t_launch = pingpong(
+        lambda a, b: k3.sharded_stripe_block(a[-fr:], a, a[:fr], 0, rule, (side, side),
+                                             BLOCK_STEPS, out=b),
+        runner.chunks[0].clone())
+    t_dev_ms = profiled_ms(t_launch, "sharded_stripe_kernel<true>", 20)
+    print(f"full size: {name} {side}^2 x {steps} steps through the sharded backend on "
+          f"{n_shards} shards (route k3_torus, {torus_launches} K3 launches) equal to the "
+          f"packed_torus ops; {t_block_ms / BLOCK_STEPS:.4f} ms/step by CUDA events against "
+          f"packed_torus's {torus_ms:.4f} (phase 7); cell_updates_per_sec_per_chip "
+          f"{t_cps:.6e} (host clock, delta of {4 * steps} and {steps} steps); one shard's "
+          f"torus launch {fmt(t_dev_ms)} ms of device time; one block {t_block_ms:.4f} ms by "
+          f"CUDA events, issued by the host in {t_issue_ms:.4f} ms; {fmt_breakdown(t_split)}",
+          flush=True)
+    del runner, t_launch
+    torch.cuda.empty_cache()
+
     diamond = diamond_rows[DIAMOND]
     print(json.dumps({"kernels": [{
         "name": "packed_stripe_multi_step",
@@ -834,6 +1122,24 @@ def main() -> int:
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "sharded_stripe_block",
+        "route": "cuda",
+        "source": "tpu_life_torch/csrc/packed_stripe.cu",
+        "replaces": "tpu_life/backends/pallas_backend.py:384",
+        "launches": k3_main_launches,
+        "max_abs_err": k3_max_err,
+        "equal_to_plain": k3_max_err == 0,
+        "rule": "conway",
+        "shape": k3_row["shape"],
+        "steps_per_launch": BLOCK_STEPS,
+        "ms": k3_row["ms"],
+        "kernel_ms": k3_row["ms"],
+        "device_ms": k3_row["device_ms"],
+        "plain_ms": k3_row["plain_ms"],
+        "bound_ms": k3_row["bound_ms"],
+        "bound_by": k3_row["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

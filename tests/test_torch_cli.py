@@ -190,5 +190,5 @@ def test_geometry_error_exits_2(tmp_path, capsys):
 def test_info_lists_backends_and_rules(capsys):
     assert cli.main(["info"]) == 0
     out = capsys.readouterr().out
-    assert "backends: cuda, numpy, torch" in out
+    assert "backends: cuda, numpy, sharded, torch" in out
     assert "conway" in out and "torch " in out

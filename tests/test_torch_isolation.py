@@ -92,3 +92,14 @@ def test_numpy_backend_needs_no_card(monkeypatch):
 def test_resolve_device_rejects_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         resolve_device("meta")
+
+
+def test_scan_covers_the_sharded_slice():
+    # the modules the sharded slice added are among those both checks read
+    assert {
+        "tpu_life_torch.parallel",
+        "tpu_life_torch.parallel.mesh",
+        "tpu_life_torch.parallel.halo",
+        "tpu_life_torch.kernels.sharded_stripe",
+        "tpu_life_torch.backends.sharded_backend",
+    } <= set(MODULES)

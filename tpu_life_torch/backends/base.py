@@ -9,6 +9,9 @@ on the same (board, rule, steps) and differ only in where the work runs:
 - ``cuda``   the hand-written kernels on the card, and plain PyTorch ops
              there for the rules no kernel counts (the plain versions
              when the caller asks for the CPU)
+- ``sharded`` the board in row stripes over a mesh of devices, a halo
+             exchange and one step of every shard per block (kernel K3
+             per shard for packed rules)
 
 Only deterministic rules exist here: the stochastic and continuous rule
 specs are refused when parsed (``models.rules.NotPortedError``).
@@ -185,7 +188,12 @@ def get_backend(name: str, **kwargs) -> Backend:
     :class:`CudaUnavailableError` unless the caller passes ``device="cpu"``.
     """
     # import for registration side effects
-    from tpu_life_torch.backends import cuda_backend, numpy_backend, torch_backend  # noqa: F401
+    from tpu_life_torch.backends import (  # noqa: F401
+        cuda_backend,
+        numpy_backend,
+        sharded_backend,
+        torch_backend,
+    )
 
     if name == "auto":
         name = "cuda"

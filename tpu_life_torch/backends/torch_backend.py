@@ -90,6 +90,61 @@ class DeviceRunner:
         return lambda x=self.x.clone(): self._to_np(x)
 
 
+class ShardedRunner:
+    """Runner over a board split into row chunks, one tensor per mesh
+    device (the ``sharded`` backend).  ``advance`` queues each block's
+    halo copies and per-shard steps with no host round-trip; ``sync``
+    waits for every card of the mesh; ``gather`` stacks the chunks on the
+    first shard's device and drops the padding rows; ``live_count`` sums
+    the shards' counts.  ``route`` names the per-shard executor: kernel K3
+    (``k3``, ``k3_diamond``, ``k3_torus``) or plain ops (``shard_ops``)."""
+
+    def __init__(
+        self,
+        chunks: list[torch.Tensor],
+        advance: Callable[[list[torch.Tensor], int], list[torch.Tensor]],
+        to_np: Callable[[torch.Tensor], np.ndarray],
+        count_live: Callable[[torch.Tensor], torch.Tensor],
+        route: str,
+        rows: int,
+    ):
+        self.chunks = chunks
+        self._advance = advance
+        self._to_np = to_np
+        self._count_live = count_live
+        self.route = route
+        self.rows = rows
+
+    def advance(self, steps: int) -> None:
+        if steps > 0:
+            self.chunks = self._advance(self.chunks, steps)
+
+    def sync(self) -> None:
+        for device in {c.device for c in self.chunks if c.is_cuda}:
+            torch.cuda.synchronize(device)
+        self.chunks[-1][:1, :1].cpu()
+
+    def _stack(self, chunks: list[torch.Tensor]) -> torch.Tensor:
+        first = chunks[0].device
+        return torch.cat([c.to(first) for c in chunks])[: self.rows]
+
+    def gather(self) -> torch.Tensor:
+        """The board (words or cells) on the first shard's device."""
+        return self._stack(self.chunks)
+
+    def fetch(self) -> np.ndarray:
+        return self._to_np(self.gather())
+
+    def live_count(self) -> int:
+        """Exact live-cell count: one scalar per shard, reduced on its
+        device (padding rows are dead)."""
+        return sum(int(self._count_live(c)) for c in self.chunks)
+
+    def snapshot(self) -> Callable[[], np.ndarray]:
+        """Thunk over device copies of the current chunks."""
+        return lambda chunks=[c.clone() for c in self.chunks]: self._to_np(self._stack(chunks))
+
+
 def packed_device_runner(
     board: np.ndarray, device: torch.device, advance, route: str
 ) -> DeviceRunner:

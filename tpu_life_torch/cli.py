@@ -31,17 +31,32 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--steps", type=int, default=None)
     r.add_argument("--rule", default="conway", help="name or B/S / LtL spec")
     r.add_argument(
-        "--backend", default="auto", choices=["auto", "cuda", "torch", "numpy"],
+        "--backend", default="auto", choices=["auto", "cuda", "torch", "numpy", "sharded"],
         help="auto = cuda: the hand-written kernels for clamped Moore rules "
         "(life-like, Generations, Larger-than-Life) and clamped 2-state von "
         "Neumann rules of radius <= 2, plain PyTorch ops on the card for the "
         "other von Neumann rules and the torus (':T') rules; torch = plain "
-        "PyTorch ops for every rule; numpy = the host oracle",
+        "PyTorch ops for every rule; numpy = the host oracle; sharded = the "
+        "board in row stripes over a mesh of devices (--num-devices), kernel "
+        "K3 per shard for life-like and 2-state von Neumann (r <= 2) rules",
     )
     r.add_argument(
         "--device", default=None,
         help="device of the cuda/torch backends (default: the card); "
-        "'cpu' runs the plain PyTorch version on the CPU",
+        "'cpu' runs the plain PyTorch version on the CPU; for the sharded "
+        "backend, the one device that holds every shard (default: one card "
+        "per shard)",
+    )
+    r.add_argument(
+        "--num-devices", type=int, default=None,
+        help="shards of the sharded backend (default: one per visible card)",
+    )
+    r.add_argument(
+        "--local-kernel", default="auto", choices=["auto", "torch", "cuda"],
+        help="per-shard stepper of the sharded backend: cuda = kernel K3 "
+        "(packed rules), torch = plain PyTorch ops; auto = K3 where it "
+        "applies, plain ops for the torus and von Neumann rules K3 does not "
+        "take",
     )
     r.add_argument(
         "--block-steps", type=int, default=None,
@@ -79,6 +94,8 @@ def main(argv: list[str] | None = None) -> int:
         rule=args.rule,
         backend=args.backend,
         device=args.device,
+        num_devices=args.num_devices,
+        local_kernel=args.local_kernel,
         block_steps=args.block_steps,
         bitpack=args.bitpack,
         sync_every=args.sync_every,
@@ -107,13 +124,22 @@ def _info() -> int:
     for i in range(n):
         print(f"  device {i}: {torch.cuda.get_device_name(i)}")
     print("backends:", ", ".join(sorted(BACKENDS)), "(auto = cuda)")
+    if n:
+        mesh = ", ".join(f"cuda:{i}" for i in range(n))
+        print(f"mesh devices (sharded backend, one shard each): {mesh}")
+    else:
+        print("mesh devices (sharded backend): none; --device cpu --num-devices N "
+              "puts N shards on the CPU")
     print("rules:", ", ".join(sorted(RULE_REGISTRY)))
     print(
         "cuda, torch and numpy run every deterministic rule: cuda through "
         "the hand-written kernels K1 (life-like; 2-state NN of radius <= 2) "
         "and K2 (other clamped Moore rules) and through PyTorch ops on the "
         "card for the other NN and the ':T' rules; torch through PyTorch "
-        "ops alone; ising, noisy: and lenia are not ported yet"
+        "ops alone; sharded runs them in row stripes over a mesh, K3 per "
+        "shard for life-like and 2-state NN (r <= 2) rules (Generations and "
+        "LtL need local_kernel torch until K4 is ported); ising, noisy: and "
+        "lenia are not ported yet"
     )
     return 0
 

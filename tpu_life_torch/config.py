@@ -24,8 +24,10 @@ class RunConfig:
     rule: str = "conway"
 
     # execution
-    backend: str = "auto"  # auto | cuda | torch | numpy
+    backend: str = "auto"  # auto | cuda | torch | numpy | sharded
     device: str | None = None  # None = the card; "cpu" runs the plain version
+    num_devices: int | None = None  # sharded: shards (None = one per card)
+    local_kernel: str = "auto"  # sharded: per-shard stepper, auto | torch | cuda
     block_steps: int | None = None  # kernel substeps per launch; None = backend default
     bitpack: bool = True  # False: life-like rules run the int8 path (kernel K2)
     sync_every: int = 0  # steps per host sync chunk; 0 = one run

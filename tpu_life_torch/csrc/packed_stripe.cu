@@ -64,6 +64,33 @@
 // device-memory traffic per k steps; the halo recompute costs twice the
 // Moore mode's rows for a given k, which the wrapper's tile height (four
 // halos) keeps a minor share.
+//
+// Kernel K3, the per-shard twin (sharded_stripe_kernel and
+// sharded_diamond_kernel).  Replaces make_pallas_sharded_stripe_block
+// (tpu_life/backends/pallas_backend.py) and its body _packed_tile_advance
+// with a shard's row0.  It runs the same substeps (moore_block,
+// diamond_block below) on one shard of a row-sharded board: the chunk
+// int32[rows, nwords] of board rows [row0 + fr, row0 + fr + rows) and its
+// halos top and bot of fr = R*k rows each, which arrive as three separate
+// buffers (the halo exchange's outputs) and are stitched while the window
+// loads, so no extended chunk is ever built.  What differs from K1 lies
+// in the rows policy (ShardIo) the shared bodies take:
+// - a window row v in [-fr, rows + fr) reads top[v + fr], chunk[v] or
+//   bot[v - rows];
+// - clamped, a row is live where its global row row0 + fr + v lies in
+//   [0, height): the padding rows of the last shard and the zero halos at
+//   the mesh ends stay dead;
+// - on the torus (Moore only) every halo row is a real row, so no row is
+//   masked, and the columns wrap at the logical width, which need not be a
+//   multiple of 32.  Each lane that is not a plain word of the row (the
+//   left halo of the first tile, the last word when it is partial, and the
+//   lanes past it) loads the 32 cells that follow from its own column
+//   modulo the width, stitched across the seam (wrapped_word).  Every lane
+//   then holds real cells, the standard shifts and funnel shifts are exact
+//   at the seam, nothing is masked during the substeps, and the store
+//   clears the padding bits of the last word.
+// What bounds it: as K1, integer issue, plus the 2*fr halo rows read per
+// shard and block.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -124,42 +151,145 @@ __device__ __forceinline__ uint32_t column_mask(int gw, int nwords,
   return kFull;
 }
 
-// Load this thread's word column of the tile window (ext rows from board row
-// row0) into shared memory; zero outside the board.
-__device__ __forceinline__ void load_window(const uint32_t* __restrict__ src,
-                                            uint32_t* cur, int ext, int row0,
-                                            int gw, int height, int nwords) {
-  const int lane = threadIdx.x;
-  const bool col_in = gw >= 0 && gw < nwords;
-  for (int r = threadIdx.y; r < ext; r += kWarps) {
-    const int gr = row0 + r;
-    uint32_t v = 0;
-    if (col_in && gr >= 0 && gr < height) {
-      v = src[static_cast<size_t>(gr) * nwords + gw];
+// The rows a block reads and writes, as a policy the shared bodies take.
+// `row` counts from the board's row 0 (K1) or the chunk's row 0 (K3):
+// - load(row, gw, nwords): the word at row `row`, word column gw;
+// - live(row): whether the substeps keep the row's cells;
+// - substep_cols(gw, ...): the bits the substeps keep in word column gw;
+// - store(row, gw, ...): write an output word of word column gw, which is
+//   on the board.
+
+// K1: one board of `height` rows; zero outside it.
+struct BoardIo {
+  const uint32_t* src;
+  uint32_t* dst;
+  int height;
+
+  __device__ __forceinline__ uint32_t load(int row, int gw, int nwords) const {
+    if (gw >= 0 && gw < nwords && row >= 0 && row < height) {
+      return src[static_cast<size_t>(row) * nwords + gw];
     }
-    cur[r * kLanes + lane] = v;
+    return 0u;
+  }
+  __device__ __forceinline__ bool live(int row) const { return row >= 0 && row < height; }
+  __device__ __forceinline__ uint32_t substep_cols(int gw, int nwords, int rem_bits) const {
+    return column_mask(gw, nwords, rem_bits);
+  }
+  __device__ __forceinline__ void store(int row, int gw, int nwords, int, uint32_t v) const {
+    if (row < height) dst[static_cast<size_t>(row) * nwords + gw] = v;
+  }
+};
+
+// `n` (1..32) cells of a packed row from column `col`, with col + n at most
+// the row's width: the bits of one word or two.
+__device__ __forceinline__ uint32_t row_bits(const uint32_t* row, int col, int n) {
+  const int w = col >> 5;
+  const int b = col & 31;
+  uint32_t v = row[w] >> b;
+  if (b + n > 32) v |= row[w + 1] << (32 - b);
+  return n == 32 ? v : v & ((1u << n) - 1u);
+}
+
+// The 32 cells of a torus row from column 32 * gw modulo `width`: the
+// virtual word gw of the row repeated without end in both directions.
+__device__ __forceinline__ uint32_t wrapped_word(const uint32_t* row, int gw, int width) {
+  int col = static_cast<int>((32LL * gw) % width);
+  if (col < 0) col += width;
+  uint32_t v = 0;
+  for (int filled = 0; filled < 32; col = 0) {
+    const int n = min(32 - filled, width - col);
+    v |= row_bits(row, col, n) << filled;
+    filled += n;
+  }
+  return v;
+}
+
+// K3: one shard.  Rows [0, rows) are the chunk, rows [-fr, 0) its top halo
+// and [rows, rows + fr) its bottom halo; row v is board row row0 + fr + v.
+template <bool Torus>
+struct ShardIo {
+  const uint32_t* top;
+  const uint32_t* chunk;
+  const uint32_t* bot;
+  uint32_t* dst;
+  int rows;    // the chunk's rows
+  int fr;      // the halos' rows
+  int row0;    // board row of top[0]
+  int height;  // the board's rows (clamped mask)
+  int width;   // the board's columns (torus wrap)
+
+  __device__ __forceinline__ uint32_t load(int v, int gw, int nwords) const {
+    const uint32_t* row;
+    if (v < -fr || v >= rows + fr) return 0u;  // past the bottom halo: unused
+    if (v < 0) {
+      row = top + static_cast<size_t>(v + fr) * nwords;
+    } else if (v < rows) {
+      row = chunk + static_cast<size_t>(v) * nwords;
+    } else {
+      row = bot + static_cast<size_t>(v - rows) * nwords;
+    }
+    if constexpr (Torus) {
+      if (gw >= 0 && (gw < nwords - 1 || (gw == nwords - 1 && width % 32 == 0))) {
+        return row[gw];
+      }
+      return wrapped_word(row, gw, width);
+    } else {
+      return gw >= 0 && gw < nwords ? row[gw] : 0u;
+    }
+  }
+  __device__ __forceinline__ bool live(int v) const {
+    if constexpr (Torus) {
+      return true;
+    } else {
+      const int g = row0 + fr + v;
+      return g >= 0 && g < height;
+    }
+  }
+  __device__ __forceinline__ uint32_t substep_cols(int gw, int nwords, int rem_bits) const {
+    if constexpr (Torus) {
+      return kFull;  // every lane holds real cells of the wrapped row
+    } else {
+      return column_mask(gw, nwords, rem_bits);
+    }
+  }
+  __device__ __forceinline__ void store(int v, int gw, int nwords, int rem_bits,
+                                        uint32_t x) const {
+    if (v >= rows) return;
+    if constexpr (Torus) x &= column_mask(gw, nwords, rem_bits);
+    dst[static_cast<size_t>(v) * nwords + gw] = x;
+  }
+};
+
+// Load this thread's word column of the tile window (ext rows from row
+// row0) into shared memory.
+template <class Io>
+__device__ __forceinline__ void load_window(const Io& io, uint32_t* cur, int ext,
+                                            int row0, int gw, int nwords) {
+  const int lane = threadIdx.x;
+  for (int r = threadIdx.y; r < ext; r += kWarps) {
+    cur[r * kLanes + lane] = io.load(row0 + r, gw, nwords);
   }
 }
 
 // Store the tile's interior: window rows [halo, halo + tile_rows), lanes
 // 1..kInterior, where they lie on the board.
-__device__ __forceinline__ void store_interior(uint32_t* __restrict__ dst,
-                                               const uint32_t* cur, int halo,
-                                               int tile_rows, int row0, int gw,
-                                               int height, int nwords) {
+template <class Io>
+__device__ __forceinline__ void store_interior(const Io& io, const uint32_t* cur,
+                                               int halo, int tile_rows, int row0,
+                                               int gw, int nwords, int rem_bits) {
   const int lane = threadIdx.x;
   if (lane >= 1 && lane <= kInterior && gw >= 0 && gw < nwords) {
     for (int r = halo + threadIdx.y; r < halo + tile_rows; r += kWarps) {
-      const int gr = row0 + r;
-      if (gr < height) dst[static_cast<size_t>(gr) * nwords + gw] = cur[r * kLanes + lane];
+      io.store(row0 + r, gw, nwords, rem_bits, cur[r * kLanes + lane]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kLanes * kWarps)
-packed_stripe_kernel(const uint32_t* __restrict__ src,
-                     uint32_t* __restrict__ dst, int height, int nwords,
-                     int rem_bits, int k, int tile_rows, const Sop sop) {
+// k masked life-like steps of one tile, the body of K1's Moore mode and of
+// K3's Moore modes.
+template <class Io>
+__device__ __forceinline__ void moore_block(const Io& io, int nwords, int rem_bits,
+                                            int k, int tile_rows, const Sop& sop) {
   extern __shared__ uint32_t smem[];
   const int ext = tile_rows + 2 * k;
   uint32_t* cur = smem;
@@ -169,9 +299,9 @@ packed_stripe_kernel(const uint32_t* __restrict__ src,
   const int warp = threadIdx.y;
   const int row0 = static_cast<int>(blockIdx.y) * tile_rows - k;  // smem row 0
   const int gw = static_cast<int>(blockIdx.x) * kInterior - 1 + lane;
-  const uint32_t cmask = column_mask(gw, nwords, rem_bits);
+  const uint32_t cmask = io.substep_cols(gw, nwords, rem_bits);
 
-  load_window(src, cur, ext, row0, gw, height, nwords);
+  load_window(io, cur, ext, row0, gw, nwords);
   __syncthreads();
 
   for (int s = 1; s <= k; ++s) {
@@ -203,8 +333,7 @@ packed_stripe_kernel(const uint32_t* __restrict__ src,
         const uint32_t u2 = c1 & s1;
         const uint32_t b2 = c2 ^ u2;
         const uint32_t b3 = c2 & u2;
-        const int gr = row0 + r;
-        const uint32_t m = (gr >= 0 && gr < height) ? cmask : 0u;
+        const uint32_t m = io.live(row0 + r) ? cmask : 0u;
         nxt[r * kLanes + lane] = apply_sop(sop, b0, b1, b2, b3, mid) & m;
         up = mid;
         mid = down;
@@ -216,7 +345,26 @@ packed_stripe_kernel(const uint32_t* __restrict__ src,
     nxt = t;
   }
 
-  store_interior(dst, cur, k, tile_rows, row0, gw, height, nwords);
+  store_interior(io, cur, k, tile_rows, row0, gw, nwords, rem_bits);
+}
+
+__global__ void __launch_bounds__(kLanes * kWarps)
+packed_stripe_kernel(const uint32_t* __restrict__ src,
+                     uint32_t* __restrict__ dst, int height, int nwords,
+                     int rem_bits, int k, int tile_rows, const Sop sop) {
+  moore_block(BoardIo{src, dst, height}, nwords, rem_bits, k, tile_rows, sop);
+}
+
+template <bool Torus>
+__global__ void __launch_bounds__(kLanes * kWarps)
+sharded_stripe_kernel(const uint32_t* __restrict__ top,
+                      const uint32_t* __restrict__ chunk,
+                      const uint32_t* __restrict__ bot,
+                      uint32_t* __restrict__ dst, int rows, int fr, int row0,
+                      int height, int width, int nwords, int rem_bits, int k,
+                      int tile_rows, const Sop sop) {
+  moore_block(ShardIo<Torus>{top, chunk, bot, dst, rows, fr, row0, height, width},
+              nwords, rem_bits, k, tile_rows, sop);
 }
 
 // What one raw row gives the diamond count: its arms, the planes of its left
@@ -248,14 +396,13 @@ __device__ __forceinline__ RowPlanes row_planes(uint32_t v, int lane) {
   return p;
 }
 
-// k masked von Neumann steps of radius R (1 or 2) on the tile; `center` is
-// all ones where the rule counts the centre cell (M1), else zero.
-template <int R>
-__global__ void __launch_bounds__(kLanes * kWarps)
-packed_diamond_kernel(const uint32_t* __restrict__ src,
-                      uint32_t* __restrict__ dst, int height, int nwords,
-                      int rem_bits, int k, int tile_rows, uint32_t center,
-                      const Sop sop) {
+// k masked von Neumann steps of radius R (1 or 2) on the tile, the body of
+// K1's and K3's diamond modes; `center` is all ones where the rule counts
+// the centre cell (M1), else zero.
+template <int R, class Io>
+__device__ __forceinline__ void diamond_block(const Io& io, int nwords, int rem_bits,
+                                              int k, int tile_rows, uint32_t center,
+                                              const Sop& sop) {
   extern __shared__ uint32_t smem[];
   const int halo = R * k;
   const int ext = tile_rows + 2 * halo;
@@ -266,9 +413,9 @@ packed_diamond_kernel(const uint32_t* __restrict__ src,
   const int warp = threadIdx.y;
   const int row0 = static_cast<int>(blockIdx.y) * tile_rows - halo;  // smem row 0
   const int gw = static_cast<int>(blockIdx.x) * kInterior - 1 + lane;
-  const uint32_t cmask = column_mask(gw, nwords, rem_bits);
+  const uint32_t cmask = io.substep_cols(gw, nwords, rem_bits);
 
-  load_window(src, cur, ext, row0, gw, height, nwords);
+  load_window(io, cur, ext, row0, gw, nwords);
   __syncthreads();
 
   for (int s = 1; s <= k; ++s) {
@@ -288,8 +435,7 @@ packed_diamond_kernel(const uint32_t* __restrict__ src,
           csa(s0, p.r1, mid & center, b0, c1);
           const uint32_t b1 = c0 ^ c1;
           const uint32_t b2 = c0 & c1;
-          const int gr = row0 + r;
-          const uint32_t m = (gr >= 0 && gr < height) ? cmask : 0u;
+          const uint32_t m = io.live(row0 + r) ? cmask : 0u;
           nxt[r * kLanes + lane] = apply_sop(sop, b0, b1, b2, 0u, mid) & m;
           up = mid;
           mid = down;
@@ -319,8 +465,7 @@ packed_diamond_kernel(const uint32_t* __restrict__ src,
           const uint32_t d_c = t_a & t_b;
           uint32_t b2, b3;
           csa(d_a, d_b, d_c, b2, b3);
-          const int gr = row0 + r;
-          const uint32_t m = (gr >= 0 && gr < height) ? cmask : 0u;
+          const uint32_t m = io.live(row0 + r) ? cmask : 0u;
           nxt[r * kLanes + lane] = apply_sop(sop, b0, b1, b2, b3, mid) & m;
           up2 = up1;
           up1 = mid;
@@ -337,25 +482,45 @@ packed_diamond_kernel(const uint32_t* __restrict__ src,
     nxt = t;
   }
 
-  store_interior(dst, cur, halo, tile_rows, row0, gw, height, nwords);
+  store_interior(io, cur, halo, tile_rows, row0, gw, nwords, rem_bits);
 }
 
 template <int R>
-int launch_diamond(const void* src, void* dst, int height, int nwords,
-                   int rem_bits, int k, int tile_rows, int center,
-                   const Sop* sop, void* stream) {
-  const size_t smem = 2 * static_cast<size_t>(tile_rows + 2 * R * k) * kLanes *
+__global__ void __launch_bounds__(kLanes * kWarps)
+packed_diamond_kernel(const uint32_t* __restrict__ src,
+                      uint32_t* __restrict__ dst, int height, int nwords,
+                      int rem_bits, int k, int tile_rows, uint32_t center,
+                      const Sop sop) {
+  diamond_block<R>(BoardIo{src, dst, height}, nwords, rem_bits, k, tile_rows,
+                   center, sop);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kLanes * kWarps)
+sharded_diamond_kernel(const uint32_t* __restrict__ top,
+                       const uint32_t* __restrict__ chunk,
+                       const uint32_t* __restrict__ bot,
+                       uint32_t* __restrict__ dst, int rows, int fr, int row0,
+                       int height, int width, int nwords, int rem_bits, int k,
+                       int tile_rows, uint32_t center, const Sop sop) {
+  diamond_block<R>(ShardIo<false>{top, chunk, bot, dst, rows, fr, row0, height, width},
+                   nwords, rem_bits, k, tile_rows, center, sop);
+}
+
+// Launch `kernel` over the tiles of `rows` x `nwords` words with a row halo
+// of `halo` rows on each side; returns cudaGetLastError().
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int rows, int nwords, int halo, int tile_rows,
+           void* stream, Args... args) {
+  const size_t smem = 2 * static_cast<size_t>(tile_rows + 2 * halo) * kLanes *
                       sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      packed_diamond_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(kLanes, kWarps);
   const dim3 grid((nwords + kInterior - 1) / kInterior,
-                  (height + tile_rows - 1) / tile_rows);
-  packed_diamond_kernel<R><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst), height,
-      nwords, rem_bits, k, tile_rows, center ? kFull : 0u, *sop);
+                  (rows + tile_rows - 1) / tile_rows);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -368,19 +533,9 @@ extern "C" {
 int packed_stripe_multi_step(const void* src, void* dst, int height,
                              int nwords, int rem_bits, int k, int tile_rows,
                              const Sop* sop, void* stream) {
-  const size_t smem = 2 * static_cast<size_t>(tile_rows + 2 * k) * kLanes *
-                      sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_stripe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(kLanes, kWarps);
-  const dim3 grid((nwords + kInterior - 1) / kInterior,
-                  (height + tile_rows - 1) / tile_rows);
-  packed_stripe_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst), height,
-      nwords, rem_bits, k, tile_rows, *sop);
-  return static_cast<int>(cudaGetLastError());
+  return launch(packed_stripe_kernel, height, nwords, k, tile_rows, stream,
+                static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst),
+                height, nwords, rem_bits, k, tile_rows, *sop);
 }
 
 // k masked von Neumann steps of `radius` 1 or 2 (k * radius <= 32), with the
@@ -390,13 +545,61 @@ int packed_diamond_multi_step(const void* src, void* dst, int height,
                               int nwords, int rem_bits, int k, int tile_rows,
                               int radius, int center, const Sop* sop,
                               void* stream) {
+  const uint32_t c = center ? kFull : 0u;
+  const auto* s = static_cast<const uint32_t*>(src);
+  auto* d = static_cast<uint32_t*>(dst);
   if (radius == 1) {
-    return launch_diamond<1>(src, dst, height, nwords, rem_bits, k, tile_rows,
-                             center, sop, stream);
+    return launch(packed_diamond_kernel<1>, height, nwords, k, tile_rows, stream,
+                  s, d, height, nwords, rem_bits, k, tile_rows, c, *sop);
   }
   if (radius == 2) {
-    return launch_diamond<2>(src, dst, height, nwords, rem_bits, k, tile_rows,
-                             center, sop, stream);
+    return launch(packed_diamond_kernel<2>, height, nwords, 2 * k, tile_rows, stream,
+                  s, d, height, nwords, rem_bits, k, tile_rows, c, *sop);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Kernel K3: k masked steps of one shard, from chunk (int32[rows, nwords],
+// board rows [row0 + fr, row0 + fr + rows)) and its halos top and bot
+// (int32[fr, nwords] each, fr = radius * k) into dst (int32[rows, nwords],
+// not chunk), on `stream`.  mode 0: Moore, clamped to `height` rows; mode
+// 1: Moore on the torus of `width` columns (rows are not masked); mode 2:
+// the von Neumann diamond of `radius` 1 or 2, clamped, with the centre in
+// the count where `center` is not 0.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments outside these.
+int sharded_stripe_block(const void* top, const void* chunk, const void* bot,
+                         void* dst, int rows, int fr, int row0, int height,
+                         int width, int k, int tile_rows, int mode, int radius,
+                         int center, const Sop* sop, void* stream) {
+  const int nwords = (width + 31) / 32;
+  const int rem_bits = width % 32;
+  const auto* t = static_cast<const uint32_t*>(top);
+  const auto* c = static_cast<const uint32_t*>(chunk);
+  const auto* b = static_cast<const uint32_t*>(bot);
+  auto* d = static_cast<uint32_t*>(dst);
+  const uint32_t ctr = center ? kFull : 0u;
+  if (rows < 1 || width < 1 || k < 1 || fr != radius * k || radius * k > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (mode == 0 && radius == 1) {
+    return launch(sharded_stripe_kernel<false>, rows, nwords, fr, tile_rows, stream,
+                  t, c, b, d, rows, fr, row0, height, width, nwords, rem_bits, k,
+                  tile_rows, *sop);
+  }
+  if (mode == 1 && radius == 1) {
+    return launch(sharded_stripe_kernel<true>, rows, nwords, fr, tile_rows, stream,
+                  t, c, b, d, rows, fr, row0, height, width, nwords, rem_bits, k,
+                  tile_rows, *sop);
+  }
+  if (mode == 2 && radius == 1) {
+    return launch(sharded_diamond_kernel<1>, rows, nwords, fr, tile_rows, stream,
+                  t, c, b, d, rows, fr, row0, height, width, nwords, rem_bits, k,
+                  tile_rows, ctr, *sop);
+  }
+  if (mode == 2 && radius == 2) {
+    return launch(sharded_diamond_kernel<2>, rows, nwords, fr, tile_rows, stream,
+                  t, c, b, d, rows, fr, row0, height, width, nwords, rem_bits, k,
+                  tile_rows, ctr, *sop);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,6 +15,7 @@ import torch
 from tpu_life_torch.backends.torch_backend import from_words
 from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.ops import bitlife
+from tpu_life_torch.parallel.mesh import split_rows
 
 
 def board_from_reference(
@@ -87,3 +88,14 @@ def rule_from_fields(
         neighborhood=neighborhood,
         boundary=boundary,
     )
+
+
+def shards_from_reference(
+    board: np.ndarray, logical_shape: tuple[int, int], n: int, layout: str = "words"
+) -> list[torch.Tensor]:
+    """A JAX-package board as the n row chunks the ``sharded`` backend
+    holds on a mesh of n shards (``parallel.mesh.split_rows``: each
+    ``ceil(H / n)`` rows, the last padded with dead rows), CPU tensors in
+    the layout of :func:`board_from_reference`."""
+    x = board_from_reference(board, logical_shape, layout)
+    return [torch.from_numpy(part) for part in split_rows(x.numpy(), n)]

@@ -170,6 +170,12 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+    # kernel K3 (kernels/sharded_stripe.py): top, chunk, bot, dst; rows, fr,
+    # row0, height, width, k, tile_rows, mode, radius, center; sop, stream
+    lib.sharded_stripe_block.argtypes = [
+        *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 10, ctypes.POINTER(_Sop), ctypes.c_void_p,
+    ]
+    lib.sharded_stripe_block.restype = ctypes.c_int
     return lib
 
 

@@ -106,7 +106,9 @@ class Rule:
 
 class NotPortedError(ValueError):
     """A rule spec of a tier this package does not run yet (stochastic
-    ``ising`` / ``noisy:``, continuous ``lenia``)."""
+    ``ising`` / ``noisy:``, continuous ``lenia``), or an option of the
+    sharded backend whose port is still queued; the message names the
+    ROADMAP item."""
 
 
 class GeometryError(ValueError):

@@ -1,12 +1,14 @@
 """Bit-sliced Life in plain PyTorch: 32 cells per word, counts as bitplanes.
 
-The single-device part of ``tpu_life/ops/bitlife.py`` on torch tensors:
+The part of ``tpu_life/ops/bitlife.py`` the port runs, on torch tensors:
 the clamped Moore step, the clamped von Neumann diamond (2 states,
-r <= 2) and the life-like torus step.  The clamped steps are the plain
-versions the hand-written kernel
-(``tpu_life_torch/kernels/packed_stripe.py``) is held to; the torus step
-has no kernel in either package and is what runs on the card.  All three
-are executors of the ``torch`` backend on any device.
+r <= 2) and the life-like torus step, and the masked step at a shard's
+row and word offsets.  The clamped steps are the plain versions the
+hand-written kernel K1 (``tpu_life_torch/kernels/packed_stripe.py``) is
+held to; the torus step runs on the card for the ``cuda`` backend.  Per
+shard (``parallel.halo.make_shard_block``) the masked and the torus
+steps are the plain version of kernel K3.  All are executors of the
+``torch`` backend on any device.
 
 Layout: the ``pack_np`` layout of the JAX package — a board row of W cells
 is ``ceil(W/32)`` 32-bit words, column ``c = 32*j + b`` is bit ``b``
@@ -429,32 +431,45 @@ def make_packed_diamond_step(rule: Rule) -> Callable[[torch.Tensor], torch.Tenso
 
 
 def word_mask(
-    shape: tuple[int, int], logical_shape: tuple[int, int], device
+    shape: tuple[int, int],
+    logical_shape: tuple[int, int],
+    device,
+    row_offset: int = 0,
+    word_offset: int = 0,
 ) -> torch.Tensor:
-    """int32[H, Wp] with exactly the in-board bits set: rows below ``lh``,
-    whole words below ``lw // 32``, and the low ``lw % 32`` bits of the
-    partial last word."""
+    """int32[H, Wp] with exactly the in-board bits set, where physical
+    row 0 is global row ``row_offset`` and word column 0 is global word
+    ``word_offset``: rows in ``[0, lh)``, whole words in ``[0, lw // 32)``
+    and the low ``lw % 32`` bits of the partial last word.  Negative rows
+    and words (a halo above or left of the board) are dead."""
     h, wp = shape
     lh, lw = logical_shape
     full, rem = divmod(lw, WORD)
-    cols = np.zeros(wp, np.uint32)
-    cols[: min(full, wp)] = 0xFFFFFFFF
-    if rem and full < wp:
-        cols[full] = (1 << rem) - 1
-    cols = torch.from_numpy(cols.view(np.int32)).to(device)
-    rows = torch.arange(h, device=device) < lh
-    return torch.where(rows[:, None], cols[None, :], torch.zeros_like(cols[:1]))
+    gw = word_offset + np.arange(wp)
+    cols = np.where(gw < full, np.uint32(0xFFFFFFFF), np.uint32(0))
+    if rem:
+        cols[gw == full] = (1 << rem) - 1
+    cols[gw < 0] = 0
+    cols = torch.from_numpy(cols.astype(np.uint32).view(np.int32)).to(device)
+    rows = row_offset + torch.arange(h, device=device)
+    rows_ok = (rows >= 0) & (rows < lh)
+    return torch.where(rows_ok[:, None], cols[None, :], torch.zeros_like(cols[:1]))
 
 
 def make_masked_packed_step(
     rule: Rule, logical_shape: tuple[int, int], step: Callable | None = None
-) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Packed step that pins cells outside the logical board dead: rows at
-    or past ``lh`` and the padding bits of the partial last word.  ``step``
-    is the unmasked packed step; by default von Neumann rules get the
-    bit-sliced diamond and every other rule the life-like Moore step, so
-    every caller of the masked step runs diamonds with no dispatch of its
-    own."""
+) -> Callable[..., torch.Tensor]:
+    """Packed step that pins cells outside the logical board dead.
+
+    ``masked(x, row_offset=0, word_offset=0)``: ``row_offset`` is the
+    global row of ``x``'s row 0 and ``word_offset`` the global word of its
+    word column 0 (a shard's halo-extended chunk starts above the board's
+    row 0 or inside it).  Rows outside ``[0, lh)``, words outside the
+    board and the padding bits of the partial last word are pinned dead.
+    ``step`` is the unmasked packed step; by default von Neumann rules get
+    the bit-sliced diamond and every other rule the life-like Moore step,
+    so every caller of the masked step runs diamonds with no dispatch of
+    its own."""
     if step is None:
         step = (
             make_packed_diamond_step(rule)
@@ -463,10 +478,12 @@ def make_masked_packed_step(
         )
     masks: dict[tuple, torch.Tensor] = {}
 
-    def masked(x: torch.Tensor) -> torch.Tensor:
-        key = (tuple(x.shape), x.device)
+    def masked(x: torch.Tensor, row_offset: int = 0, word_offset: int = 0) -> torch.Tensor:
+        key = (tuple(x.shape), x.device, int(row_offset), int(word_offset))
         if key not in masks:
-            masks[key] = word_mask(tuple(x.shape), logical_shape, x.device)
+            masks[key] = word_mask(
+                tuple(x.shape), logical_shape, x.device, int(row_offset), int(word_offset)
+            )
         return step(x) & masks[key]
 
     return masked

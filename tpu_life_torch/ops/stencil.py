@@ -91,6 +91,24 @@ def _counts(
     return counts
 
 
+def make_wrap_cols_step(rule: Rule) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Per-shard substep of the sharded torus: columns wrap in place (a
+    shard of a 1-D row mesh holds whole rows, so the east-west seam is
+    local) while rows see zero padding — the real north-south neighbours
+    arrive as halo rows stacked around the shard by the closed ring, and
+    the fringe the zero rows corrupt is dropped after each block."""
+
+    def step(board: torch.Tensor) -> torch.Tensor:
+        alive = (board == 1).to(torch.int32)
+        counts = _counts(
+            alive, rule.radius, rule.include_center, rule.neighborhood,
+            row_wrap=False, col_wrap=True,
+        )
+        return apply_rule(board, counts, rule)
+
+    return step
+
+
 def _membership(counts: torch.Tensor, values: frozenset) -> torch.Tensor:
     """Branch-free ``counts in values`` as range compares."""
     m = torch.zeros(counts.shape, dtype=torch.bool, device=counts.device)

@@ -4,7 +4,7 @@ Sequence: resolve the config -> build the backend -> stage the board ->
 chunked drive -> gather -> atomic output write -> report
 ``Total time = <s>``, the reference's contract line.
 
-Not ported yet (ROADMAP.md): distributed runs, streamed per-shard I/O,
+Not ported yet (ROADMAP.md): multi-process runs, streamed per-shard I/O,
 the tuned backend, snapshots and elastic recovery, tracing and metrics
 files, and seeded random boards.
 """
@@ -55,6 +55,8 @@ def run(cfg: RunConfig) -> RunResult:
     kwargs = {"device": cfg.device, "bitpack": cfg.bitpack}
     if cfg.block_steps is not None:
         kwargs["block_steps"] = cfg.block_steps
+    if cfg.backend == "sharded":
+        kwargs.update(num_devices=cfg.num_devices, local_kernel=cfg.local_kernel)
     backend = get_backend(cfg.backend, **kwargs)
 
     board = read_board(cfg.input_file, height, width)
