@@ -12,9 +12,12 @@ Phases (any failure exits non-zero and prints no result line):
 2. build — compiles the kernel sources of the main paths from
    ``tpu_life_torch/csrc`` (one nvcc each, started together, at first use),
    prints the build seconds and each ptxas report: K1's Moore kernel and
-   its two diamond kernels (radius 1 and 2), and K2;
+   its two diamond kernels (radius 1 and 2), K2, and K4's registers beside
+   K2's, which must stay at their count from before K4 shared K2's
+   substeps;
 3. kernel vs plain — holds each kernel bit-identical (``torch.equal``) to
-   its plain PyTorch version on the card: K1 over life-like rules, ragged
+   its plain PyTorch version on the card (K3 and K4 below the list): K1
+   over life-like rules, ragged
    shapes up to 16384^2 and block depths with a remainder; K1's diamond
    mode over three von Neumann rules (r = 1, r = 2, r = 2 with the centre),
    shapes from 11x11 to 16384^2, widths with W % 32 of 0, 1 and 31, a
@@ -68,7 +71,20 @@ Phases (any failure exits non-zero and prints no result line):
    and K1's launch over the whole board; the halo exchange and one block
    timed; then ``conway:T`` 16384^2 on 4 shards through ``k3_torus``,
    held to the ``packed_torus`` ops on the same board, with its ms per
-   step beside phase 7's.
+   step beside phase 7's;
+9. the sharded backend at full size on 2-D meshes — ``bugs`` 8192^2 for 64
+   steps on 4 row shards and on 2x2 shards of the card and ``brians_brain``
+   16384^2 for 64 steps on 2x2 (route ``k4``: kernel K4 per shard, k = 1
+   and 8), each held to phase 6's K2 result on the same board, with its
+   launches and row and column halo copies counted and its cell updates
+   per second through the Runner; one shard's K4 launch timed with CUDA
+   events and the profiler's kernel records against its plain version,
+   its bound and K2's launch over the whole board; per block the host's
+   issue time and the device records (K4, copies, idle share); then
+   ``conway`` 16384^2 for 256 steps on 2x2 under ``auto`` (packed plain
+   ops, no kernel), held to phase 5's K1 board, and ``conway:T`` 16384^2
+   for 32 steps on 2x2 (the 2-D torus: closed rings on both axes, packed
+   plain ops), held to phase 7's ``packed_torus`` board.
 
 Phases 2-4 cover K3 too: it is built with K1 (same source, its four
 instantiations in the ptxas report); phase 3 holds it bit-identical to its
@@ -81,6 +97,20 @@ W % 32 of 0, 1 and 31, live cells on all four edges, and depths 1, 2 and
 launches) and as a subprocess, and ``--device cuda:0 --num-devices 4`` in
 process (52 launches, 78 halo copies), each at the golden sha256.
 
+Phases 2-4 cover K4 too: it is built with K2 (same source,
+``sharded_int8_kernel``); phase 3 holds it bit-identical to its plain
+version (the ``shard_ops`` route on the int8 cells of the same mesh) on
+meshes of 1x1, 4x1 (4 row shards), 1x4, 2x2, 2x4, 4x2 and 3x1 shards of
+the card, for ``bugs``, ``brians_brain``, ``star_wars``,
+``R2,C2,M1,S5..10,B5..8`` and ``conway`` (bitpack off), on boards whose
+heights and widths leave padding rows and columns, live cells on all four
+edges, and depths 1, 2 and the clamp with a remainder block; phase 4 runs
+``python -m tpu_life_torch run --backend sharded --device cuda:0`` with
+``--num-devices 4 --no-bitpack`` (route ``k4``, 52 launches, 78 row
+copies) and ``--mesh-shape 2,2 --no-bitpack`` (``k4``, 52 launches, 52 row
+and 156 column copies) in process, and ``--mesh-shape 2,2`` (``shard_ops``,
+no kernel launch), each at the golden sha256.
+
 The line before the last is the kernels record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -91,6 +121,7 @@ import gzip
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -138,6 +169,18 @@ K3_RULES = ["conway", "conway:T", DIAMOND, DIAMOND_R1]
 K3_WIDTHS = (992, 993, 1023)
 K3_MESHES = (1, 2, 3, 4, 8)
 K3_DEPTHS = (1, 2, BLOCK_STEPS)
+# K4 against its plain version: meshes (rows, cols) of shards of the one card
+# (a row mesh of 4 and of 3, a row of 4, and 2-D meshes), the rules of the
+# int8 route (conway runs with bitpack off), and depths 1, 2 and the clamp
+# (8, cut to what the radius allows), each with a remainder block
+K4_MESHES = ((1, 1), (4, 1), (1, 4), (2, 2), (2, 4), (4, 2), (3, 1))
+K4_RULES = ["bugs", "brians_brain", "star_wars", "R2,C2,M1,S5..10,B5..8", "conway"]
+K4_SHAPES = ((301, 517), (40, 1000))  # padding rows and columns on every mesh
+K4_DEPTHS = (1, 2, BLOCK_STEPS)
+K2_REGISTERS = 32  # ptxas's count for K2 before K4 shared its substeps
+# K4 at full size: (rule, side, steps, mesh), each held to phase 6's K2 board
+K4_FULL = [("bugs", 8192, 64, (4, 1)), ("bugs", 8192, 64, (2, 2)),
+           ("brians_brain", 16384, 64, (2, 2))]
 # K2 at wide radii (depth 1), where the tile grows with the halo and then
 # shrinks to fit shared memory: widths that are and are not a multiple of 16,
 # and the largest radius that fits for 2 and for 10 states
@@ -184,12 +227,13 @@ def main() -> int:
         from tpu_life_torch.io.codec import encode_board, read_board, read_config
         from tpu_life_torch.kernels import int8_tiled as kt
         from tpu_life_torch.kernels import packed_stripe as ps
+        from tpu_life_torch.kernels import sharded_int8 as k4
         from tpu_life_torch.kernels import sharded_stripe as k3
         from tpu_life_torch.models.rules import get_rule
         from tpu_life_torch.ops import bitlife, stencil
         from tpu_life_torch.ops.reference import run_np
         from tpu_life_torch.parallel import halo
-        from tpu_life_torch.parallel.mesh import make_mesh
+        from tpu_life_torch.parallel.mesh import make_mesh, make_mesh_2d
         from tpu_life_torch.runtime import driver
     except ImportError as e:
         fail(f"the tpu_life_torch package is not beside this script: {e}")
@@ -220,6 +264,16 @@ def main() -> int:
                    "sharded_diamond_kernelILi1E", "sharded_diamond_kernelILi2E"):
         if kernel not in k1_log:
             fail(f"the ptxas report of packed_stripe.cu does not name {kernel}")
+    # K2 and K4 share int8_tile: K2's registers must not move
+    registers = dict(re.findall(r"Compiling entry function '\w*?(int8_tiled_kernel|sharded_int8_kernel)"
+                                r"\w*'.*?Used (\d+) registers",
+                                (libs[1].parent / "build.log").read_text(), re.S))
+    if set(registers) != {"int8_tiled_kernel", "sharded_int8_kernel"}:
+        fail(f"the ptxas report of int8_tiled.cu names {sorted(registers)}, want K2 and K4")
+    print(f"registers: K2 (int8_tiled_kernel) {registers['int8_tiled_kernel']}, K4 "
+          f"(sharded_int8_kernel) {registers['sharded_int8_kernel']}", flush=True)
+    if registers["int8_tiled_kernel"] != str(K2_REGISTERS):
+        fail(f"K2 uses {registers['int8_tiled_kernel']} registers, want {K2_REGISTERS} as before K4")
 
     def words(board):
         return torch.from_numpy(bitlife.pack_np(board).view(np.int32).copy()).to(dev)
@@ -406,6 +460,46 @@ def main() -> int:
           f"{', '.join(map(str, K3_MESHES))} shards ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 
+    # K4 against its plain version on the card: the sharded backend's k4
+    # route against its shard_ops route on the int8 cells (the plain
+    # per-shard block) on the same mesh of shards of the one card
+    k4_max_err = 0
+    k4_cases = 0
+
+    def k4_case(board, rule, shape, k, what):
+        nonlocal k4_max_err, k4_cases
+        mesh = make_mesh_2d(shape, devices=[dev] * (shape[0] * shape[1]))
+        kern = make_runner(get_backend("sharded", mesh=mesh, block_steps=k, bitpack=False), board, rule)
+        plain = make_runner(get_backend("sharded", mesh=mesh, block_steps=k, bitpack=False,
+                                        local_kernel="torch"), board, rule)
+        if kern.route != "k4" or plain.route != "shard_ops":
+            fail(f"K4 case {what}: routes {kern.route!r} and {plain.route!r}")
+        steps = 2 * k + 3  # a remainder block
+        before = k4.sharded_int8_block.launches
+        drive_runner(kern, steps)
+        drive_runner(plain, steps)
+        if k4.sharded_int8_block.launches == before:
+            fail(f"K4 case {what}: no K4 launch")
+        err = max(int8_err(a, b) for a, b in zip(kern.chunks, plain.chunks))
+        k4_max_err = max(k4_max_err, err)
+        k4_cases += 1
+        if err:
+            fail(f"K4 != plain: {what}, {board.shape[0]}x{board.shape[1]} on a "
+                 f"{shape[0]}x{shape[1]} mesh, k={k}, {steps} steps")
+
+    t0 = time.perf_counter()
+    for name in K4_RULES:
+        rule = get_rule(name)
+        for h, w in K4_SHAPES:
+            board = states_board((h, w), rule)
+            board[:3], board[-3:], board[:, :3], board[:, -3:] = 1, 1, 1, 1  # all four edges
+            for shape in K4_MESHES:
+                for k in K4_DEPTHS:
+                    k4_case(board, rule, shape, k, f"rule {name}")
+    print(f"K4 vs plain: {k4_cases} cases bit-identical on meshes of "
+          f"{', '.join(f'{r}x{c}' for r, c in K4_MESHES)} shards ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
     # -- 4. the main path: the reference contract through the CLI ----------
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -549,6 +643,50 @@ def main() -> int:
               f"--device cuda:0 --num-devices 4: golden sha256, {sharded_runs[4][0]} K3 "
               f"launches, {sharded_runs[4][1]} halo copies", flush=True)
 
+        # K4's main path: the reference workload on the int8 cells, 4 row
+        # shards and 2x2 shards of the card (13 blocks of 4 launches), then
+        # 2x2 with bitpack on, which keeps a 2-D mesh's life-like rules on
+        # the packed plain ops (no kernel)
+        k4_runs = {}
+        driver.run = recording_run
+        try:
+            for what, extra, route in (
+                ("--num-devices 4 --no-bitpack", ["--num-devices", "4", "--no-bitpack"], "k4"),
+                ("--mesh-shape 2,2 --no-bitpack", ["--mesh-shape", "2,2", "--no-bitpack"], "k4"),
+                ("--mesh-shape 2,2", ["--mesh-shape", "2,2"], "shard_ops"),
+            ):
+                out = tmp / f"out_k4_{len(k4_runs)}.txt"
+                ps.packed_multi_step.launches = kt.int8_multi_step.launches = 0
+                k3.sharded_stripe_block.launches = k4.sharded_int8_block.launches = 0
+                halo.exchange_rows.copies = halo.exchange_cols.copies = 0
+                rc = cli.main([*args, "--backend", "sharded", "--device", "cuda:0", *extra,
+                               "--output-file", str(out)])
+                counts = (k4.sharded_int8_block.launches, halo.exchange_rows.copies,
+                          halo.exchange_cols.copies, k3.sharded_stripe_block.launches,
+                          ps.packed_multi_step.launches, kt.int8_multi_step.launches)
+                if rc != 0:
+                    fail(f"in-process run --backend sharded {what} exited {rc}")
+                if results[-1].route != route:
+                    fail(f"run --backend sharded {what} took route {results[-1].route!r}, "
+                         f"want {route!r}")
+                if what.startswith("--num-devices"):
+                    want_counts = (52, 13 * 6, 0, 0, 0, 0)
+                elif route == "k4":
+                    want_counts = (52, 13 * 4, 13 * 12, 0, 0, 0)
+                else:
+                    want_counts = (0, 13 * 4, 13 * 12, 0, 0, 0)
+                if counts != want_counts:
+                    fail(f"run --backend sharded {what}: (K4 launches, row copies, column "
+                         f"copies, K3, K1, K2) = {counts}, want {want_counts}")
+                check_output(out, f"in-process run --backend sharded {what}")
+                k4_runs[what] = counts
+        finally:
+            driver.run = real_run
+        k4_main_launches = k4_runs["--num-devices 4 --no-bitpack"][0]
+        print("main path, K4: reference workload at the golden sha256 by " + "; ".join(
+            f"{what} (K4 launches, row copies, column copies, K3, K1, K2) = {c}"
+            for what, c in k4_runs.items()), flush=True)
+
     # -- 5. full size through the cuda backend -----------------------------
     rule = get_rule("conway")
     board = rng.integers(0, 2, size=(FULL, FULL), dtype=np.int8)
@@ -632,12 +770,13 @@ def main() -> int:
         us = [e.time_range.elapsed_us() for e in prof.events() if kernel in e.name]
         return sum(us) / len(us) / 1e3 if us else None
 
-    def device_breakdown(launch, reps: int) -> dict | None:
+    def device_breakdown(launch, reps: int, kernel: str | None = None) -> dict | None:
         """Per call of ``launch``, from the profiler's device records: the
-        ms of kernels and of memcpys, and the span from the first device
-        record's start to the last one's end; the rest of the span is the
-        card's idle share.  None where the profiler records nothing on the
-        device."""
+        ms of kernels and of copies (memcpys; with ``kernel`` named, every
+        record but that kernel's, which takes in the strided copies of the
+        column halos), and the span from the first device record's start
+        to the last one's end; the rest of the span is the card's idle
+        share.  None where the profiler records nothing on the device."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -650,7 +789,8 @@ def main() -> int:
         recs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if not recs:
             return None
-        copies = sum(e.time_range.elapsed_us() for e in recs if "Memcpy" in e.name)
+        copies = sum(e.time_range.elapsed_us() for e in recs
+                     if ("Memcpy" in e.name if kernel is None else kernel not in e.name))
         busy = sum(e.time_range.elapsed_us() for e in recs)
         span = max(e.time_range.end for e in recs) - min(e.time_range.start for e in recs)
         return dict(kernel_ms=(busy - copies) / reps / 1e3, copy_ms=copies / reps / 1e3,
@@ -723,6 +863,7 @@ def main() -> int:
 
     # -- 6. K2 at full size through the cuda backend ------------------------
     k2_rows = []
+    k2_final = {}  # phase 9 holds K4's runs to these boards
     for name, side, steps in K2_FULL:
         rule = get_rule(name)
         shape = (side, side)
@@ -745,6 +886,7 @@ def main() -> int:
         live = runner.live_count()
         if live != int((want == 1).sum()) or live <= 0:
             fail(f"full-size {name} live count {live} disagrees with the plain version")
+        k2_final[name] = (board, runner.x.clone())
         print(f"full size: {name} {side}^2 x {steps} steps through the cuda backend "
               f"({launches} launches of k={k}, {drive_s:.3f} s host clock incl. first "
               f"launch) equal to plain; live cells {live}", flush=True)
@@ -892,6 +1034,7 @@ def main() -> int:
     print(f"full size: {name} {side}^2 x {steps} steps through the cuda backend (route "
           f"packed_torus, no kernel, {drive_s:.3f} s host clock) equal to the int8 torus "
           f"ops; live cells {live}", flush=True)
+    torus_board, torus_final = board, runner.x.clone()  # phase 9's 2-D torus is held to it
     del other
     torch.cuda.empty_cache()
     cps = measure_throughput(backend, board, rule, steps, steps // 4)
@@ -1072,7 +1215,134 @@ def main() -> int:
     del runner, t_launch
     torch.cuda.empty_cache()
 
+    # -- 9. the sharded backend at full size on 2-D meshes ------------------
+    k4_rows = {}
+    for name, side, steps, shape in K4_FULL:
+        rule = get_rule(name)
+        board, k2_board = k2_final[name]
+        n_r, n_c = shape
+        n_sh = n_r * n_c
+        sharded = get_backend("sharded", mesh=make_mesh_2d(shape, devices=[dev] * n_sh))
+        runner = make_runner(sharded, board, rule)
+        if runner.route != "k4":
+            fail(f"{side}^2 {name} took sharded route {runner.route!r}, want 'k4'")
+        k = kt.clamp_block_steps(rule, BLOCK_STEPS)
+        blocks = -(-steps // k)
+        k4.sharded_int8_block.launches = halo.exchange_rows.copies = halo.exchange_cols.copies = 0
+        t0 = time.perf_counter()
+        drive_runner(runner, steps)
+        drive_s = time.perf_counter() - t0
+        counts = (k4.sharded_int8_block.launches, halo.exchange_rows.copies,
+                  halo.exchange_cols.copies)
+        want_counts = (n_sh * blocks, 2 * (n_r - 1) * n_c * blocks, 6 * n_r * (n_c - 1) * blocks)
+        if counts != want_counts:
+            fail(f"the full-size {name} run on {n_r}x{n_c} made (K4 launches, row copies, column "
+                 f"copies) = {counts}, want {want_counts}")
+        err = int8_err(runner.gather(), k2_board)
+        k4_max_err = max(k4_max_err, err)
+        if err:
+            fail(f"the full-size {name} run on {n_r}x{n_c} shards != K2's board after {steps} steps")
+        live = runner.live_count()
+        if live != int((k2_board == 1).sum()) or live <= 0:
+            fail(f"full-size {name} on {n_r}x{n_c}: live count {live} disagrees with K2's")
+        print(f"full size: {name} {side}^2 x {steps} steps through the sharded backend on "
+              f"{n_r}x{n_c} shards of the card (route k4, k={k}: {counts[0]} K4 launches, "
+              f"{counts[1]} row and {counts[2]} column halo copies, {drive_s:.3f} s host clock "
+              f"incl. first launch) equal to K2's board; live cells {live}", flush=True)
+        cps = measure_throughput(sharded, board, rule, steps, steps // 4)
+        print(f"cell_updates_per_sec_per_chip {cps:.6e} ({side}^2 {name} through the sharded "
+              f"Runner on {n_r}x{n_c} shards of one card, host clock, delta of {steps} and "
+              f"{steps // 4} steps)", flush=True)
+
+        # one shard's launch: shard 1 (the second of a row mesh, the top
+        # right of a 2-D one), its halos from one exchange
+        fr = halo.halo_depth(rule, k)
+        fc = fr if n_c > 1 else 0
+        tops, bots = halo.exchange_rows(runner.chunks, fr, periodic=False, cols=n_c)
+        lefts, rights = (halo.exchange_cols(runner.chunks, tops, bots, fc, cols=n_c, periodic=False)
+                         if fc else ([None] * n_sh, [None] * n_sh))
+        hl, wl = runner.chunks[1].shape
+        row0, col0 = 1 // n_c * hl - fr, 1 % n_c * wl - fc
+        halos = dict(left=lefts[1], right=rights[1], col0=col0)
+        reps = max(4, 64 // k)
+        shard_launch = pingpong(
+            lambda a, b: k4.sharded_int8_block(tops[1], a, bots[1], row0, rule, (side, side), k,
+                                               out=b, **halos),
+            runner.chunks[1].clone())
+        k4_ms = cuda_ms(shard_launch, reps)
+        k4_dev_ms = profiled_ms(shard_launch, "sharded_int8_kernel", reps)
+        k4_plain_ms = cuda_ms(lambda: k4.sharded_int8_block_plain(
+            tops[1], runner.chunks[1], bots[1], row0, rule, (side, side), k, **halos), 2)
+        # the bound: substep s computes the chunk and the halo cells later
+        # substeps read, at K2's int ops per cell; each input cell (the
+        # chunk and its halos) read once and each output cell written once
+        ops_cells = sum((hl + 2 * rule.radius * (k - s)) * (wl + (2 * rule.radius * (k - s) if fc else 0))
+                        for s in range(1, k + 1))
+        ops_ms = kt.int_ops_per_cell_step(rule) * ops_cells / int_ops_per_s * 1e3
+        io_bytes = 2 * hl * wl + 2 * fr * wl + 2 * (hl + 2 * fr) * fc
+        mem_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+        k4_bound, k4_by = (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
+        k2_row = next(r for r in k2_rows if r["rule"] == name)
+        rows, cols = kt.tile_shape(rule, k, hl, wl, n_sm)
+        print(f"timing K4 one shard {hl}x{wl} + halos of {fr} rows and {fc} columns, {name}, k={k}, "
+              f"{rows}x{cols} tiles: kernel {k4_ms:.4f} ms/launch by CUDA events "
+              f"({k4_bound / k4_ms:.1%} of the bound), device time {fmt(k4_dev_ms)} ms/launch "
+              f"(profiler kernel records); {n_sh} shard launches {n_sh * k4_ms:.4f} ms by events "
+              f"against K2's {k2_row['ms']:.4f} over the whole board ({n_sh * k4_ms / k2_row['ms']:.3f}x); "
+              f"by device time "
+              + (f"{n_sh * k4_dev_ms:.4f} against {fmt(k2_row['device_ms'])}"
+                 if k4_dev_ms is not None else "not measured")
+              + f"; plain {k4_plain_ms:.4f} ms per {k} steps; bound {k4_bound:.4f} ms ({k4_by}: "
+              f"{kt.int_ops_per_cell_step(rule)} int ops/cell/step over {ops_cells} cell updates = "
+              f"{ops_ms:.4f} ms; {io_bytes} bytes = {mem_ms:.4f} ms)", flush=True)
+        block_ms = cuda_ms(lambda: runner.advance(k), reps)
+        block_split = device_breakdown(lambda: runner.advance(k), reps, "sharded_int8_kernel")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            runner.advance(k)
+        issue_ms = (time.perf_counter() - t0) / reps * 1e3
+        runner.sync()
+        print(f"timing one block on {n_r}x{n_c} shards, {name}: {block_ms:.4f} ms by CUDA events "
+              f"({block_ms / k:.4f} ms/step; K2 {k2_row['ms'] / k:.4f}); the host issues a block "
+              f"in {issue_ms:.4f} ms; {want_counts[1] // blocks} row and {want_counts[2] // blocks} "
+              f"column copies a block; {fmt_breakdown(block_split)}", flush=True)
+        k4_rows[(name, shape)] = dict(shape=[hl, wl], k=k, ms=k4_ms, device_ms=k4_dev_ms,
+                                      plain_ms=k4_plain_ms, bound_ms=k4_bound, bound_by=k4_by,
+                                      launches=counts[0])
+        del runner, tops, bots, lefts, rights, halos, shard_launch, board, k2_board
+        torch.cuda.empty_cache()
+    k2_final.clear()
+
+    # conway and conway:T on 2x2 under auto: the packed plain ops, no kernel
+    sharded = get_backend("sharded", mesh=make_mesh_2d((2, 2), devices=[dev] * 4))
+    kernel_counts = lambda: (ps.packed_multi_step.launches, kt.int8_multi_step.launches,  # noqa: E731
+                             k3.sharded_stripe_block.launches, k4.sharded_int8_block.launches)
+    for name, board, steps, want, what in (
+        ("conway", k1_board, FULL_STEPS, k1_final, "K1's board (phase 5)"),
+        ("conway:T", torus_board, TORUS_FULL[2], torus_final, "the packed_torus board (phase 7)"),
+    ):
+        rule = get_rule(name)
+        runner = make_runner(sharded, board, rule)
+        if runner.route != "shard_ops":
+            fail(f"{FULL}^2 {name} on 2x2 took route {runner.route!r}, want 'shard_ops'")
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        drive_runner(runner, steps)
+        drive_s = time.perf_counter() - t0
+        if kernel_counts() != before:
+            fail(f"{name} on 2x2 launched a kernel: counts {before} -> {kernel_counts()}")
+        err = diff_cells(runner.gather(), want)
+        if err:
+            fail(f"full-size {name} on 2x2 (packed plain ops) != {what} after {steps} steps")
+        step_ms = cuda_ms(lambda: runner.advance(BLOCK_STEPS), 2) / BLOCK_STEPS
+        print(f"full size: {name} {FULL}^2 x {steps} steps through the sharded backend on 2x2 "
+              f"shards (route shard_ops, packed plain ops, no kernel, {drive_s:.3f} s host clock) "
+              f"equal to {what}; {step_ms:.4f} ms/step by CUDA events", flush=True)
+        del runner
+        torch.cuda.empty_cache()
+
     diamond = diamond_rows[DIAMOND]
+    k4_row = k4_rows[("brians_brain", (2, 2))]
     print(json.dumps({"kernels": [{
         "name": "packed_stripe_multi_step",
         "route": "cuda",
@@ -1140,6 +1410,25 @@ def main() -> int:
         "plain_ms": k3_row["plain_ms"],
         "bound_ms": k3_row["bound_ms"],
         "bound_by": k3_row["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "sharded_int8_block",
+        "route": "cuda",
+        "source": "tpu_life_torch/csrc/int8_tiled.cu",
+        "replaces": "tpu_life/backends/pallas_backend.py:732",
+        "launches": k4_main_launches,
+        "max_abs_err": k4_max_err,
+        "equal_to_plain": k4_max_err == 0,
+        "rule": "brians_brain",
+        "mesh": [2, 2],
+        "shape": k4_row["shape"],
+        "steps_per_launch": k4_row["k"],
+        "ms": k4_row["ms"],
+        "kernel_ms": k4_row["ms"],
+        "device_ms": k4_row["device_ms"],
+        "plain_ms": k4_row["plain_ms"],
+        "bound_ms": k4_row["bound_ms"],
+        "bound_by": k4_row["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -173,8 +173,13 @@ def test_numpy_backend_runs_every_deterministic_rule(spec):
 
 @pytest.mark.parametrize("k", [0, 33, -1])
 def test_block_steps_out_of_range(k):
-    with pytest.raises(ValueError, match="block_steps"):
-        CudaBackend(device="cpu", block_steps=k)
+    # clamped to what the kernels take, as the TPU backend clamps it
+    backend = CudaBackend(device="cpu", block_steps=k)
+    assert backend.block_steps == min(max(1, k), 32)
+    b = np.random.default_rng(20 + k).integers(0, 2, size=(30, 40), dtype=np.int8)
+    for spec, bitpack in (("conway", True), ("conway", False), ("bugs", True)):
+        got = CudaBackend(device="cpu", block_steps=k, bitpack=bitpack).run(b, get_rule(spec), 7)
+        np.testing.assert_array_equal(got, run_np(b, get_rule(spec), 7))
 
 
 def test_unknown_backend():

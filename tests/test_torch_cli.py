@@ -148,7 +148,6 @@ def test_jax_output_is_a_valid_port_input(tmp_path, reference_dir):
         (["--rule", "B9x/S"], "unrecognized rule spec"),
         (["--rule", "ising"], "not yet ported"),
         (["--config-file", "missing.txt"], "config file 'missing.txt' not found"),
-        (["--rule", "conway:T", "--device", "cpu", "--block-steps", "40"], "block_steps must be in [1, 32]"),
         (["--rule", "noisy:0.1/conway:T", "--device", "cpu"], "not yet ported"),
         ([], "pass --device cpu"),
     ],
@@ -164,6 +163,84 @@ def test_tidy_error_lines(tmp_path, monkeypatch, capsys, args, match):
     assert len(lines) == 1 and lines[0].startswith("tpu_life_torch: error: "), lines
     assert match in lines[0]
     assert not (tmp_path / "output.txt").exists()
+
+
+@pytest.mark.parametrize("backend", ["cuda", "sharded"])
+@pytest.mark.parametrize("rule", ["conway", "conway:T"])
+def test_block_steps_past_the_kernels_clamp_writes_the_numpy_bytes(tmp_path, backend, rule):
+    # --block-steps 40 is clamped to what the kernels take, as the JAX
+    # package clamps it, and the run writes the numpy backend's bytes
+    write_board(tmp_path / "data.txt", np.random.default_rng(13).integers(0, 2, size=(40, 50), dtype=np.int8))
+    write_config(tmp_path / "grid_size_data.txt", 40, 50, 20)
+    files = ["--config-file", str(tmp_path / "grid_size_data.txt"),
+             "--input-file", str(tmp_path / "data.txt"), "--rule", rule]
+    assert jcli.main(["run", *files, "--backend", "numpy",
+                      "--output-file", str(tmp_path / "jax.txt")]) == 0
+    assert cli.main(["run", *files, "--backend", backend, "--device", "cpu", "--block-steps", "40",
+                     "--output-file", str(tmp_path / "port.txt")]) == 0
+    assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "jax.txt").read_bytes()
+
+
+@pytest.mark.parametrize("bitpack", [[], ["--no-bitpack"]])
+def test_mesh_shape_reference_run_is_golden(reference_dir, bitpack):
+    # 2x2 CPU shards: route k4 (K4's plain version) with --no-bitpack, the
+    # packed shard_ops without
+    out = reference_dir / "out.txt"
+    assert cli.main(["run", "--config-file", str(reference_dir / "grid_size_data.txt"),
+                     "--input-file", str(reference_dir / "data.txt"), "--backend", "sharded",
+                     "--device", "cpu", "--mesh-shape", "2,2", *bitpack,
+                     "--output-file", str(out)]) == 0
+    raw = out.read_bytes()
+    assert len(raw) == 751_500 and hashlib.sha256(raw).hexdigest() == GOLDEN_SHA
+
+
+def test_mesh_shape_reaches_the_backend(tmp_path, monkeypatch):
+    seen = []
+    real = driver.run
+
+    def recording(cfg):
+        seen.append(real(cfg).route)
+        return seen[-1]
+
+    monkeypatch.setattr(driver, "run", recording)
+    write_board(tmp_path / "data.txt", np.zeros((8, 8), np.int8))
+    write_config(tmp_path / "grid_size_data.txt", 8, 8, 2)
+    files = ["--config-file", str(tmp_path / "grid_size_data.txt"),
+             "--input-file", str(tmp_path / "data.txt"), "--device", "cpu", "--backend",
+             "sharded", "--output-file", str(tmp_path / "o.txt")]
+    assert cli.main(["run", *files, "--mesh-shape", "2,2", "--rule", "brians_brain"]) == 0
+    assert cli.main(["run", *files, "--mesh-shape", "1,2"]) == 0
+    assert cli.main(["run", *files, "--mesh-shape", "2,1"]) == 0
+    assert seen == ["k4", "shard_ops", "k3"]
+
+
+@pytest.mark.parametrize(
+    "args,match",
+    [
+        (["--mesh-shape", "2,2", "--num-devices", "3"], "mesh_shape (2, 2) (4 devices) contradicts num_devices=3"),
+        (["--mesh-shape", "2,2", "--local-kernel", "cuda", "--rule", "conway:T"], "full-width stripes only"),
+        (["--mesh-shape", "2,2", "--rule", "conway:T"], "divisible by 32"),
+    ],
+)
+def test_mesh_shape_errors_are_tidy_lines(tmp_path, monkeypatch, capsys, args, match):
+    write_board(tmp_path / "data.txt", np.zeros((8, 8), np.int8))
+    write_config(tmp_path / "grid_size_data.txt", 8, 8, 2)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", ["tpu_life_torch", "run", "--backend", "sharded", "--device", "cpu",
+                                      *args])
+    assert cli.console_main() == 1
+    lines = capsys.readouterr().err.strip().splitlines()
+    assert len(lines) == 1 and lines[0].startswith("tpu_life_torch: error: "), lines
+    assert match in lines[0]
+    assert not (tmp_path / "output.txt").exists()
+
+
+@pytest.mark.parametrize("spec", ["2", "2,x", "0,2", "1,2,3"])
+def test_malformed_mesh_shape_is_a_usage_error(spec, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["run", "--mesh-shape", spec])
+    assert e.value.code == 2
+    assert "--mesh-shape must be two positive ints 'R,C'" in capsys.readouterr().err
 
 
 def test_no_card_error_from_the_module_entry_point(tmp_path):
@@ -192,3 +269,4 @@ def test_info_lists_backends_and_rules(capsys):
     out = capsys.readouterr().out
     assert "backends: cuda, numpy, sharded, torch" in out
     assert "conway" in out and "torch " in out
+    assert "route k4 (K4 per shard)" in out and "--mesh-shape R,C" in out

@@ -112,7 +112,11 @@ def test_mesh_of_cards_needs_a_card(monkeypatch):
         mesh.make_mesh()
 
 
-@pytest.mark.parametrize("call", [lambda: mesh.make_mesh_2d((2, 2)), mesh.init_distributed])
+@pytest.mark.parametrize(
+    "call",
+    [lambda: get_backend("sharded", device="cpu", mesh_shape=(2, 2), partition_mode="gspmd"),
+     mesh.init_distributed],
+)
 def test_not_ported_mesh_entry_points_name_the_roadmap_item(call):
     with pytest.raises(NotPortedError, match="ROADMAP A6"):
         call()

@@ -103,3 +103,10 @@ def test_scan_covers_the_sharded_slice():
         "tpu_life_torch.kernels.sharded_stripe",
         "tpu_life_torch.backends.sharded_backend",
     } <= set(MODULES)
+
+
+def test_scan_covers_the_2d_mesh_slice():
+    # kernel K4's wrapper, which the 2-D mesh slice added, is among the
+    # modules both checks read
+    assert "tpu_life_torch.kernels.sharded_int8" in set(MODULES)
+    assert PKG / "kernels" / "sharded_int8.py" in SOURCES

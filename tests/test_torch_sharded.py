@@ -138,6 +138,22 @@ def test_diamond_depth_clamps_to_the_shard_and_the_reach():
     assert sharded_stripe.sharded_stripe_block.launches == before  # the CPU runs the plain version
 
 
+@pytest.mark.parametrize("local_kernel", ["torch", "auto"])
+@pytest.mark.parametrize("shape,spec", [((9, 30), "bugs"), ((4, 20), "R2,C2,S2..4,B2..3,NN")])
+def test_shards_shallower_than_the_radius_run(shape, spec, local_kernel):
+    # ROADMAP C1: clamped shards are at least a radius deep (the padding
+    # rows are dead), so these boards run on 4 shards as in the JAX package
+    board = _board(shape, seed=21)
+    rule = get_rule(spec)
+    runner = port(4, local_kernel=local_kernel).prepare(board, rule)
+    assert all(c.shape[0] == rule.radius for c in runner.chunks)
+    runner.advance(5)
+    got = runner.fetch()
+    np.testing.assert_array_equal(got, run_np(board, rule, 5))
+    want = JaxShardedBackend(num_devices=4, local_kernel="xla").run(board, jget_rule(spec), 5)
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("spec", ["brians_brain:T", "R2,C2,S2..4,B2..3,NN:T"])
 def test_int8_torus_rules_on_shard_ops(spec):
     board = _board((24, 30), seed=15, states=get_rule(spec).states)
@@ -152,12 +168,12 @@ def test_int8_torus_rules_on_shard_ops(spec):
 
 
 @pytest.mark.parametrize(
-    "spec,auto_runs",
+    "spec,off_k4",
     [("conway", True), ("highlife:T", True), ("R2,C2,S2..4,B2..3,NN", True),
      ("R3,C2,S6..10,B6..8,NN", True), ("R1,C3,S1..2,B2,NN", True),
-     ("brians_brain", False), ("bugs", False)],  # the last two wait for K4 under auto
+     ("brians_brain", False), ("bugs", False)],  # the last two take K4 under auto
 )
-def test_torch_local_kernel_equals_auto_and_the_oracle(spec, auto_runs):
+def test_torch_local_kernel_equals_auto_and_the_oracle(spec, off_k4):
     rule = get_rule(spec)
     board = _board((36, 50), seed=16, states=rule.states)
     torch_runner = port(3, block_steps=2, local_kernel="torch").prepare(board, rule)
@@ -165,8 +181,10 @@ def test_torch_local_kernel_equals_auto_and_the_oracle(spec, auto_runs):
     torch_runner.advance(5)
     got = torch_runner.fetch()
     np.testing.assert_array_equal(got, run_np(board, rule, 5))
-    if auto_runs:
-        np.testing.assert_array_equal(got, port(3, block_steps=2).run(board, rule, 5))
+    auto_runner = port(3, block_steps=2).prepare(board, rule)
+    assert (auto_runner.route == "k4") != off_k4
+    auto_runner.advance(5)
+    np.testing.assert_array_equal(got, auto_runner.fetch())
 
 
 @pytest.mark.parametrize(
@@ -184,14 +202,20 @@ def test_routes(spec, bitpack, route):
                                           ("conway", False), ("R2,C3,M1,S8..12,B7..8", True)])
 @pytest.mark.parametrize("local_kernel", ["auto", "cuda"])
 def test_rules_of_the_int8_kernel_name_roadmap_b4(spec, bitpack, local_kernel):
-    backend = port(2, bitpack=bitpack, local_kernel=local_kernel)
-    with pytest.raises(NotPortedError, match="K4.*ROADMAP B4"):
-        backend.prepare(np.zeros((16, 16), np.int8), get_rule(spec))
+    # the rules of ROADMAP B4's kernel, which the sharded backend refused
+    # until K4 was ported: under auto and cuda they take route k4
+    rule = get_rule(spec)
+    board = _board((16, 40), seed=19, states=rule.states)
+    runner = port(2, bitpack=bitpack, local_kernel=local_kernel).prepare(board, rule)
+    assert runner.route == "k4"
+    runner.advance(3)
+    np.testing.assert_array_equal(runner.fetch(), run_np(board, rule, 3))
 
 
 @pytest.mark.parametrize(
     "kwargs,match",
-    [(dict(mesh_shape=(2, 2)), "ROADMAP A6"), (dict(partition_mode="gspmd"), "ROADMAP A6"),
+    [(dict(mesh_shape=(2, 2), partition_mode="gspmd"), "ROADMAP A6"),
+     (dict(partition_mode="gspmd"), "ROADMAP A6"),
      (dict(stencil="matmul"), "ROADMAP A7")],
 )
 def test_options_not_ported_name_their_item(kwargs, match):
@@ -203,13 +227,18 @@ def test_options_not_ported_name_their_item(kwargs, match):
     "make,match",
     [
         (lambda: port(2, local_kernel="pallas"), "local_kernel must be one of"),
-        (lambda: port(2, block_steps=33), r"block_steps must be in \[1, 32\]"),
+        # the backend clamps any depth; K3's wrapper takes 1..32 // r
+        (lambda: sharded_stripe.sharded_stripe_block(
+            *(torch.zeros(s, dtype=torch.int32) for s in ((33, 3), (40, 3), (33, 3))),
+            -33, get_rule("conway"), (40, 70), 33), r"block_steps must be in \[1, 32\]"),
         (lambda: port(3).prepare(np.zeros((16, 16), np.int8), get_rule("conway:T")), "divisible by the mesh size"),
         (lambda: port(2, local_kernel="cuda").prepare(np.zeros((16, 16), np.int8), get_rule("brians_brain:T")),
          "needs the packed bitboard"),
         (lambda: port(2, local_kernel="cuda").prepare(np.zeros((16, 16), np.int8), get_rule("R3,C2,S6..10,B6..8,NN")),
          "Moore boxes only"),
-        (lambda: port(8).prepare(np.zeros((8, 16), np.int8), get_rule("R2,C2,S2..4,B2..3,NN")), "fewer devices"),
+        # clamped shards are at least a radius deep; torus shards are exact
+        (lambda: port(8).prepare(np.zeros((8, 16), np.int8), get_rule("R2,C2,S2..4,B2..3,NN:T")),
+         "fewer devices"),
         (lambda: ShardedBackend(device="cpu", mesh=make_mesh(devices=["cpu"] * 2), num_devices=3), "contradicts"),
     ],
 )
@@ -293,7 +322,7 @@ def test_cli_sharded_not_ported_is_a_tidy_error(tmp_path, monkeypatch, capsys):
     write_config(tmp_path / "grid_size_data.txt", 8, 8, 2)
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(sys, "argv", ["tpu_life_torch", "run", "--backend", "sharded", "--device",
-                                      "cpu", "--num-devices", "2", "--rule", "brians_brain"])
+                                      "cpu", "--mesh-shape", "2,2", "--rule", "ising"])
     assert cli.console_main() == 1
     err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and "ROADMAP B4" in err[0]
+    assert len(err) == 1 and "not yet ported" in err[0] and "ROADMAP" in err[0]

@@ -72,11 +72,12 @@ class CudaBackend:
         self, *, device=None, block_steps: int | None = None, bitpack: bool = True, **_
     ):
         self.device = resolve_device(device)
-        self.block_steps = DEFAULT_BLOCK_STEPS if block_steps is None else block_steps
-        if not 1 <= self.block_steps <= MAX_BLOCK_STEPS:
-            raise ValueError(
-                f"block_steps must be in [1, {MAX_BLOCK_STEPS}], got {self.block_steps}"
-            )
+        # as the TPU backend, any depth asked for runs, clamped to what the
+        # kernels take (K2 clamps further by the rule's radius)
+        self.block_steps = (
+            DEFAULT_BLOCK_STEPS if block_steps is None
+            else min(max(1, block_steps), MAX_BLOCK_STEPS)
+        )
         self.bitpack = bitpack
 
     def prepare(self, board: np.ndarray, rule: Rule) -> DeviceRunner:

@@ -91,13 +91,15 @@ class DeviceRunner:
 
 
 class ShardedRunner:
-    """Runner over a board split into row chunks, one tensor per mesh
-    device (the ``sharded`` backend).  ``advance`` queues each block's
-    halo copies and per-shard steps with no host round-trip; ``sync``
-    waits for every card of the mesh; ``gather`` stacks the chunks on the
-    first shard's device and drops the padding rows; ``live_count`` sums
-    the shards' counts.  ``route`` names the per-shard executor: kernel K3
-    (``k3``, ``k3_diamond``, ``k3_torus``) or plain ops (``shard_ops``)."""
+    """Runner over a board split into blocks on a ``rows x cols`` mesh, one
+    tensor per mesh device in row-major order (the ``sharded`` backend).
+    ``advance`` queues each block's halo copies and per-shard steps with
+    no host round-trip; ``sync`` waits for every card of the mesh;
+    ``gather`` joins the chunks on the first shard's device and drops the
+    padding rows and columns (``shape``: the board's rows and its words
+    or cells); ``live_count`` sums the shards' counts.  ``route`` names
+    the per-shard executor: kernel K3 (``k3``, ``k3_diamond``,
+    ``k3_torus``), kernel K4 (``k4``) or plain ops (``shard_ops``)."""
 
     def __init__(
         self,
@@ -106,14 +108,16 @@ class ShardedRunner:
         to_np: Callable[[torch.Tensor], np.ndarray],
         count_live: Callable[[torch.Tensor], torch.Tensor],
         route: str,
-        rows: int,
+        grid: tuple[int, int],
+        shape: tuple[int, int],
     ):
         self.chunks = chunks
         self._advance = advance
         self._to_np = to_np
         self._count_live = count_live
         self.route = route
-        self.rows = rows
+        self.grid = grid
+        self.shape = shape
 
     def advance(self, steps: int) -> None:
         if steps > 0:
@@ -126,7 +130,11 @@ class ShardedRunner:
 
     def _stack(self, chunks: list[torch.Tensor]) -> torch.Tensor:
         first = chunks[0].device
-        return torch.cat([c.to(first) for c in chunks])[: self.rows]
+        cols = self.grid[1]
+        rows = [torch.cat([c.to(first) for c in chunks[i: i + cols]], dim=1)
+                for i in range(0, len(chunks), cols)]
+        h, w = self.shape
+        return torch.cat(rows)[:h, :w].contiguous()
 
     def gather(self) -> torch.Tensor:
         """The board (words or cells) on the first shard's device."""
@@ -137,7 +145,7 @@ class ShardedRunner:
 
     def live_count(self) -> int:
         """Exact live-cell count: one scalar per shard, reduced on its
-        device (padding rows are dead)."""
+        device (padding rows and columns are dead)."""
         return sum(int(self._count_live(c)) for c in self.chunks)
 
     def snapshot(self) -> Callable[[], np.ndarray]:

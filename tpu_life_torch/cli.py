@@ -37,8 +37,10 @@ def build_parser() -> argparse.ArgumentParser:
         "Neumann rules of radius <= 2, plain PyTorch ops on the card for the "
         "other von Neumann rules and the torus (':T') rules; torch = plain "
         "PyTorch ops for every rule; numpy = the host oracle; sharded = the "
-        "board in row stripes over a mesh of devices (--num-devices), kernel "
-        "K3 per shard for life-like and 2-state von Neumann (r <= 2) rules",
+        "board in row stripes (--num-devices) or blocks (--mesh-shape) over a "
+        "mesh of devices, kernel K3 per stripe for life-like and 2-state von "
+        "Neumann (r <= 2) rules and kernel K4 per shard for the other clamped "
+        "Moore rules",
     )
     r.add_argument(
         "--device", default=None,
@@ -52,16 +54,24 @@ def build_parser() -> argparse.ArgumentParser:
         help="shards of the sharded backend (default: one per visible card)",
     )
     r.add_argument(
+        "--mesh-shape", default=None, metavar="R,C",
+        help="2-D rows,cols device mesh for the sharded backend (block "
+        "decomposition; halo traffic ~ shard perimeter); with --device, all "
+        "R*C shards on that one device",
+    )
+    r.add_argument(
         "--local-kernel", default="auto", choices=["auto", "torch", "cuda"],
         help="per-shard stepper of the sharded backend: cuda = kernel K3 "
-        "(packed rules), torch = plain PyTorch ops; auto = K3 where it "
-        "applies, plain ops for the torus and von Neumann rules K3 does not "
-        "take",
+        "(packed rules on a row mesh) or K4 (every other clamped Moore rule, "
+        "and on a 2-D mesh the life-like rules unpacked), torch = plain "
+        "PyTorch ops; auto = K3 or K4 where they apply, plain ops for the "
+        "torus on a 2-D mesh, the packed rules of a 2-D mesh and the von "
+        "Neumann rules K3 does not take",
     )
     r.add_argument(
         "--block-steps", type=int, default=None,
-        help="CA steps per kernel launch (1..32; default 8; clamped to what "
-        "the rule's radius allows)",
+        help="CA steps per kernel launch (default 8; clamped to 1..32 and to "
+        "what the rule's radius and the shards allow)",
     )
     r.add_argument(
         "--no-bitpack", dest="bitpack", action="store_false",
@@ -84,6 +94,7 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     if args.command == "info":
         return _info()
+    mesh_shape = _parse_mesh_shape(parser, args.mesh_shape)
     cfg = RunConfig(
         height=args.height,
         width=args.width,
@@ -95,6 +106,7 @@ def main(argv: list[str] | None = None) -> int:
         backend=args.backend,
         device=args.device,
         num_devices=args.num_devices,
+        mesh_shape=mesh_shape,
         local_kernel=args.local_kernel,
         block_steps=args.block_steps,
         bitpack=args.bitpack,
@@ -109,6 +121,18 @@ def main(argv: list[str] | None = None) -> int:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 2
     return 0
+
+
+def _parse_mesh_shape(parser, spec: str | None) -> tuple[int, int] | None:
+    if spec is None:
+        return None
+    try:
+        parts = tuple(int(v) for v in spec.split(","))
+    except ValueError:
+        parts = ()
+    if len(parts) != 2 or min(parts) < 1:
+        parser.error(f"--mesh-shape must be two positive ints 'R,C', got {spec!r}")
+    return parts
 
 
 def _info() -> int:
@@ -136,10 +160,12 @@ def _info() -> int:
         "the hand-written kernels K1 (life-like; 2-state NN of radius <= 2) "
         "and K2 (other clamped Moore rules) and through PyTorch ops on the "
         "card for the other NN and the ':T' rules; torch through PyTorch "
-        "ops alone; sharded runs them in row stripes over a mesh, K3 per "
-        "shard for life-like and 2-state NN (r <= 2) rules (Generations and "
-        "LtL need local_kernel torch until K4 is ported); ising, noisy: and "
-        "lenia are not ported yet"
+        "ops alone; sharded runs them in row stripes or blocks over a mesh "
+        "(--mesh-shape R,C), route k3 (K3 per stripe) for life-like and "
+        "2-state NN (r <= 2) rules on a row mesh, route k4 (K4 per shard) "
+        "for Generations, LtL and --no-bitpack on any mesh, shard_ops (PyTorch "
+        "ops per shard) for the rest; ising, noisy: and lenia are not ported "
+        "yet"
     )
     return 0
 

@@ -27,6 +27,7 @@ class RunConfig:
     backend: str = "auto"  # auto | cuda | torch | numpy | sharded
     device: str | None = None  # None = the card; "cpu" runs the plain version
     num_devices: int | None = None  # sharded: shards (None = one per card)
+    mesh_shape: tuple[int, int] | None = None  # sharded: rows x cols of shards
     local_kernel: str = "auto"  # sharded: per-shard stepper, auto | torch | cuda
     block_steps: int | None = None  # kernel substeps per launch; None = backend default
     bitpack: bool = True  # False: life-like rules run the int8 path (kernel K2)

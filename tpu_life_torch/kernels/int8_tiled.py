@@ -136,15 +136,18 @@ def int_ops_per_cell_step(rule: Rule) -> int:
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
-    fn = lib.int8_tiled_multi_step
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.int8_tiled_multi_step.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    )
+    lib.sharded_int8_block.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
+    for fn in (lib.int8_tiled_multi_step, lib.sharded_int8_block):
+        fn.restype = ctypes.c_int
     return lib
 
 
 def build() -> Path:
-    """Compile the kernel library (``_build.build``) and return its path;
-    ``build.log`` beside it keeps nvcc's ``-Xptxas -v`` report."""
+    """Compile the kernel library (K2 and K4, ``_build.build``) and return
+    its path; ``build.log`` beside it keeps nvcc's ``-Xptxas -v`` report."""
     return _build.build(SOURCE)
 
 

@@ -56,7 +56,8 @@ def run(cfg: RunConfig) -> RunResult:
     if cfg.block_steps is not None:
         kwargs["block_steps"] = cfg.block_steps
     if cfg.backend == "sharded":
-        kwargs.update(num_devices=cfg.num_devices, local_kernel=cfg.local_kernel)
+        kwargs.update(num_devices=cfg.num_devices, mesh_shape=cfg.mesh_shape,
+                      local_kernel=cfg.local_kernel)
     backend = get_backend(cfg.backend, **kwargs)
 
     board = read_board(cfg.input_file, height, width)
