@@ -14,7 +14,7 @@ Phases (any failure exits non-zero and prints no result line):
    prints the build seconds and each ptxas report: K1's Moore kernel and
    its two diamond kernels (radius 1 and 2), K2, and K4's registers beside
    K2's, which must stay at their count from before K4 shared K2's
-   substeps;
+   substeps, and K5's registers;
 3. kernel vs plain — holds each kernel bit-identical (``torch.equal``) to
    its plain PyTorch version on the card (K3 and K4 below the list): K1
    over life-like rules, ragged
@@ -84,7 +84,29 @@ Phases (any failure exits non-zero and prints no result line):
    ``conway`` 16384^2 for 256 steps on 2x2 under ``auto`` (packed plain
    ops, no kernel), held to phase 5's K1 board, and ``conway:T`` 16384^2
    for 32 steps on 2x2 (the 2-D torus: closed rings on both axes, packed
-   plain ops), held to phase 7's ``packed_torus`` board.
+   plain ops), held to phase 7's ``packed_torus`` board;
+10. kernel K5 (the int8 Conway block kernel of the experiment) — K5
+   bit-identical to its plain version over the TPU kernel's domain (k < bh,
+   k = bh, a block and its halos filling the board, (n, n/2, n/4) in one and
+   in 32 launches, sides not a multiple of 4, 8192^2 and 16384^2, boards
+   random and with all four edges live), and to K2 running ``conway`` at
+   the same k on the same 8192^2 and 16384^2 boards; every shape outside the
+   domain refused; ``tpu_life_torch.experiments.block_bench`` at its
+   defaults (n=8192, bh=256, k=8, outer=10) in process, with K5's launch
+   count set to 0 just before and read just after (2 + 10), and as a
+   subprocess, each printing ``correct after 16 steps: True``; K5 timed at
+   8192^2 and 16384^2 (k = 8) with CUDA events and the profiler's kernel
+   records beside its bound, its plain version and K2's ``conway`` launch
+   on the same board;
+11. the seeded-board, ``gen``, ``pattern`` and ``--bug-compat`` paths —
+   ``run --size 4096 --steps 256 --seed 7`` (K1) and ``--rule brians_brain
+   --steps 64`` (K2), each held to ``--backend torch``'s bytes, and at 512^2
+   to ``--backend numpy``'s, with the staging seconds; ``gen --height 1500
+   --width 500 --seed 3`` then ``run``; ``pattern import --name
+   gosper_glider_gun`` (256^2, 300 steps) then ``run`` and ``pattern
+   export``; ``run --bug-compat`` on the reference workload; each in
+   process with the K1 and K2 counts set to 0 just before and read just
+   after, and each equal to the numpy backend's bytes.
 
 Phases 2-4 cover K3 too: it is built with K1 (same source, its four
 instantiations in the ptxas report); phase 3 holds it bit-identical to its
@@ -117,8 +139,10 @@ The line before the last is the kernels record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import hashlib
+import io
 import json
 import os
 import re
@@ -178,6 +202,25 @@ K4_RULES = ["bugs", "brians_brain", "star_wars", "R2,C2,M1,S5..10,B5..8", "conwa
 K4_SHAPES = ((301, 517), (40, 1000))  # padding rows and columns on every mesh
 K4_DEPTHS = (1, 2, BLOCK_STEPS)
 K2_REGISTERS = 32  # ptxas's count for K2 before K4 shared its substeps
+# K5 against its plain version: (n, bh, k) over the TPU kernel's domain: k
+# below bh, k = bh (the edge blocks' halos reach the whole next block), a
+# block and its halos filling the board, (n, n/2, n/4) at one launch of the
+# deepest k and at several launches, sides not a multiple of 4 (byte loads),
+# the experiment's defaults and the full side
+K5_CASES = [(32, 16, 8), (48, 16, 3), (64, 16, 16), (64, 16, 4), (96, 32, 8), (128, 64, 32),
+            (512, 256, 128), (4096, 2048, 1024), (9, 3, 1), (45, 15, 5), (999, 333, 33),
+            (1000, 200, 37), (8192, 256, 8), (FULL, 512, 8)]
+# shapes outside the domain, which K5 must refuse: bh not dividing n, k past
+# bh (the TPU kernel's wrong board), bh + 2k past n (it does not trace), k = 0
+# K5 held to K2's conway and timed at these sides
+K5_SIDES = (8192, FULL)
+K5_REFUSED = [(48, 20, 4), (64, 16, 17), (32, 16, 9), (16, 16, 2), (64, 16, 0)]
+# the seeded paths: (rule, side, steps, route, (K1, K2) launches); the 512^2
+# runs are held to the numpy backend's bytes, the 4096^2 ones to the torch
+# backend's (plain ops on the card)
+SEEDED_SIDE = 4096
+SEEDED_RUNS = [("conway", SEEDED_SIDE, 256, "k1", (32, 0)), ("brians_brain", SEEDED_SIDE, 64, "k2", (0, 8)),
+               ("conway", 512, 256, "k1", (32, 0)), ("brians_brain", 512, 64, "k2", (0, 8))]
 # K4 at full size: (rule, side, steps, mesh), each held to phase 6's K2 board
 K4_FULL = [("bugs", 8192, 64, (4, 1)), ("bugs", 8192, 64, (2, 2)),
            ("brians_brain", 16384, 64, (2, 2))]
@@ -225,6 +268,9 @@ def main() -> int:
             measure_throughput,
         )
         from tpu_life_torch.io.codec import encode_board, read_board, read_config
+        from tpu_life_torch.mc.prng import seeded_board
+        from tpu_life_torch.experiments import block_bench
+        from tpu_life_torch.kernels import conway_block as k5
         from tpu_life_torch.kernels import int8_tiled as kt
         from tpu_life_torch.kernels import packed_stripe as ps
         from tpu_life_torch.kernels import sharded_int8 as k4
@@ -250,10 +296,11 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        libs = list(pool.map(lambda m: m.build(), (ps, kt)))
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+        libs = list(pool.map(lambda m: m.build(), (ps, kt, k5)))
     ps._library()
     kt._library()
+    k5._library()
     print(f"build: {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
@@ -274,6 +321,12 @@ def main() -> int:
           f"(sharded_int8_kernel) {registers['sharded_int8_kernel']}", flush=True)
     if registers["int8_tiled_kernel"] != str(K2_REGISTERS):
         fail(f"K2 uses {registers['int8_tiled_kernel']} registers, want {K2_REGISTERS} as before K4")
+    k5_report = re.search(r"Compiling entry function '\w*conway_block_kernel\w*'.*?Used (\d+) registers[^\n]*",
+                          (libs[2].parent / "build.log").read_text(), re.S)
+    if k5_report is None:
+        fail("the ptxas report of conway_block.cu does not name conway_block_kernel")
+    k5_registers = int(k5_report.group(1))
+    print(f"registers: K5 (conway_block_kernel) {k5_registers}", flush=True)
 
     def words(board):
         return torch.from_numpy(bitlife.pack_np(board).view(np.int32).copy()).to(dev)
@@ -1341,6 +1394,213 @@ def main() -> int:
         del runner
         torch.cuda.empty_cache()
 
+    # -- 10. kernel K5: the int8 Conway block kernel and its experiment ------
+    conway = get_rule("conway")
+    k5_max_err = 0
+    k5_cases = 0
+    t0 = time.perf_counter()
+    for n, bh, k in K5_CASES:
+        for edges in (False, True):
+            board = rng.integers(0, 2, size=(n, n), dtype=np.int8)
+            if edges:  # live cells on all four edges: births past them stay dead
+                board[[0, -1], :] = 1
+                board[:, [0, -1]] = 1
+            x = cells(board)
+            got = k5.conway_block(x, bh, k)
+            err = int8_err(got, k5.conway_block_plain(x, k))
+            torch.cuda.synchronize()
+            k5_max_err = max(k5_max_err, err)
+            k5_cases += 1
+            if err or not torch.equal(x, cells(board)):
+                fail(f"K5 != plain (or its input changed): n={n}, bh={bh}, k={k}, edges={edges}")
+        del x, got
+    for n, bh, k in K5_REFUSED:
+        try:
+            k5.conway_block(torch.zeros((n, n), dtype=torch.int8, device=dev), bh, k)
+        except ValueError:
+            continue
+        fail(f"K5 took (n, bh, k) = ({n}, {bh}, {k}), outside the TPU kernel's domain")
+    k5_vs_k2 = {}
+    for n in K5_SIDES:
+        x = cells(rng.integers(0, 2, size=(n, n), dtype=np.int8))
+        got = k5.conway_block(x, 256, BLOCK_STEPS)
+        want = kt.int8_multi_step(x.clone(), conway, (n, n), BLOCK_STEPS, block_steps=BLOCK_STEPS)
+        err = int8_err(got, want)
+        k5_max_err = max(k5_max_err, err)
+        if err:
+            fail(f"K5 != K2 (conway, k={BLOCK_STEPS}) at {n}^2")
+        k5_vs_k2[n] = x
+    print(f"kernel vs plain: K5 bit-identical to its plain version in {k5_cases} cases "
+          f"(n, bh, k) = {K5_CASES}, boards random and with all four edges live, and to K2's "
+          f"conway at k={BLOCK_STEPS} on {' and '.join(f'{n}^2' for n in K5_SIDES)}; "
+          f"{len(K5_REFUSED)} shapes outside "
+          f"the domain refused ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # the experiment's path, in process with the launch count set to 0 just
+    # before and read just after, then as a subprocess, both at its defaults
+    out = io.StringIO()
+    k5.conway_block.launches = 0
+    with contextlib.redirect_stdout(out):
+        ok = block_bench.run()
+    k5_main_launches = k5.conway_block.launches
+    bench_lines = out.getvalue().strip().splitlines()
+    if not ok or bench_lines[0] != "correct after 16 steps: True":
+        fail(f"block_bench in process: {bench_lines}")
+    if k5_main_launches != 12:
+        fail(f"block_bench at its defaults launched K5 {k5_main_launches} times, want 2 + 10")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_life_torch.experiments.block_bench"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    bench_s = time.perf_counter() - t0
+    sub_lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not sub_lines or sub_lines[0] != "correct after 16 steps: True":
+        fail(f"python -m tpu_life_torch.experiments.block_bench exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    print(f"main path K5: block_bench in process {bench_lines} ({k5_main_launches} K5 launches); "
+          f"as a subprocess {sub_lines}, {bench_s:.1f} s wall clock", flush=True)
+
+    k5_ops_per_word = ps.logic_ops_per_word_step(conway)
+
+    def k5_bound(n: int, k: int) -> tuple[float, str, float, float]:
+        """The larger of the int8 board read and written once over the
+        memory rate and the fewest operations k Conway steps need, K1's
+        bit-sliced logic ops a 32-cell word and step (one more per step on
+        each row's partial last word, for the mask), over the integer issue
+        rate.  K5's own design issues more (3 ops a cell and step); the
+        bound counts the function, not the design."""
+        mem_ms = 2 * n * n / HBM_BYTES_PER_S * 1e3
+        ops = k5_ops_per_word * n * bitlife.packed_width(n) * k + (n * k if n % bitlife.WORD else 0)
+        ops_ms = ops / int_ops_per_s * 1e3
+        return (*((ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")), ops_ms, mem_ms)
+
+    k5_rows = {}
+    for n, x in k5_vs_k2.items():
+        k = BLOCK_STEPS
+        launch = pingpong(lambda a, b: k5.conway_block(a, 256, k, out=b), x.clone())
+        reps = 40 if n == FULL else 100
+        k5_ms = cuda_ms(launch, reps)
+        k5_dev_ms = profiled_ms(launch, "conway_block_kernel", reps // 2)
+        k2_launch = pingpong(lambda a, b: kt.int8_multi_step(a, conway, (n, n), k, block_steps=k,
+                                                             scratch=b), x.clone())
+        k2_ms = cuda_ms(k2_launch, reps // 4)
+        k2_dev_ms = profiled_ms(k2_launch, "int8_tiled_kernel", reps // 4)
+        k5_ms_again = cuda_ms(launch, reps)  # K5, K2, K5: the card's drift shows
+        k5_plain_ms = cuda_ms(lambda: k5.conway_block_plain(x, k), 2)
+        k5_bound_ms, k5_bound_by, ops_ms, mem_ms = k5_bound(n, k)
+        k5_rows[n] = dict(ms=k5_ms, ms_again=k5_ms_again, device_ms=k5_dev_ms, k2_ms=k2_ms,
+                          k2_device_ms=k2_dev_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound_ms,
+                          bound_by=k5_bound_by)
+        print(f"timing K5 {n}^2 conway, k={k}, {k5.TILE_ROWS}x{k5.tile_cols(k)} tiles: kernel "
+              f"{k5_ms:.4f} and {k5_ms_again:.4f} ms/launch by CUDA events (before and after K2; "
+              f"{n * n * k / (k5_ms * 1e-3):.4e} cells/s, {k5_bound_ms / k5_ms:.1%} of the bound); "
+              f"device time {fmt(k5_dev_ms)} ms/launch (profiler kernel records); K2 conway on the "
+              f"same board {k2_ms:.4f} ms/launch by events, device time {fmt(k2_dev_ms)} (K5/K2 "
+              f"{k5_ms / k2_ms:.3f} by events); plain {k5_plain_ms:.4f} ms per {k} steps; bound "
+              f"{k5_bound_ms:.4f} ms ({k5_bound_by}: {k5_ops_per_word} logic ops/word/step at "
+              f"{int_ops_per_s:.4e} int ops/s = {ops_ms:.4f} ms; {2 * n * n} bytes at "
+              f"{HBM_BYTES_PER_S:.3e} B/s = {mem_ms:.4f} ms)", flush=True)
+    k5_vs_k2.clear()
+    del x
+    torch.cuda.empty_cache()
+
+    # -- 11. the seeded-board, gen, pattern and --bug-compat paths -----------
+    t0 = time.perf_counter()
+    seeded_board(SEEDED_SIDE, SEEDED_SIDE, seed=7)
+    stage_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        absent = ["--config-file", str(tmp / "absent_grid.txt"),
+                  "--input-file", str(tmp / "absent_data.txt")]
+
+        def cli_run(args: list[str], out: Path, what: str) -> tuple[tuple[int, int], str]:
+            """One in-process run with the K1 and K2 counts set to 0 just
+            before and read just after; returns them and the route."""
+            ps.packed_multi_step.launches = kt.int8_multi_step.launches = 0
+            driver.run = recording_run
+            try:
+                rc = cli.main([*args, "--output-file", str(out)])
+            finally:
+                driver.run = real_run
+            if rc != 0:
+                fail(f"{what} exited {rc}")
+            return (ps.packed_multi_step.launches, kt.int8_multi_step.launches), results[-1].route
+
+        seeded_runs = {}
+        for name, side, steps, route, want_counts in SEEDED_RUNS:
+            base = ["run", *absent, "--size", str(side), "--steps", str(steps), "--seed", "7",
+                    "--rule", name]
+            got, took = cli_run(base, tmp / "cuda.txt", f"run --size {side} --rule {name}")
+            if results[-1].seed != 7:
+                fail(f"run --size {side} --rule {name}: RunResult.seed {results[-1].seed}, want 7")
+            if took != route or got != want_counts:
+                fail(f"run --size {side} --rule {name}: route {took!r}, (K1, K2) launches {got}; "
+                     f"want {route!r}, {want_counts}")
+            ref = "numpy" if side <= 512 else "torch"
+            ref_counts, _ = cli_run([*base, "--backend", ref], tmp / "ref.txt",
+                                    f"run --size {side} --rule {name} --backend {ref}")
+            if ref_counts != (0, 0):
+                fail(f"--backend {ref} launched a kernel: {ref_counts}")
+            if (tmp / "cuda.txt").read_bytes() != (tmp / "ref.txt").read_bytes():
+                fail(f"run --size {side} --steps {steps} --seed 7 --rule {name}: output differs "
+                     f"from --backend {ref}'s bytes")
+            seeded_runs[(name, side)] = (got, results[-2].elapsed_s, ref)
+        print(f"seeded paths: staging one {SEEDED_SIDE}^2 board {stage_s:.3f} s (numpy Threefry "
+              f"on the host); " + "; ".join(
+                  f"run --size {side} --steps {steps} --seed 7 --rule {name}: (K1, K2) launches "
+                  f"{seeded_runs[(name, side)][0]}, Total time {seeded_runs[(name, side)][1]:.3f} s, "
+                  f"equal to --backend {seeded_runs[(name, side)][2]}'s bytes"
+                  for name, side, steps, _, _ in SEEDED_RUNS), flush=True)
+
+        # gen, then run; pattern import, then run and pattern export; each
+        # equal to the numpy backend's bytes
+        files = ["--config-file", str(tmp / "grid_size_data.txt"),
+                 "--input-file", str(tmp / "data.txt")]
+        if cli.main(["gen", "--height", "1500", "--width", "500", "--seed", "3", *files]) != 0:
+            fail("gen exited non-zero")
+        gen_counts, gen_route = cli_run(["run", *files], tmp / "gen_cuda.txt", "run after gen")
+        cli_run(["run", *files, "--backend", "numpy"], tmp / "gen_np.txt", "run --backend numpy after gen")
+        if gen_route != "k1" or gen_counts != (13, 0):
+            fail(f"run after gen: route {gen_route!r}, (K1, K2) launches {gen_counts}")
+        if (tmp / "gen_cuda.txt").read_bytes() != (tmp / "gen_np.txt").read_bytes():
+            fail("run after gen: output differs from --backend numpy's bytes")
+        if cli.main(["pattern", "import", "--name", "gosper_glider_gun", "--height", "256",
+                     "--width", "256", "--steps", "300", *files]) != 0:
+            fail("pattern import exited non-zero")
+        pat_counts, pat_route = cli_run(["run", *files], tmp / "pat_cuda.txt", "run after pattern import")
+        cli_run(["run", *files, "--backend", "numpy"], tmp / "pat_np.txt",
+                "run --backend numpy after pattern import")
+        if pat_route != "k1" or pat_counts != (38, 0):
+            fail(f"run after pattern import: route {pat_route!r}, (K1, K2) launches {pat_counts}")
+        if (tmp / "pat_cuda.txt").read_bytes() != (tmp / "pat_np.txt").read_bytes():
+            fail("run after pattern import: output differs from --backend numpy's bytes")
+        for src, rle in (("pat_cuda.txt", "cuda.rle"), ("pat_np.txt", "np.rle")):
+            if cli.main(["pattern", "export", "--config-file", str(tmp / "grid_size_data.txt"),
+                         "--input-file", str(tmp / src), "--rle", str(tmp / rle)]) != 0:
+                fail("pattern export exited non-zero")
+        if (tmp / "cuda.rle").read_bytes() != (tmp / "np.rle").read_bytes():
+            fail("pattern export of the run's output differs from the numpy backend's")
+        gun_rle_lines = len((tmp / "cuda.rle").read_text().splitlines())
+
+        # --bug-compat on the reference workload
+        with gzip.open(FIXTURES / "reference_data.txt.gz", "rb") as f:
+            (tmp / "data.txt").write_bytes(f.read())
+        shutil.copy(FIXTURES / "reference_grid_size_data.txt", tmp / "grid_size_data.txt")
+        bug_counts, bug_route = cli_run(["run", *files, "--bug-compat"], tmp / "bug_cuda.txt",
+                                        "run --bug-compat")
+        cli_run(["run", *files, "--bug-compat", "--backend", "numpy"], tmp / "bug_np.txt",
+                "run --bug-compat --backend numpy")
+        if results[-1].rule != "B/S2" or bug_route != "k1" or bug_counts != (13, 0):
+            fail(f"run --bug-compat: rule {results[-1].rule!r}, route {bug_route!r}, (K1, K2) "
+                 f"launches {bug_counts}")
+        if (tmp / "bug_cuda.txt").read_bytes() != (tmp / "bug_np.txt").read_bytes():
+            fail("run --bug-compat: output differs from --backend numpy's bytes")
+        print(f"gen --height 1500 --width 500 --seed 3, then run: route {gen_route}, (K1, K2) "
+              f"launches {gen_counts}, equal to --backend numpy's bytes; pattern import --name "
+              f"gosper_glider_gun (256^2, 300 steps), then run: route {pat_route}, launches "
+              f"{pat_counts}, equal to numpy's bytes, and pattern export equal to numpy's "
+              f"({gun_rle_lines} RLE lines); run --bug-compat on the reference workload: rule "
+              f"B/S2, route {bug_route}, launches {bug_counts}, equal to numpy's bytes", flush=True)
+
     diamond = diamond_rows[DIAMOND]
     k4_row = k4_rows[("brians_brain", (2, 2))]
     print(json.dumps({"kernels": [{
@@ -1430,6 +1690,26 @@ def main() -> int:
         "bound_ms": k4_row["bound_ms"],
         "bound_by": k4_row["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "conway_block",
+        "route": "cuda",
+        "source": "tpu_life_torch/csrc/conway_block.cu",
+        "replaces": "experiments/pallas_bench.py:93",
+        "launches": k5_main_launches,
+        "max_abs_err": k5_max_err,
+        "equal_to_plain": k5_max_err == 0,
+        "rule": "conway",
+        "shape": [K5_SIDES[0], K5_SIDES[0]],
+        "steps_per_launch": BLOCK_STEPS,
+        "ms": k5_rows[K5_SIDES[0]]["ms"],
+        "kernel_ms": k5_rows[K5_SIDES[0]]["ms"],
+        "device_ms": k5_rows[K5_SIDES[0]]["device_ms"],
+        "plain_ms": k5_rows[K5_SIDES[0]]["plain_ms"],
+        "bound_ms": k5_rows[K5_SIDES[0]]["bound_ms"],
+        "bound_by": k5_rows[K5_SIDES[0]]["bound_by"],
+        "library_ms": None,
+        "k2_conway_ms": k5_rows[K5_SIDES[0]]["k2_ms"],
+        "registers": k5_registers,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

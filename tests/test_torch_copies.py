@@ -176,3 +176,53 @@ def test_contiguous_ranges_copy(seed):
     values = {int(v) for v in rng.integers(0, 60, size=int(rng.integers(0, 25)))}
     assert common.contiguous_ranges(values) == jcommon.contiguous_ranges(values)
     assert common.contiguous_ranges(frozenset()) == []
+
+
+# -- the seeded-board, RLE and pattern copies -----------------------------------
+
+
+@pytest.mark.parametrize("name", ["parse_rle", "emit_rle"])
+def test_rle_is_a_verbatim_copy(name):
+    from tpu_life.io import rle as jrle
+    from tpu_life_torch.io import rle
+
+    assert inspect.getsource(getattr(rle, name)) == inspect.getsource(getattr(jrle, name))
+
+
+@pytest.mark.parametrize("name", ["place", "empty", "random_board", "_p"])
+def test_patterns_functions_are_verbatim_copies(name):
+    from tpu_life.models import patterns as jpatterns
+    from tpu_life_torch.models import patterns
+
+    assert inspect.getsource(getattr(patterns, name)) == inspect.getsource(getattr(jpatterns, name))
+
+
+@pytest.mark.parametrize("shape,states,seed", [((1, 1), 2, 0), ((31, 33), 2, 7), ((40, 20), 3, 1), ((9, 70), 10, 5)])
+def test_random_board_copy(shape, states, seed):
+    from tpu_life.models import patterns as jpatterns
+    from tpu_life_torch.models import patterns
+
+    np.testing.assert_array_equal(
+        patterns.random_board(*shape, 0.4, states=states, seed=seed),
+        jpatterns.random_board(*shape, 0.4, states=states, seed=seed),
+    )
+
+
+@pytest.mark.parametrize("shape,states,seed", [((1, 1), 2, 0), ((31, 33), 2, 7), ((40, 20), 3, -1), ((9, 70), 10, 2**40)])
+def test_prng_seeded_board_copy(shape, states, seed):
+    from tpu_life.mc import prng as jprng
+    from tpu_life_torch.mc import prng
+
+    np.testing.assert_array_equal(
+        prng.seeded_board(*shape, 0.45, states=states, seed=seed),
+        jprng.seeded_board(*shape, 0.45, states=states, seed=seed),
+    )
+
+
+def test_prng_constants_copy():
+    from tpu_life.mc import prng as jprng
+    from tpu_life_torch.mc import prng
+
+    names = ["SUB_EVEN", "SUB_ODD", "SUB_NOISE", "SUB_BOARD", "NSUB", "MAX_NARROW_CELLS",
+             "WIDE_KEY_TAG", "_ROT_A", "_ROT_B"]
+    assert {n: getattr(prng, n) for n in names} == {n: getattr(jprng, n) for n in names}

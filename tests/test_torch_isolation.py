@@ -110,3 +110,18 @@ def test_scan_covers_the_2d_mesh_slice():
     # modules both checks read
     assert "tpu_life_torch.kernels.sharded_int8" in set(MODULES)
     assert PKG / "kernels" / "sharded_int8.py" in SOURCES
+
+
+def test_scan_covers_the_k5_slice():
+    # kernel K5's wrapper and experiment, and the seeded-board, RLE and
+    # pattern copies, which the K5 slice added, are among the modules both
+    # checks read
+    assert {
+        "tpu_life_torch.kernels.conway_block",
+        "tpu_life_torch.experiments",
+        "tpu_life_torch.experiments.block_bench",
+        "tpu_life_torch.mc",
+        "tpu_life_torch.mc.prng",
+        "tpu_life_torch.io.rle",
+        "tpu_life_torch.models.patterns",
+    } <= set(MODULES)

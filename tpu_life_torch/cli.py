@@ -2,9 +2,14 @@
 
 ``run`` with no flags reproduces the reference contract, like
 ``python -m tpu_life run``: it reads ``grid_size_data.txt`` + ``data.txt``,
-writes ``output.txt`` and prints ``Total time = <s>``.  It runs on the
-card; ``--device cpu`` asks for the plain PyTorch version on the CPU.
-``info`` shows the torch build, the CUDA devices, backends and rules.
+writes ``output.txt`` and prints ``Total time = <s>``.  With ``--size`` (or
+``--height``/``--width``) and ``--steps`` and no input file it runs the
+seeded random board of ``--seed``.  It runs on the card; ``--device cpu``
+asks for the plain PyTorch version on the CPU.  ``gen`` writes a random
+board and its config, ``pattern`` converts RLE patterns and named
+patterns to and from the contract files, each with the bytes
+``python -m tpu_life`` writes; ``info`` shows the torch build, the CUDA
+devices, backends and rules.
 """
 
 from __future__ import annotations
@@ -26,10 +31,24 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--config-file", default="grid_size_data.txt")
     r.add_argument("--input-file", default="data.txt")
     r.add_argument("--output-file", default="output.txt")
+    r.add_argument("--size", type=int, default=None,
+                   help="square board: shorthand for --height N --width N "
+                   "(explicit --height/--width win); with --steps and no "
+                   "input file, runs a seeded random board")
     r.add_argument("--height", type=int, default=None)
     r.add_argument("--width", type=int, default=None)
     r.add_argument("--steps", type=int, default=None)
     r.add_argument("--rule", default="conway", help="name or B/S / LtL spec")
+    r.add_argument(
+        "--seed", type=int, default=0,
+        help="counter-based PRNG seed: names the staged board of a seeded "
+        "run (geometry and steps from flags, no input file); stamped into "
+        "the run record so the run is replayable",
+    )
+    r.add_argument(
+        "--bug-compat", action="store_true",
+        help="replicate the reference binary's effective (buggy) B/S2 rule",
+    )
     r.add_argument(
         "--backend", default="auto", choices=["auto", "cuda", "torch", "numpy", "sharded"],
         help="auto = cuda: the hand-written kernels for clamped Moore rules "
@@ -83,6 +102,44 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--sync-every", type=int, default=0,
                    help="steps per host sync chunk (0 = one run)")
     sub.add_parser("info", help="show torch, CUDA devices, backends and rules")
+
+    pat = sub.add_parser(
+        "pattern",
+        help="RLE pattern interchange: import/export boards, stamp named "
+        "patterns",
+    )
+    pat.add_argument(
+        "action",
+        choices=["import", "export", "list"],
+        help="import: RLE/named pattern -> contract board+config; "
+        "export: contract board -> RLE; list: named patterns",
+    )
+    pat.add_argument("--rle", default=None, metavar="FILE",
+                     help="RLE file (import source / export destination; "
+                     "export defaults to stdout)")
+    pat.add_argument("--name", default=None,
+                     help="named pattern to import (see `pattern list`)")
+    pat.add_argument("--height", type=int, default=None)
+    pat.add_argument("--width", type=int, default=None)
+    pat.add_argument("--at", default=None, metavar="R,C",
+                     help="top-left placement of the pattern (default: centered)")
+    pat.add_argument("--input-file", default="data.txt")
+    pat.add_argument("--config-file", default="grid_size_data.txt")
+    pat.add_argument("--steps", type=int, default=100,
+                     help="steps written to the config file on import")
+    pat.add_argument("--rule", default="B3/S23",
+                     help="rule string stamped into the exported RLE header "
+                     "(record what the board was actually evolved under)")
+
+    g = sub.add_parser("gen", help="generate a random board + config")
+    g.add_argument("--height", type=int, required=True)
+    g.add_argument("--width", type=int, required=True)
+    g.add_argument("--steps", type=int, default=100)
+    g.add_argument("--density", type=float, default=0.5)
+    g.add_argument("--states", type=int, default=2)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--input-file", default="data.txt")
+    g.add_argument("--config-file", default="grid_size_data.txt")
     return p
 
 
@@ -94,15 +151,21 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     if args.command == "info":
         return _info()
+    if args.command == "pattern":
+        return _pattern(parser, args)
+    if args.command == "gen":
+        return _gen(args)
     mesh_shape = _parse_mesh_shape(parser, args.mesh_shape)
     cfg = RunConfig(
-        height=args.height,
-        width=args.width,
+        height=args.height if args.height is not None else args.size,
+        width=args.width if args.width is not None else args.size,
         steps=args.steps,
         config_file=args.config_file,
         input_file=args.input_file,
         output_file=args.output_file,
         rule=args.rule,
+        bug_compat=args.bug_compat,
+        seed=args.seed,
         backend=args.backend,
         device=args.device,
         num_devices=args.num_devices,
@@ -167,6 +230,104 @@ def _info() -> int:
         "ops per shard) for the rest; ising, noisy: and lenia are not ported "
         "yet"
     )
+    return 0
+
+
+def _pattern(parser, args) -> int:
+    """RLE interchange (``io/rle.py``): published patterns drop into the
+    contract codec and back out."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from tpu_life_torch.io import rle
+    from tpu_life_torch.io.codec import read_board, read_config, write_board, write_config
+    from tpu_life_torch.models import patterns
+
+    named = {
+        n.lower(): getattr(patterns, n)
+        for n in dir(patterns)
+        if n.isupper() and isinstance(getattr(patterns, n), np.ndarray)
+    }
+    if args.action == "list":
+        for n in sorted(named):
+            h, w = named[n].shape
+            print(f"{n}  {h}x{w}")
+        return 0
+
+    if args.action == "export":
+        height, width = args.height, args.width
+        if height is None or width is None:
+            ch, cw, _ = read_config(args.config_file)
+            height = ch if height is None else height
+            width = cw if width is None else width
+        board = read_board(args.input_file, height, width)
+        try:
+            from tpu_life_torch.models.rules import get_rule
+
+            states = get_rule(args.rule).states
+        except (KeyError, ValueError):
+            states = 2  # unknown rule string: dialect follows board content
+        text = rle.emit_rle(board, rule=args.rule, states=states)
+        if args.rle:
+            Path(args.rle).write_text(text)
+            print(f"wrote {args.rle} ({height}x{width})")
+        else:
+            print(text, end="")
+        return 0
+
+    # import
+    if (args.rle is None) == (args.name is None):
+        parser.error("pattern import needs exactly one of --rle / --name")
+    if args.rle is not None:
+        cells, meta = rle.parse_rle(Path(args.rle).read_text())
+        if cells.max(initial=0) > 9:
+            parser.error(
+                "pattern uses states > 9, which don't fit the contract "
+                "codec's digit encoding"
+            )
+        if meta.get("rule"):
+            print(f"pattern rule: {meta['rule']} (pass via `run --rule`)")
+    else:
+        key = args.name.lower()
+        if key not in named:
+            parser.error(f"unknown pattern {args.name!r}; see `{PROG} pattern list`")
+        cells = named[key]
+    ph, pw = cells.shape
+    height = args.height if args.height is not None else ph
+    width = args.width if args.width is not None else pw
+    if args.at is not None:
+        try:
+            top, left = (int(v) for v in args.at.split(","))
+        except ValueError:
+            parser.error(f"--at must be 'R,C', got {args.at!r}")
+    else:
+        top, left = (height - ph) // 2, (width - pw) // 2
+    if top < 0 or left < 0 or top + ph > height or left + pw > width:
+        parser.error(
+            f"pattern {ph}x{pw} at ({top},{left}) does not fit a "
+            f"{height}x{width} board"
+        )
+    board = patterns.place(patterns.empty(height, width), cells, top, left)
+    write_board(args.input_file, board)
+    write_config(args.config_file, height, width, args.steps)
+    print(
+        f"wrote {args.input_file} ({height}x{width}, pattern at "
+        f"{top},{left}) and {args.config_file}"
+    )
+    return 0
+
+
+def _gen(args) -> int:
+    from tpu_life_torch.io.codec import write_board, write_config
+    from tpu_life_torch.models.patterns import random_board
+
+    board = random_board(
+        args.height, args.width, args.density, states=args.states, seed=args.seed
+    )
+    write_board(args.input_file, board)
+    write_config(args.config_file, args.height, args.width, args.steps)
+    print(f"wrote {args.input_file} ({args.height}x{args.width}) and {args.config_file}")
     return 0
 
 

@@ -22,6 +22,10 @@ class RunConfig:
     output_file: str = "output.txt"
 
     rule: str = "conway"
+    bug_compat: bool = False  # replicate the reference binary's effective B/S2 rule
+    # names the board a seeded run stages (height, width and steps from
+    # flags and no input file); stamped into RunResult
+    seed: int = 0
 
     # execution
     backend: str = "auto"  # auto | cuda | torch | numpy | sharded
@@ -47,3 +51,6 @@ class RunConfig:
             w = fw if w is None else w
             s = fs if s is None else s
         return h, w, s
+
+    def effective_rule(self) -> str:
+        return "reference_bug_compat" if self.bug_compat else self.rule
