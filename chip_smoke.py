@@ -12,9 +12,11 @@ Phases (any failure exits non-zero and prints no result line):
 2. build — compiles the kernel sources of the main paths from
    ``tpu_life_torch/csrc`` (one nvcc each, started together, at first use),
    prints the build seconds and each ptxas report: K1's Moore kernel and
-   its two diamond kernels (radius 1 and 2), K2, and K4's registers beside
-   K2's, which must stay at their count from before K4 shared K2's
-   substeps, and K5's registers;
+   its two diamond kernels (radius 1 and 2), K2 and K4, whose registers it
+   prints and which must report no spill stores or loads, with the counts
+   of shared-memory loads, stores and asynchronous copies (``LDS``,
+   ``STS``, ``LDGSTS``) in each one's SASS (``cuobjdump -sass`` on the
+   built library), and K5's registers;
 3. kernel vs plain — holds each kernel bit-identical (``torch.equal``) to
    its plain PyTorch version on the card (K3 and K4 below the list): K1
    over life-like rules, ragged
@@ -27,10 +29,11 @@ Phases (any failure exits non-zero and prints no result line):
    without the centre), shapes from 11x11 to 8192^2, block depths 1, 8 and
    32 as the radius clamp allows, each with a remainder launch, boards
    whose live cells touch all four edges, and wide radii up to the largest
-   whose tile fits shared memory (tiles shrunk to fit, with and without
-   16-byte loads and stores).  The two routes that have no kernel in
-   either package (the packed torus step and the int8 stencil, plain
-   PyTorch ops on the card) are held to the numpy oracle at 257x1000;
+   the kernel runs (127 with 2 states, the byte lanes' limit; 123 with 10,
+   shared memory's), with tiles shrunk to fit, with 16- and 8-byte copies.
+   The two routes that have no kernel in either package (the packed torus
+   step and the int8 stencil, plain PyTorch ops on the card) are held to
+   the numpy oracle at 257x1000;
 4. main paths — ``python -m tpu_life_torch run`` on the reference workload
    (1500x500, 100 steps), in process with every launch count set to 0 just
    before and read just after, then as a subprocess; and ``run
@@ -201,7 +204,6 @@ K4_MESHES = ((1, 1), (4, 1), (1, 4), (2, 2), (2, 4), (4, 2), (3, 1))
 K4_RULES = ["bugs", "brians_brain", "star_wars", "R2,C2,M1,S5..10,B5..8", "conway"]
 K4_SHAPES = ((301, 517), (40, 1000))  # padding rows and columns on every mesh
 K4_DEPTHS = (1, 2, BLOCK_STEPS)
-K2_REGISTERS = 32  # ptxas's count for K2 before K4 shared its substeps
 # K5 against its plain version: (n, bh, k) over the TPU kernel's domain: k
 # below bh, k = bh (the edge blocks' halos reach the whole next block), a
 # block and its halos filling the board, (n, n/2, n/4) at one launch of the
@@ -225,8 +227,10 @@ SEEDED_RUNS = [("conway", SEEDED_SIDE, 256, "k1", (32, 0)), ("brians_brain", SEE
 K4_FULL = [("bugs", 8192, 64, (4, 1)), ("bugs", 8192, 64, (2, 2)),
            ("brians_brain", 16384, 64, (2, 2))]
 # K2 at wide radii (depth 1), where the tile grows with the halo and then
-# shrinks to fit shared memory: widths that are and are not a multiple of 16,
-# and the largest radius that fits for 2 and for 10 states
+# shrinks to fit shared memory: widths that are and are not a multiple of 16;
+# the largest radii of the kernel before this layout for 2 and for 10 states
+# (92 and 61), and the largest now (127: a vertical sum of 2r + 1 cells fills
+# a byte; 123: shared memory)
 K2_WIDE = [
     ("R60,C2,S1500..9000,B3400..3700", (1024, 1024)),
     ("R50,C2,S1000..6000,B2400..2600", (1024, 1024)),
@@ -234,7 +238,11 @@ K2_WIDE = [
     ("R60,C2,S1500..9000,B3400..3700", (4096, 4096)),
     ("R92,C2,S3000..20000,B8000..8600", (512, 512)),
     ("R61,C10,S300..3000,B700..780", (512, 512)),
+    ("R127,C2,S6000..40000,B16000..17000", (600, 600)),
+    ("R123,C10,S1200..12000,B2800..3150", (600, 600)),
 ]
+# the shared-memory instructions counted in K2's and K4's SASS
+SASS_OPS = ("LDS", "STS", "LDGSTS")
 
 
 def fail(msg: str) -> None:
@@ -311,16 +319,34 @@ def main() -> int:
                    "sharded_diamond_kernelILi1E", "sharded_diamond_kernelILi2E"):
         if kernel not in k1_log:
             fail(f"the ptxas report of packed_stripe.cu does not name {kernel}")
-    # K2 and K4 share int8_tile: K2's registers must not move
-    registers = dict(re.findall(r"Compiling entry function '\w*?(int8_tiled_kernel|sharded_int8_kernel)"
-                                r"\w*'.*?Used (\d+) registers",
-                                (libs[1].parent / "build.log").read_text(), re.S))
-    if set(registers) != {"int8_tiled_kernel", "sharded_int8_kernel"}:
-        fail(f"the ptxas report of int8_tiled.cu names {sorted(registers)}, want K2 and K4")
-    print(f"registers: K2 (int8_tiled_kernel) {registers['int8_tiled_kernel']}, K4 "
-          f"(sharded_int8_kernel) {registers['sharded_int8_kernel']}", flush=True)
-    if registers["int8_tiled_kernel"] != str(K2_REGISTERS):
-        fail(f"K2 uses {registers['int8_tiled_kernel']} registers, want {K2_REGISTERS} as before K4")
+    # K2 and K4 share int8_tile: registers, no spill, and the shared-memory
+    # instructions of their SASS
+    int8_report = {}
+    for entry in (libs[1].parent / "build.log").read_text().split("Compiling entry function")[1:]:
+        name = re.match(r" '\w*?(int8_tiled_kernel|sharded_int8_kernel)", entry)
+        used = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers",
+                         entry, re.S)
+        if name and used:
+            int8_report[name.group(1)] = tuple(map(int, used.groups()))
+    if set(int8_report) != {"int8_tiled_kernel", "sharded_int8_kernel"}:
+        fail(f"the ptxas report of int8_tiled.cu names {sorted(int8_report)}, want K2 and K4")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(libs[1])], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    registers, sass_counts = {}, {}
+    for kernel, (spill_st, spill_ld, regs) in sorted(int8_report.items()):
+        if spill_st or spill_ld:
+            fail(f"{kernel} spills: {spill_st} bytes of stores, {spill_ld} bytes of loads")
+        body = re.search(rf"Function : \w*{kernel}\w*\n(.*?)(?=\n\s+Function : |\Z)", sass, re.S)
+        if body is None:
+            fail(f"cuobjdump -sass of {libs[1].name} does not name {kernel}")
+        ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body.group(1), re.M)
+        registers[kernel] = regs
+        sass_counts[kernel] = {op: sum(o == op for o in ops) for op in SASS_OPS}
+    print("K2 and K4 (ptxas, cuobjdump -sass): " + "; ".join(
+        f"{kernel} {registers[kernel]} registers, no spill, SASS "
+        + ", ".join(f"{op} {n}" for op, n in sass_counts[kernel].items())
+        for kernel in ("int8_tiled_kernel", "sharded_int8_kernel")), flush=True)
     k5_report = re.search(r"Compiling entry function '\w*conway_block_kernel\w*'.*?Used (\d+) registers[^\n]*",
                           (libs[2].parent / "build.log").read_text(), re.S)
     if k5_report is None:
@@ -447,7 +473,7 @@ def main() -> int:
         k2_case(cells(states_board(shape, rule)), rule, shape, k, 5, f"rule {name}")
         wide.append(f"R{rule.radius} C{rule.states} {shape[0]}x{shape[1]}: {rows}x{cols} "
                     f"tiles, {kt.shared_bytes(rule, k, rows, cols)} B, "
-                    f"{'16-byte' if kt.io16(shape[1], cols) else 'byte'} I/O")
+                    f"{kt.io_bytes(shape[1])}-byte copies")
     print(f"K2 vs plain: {k2_cases} cases bit-identical "
           f"({time.perf_counter() - t0:.1f} s); wide radii at k=1: " + "; ".join(wide),
           flush=True)
@@ -957,21 +983,23 @@ def main() -> int:
         k2_plain_ms = cuda_ms(lambda: kt.int8_multi_step_plain(xp, rule, shape, k), 2)
         n_cells = side * side
         mem_ms = 2 * n_cells / HBM_BYTES_PER_S * 1e3
-        ops_ms = kt.int_ops_per_cell_step(rule) * n_cells * k / int_ops_per_s * 1e3
+        ops_ms = kt.ops_per_cell_step(rule) * n_cells * k / int_ops_per_s * 1e3
         k2_bound, k2_by = (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
         rows, cols = kt.tile_shape(rule, k, side, side, n_sm)
-        print(f"timing K2 {side}^2 {name}, k={k}, {rows}x{cols} tiles: kernel "
+        k2_blocks = kt.blocks_per_sm("int8_tiled_kernel", kt.shared_bytes(rule, k, rows, cols))
+        print(f"timing K2 {side}^2 {name}, k={k}, {rows}x{cols} tiles, "
+              f"{registers['int8_tiled_kernel']} registers, {k2_blocks} blocks/SM: kernel "
               f"{k2_ms:.4f} ms/launch by CUDA events ({k2_ms / k:.4f} ms/step, "
               f"{n_cells * k / (k2_ms * 1e-3):.4e} cells/s, {k2_bound / k2_ms:.1%} of "
               f"the bound); device time {fmt(k2_dev_ms)} ms/launch (profiler kernel "
               f"records); plain {k2_plain_ms:.4f} ms per {k} steps; bound "
-              f"{k2_bound:.4f} ms/launch ({k2_by}: {kt.int_ops_per_cell_step(rule)} int "
+              f"{k2_bound:.4f} ms/launch ({k2_by}: {kt.ops_per_cell_step(rule):.5g} int "
               f"ops/cell/step at {int_ops_per_s:.4e} int ops/s = {ops_ms:.4f} ms; "
               f"{2 * n_cells} bytes at {HBM_BYTES_PER_S:.3e} B/s = {mem_ms:.4f} ms)",
               flush=True)
         k2_rows.append(dict(rule=name, shape=[side, side], steps_per_launch=k, ms=k2_ms,
                             device_ms=k2_dev_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound,
-                            bound_by=k2_by, full_size_launches=launches))
+                            bound_by=k2_by, full_size_launches=launches, blocks_per_sm=k2_blocks))
         del runner, x0, want, xp, launch
         torch.cuda.empty_cache()
     k2 = k2_rows[-1]  # brians_brain at 16384^2: the deeper block, k = 8
@@ -985,7 +1013,7 @@ def main() -> int:
         ev_ms = cuda_ms(launch, 200)
         small_dev_ms = profiled_ms(launch, "int8_tiled_kernel", 200)
         mem_ms = 2 * ref[0] * ref[1] / HBM_BYTES_PER_S * 1e3
-        ops_ms = kt.int_ops_per_cell_step(rule) * ref[0] * ref[1] * k / int_ops_per_s * 1e3
+        ops_ms = kt.ops_per_cell_step(rule) * ref[0] * ref[1] * k / int_ops_per_s * 1e3
         rows, cols = kt.tile_shape(rule, k, *ref, n_sm)
         small.append(f"{name} k={k}, {rows}x{cols} tiles: device time {fmt(small_dev_ms)} ms/launch, "
                      f"{ev_ms:.4f} by CUDA events over back-to-back calls, bound "
@@ -1327,18 +1355,21 @@ def main() -> int:
         k4_plain_ms = cuda_ms(lambda: k4.sharded_int8_block_plain(
             tops[1], runner.chunks[1], bots[1], row0, rule, (side, side), k, **halos), 2)
         # the bound: substep s computes the chunk and the halo cells later
-        # substeps read, at K2's int ops per cell; each input cell (the
+        # substeps read, at K2's int ops per cell (bit-sliced at r = 1);
+        # each input cell (the
         # chunk and its halos) read once and each output cell written once
         ops_cells = sum((hl + 2 * rule.radius * (k - s)) * (wl + (2 * rule.radius * (k - s) if fc else 0))
                         for s in range(1, k + 1))
-        ops_ms = kt.int_ops_per_cell_step(rule) * ops_cells / int_ops_per_s * 1e3
+        ops_ms = kt.ops_per_cell_step(rule) * ops_cells / int_ops_per_s * 1e3
         io_bytes = 2 * hl * wl + 2 * fr * wl + 2 * (hl + 2 * fr) * fc
         mem_ms = io_bytes / HBM_BYTES_PER_S * 1e3
         k4_bound, k4_by = (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
         k2_row = next(r for r in k2_rows if r["rule"] == name)
         rows, cols = kt.tile_shape(rule, k, hl, wl, n_sm)
+        k4_blocks = kt.blocks_per_sm("sharded_int8_kernel", kt.shared_bytes(rule, k, rows, cols))
         print(f"timing K4 one shard {hl}x{wl} + halos of {fr} rows and {fc} columns, {name}, k={k}, "
-              f"{rows}x{cols} tiles: kernel {k4_ms:.4f} ms/launch by CUDA events "
+              f"{rows}x{cols} tiles, {registers['sharded_int8_kernel']} registers, {k4_blocks} "
+              f"blocks/SM: kernel {k4_ms:.4f} ms/launch by CUDA events "
               f"({k4_bound / k4_ms:.1%} of the bound), device time {fmt(k4_dev_ms)} ms/launch "
               f"(profiler kernel records); {n_sh} shard launches {n_sh * k4_ms:.4f} ms by events "
               f"against K2's {k2_row['ms']:.4f} over the whole board ({n_sh * k4_ms / k2_row['ms']:.3f}x); "
@@ -1346,7 +1377,7 @@ def main() -> int:
               + (f"{n_sh * k4_dev_ms:.4f} against {fmt(k2_row['device_ms'])}"
                  if k4_dev_ms is not None else "not measured")
               + f"; plain {k4_plain_ms:.4f} ms per {k} steps; bound {k4_bound:.4f} ms ({k4_by}: "
-              f"{kt.int_ops_per_cell_step(rule)} int ops/cell/step over {ops_cells} cell updates = "
+              f"{kt.ops_per_cell_step(rule):.5g} int ops/cell/step over {ops_cells} cell updates = "
               f"{ops_ms:.4f} ms; {io_bytes} bytes = {mem_ms:.4f} ms)", flush=True)
         block_ms = cuda_ms(lambda: runner.advance(k), reps)
         block_split = device_breakdown(lambda: runner.advance(k), reps, "sharded_int8_kernel")
@@ -1361,7 +1392,7 @@ def main() -> int:
               f"column copies a block; {fmt_breakdown(block_split)}", flush=True)
         k4_rows[(name, shape)] = dict(shape=[hl, wl], k=k, ms=k4_ms, device_ms=k4_dev_ms,
                                       plain_ms=k4_plain_ms, bound_ms=k4_bound, bound_by=k4_by,
-                                      launches=counts[0])
+                                      launches=counts[0], blocks_per_sm=k4_blocks)
         del runner, tops, bots, lefts, rights, halos, shard_launch, board, k2_board
         torch.cuda.empty_cache()
     k2_final.clear()
@@ -1649,10 +1680,14 @@ def main() -> int:
         "steps_per_launch": k2["steps_per_launch"],
         "ms": k2["ms"],
         "kernel_ms": k2["ms"],
+        "device_ms": k2["device_ms"],
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": None,
+        "registers": registers["int8_tiled_kernel"],
+        "blocks_per_sm": k2["blocks_per_sm"],
+        "sass": sass_counts["int8_tiled_kernel"],
     }, {
         "name": "sharded_stripe_block",
         "route": "cuda",
@@ -1690,6 +1725,9 @@ def main() -> int:
         "bound_ms": k4_row["bound_ms"],
         "bound_by": k4_row["bound_by"],
         "library_ms": None,
+        "registers": registers["sharded_int8_kernel"],
+        "blocks_per_sm": k4_row["blocks_per_sm"],
+        "sass": sass_counts["sharded_int8_kernel"],
     }, {
         "name": "conway_block",
         "route": "cuda",

@@ -164,3 +164,42 @@ def test_plain_version_is_the_shard_ops_block():
     want = halo.make_shard_block(rule, (30, 40), 2, packed=False, split_cols=True)(
         top, chunk, bot, 4, left, right, 7)
     assert torch.equal(got, want) and got.is_contiguous()
+
+
+@pytest.mark.parametrize(
+    "cols,fc,mid,side,want",
+    [(8192, 8, [0, 4096, 8192], [0, 4096, 8192], (16, 8)),  # brians_brain on 2x2
+     (4096, 5, [0, 4096, 8192], [0, 4096, 8192], (16, 1)),  # bugs on 2x2
+     (8192, 0, [0, 4096, 8192], [], (16, 16)),  # bugs on a row mesh
+     (250, 8, [0, 512], [0, 512], (1, 1)),  # the reference board on 2x2: 250 % 4
+     (1000, 16, [0, 512], [0, 512, 520], (8, 8)),
+     (1024, 16, [0, 516], [0, 512], (4, 16))],
+)
+def test_copy_sizes_follow_the_rows_and_the_halos(cols, fc, mid, side, want):
+    # the chunk's rows take 16-byte copies where its width and the buffers
+    # allow, whatever the column halos' width; r*k-wide halos take what r*k
+    # allows
+    assert sharded_int8.copy_sizes(cols, fc, mid, side) == want
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+@pytest.mark.parametrize("spec", RULES)
+def test_the_window_covers_the_halos_on_16_byte_boundaries(spec, k):
+    # K4 runs K2's layout: a margin of r*k rounded up to 16 columns on each
+    # side of a tile whose columns are a multiple of 16, so the chunk's
+    # column 0 falls on a 16-byte boundary of the window, and the rows
+    # above and below are the r*k halo rows themselves
+    from tpu_life_torch.kernels import int8_tiled
+
+    rule = get_rule(spec)
+    fr = halo.halo_depth(rule, k)
+    rows, cols = int8_tiled.tile_shape(rule, k, 4096, 4096, 132)
+    margin, ext_c, pitch, vpitch = int8_tiled.window(rule, k, cols)
+    assert fr == rule.radius * k <= margin and margin % 16 == 0 and margin - fr < 16
+    assert cols % 16 == 0 and ext_c == cols + 2 * margin
+    assert pitch % 16 == 0 and (pitch // 16) % 2 == 1 and pitch >= ext_c
+    assert vpitch % 16 == 0 and (vpitch // 16) % 2 == 1 and vpitch >= ext_c + int8_tiled.GUARD
+    args = int8_tiled.launch_args(rule, k, 4096, 4096, 132)
+    assert args == (int8_tiled.n_words(rule), rule.radius, k, int(rule.include_center),
+                    rule.states, rule.max_count, rows, cols, margin, ext_c, pitch, vpitch,
+                    int8_tiled.shared_bytes(rule, k, rows, cols))

@@ -122,7 +122,13 @@ def logic_ops_per_word_step(rule: Rule) -> int:
     mask, needed only on a partial last word, is counted by the caller."""
     if bitlife.supports_diamond(rule):
         return _diamond_logic_ops(rule)
-    sop = rule_sop(rule.birth, rule.survive)
+    return moore_logic_ops(rule.birth, rule.survive)
+
+
+def moore_logic_ops(birth: frozenset, survive: frozenset) -> int:
+    """:func:`logic_ops_per_word_step` of the life-like Moore rule whose
+    birth and survive sets count the 8 neighbours."""
+    sop = rule_sop(birth, survive)
     read = functools.reduce(operator.or_, (mask for mask, _ in sop), 0)
     high = bool(read & 0b1110)  # b1..b3 need the twos plane and the carries
     literals = sum(bin(mask).count("1") for mask, _ in sop)

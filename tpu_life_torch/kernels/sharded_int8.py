@@ -7,8 +7,13 @@ it, ``make_sharded_pallas_int8_run`` and the ``fc > 0`` branch of
 the clamped Moore rules that do not run packed (Generations,
 Larger-than-Life, ``bitpack=False``), on 1-D and 2-D meshes.  It is K2 per
 shard and lives in K2's source, ``tpu_life_torch/csrc/int8_tiled.cu``
-(``sharded_int8_kernel``), sharing K2's substeps; it is built with K2 by
-``nvcc`` for ``sm_90a`` at first use and called through ``ctypes``.
+(``sharded_int8_kernel``), sharing K2's substeps, layout and rule bits
+(``int8_tiled.launch_args``); it is built with K2 by ``nvcc`` for
+``sm_90a`` at first use and called through ``ctypes``.  It loads its
+window with asynchronous copies from the five pieces where they lie: 16
+bytes at a time from the rows of ``top``, the chunk and ``bot`` where the
+chunk's width and the buffers allow, and what ``r * block_steps`` allows
+from ``left`` and ``right`` (:func:`copy_sizes`).
 
 The function both versions compute: ``block(top, chunk, bot, row0, left,
 right, col0) -> chunk'``, ``block_steps`` masked steps of one shard's
@@ -23,7 +28,9 @@ of the last shards among them, are pinned dead after every step.
 
 - :func:`sharded_int8_block` launches the kernel for CUDA tensors, and
   runs the plain version for CPU tensors.  Any other device raises;
-  nothing falls back.
+  nothing falls back; on the card a radius past ``int8_tiled.MAX_RADIUS``
+  (127) or a window past shared memory raises ``ValueError``
+  (``int8_tiled.tile_shape``).
 - :func:`sharded_int8_block_plain` is the plain version: the sharded
   backend's per-shard int8 block in plain ops
   (``parallel.halo.make_shard_block(packed=False)``).
@@ -31,12 +38,13 @@ of the last shards among them, are pinned dead after every step.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from tpu_life_torch.kernels import int8_tiled
 from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.parallel import halo
-from tpu_life_torch.utils.padding import ceil_div
 
 
 def sharded_int8_block_plain(
@@ -58,6 +66,18 @@ def sharded_int8_block_plain(
         rule, tuple(logical_shape), block_steps, packed=False, split_cols=left is not None
     )
     return block(top, chunk, bot, row0, left, right, col0)
+
+
+def copy_sizes(cols: int, fc: int, mid_ptrs: list[int], side_ptrs: list[int]) -> tuple[int, int]:
+    """The bytes of one copy of K4's window (``int8_tiled.io_bytes``): of
+    the rows of ``top``, the chunk and ``bot`` (and of the stores to
+    ``out``), which divide ``cols`` and their addresses; and of the rows of
+    ``left`` and ``right`` and the zeros beside them, which divide ``fc``
+    and ``cols`` and the addresses of ``left``, ``right`` and the chunk (the
+    address a zero copy names).  Without column halos (``fc = 0``) the
+    second is the first."""
+    io = int8_tiled.io_bytes(cols, *mid_ptrs)
+    return io, int8_tiled.io_bytes(math.gcd(fc, cols), *side_ptrs) if fc else io
 
 
 def _check(x: torch.Tensor, shape: tuple[int, int], name: str) -> None:
@@ -127,22 +147,21 @@ def sharded_int8_block(
     if out.device != chunk.device or out.data_ptr() in {p.data_ptr() for p in pieces}:
         raise ValueError("out must be a buffer of its own on the chunk's device")
     n_sm = torch.cuda.get_device_properties(chunk.device).multi_processor_count
-    rows, cols = int8_tiled.tile_shape(rule, block_steps, hl, wl, n_sm)
-    if ceil_div(hl, rows) > int8_tiled.MAX_GRID_ROWS:
-        raise ValueError(f"a shard of {hl} rows needs more than {int8_tiled.MAX_GRID_ROWS} row tiles")
+    nwords, *rest = int8_tiled.launch_args(rule, block_steps, hl, wl, n_sm)
     lh, lw = logical_shape
-    table = int8_tiled._table(rule, chunk.device)
+    bits = int8_tiled._bits(rule, chunk.device)
+    io, io_side = copy_sizes(
+        wl, fc, [p.data_ptr() for p in (top, chunk, bot, out)],
+        [p.data_ptr() for p in (left, right, chunk)] if fc else [],
+    )
     lib = int8_tiled._library()
     with torch.cuda.device(chunk.device):
         stream = torch.cuda.current_stream(chunk.device).cuda_stream
         err = lib.sharded_int8_block(
             top.data_ptr(), chunk.data_ptr(), bot.data_ptr(),
             left.data_ptr() if fc else None, right.data_ptr() if fc else None,
-            out.data_ptr(), table.data_ptr(), hl, wl, fr, fc, row0, col0, lh, lw,
-            rule.radius, block_steps, int(rule.include_center), rule.states, table.shape[1],
-            rows, cols, *int8_tiled.window(rule, block_steps, cols),
-            int8_tiled.shared_bytes(rule, block_steps, rows, cols),
-            int(int8_tiled.io16(wl, cols, out.data_ptr())), stream,
+            out.data_ptr(), bits.data_ptr(), nwords, hl, wl, fr, fc, row0, col0, lh, lw,
+            *rest, io, io_side, stream,
         )
     if err != 0:
         raise RuntimeError(f"sharded_int8_block launch failed: CUDA error {err}")
