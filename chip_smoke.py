@@ -11,16 +11,22 @@ Phases (any failure exits non-zero and prints no result line):
    ``nvidia-smi``'s name and power limit;
 2. build — compiles the kernel sources of the main paths from
    ``tpu_life_torch/csrc`` (one nvcc each, started together, at first use),
-   prints the build seconds and each ptxas report: K1's Moore kernel and
-   its two diamond kernels (radius 1 and 2), K2 and K4, whose registers it
-   prints and which must report no spill stores or loads, with the counts
-   of shared-memory loads, stores and asynchronous copies (``LDS``,
-   ``STS``, ``LDGSTS``) in each one's SASS (``cuobjdump -sass`` on the
-   built library), and K5's registers;
+   prints the build seconds and each ptxas report; for every instance of
+   K1 and K3 (Moore with Conway's rule compiled in and with the rule as
+   data, clamped and on the torus, and the diamonds, at each depth
+   ceiling) and for K2 and K4 it prints the registers and fails on spill
+   stores or loads; it counts ``LOP3``, ``SHF``, ``SHFL``, ``LDS``,
+   ``STS``, ``BAR`` and all instructions in each K1 and K3 instance's SASS
+   and the shared-memory loads, stores and asynchronous copies (``LDS``,
+   ``STS``, ``LDGSTS``) in K2's and K4's (``cuobjdump -sass`` on the built
+   libraries), and prints K5's registers;
 3. kernel vs plain — holds each kernel bit-identical (``torch.equal``) to
    its plain PyTorch version on the card (K3 and K4 below the list): K1
-   over life-like rules, ragged
-   shapes up to 16384^2 and block depths with a remainder; K1's diamond
+   over Conway (its compiled rule) and three life-like rules it runs as
+   data (``highlife``, ``day_and_night``, ``seeds``), ragged shapes up to
+   16384^2, widths with W % 32 of 0, 1 and 31, a board whose live cells
+   touch all four edges, and depths 1, 2, 8 and 32, each with a remainder
+   launch; K1's diamond
    mode over three von Neumann rules (r = 1, r = 2, r = 2 with the centre),
    shapes from 11x11 to 16384^2, widths with W % 32 of 0, 1 and 31, a
    board whose live cells touch all four edges, and depths 1, 2, 8 and the
@@ -47,8 +53,9 @@ Phases (any failure exits non-zero and prints no result line):
    updates per second through the Runner (host clock, delta timing), and
    the kernel timed with CUDA events against its plain version and its
    bound; at 16384^2 and at the reference's 1500x500 also its device time
-   from the profiler's kernel records, at 1500x500 with board-sized and
-   with full-height tiles;
+   from the profiler's kernel records, at 1500x500 with the runs
+   ``run_rows`` picks and with one run a strip; and ``highlife`` (a rule the
+   kernel runs as data) at 16384^2 beside Conway;
 6. full size, K2 — ``bugs`` (R5) at 8192^2 and ``brians_brain`` (C3) at
    16384^2 through the Runner, each held to the plain version after its
    steps, with cell updates per second through the Runner; then K2 timed
@@ -111,8 +118,8 @@ Phases (any failure exits non-zero and prints no result line):
    process with the K1 and K2 counts set to 0 just before and read just
    after, and each equal to the numpy backend's bytes.
 
-Phases 2-4 cover K3 too: it is built with K1 (same source, its four
-instantiations in the ptxas report); phase 3 holds it bit-identical to its
+Phases 2-4 cover K3 too: it is built with K1 (same source, its instances
+in the ptxas report and the SASS counts); phase 3 holds it bit-identical to its
 plain version (the ``shard_ops`` route on the same mesh) in its three
 modes — Moore clamped, diamond (r = 1, 2) clamped, Moore torus — on meshes
 of 1, 2, 3, 4 and 8 shards of the card, heights that leave padding rows,
@@ -180,6 +187,14 @@ DIAMOND_RULES = [DIAMOND, DIAMOND_R1, "R2,C2,M1,S3..6,B3..5,NN"]
 DIAMOND_SHAPES = [(11, 11), (257, 1000), (1500, 500), (5000, 2000), (300, 992), (300, 993),
                   (300, 1023), (FULL, FULL)]
 DIAMOND_DEPTHS = (1, 2, BLOCK_STEPS, 32)
+# K1's Moore mode: the depths asked for, each with a remainder launch
+K1_DEPTHS = (1, 2, BLOCK_STEPS, 32)
+DATA_RULE = "highlife"  # a Moore rule the kernels run as data, timed beside conway
+# the instances the kernels record names: each row's shape at k = 8
+K1_MAIN = "K1 packed_stripe_kernel<8, ConwayRule>"
+K1_DATA = "K1 packed_stripe_kernel<8, DataRule>"
+K1_DIAMOND = "K1 packed_diamond_kernel<2, 8>"
+K3_MAIN = "K3 sharded_stripe_kernel<false, 8, ConwayRule>"
 # the routes with no kernel in either package, held to the numpy oracle
 OPS_SHAPE, OPS_STEPS = (257, 1000), 5
 OPS_RULES = [("conway:T", "packed_torus"), ("R2,C2,S2..4,B2..3,NN:T", "stencil"),
@@ -243,6 +258,23 @@ K2_WIDE = [
 ]
 # the shared-memory instructions counted in K2's and K4's SASS
 SASS_OPS = ("LDS", "STS", "LDGSTS")
+# the instructions counted in the SASS of every K1 and K3 instance (and the
+# total): logic, funnel shifts, shuffles, shared memory and barriers
+K1_SASS_OPS = ("LOP3", "SHF", "SHFL", "LDS", "STS", "BAR")
+# every kernel instance packed_stripe.cu builds (label, pattern of its
+# mangled name): K1 Moore and K3 Moore (clamped, torus) at each depth
+# ceiling with Conway's rule compiled in and with the rule as data, the
+# diamonds at each ceiling their radius allows
+K1_K3_INSTANCES = [
+    *[(f"K1 packed_stripe_kernel<{c}, {r}Rule>", rf"packed_stripe_kernelILi{c}E\w*{r}Rule")
+      for c in (4, 8, 16, 32) for r in ("Conway", "Data")],
+    *[(f"K1 packed_diamond_kernel<{rad}, {c}>", rf"packed_diamond_kernelILi{rad}ELi{c}E")
+      for rad, cs in ((1, (4, 8, 16, 32)), (2, (4, 8, 16))) for c in cs],
+    *[(f"K3 sharded_stripe_kernel<{t}, {c}, {r}Rule>", rf"sharded_stripe_kernelILb{int(t == 'true')}ELi{c}E\w*{r}Rule")
+      for t in ("false", "true") for c in (4, 8, 16, 32) for r in ("Conway", "Data")],
+    *[(f"K3 sharded_diamond_kernel<{rad}, {c}>", rf"sharded_diamond_kernelILi{rad}ELi{c}E")
+      for rad, cs in ((1, (4, 8, 16, 32)), (2, (4, 8, 16))) for c in cs],
+]
 
 
 def fail(msg: str) -> None:
@@ -256,6 +288,33 @@ def nvidia_smi(fields: str) -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(lib: Path) -> dict[str, tuple[int, int, int]]:
+    """(spill store bytes, spill load bytes, registers) of each kernel in
+    the ``-Xptxas -v`` report kept beside a built library, by mangled name."""
+    report = {}
+    for entry in (lib.parent / "build.log").read_text().split("Compiling entry function")[1:]:
+        name = re.match(r" '(\w+)'", entry)
+        used = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers",
+                         entry, re.S)
+        if name and used:
+            report[name.group(1)] = tuple(map(int, used.groups()))
+    return report
+
+
+def sass_counts_of(lib: Path) -> dict[str, dict[str, int]]:
+    """The counts of :data:`K1_SASS_OPS` and all instructions in each
+    kernel's SASS (``cuobjdump -sass``), by mangled name."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts = {}
+    for m in re.finditer(r"Function : (\w+)\n(.*?)(?=\n\s+Function : |\Z)", sass, re.S):
+        ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", m.group(2), re.M)
+        counts[m.group(1)] = {**{op: sum(o == op for o in ops) for op in K1_SASS_OPS},
+                              "total": len(ops)}
+    return counts
 
 
 def main() -> int:
@@ -313,21 +372,35 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
         print((lib.parent / "build.log").read_text().strip(), flush=True)
-    k1_log = (libs[0].parent / "build.log").read_text()
-    for kernel in ("packed_stripe_kernel", "packed_diamond_kernelILi1E", "packed_diamond_kernelILi2E",
-                   "sharded_stripe_kernelILb0E", "sharded_stripe_kernelILb1E",
-                   "sharded_diamond_kernelILi1E", "sharded_diamond_kernelILi2E"):
-        if kernel not in k1_log:
-            fail(f"the ptxas report of packed_stripe.cu does not name {kernel}")
+    # K1 and K3 share the wavefront body: one instance per kernel, depth
+    # ceiling and (Moore) rule; registers, no spill, and their SASS counts
+    k1_report = ptxas_report(libs[0])
+    k1_sass = sass_counts_of(libs[0])
+    k1_instances = {}
+    for label, pattern in K1_K3_INSTANCES:
+        names = [n for n in k1_report if re.search(pattern, n)]
+        if len(names) != 1:
+            fail(f"the ptxas report of packed_stripe.cu names {len(names)} kernels for {label}")
+        spill_st, spill_ld, regs = k1_report[names[0]]
+        if spill_st or spill_ld:
+            fail(f"{label} spills: {spill_st} bytes of stores, {spill_ld} bytes of loads")
+        if names[0] not in k1_sass:
+            fail(f"cuobjdump -sass of {libs[0].name} does not name {label}")
+        k1_instances[label] = dict(registers=regs, sass=k1_sass[names[0]])
+    if len(k1_report) != len(K1_K3_INSTANCES):
+        fail(f"packed_stripe.cu builds {len(k1_report)} kernels, want {len(K1_K3_INSTANCES)}")
+    print(f"K1 and K3 (ptxas, cuobjdump -sass): {len(k1_instances)} instances, no spill; "
+          f"registers and SASS ({', '.join(K1_SASS_OPS)}, total):", flush=True)
+    for label, inst in k1_instances.items():
+        print(f"  {label}: {inst['registers']} registers; "
+              + ", ".join(f"{op} {n}" for op, n in inst["sass"].items()), flush=True)
     # K2 and K4 share int8_tile: registers, no spill, and the shared-memory
     # instructions of their SASS
     int8_report = {}
-    for entry in (libs[1].parent / "build.log").read_text().split("Compiling entry function")[1:]:
-        name = re.match(r" '\w*?(int8_tiled_kernel|sharded_int8_kernel)", entry)
-        used = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers",
-                         entry, re.S)
-        if name and used:
-            int8_report[name.group(1)] = tuple(map(int, used.groups()))
+    for name, used in ptxas_report(libs[1]).items():
+        short = re.search(r"int8_tiled_kernel|sharded_int8_kernel", name)
+        if short:
+            int8_report[short.group(0)] = used
     if set(int8_report) != {"int8_tiled_kernel", "sharded_int8_kernel"}:
         fail(f"the ptxas report of int8_tiled.cu names {sorted(int8_report)}, want K2 and K4")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -363,18 +436,25 @@ def main() -> int:
 
     # -- 3. kernel vs plain on the card -----------------------------------
     rng = np.random.default_rng(2024)
+    # Conway runs the instance with its rule compiled in, the others the
+    # rule as data; 5000x2000 keeps long runs with a ragged last one, the
+    # smaller boards shorter runs (run_rows) to fill the SMs; 300 x 992, 993
+    # and 1023 have W % 32 of 0, 1 and 31
     rules = ["conway", "highlife", "day_and_night", "seeds"]
-    # 5000x2000 keeps full-height tiles with a ragged last one; the smaller
-    # boards run halved tiles (tile_rows) to fill the SMs
-    shapes = [(1, 1), (3, 33), (31, 32), (257, 1000), (1500, 500), (5000, 2000), (FULL, FULL)]
+    shapes = [(1, 1), (3, 33), (31, 32), (257, 1000), (1500, 500), (300, 992), (300, 993),
+              (300, 1023), (5000, 2000), (FULL, FULL)]
+    edge = np.zeros((300, 1000), np.int8)  # live cells on all four edges
+    edge[:7], edge[-7:], edge[:, :7], edge[:, -7:] = 1, 1, 1, 1
+    boards = [(rng.integers(0, 2, size=shape, dtype=np.int8), "random") for shape in shapes]
     max_err = 0
     cases = 0
     t0 = time.perf_counter()
-    for h, w in shapes:
-        x0 = words(rng.integers(0, 2, size=(h, w), dtype=np.int8))
+    for board, what in [*boards, (edge, "edge board")]:
+        h, w = board.shape
+        x0 = words(board)
         for name in rules:
             rule = get_rule(name)
-            for k in (1, 8, 32):
+            for k in K1_DEPTHS:
                 steps = 5 if k == 1 else 2 * k + 3  # a remainder launch
                 want = ps.packed_multi_step_plain(x0, rule, (h, w), steps)
                 got = ps.packed_multi_step(x0.clone(), rule, (h, w), steps, block_steps=k)
@@ -383,9 +463,10 @@ def main() -> int:
                 max_err = max(max_err, err)
                 cases += 1
                 if err:
-                    fail(f"kernel != plain: rule {name}, {h}x{w}, k={k}, {steps} steps")
-    print(f"kernel vs plain: {cases} cases bit-identical "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+                    fail(f"kernel != plain: rule {name}, {what} {h}x{w}, k={k}, {steps} steps")
+    print(f"kernel vs plain: {cases} cases bit-identical ({time.perf_counter() - t0:.1f} s); "
+          f"rules {', '.join(f'{n} ({'compiled' if ps.compiled_rule(get_rule(n)) else 'data'})' for n in rules)}",
+          flush=True)
 
     diamond_max_err = 0
     diamond_cases = 0
@@ -903,14 +984,20 @@ def main() -> int:
         ops_ms = ops / int_ops_per_s * 1e3
         return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
 
+    def runs(rule, k: int, rows: int, nwords: int, sharded: bool = False) -> int:
+        """The run length (rows a warp walks) of one K1 or K3 launch."""
+        mode = k3.mode_of(rule) if sharded else ps.DIAMOND if bitlife.supports_diamond(rule) else ps.MOORE
+        return ps.launch_run_rows(sharded, mode, rule, k, rows, nwords, ps.compiled_rule(rule))
+
+    full_nw = bitlife.packed_width(FULL)
     ms = kernel_ms((FULL, FULL), BLOCK_STEPS, 40)
     xp = words(board)
     plain_ms = cuda_ms(lambda: ps.packed_multi_step_plain(xp, rule, (FULL, FULL), BLOCK_STEPS), 3)
     bound_ms, bound_by = bound((FULL, FULL), BLOCK_STEPS)
     cells_per_s = FULL * FULL * BLOCK_STEPS / (ms * 1e-3)
-    full_words = FULL * bitlife.packed_width(FULL)
-    print(f"timing {FULL}^2 conway, k={BLOCK_STEPS}, "
-          f"{ps.tile_rows(BLOCK_STEPS, FULL, bitlife.packed_width(FULL), n_sm)}-row tiles: "
+    full_words = FULL * full_nw
+    print(f"timing {FULL}^2 conway (rule compiled in), k={BLOCK_STEPS}, "
+          f"{runs(rule, BLOCK_STEPS, FULL, full_nw)}-row runs: "
           f"kernel {ms:.4f} ms/launch ({ms / BLOCK_STEPS:.4f} ms/step, "
           f"{cells_per_s:.4e} cells/s, {bound_ms / ms:.1%} of the bound); plain "
           f"{plain_ms / BLOCK_STEPS:.4f} ms/step; bound {bound_ms:.4f} ms/launch "
@@ -925,20 +1012,30 @@ def main() -> int:
     full_dev_ms = device_ms((FULL, FULL), BLOCK_STEPS, 20)
     print(f"device time {FULL}^2, k={BLOCK_STEPS}: {fmt(full_dev_ms)} ms/launch "
           f"(profiler kernel records)", flush=True)
+    # a rule the Moore kernels run as data, beside Conway's compiled one
+    data_rule = get_rule(DATA_RULE)
+    data_ms = kernel_ms((FULL, FULL), BLOCK_STEPS, 40, data_rule)
+    data_dev_ms = device_ms((FULL, FULL), BLOCK_STEPS, 20, data_rule)
+    data_bound = bound((FULL, FULL), BLOCK_STEPS, data_rule)[0]
+    print(f"timing {FULL}^2 {DATA_RULE} (rule as data), k={BLOCK_STEPS}: kernel {data_ms:.4f} "
+          f"ms/launch by CUDA events ({data_bound / data_ms:.1%} of its bound {data_bound:.4f} ms, "
+          f"{ps.logic_ops_per_word_step(data_rule)} logic ops/word/step); device time "
+          f"{fmt(data_dev_ms)} ms/launch against conway's {fmt(full_dev_ms)}", flush=True)
     ref = (1500, 500)
+    ref_nw = bitlife.packed_width(ref[1])
     ref_ms = kernel_ms(ref, BLOCK_STEPS, 200)
     ref_dev_ms = device_ms(ref, BLOCK_STEPS, 200)
-    board_sized = ps.tile_rows
-    ps.tile_rows = lambda k, h, nwords, n_sm, radius=1: 4 * max(16, radius * k)  # full-height tiles
+    chosen = ps.run_rows
+    ps.run_rows = lambda k, height, *_: height  # one run a strip
     try:
-        fixed_dev_ms = device_ms(ref, BLOCK_STEPS, 200)
+        one_run_dev_ms = device_ms(ref, BLOCK_STEPS, 200)
     finally:
-        ps.tile_rows = board_sized
+        ps.run_rows = chosen
     print(f"timing 1500x500 conway, k={BLOCK_STEPS}: {ref_ms:.4f} ms/launch by CUDA "
           f"events over back-to-back calls; device time {fmt(ref_dev_ms)} ms/launch "
-          f"with {ps.tile_rows(BLOCK_STEPS, ref[0], bitlife.packed_width(ref[1]), n_sm)}"
-          f"-row tiles, {fmt(fixed_dev_ms)} with {4 * max(16, BLOCK_STEPS)}-row "
-          f"tiles (bound {bound(ref, BLOCK_STEPS)[0]:.6f} ms)", flush=True)
+          f"with {runs(rule, BLOCK_STEPS, ref[0], ref_nw)}-row runs, {fmt(one_run_dev_ms)} "
+          f"with one {ref[0]}-row run a strip (bound {bound(ref, BLOCK_STEPS)[0]:.6f} ms)",
+          flush=True)
 
     # -- 6. K2 at full size through the cuda backend ------------------------
     k2_rows = []
@@ -1063,8 +1160,7 @@ def main() -> int:
         d_bound, d_by = bound((FULL, FULL), BLOCK_STEPS, rule)
         d_ops = ps.logic_ops_per_word_step(rule)
         print(f"timing K1 diamond mode {FULL}^2 {name}, k={BLOCK_STEPS}, "
-              f"{ps.tile_rows(BLOCK_STEPS, FULL, bitlife.packed_width(FULL), n_sm, rule.radius)}"
-              f"-row tiles: kernel {d_ms:.4f} ms/launch by CUDA events "
+              f"{runs(rule, BLOCK_STEPS, FULL, full_nw)}-row runs: kernel {d_ms:.4f} ms/launch by CUDA events "
               f"({d_ms / BLOCK_STEPS:.4f} ms/step, "
               f"{FULL * FULL * BLOCK_STEPS / (d_ms * 1e-3):.4e} cells/s, "
               f"{d_bound / d_ms:.1%} of the bound); device time {fmt(d_dev_ms)} ms/launch "
@@ -1085,8 +1181,7 @@ def main() -> int:
     xp = words(rng.integers(0, 2, size=ref, dtype=np.int8))
     d_ref_plain_ms = cuda_ms(lambda: ps.packed_multi_step_plain(xp, rule, ref, BLOCK_STEPS), 3)
     print(f"timing K1 diamond mode 1500x500 {DIAMOND}, k={BLOCK_STEPS}, "
-          f"{ps.tile_rows(BLOCK_STEPS, ref[0], bitlife.packed_width(ref[1]), n_sm, 2)}-row "
-          f"tiles: {d_ref_ms:.4f} ms/launch by CUDA events over back-to-back calls; device "
+          f"{runs(rule, BLOCK_STEPS, ref[0], ref_nw)}-row runs: {d_ref_ms:.4f} ms/launch by CUDA events over back-to-back calls; device "
           f"time {fmt(d_ref_dev_ms)} ms/launch; plain {d_ref_plain_ms:.4f} ms per "
           f"{BLOCK_STEPS} steps; bound {bound(ref, BLOCK_STEPS, rule)[0]:.6f} ms", flush=True)
     del xp
@@ -1204,7 +1299,7 @@ def main() -> int:
                                              BLOCK_STEPS, out=b),
         runner.chunks[1].clone())
     k3_ms = cuda_ms(shard_launch, 80)
-    k3_dev_ms = profiled_ms(shard_launch, "sharded_stripe_kernel<false>", 40)
+    k3_dev_ms = profiled_ms(shard_launch, "sharded_stripe_kernel<false", 40)
     k3_plain_ms = cuda_ms(lambda: k3.sharded_stripe_block_plain(
         tops[1], runner.chunks[1], bots[1], row0, rule, (FULL, FULL), BLOCK_STEPS), 2)
     # the bound: the rows each substep must compute (the chunk and what its
@@ -1215,7 +1310,7 @@ def main() -> int:
     k3_mem_ms = (2 * hl + 2 * fr) * nw * 4 / HBM_BYTES_PER_S * 1e3
     k3_bound, k3_by = (k3_ops_ms, "operations") if k3_ops_ms >= k3_mem_ms else (k3_mem_ms, "bytes")
     print(f"timing K3 one shard {hl}x{nw} words + 2x{fr} halo rows, conway, k={BLOCK_STEPS}, "
-          f"{ps.tile_rows(BLOCK_STEPS, hl, nw, n_sm)}-row tiles: kernel {k3_ms:.4f} ms/launch by "
+          f"{runs(rule, BLOCK_STEPS, hl, nw, sharded=True)}-row runs: kernel {k3_ms:.4f} ms/launch by "
           f"CUDA events ({k3_bound / k3_ms:.1%} of the bound), device time {fmt(k3_dev_ms)} "
           f"ms/launch (profiler kernel records); {n_shards} shard launches {n_shards * k3_ms:.4f} "
           f"ms by events against K1's {ms:.4f} over the whole board "
@@ -1243,10 +1338,11 @@ def main() -> int:
           f"{fr * nw * 4} bytes) {xchg_ms:.4f} ms by CUDA events, "
           + (f"{copy_dev_ms * 1e3:.2f} us of device time per copy" if copy_dev_ms is not None
              else "copy device time not measured (no memcpy records)")
-          + f"; {fmt_breakdown(block_split)}; grid {-(-nw // ps.TILE_WORDS)}x"
-          f"{-(-hl // ps.tile_rows(BLOCK_STEPS, hl, nw, n_sm))} blocks per shard launch, "
-          f"{-(-nw // ps.TILE_WORDS)}x{-(-FULL // ps.tile_rows(BLOCK_STEPS, FULL, nw, n_sm))} "
-          f"per K1 launch", flush=True)
+          + f"; {fmt_breakdown(block_split)}; {-(-nw // ps.STRIP_WORDS)} strips x "
+          f"{-(-hl // runs(rule, BLOCK_STEPS, hl, nw, sharded=True))} runs (warps) per shard "
+          f"launch, {-(-nw // ps.STRIP_WORDS)} x {-(-FULL // runs(rule, BLOCK_STEPS, FULL, nw))} "
+          f"per K1 launch; {ps.warps_per_sm(True, ps.MOORE, 1, BLOCK_STEPS, True)} resident warps an "
+          f"SM counted for a wave", flush=True)
     k3_row = dict(shape=[hl, FULL], ms=k3_ms, device_ms=k3_dev_ms, plain_ms=k3_plain_ms,
                   bound_ms=k3_bound, bound_by=k3_by)
     del runner, tops, bots, buffers, shard_launch
@@ -1284,7 +1380,7 @@ def main() -> int:
         lambda a, b: k3.sharded_stripe_block(a[-fr:], a, a[:fr], 0, rule, (side, side),
                                              BLOCK_STEPS, out=b),
         runner.chunks[0].clone())
-    t_dev_ms = profiled_ms(t_launch, "sharded_stripe_kernel<true>", 20)
+    t_dev_ms = profiled_ms(t_launch, "sharded_stripe_kernel<true", 20)
     print(f"full size: {name} {side}^2 x {steps} steps through the sharded backend on "
           f"{n_shards} shards (route k3_torus, {torus_launches} K3 launches) equal to the "
           f"packed_torus ops; {t_block_ms / BLOCK_STEPS:.4f} ms/step by CUDA events against "
@@ -1650,6 +1746,11 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "device_ms": full_dev_ms,
+        "instance": K1_MAIN,
+        **k1_instances[K1_MAIN],
+        "data_rule": {"rule": DATA_RULE, "ms": data_ms, "device_ms": data_dev_ms,
+                      **k1_instances[K1_DATA]},
     }, {
         "name": "packed_diamond_multi_step",
         "route": "cuda",
@@ -1667,6 +1768,9 @@ def main() -> int:
         "bound_ms": diamond["bound_ms"],
         "bound_by": diamond["bound_by"],
         "library_ms": None,
+        "device_ms": diamond["device_ms"],
+        "instance": K1_DIAMOND,
+        **k1_instances[K1_DIAMOND],
     }, {
         "name": "int8_tiled_multi_step",
         "route": "cuda",
@@ -1706,6 +1810,9 @@ def main() -> int:
         "bound_ms": k3_row["bound_ms"],
         "bound_by": k3_row["bound_by"],
         "library_ms": None,
+        "torus_device_ms": t_dev_ms,
+        "instance": K3_MAIN,
+        **k1_instances[K3_MAIN],
     }, {
         "name": "sharded_int8_block",
         "route": "cuda",

@@ -121,18 +121,138 @@ def test_cpu_tensor_takes_the_plain_version_without_launching():
     assert torch.equal(got, ps.packed_multi_step_plain(x, get_rule("conway"), b.shape, 10))
 
 
-def test_tile_rows_cover_the_halo():
-    # a full-size board keeps tiles of at least four halos; a small one
-    # halves its tiles (down to 8 rows) until the grid fills 132 SMs
-    for k in range(1, ps.MAX_BLOCK_STEPS + 1):
-        assert ps.tile_rows(k, 16384, 512, 132) >= 4 * k
-        for h, nwords in [(1, 1), (1500, 16), (257, 32), (5000, 63)]:
-            rows = ps.tile_rows(k, h, nwords, 132)
-            blocks = -(-nwords // ps.TILE_WORDS) * -(-h // rows)
-            assert rows >= 8 and (rows == 8 or blocks >= 132)
-            if rows < 4 * max(16, k):
-                assert -(-nwords // ps.TILE_WORDS) * -(-h // (2 * rows)) < 132
-    assert ps.tile_rows(8, 1500, 16, 132) == 8
+@pytest.mark.parametrize(
+    "args,rows",
+    [
+        # 16384^2 (512 words: 18 strips) on 132 SMs: one wave of 32 warps an
+        # SM is 4224 warps, 234 runs a strip; of 16, 117
+        ((8, 16384, 512, 132, 32), 71),
+        ((8, 16384, 512, 132, 16), 141),
+        ((1, 16384, 512, 132, 32), 71),
+        # at least four halos of k rows
+        ((32, 16384, 512, 132, 32), 128),
+        # one 4096-row shard of it, as K3 runs it
+        ((8, 4096, 512, 132, 32), 32),
+        ((8, 4096, 512, 132, 16), 36),
+        # 1500x500 (16 words, one strip): four halos give 47 warps; halved
+        # while every warp keeps one of the 528 warp schedulers
+        ((8, 1500, 16, 132, 32), 4),
+        ((4, 1500, 16, 132, 32), 4),
+        ((8, 300, 32, 132, 32), 2),
+        ((8, 5000, 63, 132, 32), 32),
+        ((8, 31, 1, 132, 32), 1),
+        ((8, 1, 1, 132, 32), 1),
+        # wider than a wave: one run a strip
+        ((8, 16384, 200000, 132, 32), 16384),
+    ],
+)
+def test_run_rows_fill_one_wave(args, rows):
+    # (k, height, nwords, SMs, resident warps an SM) -> rows of a warp's run
+    assert ps.run_rows(*args) == rows
+    k, height, nwords, n_sm, warps = args
+    strips = -(-nwords // ps.STRIP_WORDS)
+    grid = strips * -(-height // rows)
+    schedulers = ps.SCHEDULERS_PER_SM * n_sm
+    assert grid <= max(strips, n_sm * warps, schedulers)  # never a second wave
+    # runs shorter than four halos only where the board leaves schedulers idle
+    assert rows in (1, height) or rows >= 4 * k or strips * -(-height // -(-rows // 2)) > schedulers
+
+
+def test_depth_ceiling_of_every_depth():
+    # the kernel instance (levels kept in registers) a launch of k substeps runs
+    assert [ps.depth_ceiling(k) for k in range(1, 33)] == [4] * 4 + [8] * 4 + [16] * 8 + [32] * 16
+    assert [ps.depth_ceiling(k, radius=2) for k in range(1, 17)] == [4] * 4 + [8] * 4 + [16] * 8
+    for k, radius in ((0, 1), (33, 1), (17, 2)):
+        with pytest.raises(ValueError, match="block_steps"):
+            ps.depth_ceiling(k, radius)
+
+
+@pytest.mark.parametrize(
+    "spec,compiled",
+    [
+        ("conway", True),
+        ("life", True),
+        ("B3/S23", True),  # Conway's rule under another name
+        ("23/3", True),
+        ("conway:T", True),
+        ("highlife", False),
+        ("daynight", False),
+        ("seeds", False),
+        ("life_without_death", False),
+        ("reference_bug_compat", False),
+        ("R1,C2,S2..3,B3,NN", False),
+        ("R2,C2,S2..4,B2..3,NN", False),
+        ("brians_brain", False),
+    ],
+)
+def test_rule_dispatch_compiles_only_conway(spec, compiled):
+    # the wrapper compares the minimized SOP with Conway's, not the name
+    assert ps.compiled_rule(get_rule(spec)) is compiled
+
+
+def test_every_other_life_like_rule_runs_as_data():
+    from tpu_life_torch.models.rules import RULE_REGISTRY
+    from tpu_life_torch.ops import bitlife
+
+    for name, rule in RULE_REGISTRY.items():
+        if bitlife.supports(rule) or bitlife.supports_torus(rule):
+            assert ps.compiled_rule(rule) is (rule_sop(rule.birth, rule.survive) == ps.CONWAY_SOP), name
+            assert ps.compiled_rule(rule) is (name in ("conway", "life")), name
+        else:
+            assert not ps.compiled_rule(rule), name
+
+
+def kernel_sop(table, lits):
+    """The data rule as the kernel evaluates it: terms 0 and 1 always (the
+    table pads them), then the rest of the SOP's terms, each the AND over
+    the five literals of (lit ^ flip) | loose."""
+    out = 0
+    for t in range(max(2, table.n_terms)):
+        term = 0xFFFFFFFF
+        for i in range(5):
+            term &= (lits[i] ^ table.flip[t][i]) | table.loose[t][i]
+        out |= term
+    return out
+
+
+@pytest.mark.parametrize("name", ["conway", "highlife", "daynight", "seeds", "replicator",
+                                  "reference_bug_compat", "morley", "diamoeba", "maze", "B/S",
+                                  "B012345678/S012345678", "B1357/S02468"])
+def test_kernel_sop_is_the_rule(name):
+    # every input a 3x3 total reaches (b0..b3 total planes, x centre: 0..8
+    # around a dead cell, 1..9 with a live one),
+    # each literal a word of all ones or all zeros, against rule_sop and the
+    # rule's sets; then the same inputs bit-sliced in the bits of one word,
+    # as the kernel sees them
+    rule = get_rule(name)
+    table = ps.sop_table(rule)
+    sop = rule_sop(rule.birth, rule.survive)
+    inputs = [total | x << 4 for x in (0, 1) for total in range(x, 9 + x)]
+    for i in inputs:
+        lits = [((i >> b) & 1) * 0xFFFFFFFF for b in range(5)]
+        total, x = i & 15, i >> 4
+        want = (total - 1 in rule.survive) if x else (total in rule.birth)
+        assert want == any((i & mask) == value for mask, value in sop)
+        assert kernel_sop(table, lits) == (0xFFFFFFFF if want else 0), i
+    lits = [sum(((i >> b) & 1) << n for n, i in enumerate(inputs)) for b in range(5)]
+    want = sum(any((i & mask) == value for mask, value in sop) << n for n, i in enumerate(inputs))
+    assert kernel_sop(table, lits) & ((1 << len(inputs)) - 1) == want
+
+
+def test_kernel_sop_of_short_sops_pads_the_terms_it_always_reads():
+    # one term: term 1 repeats it; none: both hold b1 b2 b3, a total of 14
+    # or 15, which no 3x3 total reaches
+    seeds = ps.sop_table(get_rule("seeds"))
+    assert seeds.n_terms == 1
+    assert list(seeds.flip[1]) == list(seeds.flip[0]) and list(seeds.loose[1]) == list(seeds.loose[0])
+    empty = ps.sop_table(get_rule("B/S"))
+    assert empty.n_terms == 0
+    for t in (0, 1):
+        assert [empty.loose[t][i] == 0 for i in range(5)] == [False, True, True, True, False]
+    for total in range(10):
+        for x in (0, 1):
+            lits = [((total >> b) & 1) * 0xFFFFFFFF for b in range(4)] + [x * 0xFFFFFFFF]
+            assert kernel_sop(empty, lits) == 0
 
 
 @pytest.mark.parametrize(

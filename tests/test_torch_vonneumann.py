@@ -169,13 +169,67 @@ def test_diamond_logic_ops_per_word_step(spec, ops):
     assert ps.logic_ops_per_word_step(get_rule(spec)) == ops
 
 
-def test_tile_rows_scale_with_the_radius():
-    # the halo stays a quarter of the tile: radius * k rows of it
-    for radius in (1, 2):
-        for k in range(1, 32 // radius + 1):
-            assert ps.tile_rows(k, 16384, 512, 132, radius) >= 4 * radius * k
-    assert ps.tile_rows(16, 16384, 512, 132, 2) == ps.tile_rows(32, 16384, 512, 132) == 128
-    assert ps.tile_rows(8, 1500, 16, 132, 2) == 8
+@pytest.mark.parametrize(
+    "args,rows",
+    [
+        # (k, height, nwords, SMs, resident warps an SM, radius): at least
+        # four halos of radius * k rows, else one wave
+        ((8, 16384, 512, 132, 32, 2), 71),
+        ((16, 16384, 512, 132, 32, 2), 128),
+        ((16, 16384, 512, 132, 12, 2), 187),
+        ((8, 4096, 512, 132, 20, 2), 64),
+        # a small board halves its runs while every warp keeps a scheduler
+        ((8, 1500, 16, 132, 12, 2), 4),
+        ((16, 1500, 16, 132, 12, 2), 4),
+        ((1, 1500, 16, 132, 12, 2), 4),
+    ],
+)
+def test_run_rows_scale_with_the_radius(args, rows):
+    assert ps.run_rows(*args) == rows
+
+
+@pytest.mark.parametrize(
+    "spec", [*DIAMONDS, "R1,C2,M1,S2..3,B3,NN", "R2,C2,S,B,NN", "R2,C2,S0..12,B0..12,NN"],
+    ids=[*DIAMOND_IDS, "r1-m1-center", "r2-empty", "r2-full"],
+)
+def test_diamond_kernel_sop_is_the_rule(spec):
+    # the data rule as the kernel evaluates it (terms 0 and 1 always, each
+    # the AND over five literals of (lit ^ flip) | loose) on every count the
+    # diamond reaches, one input a bit of the words
+    rule = get_rule(spec)
+    count_max = bitlife.diamond_count_max(rule)
+    nplanes, sop = membership_rule_sop(rule.birth, rule.survive, count_max)
+    table = ps.sop_table(rule)
+    inputs = [(count, cell) for cell in (0, 1) for count in range(count_max + 1)]
+    lits = [sum(((count >> b) & 1) << n for n, (count, _) in enumerate(inputs)) for b in range(nplanes)]
+    lits += [0] * (4 - nplanes) + [sum(cell << n for n, (_, cell) in enumerate(inputs))]
+    out = 0
+    for t in range(max(2, table.n_terms)):
+        term = 0xFFFFFFFF
+        for i in range(5):
+            term &= (lits[i] ^ table.flip[t][i]) | table.loose[t][i]
+        out |= term
+    for n, (count, cell) in enumerate(inputs):
+        want = count in (rule.survive if cell else rule.birth)
+        assert want == any((count | cell << nplanes) & m == v for m, v in sop)
+        assert (out >> n & 1) == want, (count, cell)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 40), (2, 5), (3, 33)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("spec", DIAMONDS, ids=DIAMOND_IDS)
+def test_boards_shallower_than_the_radius_keep_their_shape(spec, shape):
+    # a row shift past the board's height leaves an all-zero plane of the
+    # board's height (it once grew the board by the shift)
+    b = _board(shape, seed=7 * shape[0] + shape[1])
+    rule = get_rule(spec)
+    got = bitlife.multi_step_packed(
+        interop.board_from_reference(b, shape), rule=rule, steps=3, logical_shape=shape
+    )
+    want = jbitlife.multi_step_packed_diamond(
+        jnp.asarray(jbitlife.pack_np(b)), rule=jget_rule(spec), steps=3, logical_shape=shape
+    )
+    np.testing.assert_array_equal(_words_np(got), np.asarray(want))
+    np.testing.assert_array_equal(interop.board_to_reference(got, shape), run_np(b, rule, 3))
 
 
 def test_wrapper_refuses_what_neither_mode_runs():

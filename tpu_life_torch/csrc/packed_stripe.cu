@@ -1,105 +1,111 @@
 // Bit-sliced multi-step kernels for Hopper (sm_90a): the life-like Moore
-// step and the von Neumann diamond.
+// step and the von Neumann diamond, on one board (K1) and on one shard (K3).
 //
-// Replaces the TPU kernel make_pallas_packed_multi_step with its body
-// _packed_tile_advance (tpu_life/backends/pallas_backend.py): the Moore mode
-// by packed_stripe_kernel, the diamond mode (the branch of that body that
-// plugs shift-by-k planes into bitlife.make_packed_diamond_step) by
-// packed_diamond_kernel further down.  Each computes `k` masked steps of a
-// packed bitboard, each step equal to bitlife.make_masked_packed_step on the
-// whole board: 32 cells per 32-bit word, bit b of word j is column 32*j + b,
-// int32[H, ceil(W/32)] with no frame.  Cells outside rows [0, H) or past
-// column W are dead.
+// Replaces two TPU kernels of tpu_life/backends/pallas_backend.py:
+// - make_pallas_packed_multi_step with its body _packed_tile_advance (K1):
+//   the Moore mode by packed_stripe_kernel, the diamond mode (the branch of
+//   that body that plugs shift-by-k planes into
+//   bitlife.make_packed_diamond_step) by packed_diamond_kernel;
+// - make_pallas_sharded_stripe_block (K3), the same body with a shard's
+//   row0, by sharded_stripe_kernel (Moore, clamped or torus) and
+//   sharded_diamond_kernel.
+// Each computes `k` masked steps of a packed bitboard, each step equal to
+// bitlife.make_masked_packed_step on the whole board: 32 cells per 32-bit
+// word, bit b of word j is column 32*j + b, int32[H, ceil(W/32)] with no
+// frame.  Cells outside rows [0, H) or past column W are dead.
 //
-// The Moore mode.  Layout of one block: an output tile of tile_rows rows x kInterior words,
-// loaded with a halo of k rows above and below and one word left and right
-// into shared memory.  The block then runs k substeps in shared memory,
-// ping-ponging two buffers.  Substep s recomputes only rows [s, ext - s),
-// the rows whose inputs are still exact, so after k substeps the interior
-// rows are exact.  Sideways, each substep reaches one cell further, so the
-// one-word halo keeps the interior exact while k <= 32.  Reads outside the
-// board load zero, which stands in for the TPU kernel's zero frame.
+// What bounds it on an H100: integer issue.  A word needs about 15 32-bit
+// logic instructions a step for Conway (one LOP3 for any three-input
+// function: carry-save adds 6, funnel shifts 4, total planes 2, rule 3;
+// logic_ops_per_word_step in kernels/packed_stripe.py) and 26 for the
+// diamond at radius 2, against 8 bytes of device memory per k steps (at
+// k = 8, 16384^2 moves 64 MiB per 8 steps, about 20 us at 3.35 TB/s,
+// against about 60 us of integer issue at 64 results per clock and SM).
+// So the design spends as few instructions beyond those as it can.
 //
-// Each thread owns one word column of the tile (lane = column) and walks
-// down a run of rows, keeping the rows above and below in registers.  It
-// forms the vertical carry-save sums (ones, twos) of its own column, takes
-// the neighbour columns' sums from the adjacent lanes by warp shuffle, and
-// builds the left/right neighbour planes with funnel shifts that carry the
-// bit from the adjacent word.  The rule arrives as data: the minimized sum
-// of products from boolmin.rule_sop, so one build serves every life-like
-// rule.
+// The wavefront.  A warp owns a strip of 32 word columns, one word a lane:
+// lanes 1..30 are its output words, lanes 0 and 31 the words beside them.
+// It walks down a run of rows and loads each raw row once, into a ring of
+// three registers two steps ahead of its use.  For each substep level it
+// keeps in registers the rows of the level below that it still needs (two
+// at radius 1, four and two box sums at radius 2), so a level turns the
+// newest row of the level below into its own next row.  The levels are
+// skewed by one step of the walk: level s reads the row level s-1 made in
+// the step before, so the levels of one step are independent and their
+// instructions interleave.  No row goes through shared memory and no
+// barrier is needed: each warp is on its own.  The vertical halo is r*k
+// rows at each end of a run (r the radius), recomputed once per run;
+// sideways, a substep reaches r cells, so after k <= 32 / r substeps the
+// wrong bits that lanes 0 and 31 take from outside the strip (a shuffle
+// past the warp's edge returns the lane's own word) have not reached lanes
+// 1 and 30: no lane is zeroed.  Output rows are stored straight from
+// registers, 120 bytes of 128 a warp-row.
 //
-// What bounds it on an H100: per step a word needs about 15 32-bit logic
-// instructions for Conway, counting one LOP3 for any three-input function
-// (carry-save adds 6, funnel shifts 4, total planes 2, rule 3; see
-// logic_ops_per_word_step in kernels/packed_stripe.py), against 8 bytes of
-// device-memory traffic per k steps.  Running k steps per pass cuts the
-// device-memory traffic k-fold (at k = 8, 16384^2 moves 64 MiB per 8 steps,
-// about 20 us at 3.35 TB/s, against about 60 us of integer issue), so
-// integer-op issue is the limit.  Beyond that count the kernel spends the
-// halo recompute (k rows and one word per tile), warp shuffles, shared
-// memory traffic and the data-driven rule.
+// The depth.  k is a runtime argument under a compile-time ceiling KMAX
+// (4, 8, 16 and 32; 16 at radius 2, the clamp): the state of KMAX levels
+// lives in registers, and a launch runs the least ceiling >= k.  Every
+// level runs at every step, with no branch; where k < KMAX, the lowest
+// KMAX - k levels pass their centre row on unchanged.  Two forms of a
+// step: where k == KMAX and no row of the run leaves the board, each level
+// only masks the columns; elsewhere (the runs at the board's top and
+// bottom, k < KMAX) one LOP3 a level keeps the new row where it is live and
+// the centre row elsewhere, so the rows off the board stay zero.
 //
-// The diamond mode (2 states, radius R of 1 or 2, with or without the centre
-// in the count).  The same tiles, ping-pong and store; what differs:
-// - a substep reaches R rows and R cells, so the row halo is R*k, substep s
-//   recomputes rows [R*s, ext - R*s), and the one-word halo covers
-//   R*k <= 32: the wrapper clamps k to 32 / R;
-// - the diamond is a stack of 2R+1 horizontal boxes of half-width R - |dy|
-//   and does not separate into a vertical and a horizontal pass.  A thread
-//   takes the left and right neighbour words of the RAW row from the adjacent
-//   lanes (two shuffles a row) and funnel-shifts them in by 1 and by 2.  At
-//   R = 1 the count is up + down + L1 + R1 (+ x).  At R = 2 rows dy = +-2
-//   give their own word, rows dy = +-1 the 3-wide box L1 + x + R1 as a
-//   two-bit sum, and row dy = 0 the arms L1, R1, L2, R2 (+ x).  Walking down,
-//   the thread keeps the boxes of rows r-1, r, r+1 and the arms of row r in
-//   registers, so every row's box and shifts are formed once;
-// - carry-save adds reduce the weighted planes to the raw count b0..b3
-//   (at most 13), and the rule is boolmin.membership_rule_sop over that
-//   count, in the same five-literal table: planes the count never reaches
-//   are marked loose.
-// What bounds it: integer instruction throughput, as in the Moore mode.  A
-// word needs 4 funnel shifts, 9 carry-save adds and the rule at R = 2
-// (logic_ops_per_word_step in kernels/packed_stripe.py), against 8 bytes of
-// device-memory traffic per k steps; the halo recompute costs twice the
-// Moore mode's rows for a given k, which the wrapper's tile height (four
-// halos) keeps a minor share.
+// The rule.  The Moore mode has an instance with Conway's sum of products
+// compiled in (boolmin.rule_sop's ((7, 3), (23, 20)): b0 b1 ~b2 | x ~b0
+// ~b1 b2, the rule of the reference contract), which the wrapper picks by
+// comparing a rule's minimized SOP with Conway's; every other rule comes
+// as data (DataRule): the minimized SOP, each term the AND over the five
+// literals of (lit ^ flip) | loose, terms 0 and 1 without a branch and any
+// further terms in a loop, so one build serves every rule.  The diamond's
+// literals are the raw count's planes b0..b3 (boolmin.membership_rule_sop)
+// and the cell.
 //
-// Kernel K3, the per-shard twin (sharded_stripe_kernel and
-// sharded_diamond_kernel).  Replaces make_pallas_sharded_stripe_block
-// (tpu_life/backends/pallas_backend.py) and its body _packed_tile_advance
-// with a shard's row0.  It runs the same substeps (moore_block,
-// diamond_block below) on one shard of a row-sharded board: the chunk
-// int32[rows, nwords] of board rows [row0 + fr, row0 + fr + rows) and its
-// halos top and bot of fr = R*k rows each, which arrive as three separate
-// buffers (the halo exchange's outputs) and are stitched while the window
-// loads, so no extended chunk is ever built.  What differs from K1 lies
-// in the rows policy (ShardIo) the shared bodies take:
-// - a window row v in [-fr, rows + fr) reads top[v + fr], chunk[v] or
+// The grid.  The wrapper picks the run length (packed_stripe.run_rows) so
+// that a launch fills one wave of resident warps (fewer, longer runs
+// recompute less halo), runs at least four halos long, and on a board too
+// small to fill the card shortens the runs until each warp has a warp
+// scheduler of its own.
+//
+// The diamond (2 states, radius R of 1 or 2, with or without the centre in
+// the count) is a stack of 2R+1 horizontal boxes of half-width R - |dy| and
+// does not separate into a vertical and a horizontal pass.  A row takes the
+// left and right neighbour words of the raw row from the adjacent lanes
+// (two shuffles) and funnel-shifts them in by 1 and by 2.  At R = 1 the
+// count is up + down + L1 + R1 (+ x).  At R = 2 rows dy = +-2 give their
+// own word, rows dy = +-1 the 3-wide box L1 + x + R1 as a two-bit sum, and
+// row dy = 0 the arms L1, R1, L2, R2 (+ x).  Carry-save adds reduce the
+// weighted planes to the raw count b0..b3 (at most 13).
+//
+// Kernel K3 runs the same walk (walk_run below) on one shard of a
+// row-sharded board: the chunk int32[rows, nwords] of board rows
+// [row0 + fr, row0 + fr + rows) and its halos top and bot of fr = R*k rows
+// each, three separate buffers (the halo exchange's outputs) stitched as
+// the rows load, so no extended chunk is ever built.  What differs from K1
+// lies in the rows policy (ShardIo) the walk takes:
+// - a row v in [-fr, rows + fr) reads top[v + fr], chunk[v] or
 //   bot[v - rows];
 // - clamped, a row is live where its global row row0 + fr + v lies in
 //   [0, height): the padding rows of the last shard and the zero halos at
 //   the mesh ends stay dead;
 // - on the torus (Moore only) every halo row is a real row, so no row is
 //   masked, and the columns wrap at the logical width, which need not be a
-//   multiple of 32.  Each lane that is not a plain word of the row (the
-//   left halo of the first tile, the last word when it is partial, and the
-//   lanes past it) loads the 32 cells that follow from its own column
-//   modulo the width, stitched across the seam (wrapped_word).  Every lane
-//   then holds real cells, the standard shifts and funnel shifts are exact
-//   at the seam, nothing is masked during the substeps, and the store
-//   clears the padding bits of the last word.
-// What bounds it: as K1, integer issue, plus the 2*fr halo rows read per
-// shard and block.
+//   multiple of 32.  Each lane that is not a plain word of the row (lane 0
+//   of the first strip, the last word when it is partial, and the lanes
+//   past it) loads the 32 cells that follow from its own column modulo the
+//   width, stitched across the seam (wrapped_word).  Every lane then holds
+//   real cells, the shifts are exact at the seam, nothing is masked during
+//   the substeps, and the store clears the padding bits of the last word.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLanes = 32;               // shared-memory words per tile row
-constexpr int kInterior = kLanes - 2;    // output words per tile row
-constexpr int kWarps = 8;                // warps per block, each a run of rows
+constexpr int kLanes = 32;               // word columns of a strip: one a lane
+constexpr int kInterior = kLanes - 2;    // output words of a strip: lanes 1..30
+constexpr int kWarps = 4;                // warps per block, each with a run of its own
 constexpr int kMaxTerms = 32;            // products in a rule's SOP, at most
 constexpr int kLiterals = 5;             // b0, b1, b2, b3, x
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -108,7 +114,8 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // The rule as data.  Term t is the AND over literals i of
 // (lit[i] ^ flip[t][i]) | loose[t][i]: flip is all ones where the literal
-// appears complemented, loose is all ones where the term ignores it.
+// appears complemented, loose all ones where the term ignores it.  Terms 0
+// and 1 are always read: the wrapper fills them for SOPs of fewer terms.
 struct Sop {
   int n_terms;
   uint32_t flip[kMaxTerms][kLiterals];
@@ -124,37 +131,161 @@ __device__ __forceinline__ void csa(uint32_t a, uint32_t b, uint32_t c,
   carry = (a & b) | (ab & c);
 }
 
-__device__ __forceinline__ uint32_t apply_sop(const Sop& sop, uint32_t b0,
-                                              uint32_t b1, uint32_t b2,
-                                              uint32_t b3, uint32_t x) {
-  const uint32_t lit[kLiterals] = {b0, b1, b2, b3, x};
-  uint32_t out = 0;
-#pragma unroll
-  for (int t = 0; t < kMaxTerms; ++t) {
-    if (t >= sop.n_terms) break;
-    uint32_t term = kFull;
-#pragma unroll
-    for (int i = 0; i < kLiterals; ++i) {
-      term &= (lit[i] ^ sop.flip[t][i]) | sop.loose[t][i];
-    }
-    out |= term;
+// Conway (B3/S23) compiled in: over the 3x3 total's planes and the cell,
+// b0 b1 ~b2 | x ~b0 ~b1 b2 (boolmin.rule_sop's ((7, 3), (23, 20))).
+struct ConwayRule {
+  __device__ __forceinline__ explicit ConwayRule(const Sop&) {}
+  __device__ __forceinline__ uint32_t operator()(uint32_t b0, uint32_t b1, uint32_t b2,
+                                                 uint32_t, uint32_t x) const {
+    return (b0 & b1 & ~b2) | (x & b2 & ~(b0 | b1));
   }
-  return out;
-}
+};
+
+// Any rule as data: term t is the AND over the literals of (lit ^ flip) |
+// loose, two LOP3 a literal.  Terms 0 and 1 are always evaluated (the
+// table repeats term 0 where the SOP has one term), with no branch; Many:
+// the SOP has more, and a loop takes the rest.  The loop splits a step's
+// levels into blocks that cannot interleave, so the walk runs it only for
+// such rules (walk_run).
+template <bool Many>
+struct DataRule {
+  const Sop& sop;
+  __device__ __forceinline__ explicit DataRule(const Sop& s) : sop(s) {}
+  __device__ __forceinline__ uint32_t term(int t, uint32_t b0, uint32_t b1, uint32_t b2,
+                                           uint32_t b3, uint32_t x) const {
+    const uint32_t(&f)[kLiterals] = sop.flip[t];
+    const uint32_t(&l)[kLiterals] = sop.loose[t];
+    return ((b0 ^ f[0]) | l[0]) & ((b1 ^ f[1]) | l[1]) & ((b2 ^ f[2]) | l[2]) &
+           ((b3 ^ f[3]) | l[3]) & ((x ^ f[4]) | l[4]);
+  }
+  __device__ __forceinline__ uint32_t operator()(uint32_t b0, uint32_t b1, uint32_t b2,
+                                                 uint32_t b3, uint32_t x) const {
+    uint32_t out = term(0, b0, b1, b2, b3, x) | term(1, b0, b1, b2, b3, x);
+    if constexpr (Many) {
+#pragma unroll 1
+      for (int t = 2; t < sop.n_terms; ++t) out |= term(t, b0, b1, b2, b3, x);
+    }
+    return out;
+  }
+};
+
+// One substep level of the walk.  step(down, ...) takes the newest row of
+// the level below (r rows under the centre) and returns this level's next
+// row, before the board mask; the level keeps what its later rows need.
+
+// The Moore neighbourhood: rows up and mid of the level below.
+struct MooreLevel {
+  static constexpr int kReach = 1;
+  uint32_t up = 0, mid = 0;
+  __device__ __forceinline__ uint32_t centre() const { return mid; }
+
+  template <class Rule>
+  __device__ __forceinline__ uint32_t step(uint32_t down, const Rule& rule, uint32_t) {
+    uint32_t ones, twos;
+    csa(up, mid, down, ones, twos);
+    const uint32_t ones_l = __shfl_up_sync(kFull, ones, 1);
+    const uint32_t twos_l = __shfl_up_sync(kFull, twos, 1);
+    const uint32_t ones_r = __shfl_down_sync(kFull, ones, 1);
+    const uint32_t twos_r = __shfl_down_sync(kFull, twos, 1);
+    // L[c] = v[c-1]: (v << 1) | (left word >> 31); R[c] = v[c+1]
+    const uint32_t o_l = __funnelshift_l(ones_l, ones, 1);
+    const uint32_t o_r = __funnelshift_r(ones, ones_r, 1);
+    const uint32_t t_l = __funnelshift_l(twos_l, twos, 1);
+    const uint32_t t_r = __funnelshift_r(twos, twos_r, 1);
+    uint32_t b0, c1, s1, c2;
+    csa(o_l, ones, o_r, b0, c1);
+    csa(t_l, twos, t_r, s1, c2);
+    const uint32_t out = rule(b0, c1 ^ s1, c2 ^ (c1 & s1), c2 & c1 & s1, mid);
+    up = mid;
+    mid = down;
+    return out;
+  }
+};
+
+// The diamond at radius 1: count = up + down + L1 + R1 (+ x), at most 5.
+struct Diamond1Level {
+  static constexpr int kReach = 1;
+  uint32_t up = 0, mid = 0;
+  __device__ __forceinline__ uint32_t centre() const { return mid; }
+
+  template <class Rule>
+  __device__ __forceinline__ uint32_t step(uint32_t down, const Rule& rule, uint32_t center) {
+    const uint32_t vl = __shfl_up_sync(kFull, mid, 1);
+    const uint32_t vr = __shfl_down_sync(kFull, mid, 1);
+    const uint32_t l1 = __funnelshift_l(vl, mid, 1);
+    const uint32_t r1 = __funnelshift_r(mid, vr, 1);
+    uint32_t s0, c0, b0, c1;
+    csa(up, down, l1, s0, c0);
+    csa(s0, r1, mid & center, b0, c1);
+    const uint32_t out = rule(b0, c0 ^ c1, c0 & c1, 0u, mid);
+    up = mid;
+    mid = down;
+    return out;
+  }
+};
+
+// The diamond at radius 2, centre row j: raw rows a..d = j-2 .. j+1 of the
+// level below and the 3-wide boxes (sum, carry) of rows j-1 and j.  The new
+// row is j+2; row j+1's box is formed here, and row j's arms from two
+// shuffles of its own (two shuffles more a row than forming the arms once,
+// which would hold four more registers a level).
+struct Diamond2Level {
+  static constexpr int kReach = 2;
+  uint32_t a = 0, b = 0, c = 0, d = 0;
+  uint32_t above_s = 0, above_c = 0, here_s = 0, here_c = 0;
+  __device__ __forceinline__ uint32_t centre() const { return c; }
+
+  template <class Rule>
+  __device__ __forceinline__ uint32_t step(uint32_t dn2, const Rule& rule, uint32_t center) {
+    const uint32_t dl = __shfl_up_sync(kFull, d, 1);
+    const uint32_t dr = __shfl_down_sync(kFull, d, 1);
+    const uint32_t cl = __shfl_up_sync(kFull, c, 1);
+    const uint32_t cr = __shfl_down_sync(kFull, c, 1);
+    uint32_t below_s, below_c;
+    csa(__funnelshift_l(dl, d, 1), d, __funnelshift_r(d, dr, 1), below_s, below_c);
+    // L_d[c] = v[c-d]: (v << d) | (left word >> (32 - d)); R_d[c] = v[c+d]
+    const uint32_t l1 = __funnelshift_l(cl, c, 1);
+    const uint32_t r1 = __funnelshift_r(c, cr, 1);
+    const uint32_t l2 = __funnelshift_l(cl, c, 2);
+    const uint32_t r2 = __funnelshift_r(c, cr, 2);
+    // weight 1: the rows at dy = +-2, the four arms, the centre (M1) and
+    // the two box sums; weight 2: the two box carries
+    uint32_t s_a, c_a, s_b, c_b, s_c, c_c, b0, c_d;
+    csa(a, dn2, l1, s_a, c_a);
+    csa(r1, l2, r2, s_b, c_b);
+    csa(c & center, above_s, below_s, s_c, c_c);
+    csa(s_a, s_b, s_c, b0, c_d);
+    uint32_t t_a, d_a, t_b, d_b;
+    csa(c_a, c_b, c_c, t_a, d_a);
+    csa(c_d, above_c, below_c, t_b, d_b);
+    uint32_t b2, b3;
+    csa(d_a, d_b, t_a & t_b, b2, b3);
+    const uint32_t out = rule(b0, t_a ^ t_b, b2, b3, c);
+    above_s = here_s;
+    above_c = here_c;
+    here_s = below_s;
+    here_c = below_c;
+    a = b;
+    b = c;
+    c = d;
+    d = dn2;
+    return out;
+  }
+};
 
 // The in-board bits of word column gw: all, none, or the low rem_bits of a
 // partial last word.
-__device__ __forceinline__ uint32_t column_mask(int gw, int nwords,
-                                                int rem_bits) {
+__device__ __forceinline__ uint32_t column_mask(int gw, int nwords, int rem_bits) {
   if (gw < 0 || gw >= nwords) return 0u;
   if (rem_bits && gw == nwords - 1) return (1u << rem_bits) - 1u;
   return kFull;
 }
 
-// The rows a block reads and writes, as a policy the shared bodies take.
-// `row` counts from the board's row 0 (K1) or the chunk's row 0 (K3):
+// The rows a warp reads and writes, as a policy the walk takes.  `row`
+// counts from the board's row 0 (K1) or the chunk's row 0 (K3):
 // - load(row, gw, nwords): the word at row `row`, word column gw;
 // - live(row): whether the substeps keep the row's cells;
+// - rows_live(lo, hi): whether every row of [lo, hi) is live;
 // - substep_cols(gw, ...): the bits the substeps keep in word column gw;
 // - store(row, gw, ...): write an output word of word column gw, which is
 //   on the board.
@@ -172,6 +303,7 @@ struct BoardIo {
     return 0u;
   }
   __device__ __forceinline__ bool live(int row) const { return row >= 0 && row < height; }
+  __device__ __forceinline__ bool rows_live(int lo, int hi) const { return lo >= 0 && hi <= height; }
   __device__ __forceinline__ uint32_t substep_cols(int gw, int nwords, int rem_bits) const {
     return column_mask(gw, nwords, rem_bits);
   }
@@ -220,7 +352,7 @@ struct ShardIo {
 
   __device__ __forceinline__ uint32_t load(int v, int gw, int nwords) const {
     const uint32_t* row;
-    if (v < -fr || v >= rows + fr) return 0u;  // past the bottom halo: unused
+    if (v < -fr || v >= rows + fr) return 0u;  // past the halos: unused
     if (v < 0) {
       row = top + static_cast<size_t>(v + fr) * nwords;
     } else if (v < rows) {
@@ -232,6 +364,7 @@ struct ShardIo {
       if (gw >= 0 && (gw < nwords - 1 || (gw == nwords - 1 && width % 32 == 0))) {
         return row[gw];
       }
+      if (width % 32 == 0) return row[(gw % nwords + nwords) % nwords];  // whole words
       return wrapped_word(row, gw, width);
     } else {
       return gw >= 0 && gw < nwords ? row[gw] : 0u;
@@ -243,6 +376,13 @@ struct ShardIo {
     } else {
       const int g = row0 + fr + v;
       return g >= 0 && g < height;
+    }
+  }
+  __device__ __forceinline__ bool rows_live(int lo, int hi) const {
+    if constexpr (Torus) {
+      return true;
+    } else {
+      return row0 + fr + lo >= 0 && row0 + fr + hi <= height;
     }
   }
   __device__ __forceinline__ uint32_t substep_cols(int gw, int nwords, int rem_bits) const {
@@ -260,267 +400,237 @@ struct ShardIo {
   }
 };
 
-// Load this thread's word column of the tile window (ext rows from row
-// row0) into shared memory.
-template <class Io>
-__device__ __forceinline__ void load_window(const Io& io, uint32_t* cur, int ext,
-                                            int row0, int gw, int nwords) {
-  const int lane = threadIdx.x;
-  for (int r = threadIdx.y; r < ext; r += kWarps) {
-    cur[r * kLanes + lane] = io.load(row0 + r, gw, nwords);
-  }
-}
-
-// Store the tile's interior: window rows [halo, halo + tile_rows), lanes
-// 1..kInterior, where they lie on the board.
-template <class Io>
-__device__ __forceinline__ void store_interior(const Io& io, const uint32_t* cur,
-                                               int halo, int tile_rows, int row0,
-                                               int gw, int nwords, int rem_bits) {
-  const int lane = threadIdx.x;
-  if (lane >= 1 && lane <= kInterior && gw >= 0 && gw < nwords) {
-    for (int r = halo + threadIdx.y; r < halo + tile_rows; r += kWarps) {
-      io.store(row0 + r, gw, nwords, rem_bits, cur[r * kLanes + lane]);
-    }
-  }
-}
-
-// k masked life-like steps of one tile, the body of K1's Moore mode and of
-// K3's Moore modes.
-template <class Io>
-__device__ __forceinline__ void moore_block(const Io& io, int nwords, int rem_bits,
-                                            int k, int tile_rows, const Sop& sop) {
-  extern __shared__ uint32_t smem[];
-  const int ext = tile_rows + 2 * k;
-  uint32_t* cur = smem;
-  uint32_t* nxt = smem + ext * kLanes;
-
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int row0 = static_cast<int>(blockIdx.y) * tile_rows - k;  // smem row 0
-  const int gw = static_cast<int>(blockIdx.x) * kInterior - 1 + lane;
-  const uint32_t cmask = io.substep_cols(gw, nwords, rem_bits);
-
-  load_window(io, cur, ext, row0, gw, nwords);
-  __syncthreads();
-
-  for (int s = 1; s <= k; ++s) {
-    const int n = ext - 2 * s;
-    const int r_begin = s + (n * warp) / kWarps;
-    const int r_end = s + (n * (warp + 1)) / kWarps;
-    if (r_begin < r_end) {  // uniform across the warp
-      uint32_t up = cur[(r_begin - 1) * kLanes + lane];
-      uint32_t mid = cur[r_begin * kLanes + lane];
-      for (int r = r_begin; r < r_end; ++r) {
-        const uint32_t down = cur[(r + 1) * kLanes + lane];
-        uint32_t ones, twos;
-        csa(up, mid, down, ones, twos);
-        uint32_t ones_l = __shfl_up_sync(kFull, ones, 1);
-        uint32_t twos_l = __shfl_up_sync(kFull, twos, 1);
-        uint32_t ones_r = __shfl_down_sync(kFull, ones, 1);
-        uint32_t twos_r = __shfl_down_sync(kFull, twos, 1);
-        if (lane == 0) ones_l = twos_l = 0;          // left of the tile
-        if (lane == kLanes - 1) ones_r = twos_r = 0;  // right of the tile
-        // L[c] = v[c-1]: (v << 1) | (left word >> 31); R[c] = v[c+1]
-        const uint32_t o_l = __funnelshift_l(ones_l, ones, 1);
-        const uint32_t o_r = __funnelshift_r(ones, ones_r, 1);
-        const uint32_t t_l = __funnelshift_l(twos_l, twos, 1);
-        const uint32_t t_r = __funnelshift_r(twos, twos_r, 1);
-        uint32_t b0, c1, s1, c2;
-        csa(o_l, ones, o_r, b0, c1);
-        csa(t_l, twos, t_r, s1, c2);
-        const uint32_t b1 = c1 ^ s1;
-        const uint32_t u2 = c1 & s1;
-        const uint32_t b2 = c2 ^ u2;
-        const uint32_t b3 = c2 & u2;
-        const uint32_t m = io.live(row0 + r) ? cmask : 0u;
-        nxt[r * kLanes + lane] = apply_sop(sop, b0, b1, b2, b3, mid) & m;
-        up = mid;
-        mid = down;
-      }
-    }
-    __syncthreads();
-    uint32_t* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-
-  store_interior(io, cur, k, tile_rows, row0, gw, nwords, rem_bits);
-}
-
-__global__ void __launch_bounds__(kLanes * kWarps)
-packed_stripe_kernel(const uint32_t* __restrict__ src,
-                     uint32_t* __restrict__ dst, int height, int nwords,
-                     int rem_bits, int k, int tile_rows, const Sop sop) {
-  moore_block(BoardIo{src, dst, height}, nwords, rem_bits, k, tile_rows, sop);
-}
-
-template <bool Torus>
-__global__ void __launch_bounds__(kLanes * kWarps)
-sharded_stripe_kernel(const uint32_t* __restrict__ top,
-                      const uint32_t* __restrict__ chunk,
-                      const uint32_t* __restrict__ bot,
-                      uint32_t* __restrict__ dst, int rows, int fr, int row0,
-                      int height, int width, int nwords, int rem_bits, int k,
-                      int tile_rows, const Sop sop) {
-  moore_block(ShardIo<Torus>{top, chunk, bot, dst, rows, fr, row0, height, width},
-              nwords, rem_bits, k, tile_rows, sop);
-}
-
-// What one raw row gives the diamond count: its arms, the planes of its left
-// and right neighbours at distance 1 and 2, and its 3-wide box
-// L1 + v + R1 as a two-bit sum (box_s weight 1, box_c weight 2).
-struct RowPlanes {
-  uint32_t l1, r1, l2, r2, box_s, box_c;
+// The walk of one warp over its run: output rows [r0, r0 + n) of its
+// strip, k substeps (k <= KMAX).  Step t of the walk feeds raw row
+// v0 + t - 1 (v0 = r0 - r*k) to level 1; level s then makes its row
+// v0 + t - s*(r+1) from level s-1's row of step t - 1 (p[s-1]).  Every
+// level runs at every step: the rows a level makes before its window
+// fills, or after the run needs them, are never read by a row that is
+// stored, so a step has no branch and its KMAX levels interleave.  Where
+// k < KMAX, levels 1 .. KMAX-k pass their centre row on unchanged (a
+// delay of r+1 steps each), so level KMAX's row is always the one stored.
+struct Run {
+  int nwords, rem_bits, k, gw;
+  int r0, v0;     // the first output row, the first raw row loaded
+  int first;      // the step that makes output row r0
+  int steps;      // first + the run's output rows
+  int loads;      // raw rows the run needs
+  uint32_t cmask, center;
+  bool out_lane;
 };
 
-// Two shuffles bring the adjacent lanes' words of the same raw row; lanes 0
-// and 31 are the tile's halo words and take zero from outside the tile.
-template <int R>
-__device__ __forceinline__ RowPlanes row_planes(uint32_t v, int lane) {
-  uint32_t vl = __shfl_up_sync(kFull, v, 1);
-  uint32_t vr = __shfl_down_sync(kFull, v, 1);
-  if (lane == 0) vl = 0;
-  if (lane == kLanes - 1) vr = 0;
-  RowPlanes p;
-  // L_d[c] = v[c-d]: (v << d) | (left word >> (32 - d)); R_d[c] = v[c+d]
-  p.l1 = __funnelshift_l(vl, v, 1);
-  p.r1 = __funnelshift_r(v, vr, 1);
-  if constexpr (R == 2) {
-    p.l2 = __funnelshift_l(vl, v, 2);
-    p.r2 = __funnelshift_r(v, vr, 2);
-    csa(p.l1, v, p.r1, p.box_s, p.box_c);
-  } else {
-    p.l2 = p.r2 = p.box_s = p.box_c = 0;
-  }
-  return p;
+// Raw row v0 + t, zero past the rows the run needs.  Nothing is done to
+// the word here: an instruction on it would wait for the load.
+template <class Io>
+__device__ __forceinline__ uint32_t load_raw(const Io& io, const Run& run, int t) {
+  return t < run.loads ? io.load(run.v0 + t, run.gw, run.nwords) : 0u;
 }
 
-// k masked von Neumann steps of radius R (1 or 2) on the tile, the body of
-// K1's and K3's diamond modes; `center` is all ones where the rule counts
-// the centre cell (M1), else zero.
-template <int R, class Io>
-__device__ __forceinline__ void diamond_block(const Io& io, int nwords, int rem_bits,
-                                              int k, int tile_rows, uint32_t center,
-                                              const Sop& sop) {
-  extern __shared__ uint32_t smem[];
-  const int halo = R * k;
-  const int ext = tile_rows + 2 * halo;
-  uint32_t* cur = smem;
-  uint32_t* nxt = smem + ext * kLanes;
-
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int row0 = static_cast<int>(blockIdx.y) * tile_rows - halo;  // smem row 0
-  const int gw = static_cast<int>(blockIdx.x) * kInterior - 1 + lane;
-  const uint32_t cmask = io.substep_cols(gw, nwords, rem_bits);
-
-  load_window(io, cur, ext, row0, gw, nwords);
-  __syncthreads();
-
-  for (int s = 1; s <= k; ++s) {
-    const int n = ext - 2 * R * s;
-    const int r_begin = R * s + (n * warp) / kWarps;
-    const int r_end = R * s + (n * (warp + 1)) / kWarps;
-    if (r_begin < r_end) {  // uniform across the warp
-      if constexpr (R == 1) {
-        uint32_t up = cur[(r_begin - 1) * kLanes + lane];
-        uint32_t mid = cur[r_begin * kLanes + lane];
-        for (int r = r_begin; r < r_end; ++r) {
-          const uint32_t down = cur[(r + 1) * kLanes + lane];
-          const RowPlanes p = row_planes<1>(mid, lane);
-          // count = up + down + L1 + R1 (+ x): at most 5
-          uint32_t s0, c0, b0, c1;
-          csa(up, down, p.l1, s0, c0);
-          csa(s0, p.r1, mid & center, b0, c1);
-          const uint32_t b1 = c0 ^ c1;
-          const uint32_t b2 = c0 & c1;
-          const uint32_t m = io.live(row0 + r) ? cmask : 0u;
-          nxt[r * kLanes + lane] = apply_sop(sop, b0, b1, b2, 0u, mid) & m;
-          up = mid;
-          mid = down;
-        }
-      } else {
-        // raw rows r-2 .. r+1 and the planes of rows r-1 and r
-        uint32_t up2 = cur[(r_begin - 2) * kLanes + lane];
-        uint32_t up1 = cur[(r_begin - 1) * kLanes + lane];
-        uint32_t mid = cur[r_begin * kLanes + lane];
-        uint32_t dn1 = cur[(r_begin + 1) * kLanes + lane];
-        RowPlanes above = row_planes<2>(up1, lane);
-        RowPlanes here = row_planes<2>(mid, lane);
-        for (int r = r_begin; r < r_end; ++r) {
-          const uint32_t dn2 = cur[(r + 2) * kLanes + lane];
-          const RowPlanes below = row_planes<2>(dn1, lane);
-          // weight 1: the rows at dy = +-2, the four arms, the centre (M1)
-          // and the two box sums; weight 2: the two box carries
-          uint32_t s_a, c_a, s_b, c_b, s_c, c_c, b0, c_d;
-          csa(up2, dn2, here.l1, s_a, c_a);
-          csa(here.r1, here.l2, here.r2, s_b, c_b);
-          csa(mid & center, above.box_s, below.box_s, s_c, c_c);
-          csa(s_a, s_b, s_c, b0, c_d);
-          uint32_t t_a, d_a, t_b, d_b;
-          csa(c_a, c_b, c_c, t_a, d_a);
-          csa(c_d, above.box_c, below.box_c, t_b, d_b);
-          const uint32_t b1 = t_a ^ t_b;
-          const uint32_t d_c = t_a & t_b;
-          uint32_t b2, b3;
-          csa(d_a, d_b, d_c, b2, b3);
-          const uint32_t m = io.live(row0 + r) ? cmask : 0u;
-          nxt[r * kLanes + lane] = apply_sop(sop, b0, b1, b2, b3, mid) & m;
-          up2 = up1;
-          up1 = mid;
-          mid = dn1;
-          dn1 = dn2;
-          above = here;
-          here = below;
-        }
-      }
+// Step t of the walk with raw row v0 + t - 1 in `raw`.  Exact: k == KMAX
+// and no row of the run leaves the board, so only the columns are masked.
+// Otherwise each level's row keeps the new cells where it is live (on the
+// board, and the level one of the top k) and its centre row elsewhere: its
+// rows and columns off the board are then those of the level below, zero
+// at the raw rows (the loads give zero off the board, and a packed row's
+// padding bits are zero).
+template <int KMAX, bool Exact, class Level, class Rule, class Io>
+__device__ __forceinline__ void walk_step(Level (&lvl)[KMAX], uint32_t (&p)[KMAX + 1],
+                                          uint32_t raw, int t, const Io& io, const Rule& rule,
+                                          const Run& run) {
+  p[0] = raw;
+#pragma unroll
+  for (int s = KMAX; s >= 1; --s) {
+    if (Exact) {
+      p[s] = lvl[s - 1].step(p[s - 1], rule, run.center) & run.cmask;
+    } else {
+      const bool live = s > KMAX - run.k && io.live(run.v0 + t - s * (Level::kReach + 1));
+      const uint32_t m = live ? run.cmask : 0u;
+      const uint32_t centre = lvl[s - 1].centre();
+      p[s] = (lvl[s - 1].step(p[s - 1], rule, run.center) & m) | (centre & ~m);
     }
-    __syncthreads();
-    uint32_t* t = cur;
-    cur = nxt;
-    nxt = t;
   }
-
-  store_interior(io, cur, halo, tile_rows, row0, gw, nwords, rem_bits);
+  if (t >= run.first && t < run.steps && run.out_lane) {
+    io.store(run.r0 + t - run.first, run.gw, run.nwords, run.rem_bits, p[KMAX]);
+  }
 }
 
-template <int R>
-__global__ void __launch_bounds__(kLanes * kWarps)
-packed_diamond_kernel(const uint32_t* __restrict__ src,
-                      uint32_t* __restrict__ dst, int height, int nwords,
-                      int rem_bits, int k, int tile_rows, uint32_t center,
+// The steps of the run, kRing at a time (the last ones past the run
+// idle): the raw rows go round a ring of kRing registers, each loaded
+// kRing - 1 steps before level 1 reads it, so no instruction waits on a
+// load just issued.  Level 1 runs last in a step, so at KMAX = 32 a load
+// at the end of the step before is far enough ahead, and a ring of one
+// leaves ptxas the registers that more steps in the loop would take.
+template <int KMAX, bool Exact, class Level, class Rule, class Io>
+__device__ __forceinline__ void walk(const Io& io, const Rule& rule, const Run& run) {
+  constexpr int kRing = KMAX < 32 ? 3 : 1;
+  Level lvl[KMAX];
+  uint32_t p[KMAX + 1];
+#pragma unroll
+  for (int s = 0; s <= KMAX; ++s) p[s] = 0u;
+  uint32_t ring[kRing];
+#pragma unroll
+  for (int i = 0; i < kRing; ++i) ring[i] = i + 1 < kRing ? load_raw(io, run, i) : 0u;
+#pragma unroll 1
+  for (int t = 0; t < run.steps; t += kRing) {
+#pragma unroll
+    for (int i = 0; i < kRing; ++i) {
+      const int slot = (i + kRing - 1) % kRing;  // row v0 + t + i - 1
+      walk_step<KMAX, Exact>(lvl, p, ring[slot], t + i, io, rule, run);
+      ring[slot] = load_raw(io, run, t + i + kRing - 1);
+    }
+  }
+}
+
+// k masked steps of the runs of `run_rows` rows that tile `rows` rows, one
+// run and strip a warp: the body of every kernel here.
+template <int KMAX, class Level, class Rule, class Io>
+__device__ __forceinline__ void walk_run(const Io& io, int rows, int nwords, int rem_bits,
+                                         int k, int run_rows, uint32_t center, const Sop& sop) {
+  constexpr int r = Level::kReach;
+  const int warp = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) / kLanes);
+  const int lane = static_cast<int>(threadIdx.x % kLanes);
+  const int strips = (nwords + kInterior - 1) / kInterior;
+  const int r0 = (warp / strips) * run_rows;
+  if (r0 >= rows) return;  // uniform across the warp
+  const Rule rule(sop);
+  const int gw = (warp % strips) * kInterior - 1 + lane;
+  const int n = min(run_rows, rows - r0);
+  const uint32_t cmask = io.substep_cols(gw, nwords, rem_bits);
+  const bool out_lane = lane >= 1 && lane <= kInterior && gw < nwords;
+  // levels KMAX-k+1 .. KMAX make the k substeps, behind KMAX-k that pass
+  // the raw rows on
+  const int first = r * k + KMAX * (r + 1);
+  const Run run{nwords, rem_bits, k, gw, r0, r0 - r * k, first, first + n, n + 2 * r * k,
+                cmask, center, out_lane};
+  if constexpr (std::is_same_v<Rule, DataRule<false>>) {
+    if (sop.n_terms > 2) {
+      walk<KMAX, false, Level>(io, DataRule<true>(sop), run);
+      return;
+    }
+  }
+  if (k == KMAX && io.rows_live(r0 - r * (k - 1), r0 + n + r * (k - 1))) {
+    walk<KMAX, true, Level>(io, rule, run);
+  } else {
+    walk<KMAX, false, Level>(io, rule, run);
+  }
+}
+
+template <int KMAX, class Rule>
+__global__ void __launch_bounds__(kLanes * kWarps, 1)
+packed_stripe_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int height,
+                     int nwords, int rem_bits, int k, int run_rows, uint32_t center,
+                     const Sop sop) {
+  walk_run<KMAX, MooreLevel, Rule>(BoardIo{src, dst, height}, height, nwords, rem_bits, k,
+                                   run_rows, center, sop);
+}
+
+template <int R, int KMAX>
+__global__ void __launch_bounds__(kLanes * kWarps, 1)
+packed_diamond_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int height,
+                      int nwords, int rem_bits, int k, int run_rows, uint32_t center,
                       const Sop sop) {
-  diamond_block<R>(BoardIo{src, dst, height}, nwords, rem_bits, k, tile_rows,
-                   center, sop);
+  using Level = std::conditional_t<R == 1, Diamond1Level, Diamond2Level>;
+  walk_run<KMAX, Level, DataRule<false>>(BoardIo{src, dst, height}, height, nwords, rem_bits, k,
+                                  run_rows, center, sop);
 }
 
-template <int R>
-__global__ void __launch_bounds__(kLanes * kWarps)
-sharded_diamond_kernel(const uint32_t* __restrict__ top,
-                       const uint32_t* __restrict__ chunk,
-                       const uint32_t* __restrict__ bot,
-                       uint32_t* __restrict__ dst, int rows, int fr, int row0,
-                       int height, int width, int nwords, int rem_bits, int k,
-                       int tile_rows, uint32_t center, const Sop sop) {
-  diamond_block<R>(ShardIo<false>{top, chunk, bot, dst, rows, fr, row0, height, width},
-                   nwords, rem_bits, k, tile_rows, center, sop);
+template <bool Torus, int KMAX, class Rule>
+__global__ void __launch_bounds__(kLanes * kWarps, 1)
+sharded_stripe_kernel(const uint32_t* __restrict__ top, const uint32_t* __restrict__ chunk,
+                      const uint32_t* __restrict__ bot, uint32_t* __restrict__ dst, int rows,
+                      int fr, int row0, int height, int width, int nwords, int rem_bits, int k,
+                      int run_rows, uint32_t center, const Sop sop) {
+  walk_run<KMAX, MooreLevel, Rule>(
+      ShardIo<Torus>{top, chunk, bot, dst, rows, fr, row0, height, width}, rows, nwords,
+      rem_bits, k, run_rows, center, sop);
 }
 
-// Launch `kernel` over the tiles of `rows` x `nwords` words with a row halo
-// of `halo` rows on each side; returns cudaGetLastError().
+template <int R, int KMAX>
+__global__ void __launch_bounds__(kLanes * kWarps, 1)
+sharded_diamond_kernel(const uint32_t* __restrict__ top, const uint32_t* __restrict__ chunk,
+                       const uint32_t* __restrict__ bot, uint32_t* __restrict__ dst, int rows,
+                       int fr, int row0, int height, int width, int nwords, int rem_bits, int k,
+                       int run_rows, uint32_t center, const Sop sop) {
+  using Level = std::conditional_t<R == 1, Diamond1Level, Diamond2Level>;
+  walk_run<KMAX, Level, DataRule<false>>(
+      ShardIo<false>{top, chunk, bot, dst, rows, fr, row0, height, width}, rows, nwords,
+      rem_bits, k, run_rows, center, sop);
+}
+
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+
+// f(the instance of the least depth ceiling >= k), the ceilings 4, 8, 16
+// and, where kMax allows it, 32; kInvalid for k outside [1, kMax].
+template <int kMax, class Pick>
+int with_ceiling(int k, Pick pick) {
+  if (k < 1 || k > kMax) return kInvalid;
+  if (k <= 4) return pick(std::integral_constant<int, 4>{});
+  if (k <= 8) return pick(std::integral_constant<int, 8>{});
+  if constexpr (kMax >= 16) {
+    if (k <= 16) return pick(std::integral_constant<int, 16>{});
+  }
+  if constexpr (kMax >= 32) {
+    return pick(std::integral_constant<int, 32>{});
+  }
+  return kInvalid;
+}
+
+// K1's kernel for (mode, radius, k, compiled): mode 0 Moore (compiled:
+// Conway's rule built in), mode 2 the diamond; f(kernel) or kInvalid.
+template <class F>
+int pick_board(int mode, int radius, int k, int compiled, F f) {
+  if (mode == 0 && radius == 1) {
+    return with_ceiling<32>(k, [&](auto c) {
+      constexpr int K = decltype(c)::value;
+      return compiled ? f(packed_stripe_kernel<K, ConwayRule>)
+                      : f(packed_stripe_kernel<K, DataRule<false>>);
+    });
+  }
+  if (mode == 2 && radius == 1) {
+    return with_ceiling<32>(k, [&](auto c) { return f(packed_diamond_kernel<1, decltype(c)::value>); });
+  }
+  if (mode == 2 && radius == 2) {
+    return with_ceiling<16>(k, [&](auto c) { return f(packed_diamond_kernel<2, decltype(c)::value>); });
+  }
+  return kInvalid;
+}
+
+// K3's kernel for (mode, radius, k, compiled): mode 0 Moore clamped, 1
+// Moore on the torus, 2 the diamond, clamped.
+template <class F>
+int pick_shard(int mode, int radius, int k, int compiled, F f) {
+  if (mode == 0 && radius == 1) {
+    return with_ceiling<32>(k, [&](auto c) {
+      constexpr int K = decltype(c)::value;
+      return compiled ? f(sharded_stripe_kernel<false, K, ConwayRule>)
+                      : f(sharded_stripe_kernel<false, K, DataRule<false>>);
+    });
+  }
+  if (mode == 1 && radius == 1) {
+    return with_ceiling<32>(k, [&](auto c) {
+      constexpr int K = decltype(c)::value;
+      return compiled ? f(sharded_stripe_kernel<true, K, ConwayRule>)
+                      : f(sharded_stripe_kernel<true, K, DataRule<false>>);
+    });
+  }
+  if (mode == 2 && radius == 1) {
+    return with_ceiling<32>(k, [&](auto c) { return f(sharded_diamond_kernel<1, decltype(c)::value>); });
+  }
+  if (mode == 2 && radius == 2) {
+    return with_ceiling<16>(k, [&](auto c) { return f(sharded_diamond_kernel<2, decltype(c)::value>); });
+  }
+  return kInvalid;
+}
+
+// Launch `kernel` with one warp per strip and run of `rows` x `nwords`
+// words; returns cudaGetLastError().
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int rows, int nwords, int halo, int tile_rows,
-           void* stream, Args... args) {
-  const size_t smem = 2 * static_cast<size_t>(tile_rows + 2 * halo) * kLanes *
-                      sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(kLanes, kWarps);
-  const dim3 grid((nwords + kInterior - 1) / kInterior,
-                  (rows + tile_rows - 1) / tile_rows);
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+int launch(Kernel kernel, int rows, int nwords, int run_rows, void* stream, Args... args) {
+  if (rows < 1 || nwords < 1 || run_rows < 1) return kInvalid;
+  const long long strips = (nwords + kInterior - 1) / kInterior;
+  const long long warps = strips * ((rows + run_rows - 1) / run_rows);
+  const dim3 grid(static_cast<unsigned>((warps + kWarps - 1) / kWarps));
+  kernel<<<grid, kLanes * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -528,80 +638,72 @@ int launch(Kernel kernel, int rows, int nwords, int halo, int tile_rows,
 
 extern "C" {
 
-// k masked steps from src into dst (distinct int32[height, nwords] buffers
-// on the current device), on `stream`.  Returns cudaGetLastError().
-int packed_stripe_multi_step(const void* src, void* dst, int height,
-                             int nwords, int rem_bits, int k, int tile_rows,
-                             const Sop* sop, void* stream) {
-  return launch(packed_stripe_kernel, height, nwords, k, tile_rows, stream,
-                static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst),
-                height, nwords, rem_bits, k, tile_rows, *sop);
+// k masked life-like steps from src into dst (distinct int32[height,
+// nwords] buffers on the current device), in runs of run_rows rows, on
+// `stream`; compiled != 0 runs the instance with Conway's rule built in
+// (the rule must be Conway's), else the rule is `sop`.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for k outside [1, 32].
+int packed_stripe_multi_step(const void* src, void* dst, int height, int nwords, int rem_bits,
+                             int k, int run_rows, int compiled, const Sop* sop, void* stream) {
+  return pick_board(0, 1, k, compiled, [&](auto kernel) {
+    return launch(kernel, height, nwords, run_rows, stream, static_cast<const uint32_t*>(src),
+                  static_cast<uint32_t*>(dst), height, nwords, rem_bits, k, run_rows, 0u, *sop);
+  });
 }
 
-// k masked von Neumann steps of `radius` 1 or 2 (k * radius <= 32), with the
-// centre in the count where `center` is not 0; buffers and return value as
-// above.  The Sop's literals are the raw count's planes b0..b3 and the cell.
-int packed_diamond_multi_step(const void* src, void* dst, int height,
-                              int nwords, int rem_bits, int k, int tile_rows,
-                              int radius, int center, const Sop* sop,
+// k masked von Neumann steps of `radius` 1 or 2 (k * radius <= 32), with
+// the centre in the count where `center` is not 0; buffers, runs and return
+// value as above.  The Sop's literals are the raw count's planes b0..b3 and
+// the cell.
+int packed_diamond_multi_step(const void* src, void* dst, int height, int nwords, int rem_bits,
+                              int k, int run_rows, int radius, int center, const Sop* sop,
                               void* stream) {
   const uint32_t c = center ? kFull : 0u;
-  const auto* s = static_cast<const uint32_t*>(src);
-  auto* d = static_cast<uint32_t*>(dst);
-  if (radius == 1) {
-    return launch(packed_diamond_kernel<1>, height, nwords, k, tile_rows, stream,
-                  s, d, height, nwords, rem_bits, k, tile_rows, c, *sop);
-  }
-  if (radius == 2) {
-    return launch(packed_diamond_kernel<2>, height, nwords, 2 * k, tile_rows, stream,
-                  s, d, height, nwords, rem_bits, k, tile_rows, c, *sop);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return pick_board(2, radius, k, 0, [&](auto kernel) {
+    return launch(kernel, height, nwords, run_rows, stream, static_cast<const uint32_t*>(src),
+                  static_cast<uint32_t*>(dst), height, nwords, rem_bits, k, run_rows, c, *sop);
+  });
 }
 
 // Kernel K3: k masked steps of one shard, from chunk (int32[rows, nwords],
 // board rows [row0 + fr, row0 + fr + rows)) and its halos top and bot
 // (int32[fr, nwords] each, fr = radius * k) into dst (int32[rows, nwords],
-// not chunk), on `stream`.  mode 0: Moore, clamped to `height` rows; mode
-// 1: Moore on the torus of `width` columns (rows are not masked); mode 2:
-// the von Neumann diamond of `radius` 1 or 2, clamped, with the centre in
-// the count where `center` is not 0.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments outside these.
-int sharded_stripe_block(const void* top, const void* chunk, const void* bot,
-                         void* dst, int rows, int fr, int row0, int height,
-                         int width, int k, int tile_rows, int mode, int radius,
-                         int center, const Sop* sop, void* stream) {
+// not chunk), in runs of run_rows rows, on `stream`.  mode 0: Moore,
+// clamped to `height` rows; mode 1: Moore on the torus of `width` columns
+// (rows are not masked); mode 2: the von Neumann diamond of `radius` 1 or
+// 2, clamped, with the centre in the count where `center` is not 0.
+// compiled != 0 (modes 0 and 1) runs Conway's rule built in.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments outside these.
+int sharded_stripe_block(const void* top, const void* chunk, const void* bot, void* dst,
+                         int rows, int fr, int row0, int height, int width, int k, int run_rows,
+                         int mode, int radius, int center, int compiled, const Sop* sop,
+                         void* stream) {
+  if (rows < 1 || width < 1 || k < 1 || fr != radius * k || radius * k > 32) return kInvalid;
   const int nwords = (width + 31) / 32;
   const int rem_bits = width % 32;
-  const auto* t = static_cast<const uint32_t*>(top);
-  const auto* c = static_cast<const uint32_t*>(chunk);
-  const auto* b = static_cast<const uint32_t*>(bot);
-  auto* d = static_cast<uint32_t*>(dst);
-  const uint32_t ctr = center ? kFull : 0u;
-  if (rows < 1 || width < 1 || k < 1 || fr != radius * k || radius * k > 32) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (mode == 0 && radius == 1) {
-    return launch(sharded_stripe_kernel<false>, rows, nwords, fr, tile_rows, stream,
-                  t, c, b, d, rows, fr, row0, height, width, nwords, rem_bits, k,
-                  tile_rows, *sop);
-  }
-  if (mode == 1 && radius == 1) {
-    return launch(sharded_stripe_kernel<true>, rows, nwords, fr, tile_rows, stream,
-                  t, c, b, d, rows, fr, row0, height, width, nwords, rem_bits, k,
-                  tile_rows, *sop);
-  }
-  if (mode == 2 && radius == 1) {
-    return launch(sharded_diamond_kernel<1>, rows, nwords, fr, tile_rows, stream,
-                  t, c, b, d, rows, fr, row0, height, width, nwords, rem_bits, k,
-                  tile_rows, ctr, *sop);
-  }
-  if (mode == 2 && radius == 2) {
-    return launch(sharded_diamond_kernel<2>, rows, nwords, fr, tile_rows, stream,
-                  t, c, b, d, rows, fr, row0, height, width, nwords, rem_bits, k,
-                  tile_rows, ctr, *sop);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const uint32_t c = center ? kFull : 0u;
+  return pick_shard(mode, radius, k, compiled, [&](auto kernel) {
+    return launch(kernel, rows, nwords, run_rows, stream, static_cast<const uint32_t*>(top),
+                  static_cast<const uint32_t*>(chunk), static_cast<const uint32_t*>(bot),
+                  static_cast<uint32_t*>(dst), rows, fr, row0, height, width, nwords, rem_bits, k,
+                  run_rows, c, *sop);
+  });
+}
+
+// The warps of the kernel for (sharded, mode, radius, k, compiled) that
+// one SM holds at once (CUDA's occupancy calculator: registers, block
+// size); the arguments as above, sharded != 0 for K3.  A negative CUDA
+// error code on failure.
+int packed_stripe_warps_per_sm(int sharded, int mode, int radius, int k, int compiled) {
+  auto occupancy = [](auto kernel) {
+    int blocks = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kLanes * kWarps, 0);
+    return err == cudaSuccess ? blocks * kWarps : -static_cast<int>(err);
+  };
+  const int got = sharded ? pick_shard(mode, radius, k, compiled, occupancy)
+                          : pick_board(mode, radius, k, compiled, occupancy);
+  return got == kInvalid ? -kInvalid : got;
 }
 
 }  // extern "C"

@@ -25,6 +25,7 @@ BUILD_ROOT = PACKAGE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--split-compile=0",  # compile a source's kernels on all cores at once
 )
 
 

@@ -4,15 +4,30 @@ Replaces the TPU kernel ``make_pallas_packed_multi_step`` and its body
 ``_packed_tile_advance`` (``tpu_life/backends/pallas_backend.py``): the
 Moore mode for clamped life-like rules, and the diamond mode for clamped
 2-state von Neumann rules of radius 1 or 2 (``bitlife.supports_diamond``).
-The source is ``tpu_life_torch/csrc/packed_stripe.cu``, one kernel per
-mode; it is compiled by ``nvcc`` for ``sm_90a`` at first use
-(``kernels._build``) and called through ``ctypes``.
+The source is ``tpu_life_torch/csrc/packed_stripe.cu``; it is compiled by
+``nvcc`` for ``sm_90a`` at first use (``kernels._build``) and called
+through ``ctypes``.
 
 The function both versions compute: ``steps`` masked steps of a packed
 board — int32 words in the ``bitlife.pack_np`` layout, shape
 ``(lh, ceil(lw / 32))``, no frame — each step equal to
 ``bitlife.make_masked_packed_step(rule, (lh, lw))``, which picks the Moore
 or the diamond step by the rule.
+
+What bounds the kernel on an H100 is integer issue (about 15 logic
+instructions a word and step for Conway, :func:`logic_ops_per_word_step`),
+so its design spends few instructions beyond those.  Each warp walks a run
+of rows of a 32-word strip and keeps the k substeps as a wavefront of
+levels in registers (no shared memory, no barrier); what the wrapper
+decides for it:
+
+- the run length (:func:`run_rows`): one wave of the card's resident
+  warps, runs at least four halos long, shorter on boards too small to fill
+  the card;
+- the kernel instance: the depth ceiling (:func:`depth_ceiling`, the
+  levels it keeps in registers) and, for the Moore mode, Conway's rule
+  compiled in where the rule's minimized SOP is Conway's
+  (:func:`compiled_rule`), else the rule as data (:func:`sop_table`).
 
 - :func:`packed_multi_step` launches the kernel for a CUDA tensor:
   ``steps // block_steps`` launches of ``block_steps`` substeps each, then
@@ -40,9 +55,15 @@ from tpu_life_torch.ops.boolmin import membership_rule_sop, rule_sop
 
 SOURCE = _build.CSRC / "packed_stripe.cu"
 MAX_BLOCK_STEPS = 32  # the one-word horizontal halo covers 32 cells of reach
-TILE_WORDS = 30  # output words per tile row: kInterior in the CUDA source
+STRIP_WORDS = 30  # output words of a warp's strip: kInterior in the CUDA source
+CEILINGS = (4, 8, 16, 32)  # the depths the kernel instances keep in registers
+WAVE_WARPS = 16  # resident warps an SM counts for run_rows' wave, at most
+SCHEDULERS_PER_SM = 4  # warp schedulers of a Hopper SM
+CONWAY_SOP = ((7, 3), (23, 20))  # rule_sop of B3/S23, compiled into the Moore kernels
+MOORE, TORUS, DIAMOND = 0, 1, 2  # the kernels' modes (TORUS: K3 only)
 _MAX_TERMS = 32
 _LITERALS = 5
+_ALWAYS_EVALUATED = 2  # SOP terms the kernel evaluates without a test
 _ONES = 0xFFFFFFFF
 
 
@@ -75,15 +96,21 @@ def sop_table(rule: Rule) -> _Sop:
     """The rule's minimized SOP as kernel data:
     term t = AND_i ((lit_i ^ flip[t][i]) | loose[t][i]).  A literal the
     SOP has no bit for (a count plane a small diamond never reaches) is
-    loose in every term."""
+    loose in every term.  The kernel always evaluates terms 0 and 1, so a
+    one-term SOP repeats its term there, and an empty one holds
+    b1 b2 b3 twice, which no count reaches (a total is at most 9, a
+    diamond's count 13)."""
     sop, literal_of_bit = _rule_sop(rule)
     if len(sop) > _MAX_TERMS:
         raise ValueError(f"rule {rule.name!r} needs {len(sop)} SOP terms (> {_MAX_TERMS})")
     table = _Sop(n_terms=len(sop))
-    for t, (mask, value) in enumerate(sop):
+    terms = [(mask, value, literal_of_bit) for mask, value in sop]
+    terms = terms or [(0b1110, 0b1110, range(_LITERALS))]
+    for t in range(max(len(sop), _ALWAYS_EVALUATED)):
+        mask, value, literals = terms[min(t, len(terms) - 1)]
         for i in range(_LITERALS):
             table.flip[t][i] = table.loose[t][i] = _ONES
-        for bit, i in enumerate(literal_of_bit):
+        for bit, i in enumerate(literals):
             table.flip[t][i] = 0 if value >> bit & 1 else _ONES
             table.loose[t][i] = 0 if mask >> bit & 1 else _ONES
     return table
@@ -143,20 +170,49 @@ def moore_logic_ops(birth: frozenset, survive: frozenset) -> int:
 
 def clamp_block_steps(rule: Rule, block_steps: int) -> int:
     """The substeps of one launch: a rule of radius r reaches r cells a
-    substep, and the one-word sideways halo covers 32 of them."""
+    substep, and the strip's one word beside its output words covers 32 of
+    them."""
     return min(block_steps, MAX_BLOCK_STEPS // rule.radius)
 
 
-def tile_rows(block_steps: int, height: int, nwords: int, n_sm: int, radius: int = 1) -> int:
-    """Output rows per block: four times the row halo of ``radius *
-    block_steps`` rows (at least 64), so the halo recompute stays a minor
-    share of the block's work; halved, down to 8, while the grid would have
-    fewer blocks than the card has SMs."""
-    rows = 4 * max(16, radius * block_steps)
-    cols = -(-nwords // TILE_WORDS)
-    while rows > 8 and cols * -(-height // rows) < n_sm:
-        rows = max(8, rows // 2)
-    return rows
+def depth_ceiling(block_steps: int, radius: int = 1) -> int:
+    """The kernel instance a launch of ``block_steps`` substeps runs: the
+    least of :data:`CEILINGS` (the levels it keeps in registers) that holds
+    them.  Raises past the clamp, ``32 // radius``."""
+    if not 1 <= block_steps <= MAX_BLOCK_STEPS // radius:
+        raise ValueError(
+            f"block_steps must be in [1, {MAX_BLOCK_STEPS // radius}] at radius {radius}, "
+            f"got {block_steps}"
+        )
+    return next(c for c in CEILINGS if c >= block_steps)
+
+
+def compiled_rule(rule: Rule) -> bool:
+    """Whether the Moore kernels run ``rule`` with Conway's rule compiled
+    in: a life-like rule (clamped or torus) whose minimized SOP is
+    Conway's, whatever its name.  Every other rule runs as data."""
+    if bitlife.supports_diamond(rule) or not (bitlife.supports(rule) or bitlife.supports_torus(rule)):
+        return False
+    return rule_sop(rule.birth, rule.survive) == CONWAY_SOP
+
+
+def run_rows(
+    block_steps: int, height: int, nwords: int, n_sm: int, warps_per_sm: int, radius: int = 1
+) -> int:
+    """Output rows of one warp's run.  A run recomputes ``radius *
+    block_steps`` halo rows at each end, so fewer, longer runs do less
+    work; each warp walks its run in order, so the runs must keep the card
+    busy.  The run is the shortest that gives one wave of ``warps_per_sm``
+    warps on each of ``n_sm`` SMs (one warp a run of a strip of
+    :data:`STRIP_WORDS` words), but at least four halos long, so the halo
+    stays a minor share of the work.  A board too small to fill the card
+    that way halves its runs (down to one row) while every warp still has a
+    warp scheduler of its own: there a run's time is its walk."""
+    strips = -(-nwords // STRIP_WORDS)
+    rows = max(-(-height // max(1, n_sm * warps_per_sm // strips)), 4 * radius * block_steps)
+    while rows > 1 and strips * -(-height // -(-rows // 2)) <= SCHEDULERS_PER_SM * n_sm:
+        rows = -(-rows // 2)
+    return min(rows, height)
 
 
 def build() -> Path:
@@ -168,8 +224,8 @@ def build() -> Path:
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
-    ints = [ctypes.c_int] * 5  # height, nwords, rem_bits, k, tile_rows
-    for fn, mode in ((lib.packed_stripe_multi_step, []),
+    ints = [ctypes.c_int] * 5  # height, nwords, rem_bits, k, run_rows
+    for fn, mode in ((lib.packed_stripe_multi_step, [ctypes.c_int]),  # compiled
                      (lib.packed_diamond_multi_step, [ctypes.c_int] * 2)):  # radius, center
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, *ints, *mode, ctypes.POINTER(_Sop),
@@ -177,12 +233,49 @@ def _library() -> ctypes.CDLL:
         ]
         fn.restype = ctypes.c_int
     # kernel K3 (kernels/sharded_stripe.py): top, chunk, bot, dst; rows, fr,
-    # row0, height, width, k, tile_rows, mode, radius, center; sop, stream
+    # row0, height, width, k, run_rows, mode, radius, center, compiled; sop,
+    # stream
     lib.sharded_stripe_block.argtypes = [
-        *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 10, ctypes.POINTER(_Sop), ctypes.c_void_p,
+        *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 11, ctypes.POINTER(_Sop), ctypes.c_void_p,
     ]
     lib.sharded_stripe_block.restype = ctypes.c_int
+    lib.packed_stripe_warps_per_sm.argtypes = [ctypes.c_int] * 5
+    lib.packed_stripe_warps_per_sm.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def cached_sop_table(rule: Rule) -> _Sop:
+    """:func:`sop_table`, built once per rule."""
+    return sop_table(rule)
+
+
+def launch_run_rows(
+    sharded: bool, mode: int, rule: Rule, k: int, rows: int, nwords: int, compiled: bool
+) -> int:
+    """:func:`run_rows` of one launch of ``k`` substeps over ``rows`` x
+    ``nwords`` words on the current card, for the kernel instance it runs."""
+    ceiling = depth_ceiling(k, rule.radius)
+    warps = warps_per_sm(sharded, mode, rule.radius, ceiling, compiled)
+    return run_rows(k, rows, nwords, sm_count(torch.cuda.current_device()), warps, rule.radius)
+
+
+@functools.cache
+def sm_count(device: int) -> int:
+    """The SMs of card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def warps_per_sm(sharded: bool, mode: int, radius: int, ceiling: int, compiled: bool) -> int:
+    """The warps of one kernel instance that an SM of the current card holds
+    at once (CUDA's occupancy calculator), at most :data:`WAVE_WARPS`: the
+    wave :func:`run_rows` fills.  ``mode``: :data:`MOORE`, :data:`TORUS`
+    or :data:`DIAMOND`."""
+    got = _library().packed_stripe_warps_per_sm(int(sharded), mode, radius, ceiling, int(compiled))
+    if got <= 0:
+        raise RuntimeError(f"packed_stripe_warps_per_sm failed: CUDA error {-got}")
+    return min(got, WAVE_WARPS)
 
 
 def _check(x: torch.Tensor, logical_shape: tuple[int, int], name: str) -> None:
@@ -250,19 +343,20 @@ def packed_multi_step(
     blocks, rem = divmod(steps, block_steps)
     ks = [block_steps] * blocks + ([rem] if rem else [])
     lib = _library()
+    compiled = compiled_rule(rule)
     if diamond:
         fn, mode = lib.packed_diamond_multi_step, (rule.radius, int(rule.include_center))
     else:
-        fn, mode = lib.packed_stripe_multi_step, ()
-    sop = sop_table(rule)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+        fn, mode = lib.packed_stripe_multi_step, (int(compiled),)
+    sop = cached_sop_table(rule)
+    nwords = x.shape[1]
     src, dst = x, scratch
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for k in ks:
+            rows = launch_run_rows(False, DIAMOND if diamond else MOORE, rule, k, lh, nwords, compiled)
             err = fn(
-                src.data_ptr(), dst.data_ptr(), lh, x.shape[1], lw % bitlife.WORD,
-                k, tile_rows(k, lh, x.shape[1], n_sm, rule.radius), *mode,
+                src.data_ptr(), dst.data_ptr(), lh, nwords, lw % bitlife.WORD, k, rows, *mode,
                 ctypes.byref(sop), stream,
             )
             if err != 0:

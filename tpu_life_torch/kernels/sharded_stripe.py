@@ -5,9 +5,13 @@ Replaces the TPU kernel ``make_pallas_sharded_stripe_block`` and its body
 (``tpu_life/backends/pallas_backend.py``): the per-shard stepper of the
 sharded backend for packed rules.  It is K1 per shard and lives in K1's
 source, ``tpu_life_torch/csrc/packed_stripe.cu`` (``sharded_stripe_kernel``
-and ``sharded_diamond_kernel``), sharing K1's substep bodies; it is built
-with K1 by ``nvcc`` for ``sm_90a`` at first use and called through
-``ctypes``.
+and ``sharded_diamond_kernel``), running K1's wavefront (``walk_run``) over
+the shard's three buffers; it is built with K1 by ``nvcc`` for ``sm_90a``
+at first use and called through ``ctypes``.  As K1 it is bound by integer
+issue; the wrapper picks its run length for the shard's rows
+(``packed_stripe.run_rows``: one wave of resident warps, so a shard's
+launch has no second wave) and, in the Moore modes, Conway's rule compiled
+in where the rule's minimized SOP is Conway's.
 
 The function both versions compute: ``block(top, chunk, bot, row0) ->
 chunk'``, ``block_steps`` steps of one shard's packed chunk
@@ -31,7 +35,6 @@ chunk'``, ``block_steps`` steps of one shard's packed chunk
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -40,7 +43,7 @@ from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.ops import bitlife
 from tpu_life_torch.parallel import halo
 
-MOORE, TORUS, DIAMOND = 0, 1, 2  # the kernel's modes
+MOORE, TORUS, DIAMOND = packed_stripe.MOORE, packed_stripe.TORUS, packed_stripe.DIAMOND
 
 
 def mode_of(rule: Rule) -> int:
@@ -75,11 +78,6 @@ def sharded_stripe_block_plain(
     return block(top, chunk, bot, row0)
 
 
-@functools.cache
-def _sop(rule: Rule) -> packed_stripe._Sop:
-    return packed_stripe.sop_table(rule)
-
-
 def _check(x: torch.Tensor, shape: tuple[int, int], name: str) -> None:
     if x.dtype != torch.int32:
         raise TypeError(f"{name} must be int32 words, got {x.dtype}")
@@ -87,29 +85,6 @@ def _check(x: torch.Tensor, shape: tuple[int, int], name: str) -> None:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, want {shape}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def launch_args(
-    top: torch.Tensor,
-    chunk: torch.Tensor,
-    bot: torch.Tensor,
-    out: torch.Tensor,
-    row0: int,
-    rule: Rule,
-    logical_shape: tuple[int, int],
-    block_steps: int,
-    n_sm: int,
-) -> tuple:
-    """The C arguments of ``sharded_stripe_block`` but the stream."""
-    lh, lw = logical_shape
-    hl, nwords = chunk.shape
-    fr = halo.halo_depth(rule, block_steps)
-    return (
-        top.data_ptr(), chunk.data_ptr(), bot.data_ptr(), out.data_ptr(),
-        hl, fr, row0, lh, lw, block_steps,
-        packed_stripe.tile_rows(block_steps, hl, nwords, n_sm, rule.radius),
-        mode_of(rule), rule.radius, int(rule.include_center), ctypes.byref(_sop(rule)),
-    )
 
 
 def sharded_stripe_block(
@@ -160,13 +135,18 @@ def sharded_stripe_block(
         top.data_ptr(), chunk.data_ptr(), bot.data_ptr()
     ):
         raise ValueError("out must be a buffer of its own on the chunk's device")
-    n_sm = torch.cuda.get_device_properties(chunk.device).multi_processor_count
+    lh, lw = logical_shape
+    mode = mode_of(rule)
+    compiled = packed_stripe.compiled_rule(rule)
     lib = packed_stripe._library()
     with torch.cuda.device(chunk.device):
+        rows = packed_stripe.launch_run_rows(True, mode, rule, block_steps, hl, nwords, compiled)
         stream = torch.cuda.current_stream(chunk.device).cuda_stream
         err = lib.sharded_stripe_block(
-            *launch_args(top, chunk, bot, out, row0, rule, logical_shape, block_steps, n_sm),
-            stream,
+            top.data_ptr(), chunk.data_ptr(), bot.data_ptr(), out.data_ptr(),
+            hl, fr, row0, lh, lw, block_steps, rows, mode, rule.radius,
+            int(rule.include_center), int(compiled),
+            ctypes.byref(packed_stripe.cached_sop_table(rule)), stream,
         )
     if err != 0:
         raise RuntimeError(f"sharded_stripe_block launch failed: CUDA error {err}")

@@ -347,9 +347,10 @@ def _vshift_by(x: torch.Tensor, dy: int) -> torch.Tensor:
     """Plane of row neighbors at offset dy: V[r] = x[r+dy], clamped zero."""
     if dy == 0:
         return x
+    zeros = min(abs(dy), x.shape[0])  # a board shallower than the shift keeps its height
     if dy > 0:
-        return torch.nn.functional.pad(x[dy:], (0, 0, 0, dy))
-    return torch.nn.functional.pad(x[:dy], (0, 0, -dy, 0))
+        return torch.nn.functional.pad(x[dy:], (0, 0, 0, zeros))
+    return torch.nn.functional.pad(x[:dy], (0, 0, zeros, 0))
 
 
 def _reduce_planes(
