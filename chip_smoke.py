@@ -13,8 +13,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``tpu_life_torch/csrc`` (one nvcc each, started together, at first use),
    prints the build seconds and each ptxas report; for every instance of
    K1 and K3 (Moore with Conway's rule compiled in and with the rule as
-   data, clamped and on the torus, and the diamonds, at each depth
-   ceiling) and for K2 and K4 it prints the registers and fails on spill
+   data, clamped and on the torus, and the diamonds at radius 1 and 2)
+   and for K2 and K4 it prints the registers and fails on spill
    stores or loads; it counts ``LOP3``, ``SHF``, ``SHFL``, ``LDS``,
    ``STS``, ``BAR`` and all instructions in each K1 and K3 instance's SASS
    and the shared-memory loads, stores and asynchronous copies (``LDS``,
@@ -53,9 +53,9 @@ Phases (any failure exits non-zero and prints no result line):
    updates per second through the Runner (host clock, delta timing), and
    the kernel timed with CUDA events against its plain version and its
    bound; at 16384^2 and at the reference's 1500x500 also its device time
-   from the profiler's kernel records, at 1500x500 with the runs
-   ``run_rows`` picks and with one run a strip; and ``highlife`` (a rule the
-   kernel runs as data) at 16384^2 beside Conway;
+   from the profiler's kernel records, with the tiles ``tile_shape`` picks;
+   and ``highlife`` (a rule the kernel runs as data) at 16384^2 beside
+   Conway;
 6. full size, K2 — ``bugs`` (R5) at 8192^2 and ``brians_brain`` (C3) at
    16384^2 through the Runner, each held to the plain version after its
    steps, with cell updates per second through the Runner; then K2 timed
@@ -195,6 +195,7 @@ K1_MAIN = "K1 packed_stripe_kernel<8, ConwayRule>"
 K1_DATA = "K1 packed_stripe_kernel<8, DataRule>"
 K1_DIAMOND = "K1 packed_diamond_kernel<2, 8>"
 K3_MAIN = "K3 sharded_stripe_kernel<false, 8, ConwayRule>"
+K1_SMALL = "K1 packed_stripe_kernel<4, ConwayRule>"  # the reference board's tiles
 # the routes with no kernel in either package, held to the numpy oracle
 OPS_SHAPE, OPS_STEPS = (257, 1000), 5
 OPS_RULES = [("conway:T", "packed_torus"), ("R2,C2,S2..4,B2..3,NN:T", "stencil"),
@@ -262,18 +263,19 @@ SASS_OPS = ("LDS", "STS", "LDGSTS")
 # total): logic, funnel shifts, shuffles, shared memory and barriers
 K1_SASS_OPS = ("LOP3", "SHF", "SHFL", "LDS", "STS", "BAR")
 # every kernel instance packed_stripe.cu builds (label, pattern of its
-# mangled name): K1 Moore and K3 Moore (clamped, torus) at each depth
-# ceiling with Conway's rule compiled in and with the rule as data, the
-# diamonds at each ceiling their radius allows
+# mangled name): K1 Moore and K3 Moore (clamped, torus) with Conway's rule
+# compiled in and with the rule as data, and the diamonds at radius 1 and 2,
+# each at 4 and 8 rows a warp
 K1_K3_INSTANCES = [
-    *[(f"K1 packed_stripe_kernel<{c}, {r}Rule>", rf"packed_stripe_kernelILi{c}E\w*{r}Rule")
-      for c in (4, 8, 16, 32) for r in ("Conway", "Data")],
-    *[(f"K1 packed_diamond_kernel<{rad}, {c}>", rf"packed_diamond_kernelILi{rad}ELi{c}E")
-      for rad, cs in ((1, (4, 8, 16, 32)), (2, (4, 8, 16))) for c in cs],
-    *[(f"K3 sharded_stripe_kernel<{t}, {c}, {r}Rule>", rf"sharded_stripe_kernelILb{int(t == 'true')}ELi{c}E\w*{r}Rule")
-      for t in ("false", "true") for c in (4, 8, 16, 32) for r in ("Conway", "Data")],
-    *[(f"K3 sharded_diamond_kernel<{rad}, {c}>", rf"sharded_diamond_kernelILi{rad}ELi{c}E")
-      for rad, cs in ((1, (4, 8, 16, 32)), (2, (4, 8, 16))) for c in cs],
+    *[(f"K1 packed_stripe_kernel<{n}, {r}Rule>", rf"packed_stripe_kernelILi{n}E\w*{r}Rule")
+      for n in (4, 8) for r in ("Conway", "Data")],
+    *[(f"K1 packed_diamond_kernel<{rad}, {n}>", rf"packed_diamond_kernelILi{rad}ELi{n}E")
+      for rad in (1, 2) for n in (4, 8)],
+    *[(f"K3 sharded_stripe_kernel<{t}, {n}, {r}Rule>",
+       rf"sharded_stripe_kernelILb{int(t == 'true')}ELi{n}E\w*{r}Rule")
+      for t in ("false", "true") for n in (4, 8) for r in ("Conway", "Data")],
+    *[(f"K3 sharded_diamond_kernel<{rad}, {n}>", rf"sharded_diamond_kernelILi{rad}ELi{n}E")
+      for rad in (1, 2) for n in (4, 8)],
 ]
 
 
@@ -372,8 +374,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
         print((lib.parent / "build.log").read_text().strip(), flush=True)
-    # K1 and K3 share the wavefront body: one instance per kernel, depth
-    # ceiling and (Moore) rule; registers, no spill, and their SASS counts
+    # K1 and K3 share the tiles: one instance per kernel and (Moore) rule;
+    # registers, no spill, and their SASS counts
     k1_report = ptxas_report(libs[0])
     k1_sass = sass_counts_of(libs[0])
     k1_instances = {}
@@ -436,10 +438,11 @@ def main() -> int:
 
     # -- 3. kernel vs plain on the card -----------------------------------
     rng = np.random.default_rng(2024)
+
     # Conway runs the instance with its rule compiled in, the others the
-    # rule as data; 5000x2000 keeps long runs with a ragged last one, the
-    # smaller boards shorter runs (run_rows) to fill the SMs; 300 x 992, 993
-    # and 1023 have W % 32 of 0, 1 and 31
+    # rule as data; 5000x2000 and 16384^2 take tall tiles with a ragged last
+    # one, the smaller boards short ones (tile_shape) to fill the SMs; 300 x
+    # 992, 993 and 1023 have W % 32 of 0, 1 and 31
     rules = ["conway", "highlife", "day_and_night", "seeds"]
     shapes = [(1, 1), (3, 33), (31, 32), (257, 1000), (1500, 500), (300, 992), (300, 993),
               (300, 1023), (5000, 2000), (FULL, FULL)]
@@ -984,10 +987,11 @@ def main() -> int:
         ops_ms = ops / int_ops_per_s * 1e3
         return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
 
-    def runs(rule, k: int, rows: int, nwords: int, sharded: bool = False) -> int:
-        """The run length (rows a warp walks) of one K1 or K3 launch."""
-        mode = k3.mode_of(rule) if sharded else ps.DIAMOND if bitlife.supports_diamond(rule) else ps.MOORE
-        return ps.launch_run_rows(sharded, mode, rule, k, rows, nwords, ps.compiled_rule(rule))
+    def tiles(rule, k: int, rows: int, nwords: int) -> str:
+        """The tiles of one K1 or K3 launch over rows x nwords words, in words."""
+        t, r = ps.launch_tile_shape(rule, k, rows, nwords)
+        warps = -(-(t + 2 * rule.radius * k) // r)
+        return f"{t}-row tiles of {warps} warps of {r} rows ({-(-rows // t)} a strip)"
 
     full_nw = bitlife.packed_width(FULL)
     ms = kernel_ms((FULL, FULL), BLOCK_STEPS, 40)
@@ -997,7 +1001,7 @@ def main() -> int:
     cells_per_s = FULL * FULL * BLOCK_STEPS / (ms * 1e-3)
     full_words = FULL * full_nw
     print(f"timing {FULL}^2 conway (rule compiled in), k={BLOCK_STEPS}, "
-          f"{runs(rule, BLOCK_STEPS, FULL, full_nw)}-row runs: "
+          f"{tiles(rule, BLOCK_STEPS, FULL, full_nw)}: "
           f"kernel {ms:.4f} ms/launch ({ms / BLOCK_STEPS:.4f} ms/step, "
           f"{cells_per_s:.4e} cells/s, {bound_ms / ms:.1%} of the bound); plain "
           f"{plain_ms / BLOCK_STEPS:.4f} ms/step; bound {bound_ms:.4f} ms/launch "
@@ -1025,17 +1029,10 @@ def main() -> int:
     ref_nw = bitlife.packed_width(ref[1])
     ref_ms = kernel_ms(ref, BLOCK_STEPS, 200)
     ref_dev_ms = device_ms(ref, BLOCK_STEPS, 200)
-    chosen = ps.run_rows
-    ps.run_rows = lambda k, height, *_: height  # one run a strip
-    try:
-        one_run_dev_ms = device_ms(ref, BLOCK_STEPS, 200)
-    finally:
-        ps.run_rows = chosen
     print(f"timing 1500x500 conway, k={BLOCK_STEPS}: {ref_ms:.4f} ms/launch by CUDA "
           f"events over back-to-back calls; device time {fmt(ref_dev_ms)} ms/launch "
-          f"with {runs(rule, BLOCK_STEPS, ref[0], ref_nw)}-row runs, {fmt(one_run_dev_ms)} "
-          f"with one {ref[0]}-row run a strip (bound {bound(ref, BLOCK_STEPS)[0]:.6f} ms)",
-          flush=True)
+          f"with {tiles(rule, BLOCK_STEPS, ref[0], ref_nw)} (bound "
+          f"{bound(ref, BLOCK_STEPS)[0]:.6f} ms)", flush=True)
 
     # -- 6. K2 at full size through the cuda backend ------------------------
     k2_rows = []
@@ -1160,7 +1157,7 @@ def main() -> int:
         d_bound, d_by = bound((FULL, FULL), BLOCK_STEPS, rule)
         d_ops = ps.logic_ops_per_word_step(rule)
         print(f"timing K1 diamond mode {FULL}^2 {name}, k={BLOCK_STEPS}, "
-              f"{runs(rule, BLOCK_STEPS, FULL, full_nw)}-row runs: kernel {d_ms:.4f} ms/launch by CUDA events "
+              f"{tiles(rule, BLOCK_STEPS, FULL, full_nw)}: kernel {d_ms:.4f} ms/launch by CUDA events "
               f"({d_ms / BLOCK_STEPS:.4f} ms/step, "
               f"{FULL * FULL * BLOCK_STEPS / (d_ms * 1e-3):.4e} cells/s, "
               f"{d_bound / d_ms:.1%} of the bound); device time {fmt(d_dev_ms)} ms/launch "
@@ -1181,7 +1178,7 @@ def main() -> int:
     xp = words(rng.integers(0, 2, size=ref, dtype=np.int8))
     d_ref_plain_ms = cuda_ms(lambda: ps.packed_multi_step_plain(xp, rule, ref, BLOCK_STEPS), 3)
     print(f"timing K1 diamond mode 1500x500 {DIAMOND}, k={BLOCK_STEPS}, "
-          f"{runs(rule, BLOCK_STEPS, ref[0], ref_nw)}-row runs: {d_ref_ms:.4f} ms/launch by CUDA events over back-to-back calls; device "
+          f"{tiles(rule, BLOCK_STEPS, ref[0], ref_nw)}: {d_ref_ms:.4f} ms/launch by CUDA events over back-to-back calls; device "
           f"time {fmt(d_ref_dev_ms)} ms/launch; plain {d_ref_plain_ms:.4f} ms per "
           f"{BLOCK_STEPS} steps; bound {bound(ref, BLOCK_STEPS, rule)[0]:.6f} ms", flush=True)
     del xp
@@ -1310,7 +1307,7 @@ def main() -> int:
     k3_mem_ms = (2 * hl + 2 * fr) * nw * 4 / HBM_BYTES_PER_S * 1e3
     k3_bound, k3_by = (k3_ops_ms, "operations") if k3_ops_ms >= k3_mem_ms else (k3_mem_ms, "bytes")
     print(f"timing K3 one shard {hl}x{nw} words + 2x{fr} halo rows, conway, k={BLOCK_STEPS}, "
-          f"{runs(rule, BLOCK_STEPS, hl, nw, sharded=True)}-row runs: kernel {k3_ms:.4f} ms/launch by "
+          f"{tiles(rule, BLOCK_STEPS, hl, nw)}: kernel {k3_ms:.4f} ms/launch by "
           f"CUDA events ({k3_bound / k3_ms:.1%} of the bound), device time {fmt(k3_dev_ms)} "
           f"ms/launch (profiler kernel records); {n_shards} shard launches {n_shards * k3_ms:.4f} "
           f"ms by events against K1's {ms:.4f} over the whole board "
@@ -1338,11 +1335,9 @@ def main() -> int:
           f"{fr * nw * 4} bytes) {xchg_ms:.4f} ms by CUDA events, "
           + (f"{copy_dev_ms * 1e3:.2f} us of device time per copy" if copy_dev_ms is not None
              else "copy device time not measured (no memcpy records)")
-          + f"; {fmt_breakdown(block_split)}; {-(-nw // ps.STRIP_WORDS)} strips x "
-          f"{-(-hl // runs(rule, BLOCK_STEPS, hl, nw, sharded=True))} runs (warps) per shard "
-          f"launch, {-(-nw // ps.STRIP_WORDS)} x {-(-FULL // runs(rule, BLOCK_STEPS, FULL, nw))} "
-          f"per K1 launch; {ps.warps_per_sm(True, ps.MOORE, 1, BLOCK_STEPS, True)} resident warps an "
-          f"SM counted for a wave", flush=True)
+          + f"; {fmt_breakdown(block_split)}; {-(-nw // ps.STRIP_WORDS)} strips of "
+          f"{tiles(rule, BLOCK_STEPS, hl, nw)} per shard launch, of "
+          f"{tiles(rule, BLOCK_STEPS, FULL, nw)} per K1 launch", flush=True)
     k3_row = dict(shape=[hl, FULL], ms=k3_ms, device_ms=k3_dev_ms, plain_ms=k3_plain_ms,
                   bound_ms=k3_bound, bound_by=k3_by)
     del runner, tops, bots, buffers, shard_launch
@@ -1749,6 +1744,8 @@ def main() -> int:
         "device_ms": full_dev_ms,
         "instance": K1_MAIN,
         **k1_instances[K1_MAIN],
+        "ref_device_ms": ref_dev_ms,
+        "ref_instance": {"instance": K1_SMALL, **k1_instances[K1_SMALL]},
         "data_rule": {"rule": DATA_RULE, "ms": data_ms, "device_ms": data_dev_ms,
                       **k1_instances[K1_DATA]},
     }, {

@@ -125,3 +125,9 @@ def test_scan_covers_the_k5_slice():
         "tpu_life_torch.io.rle",
         "tpu_life_torch.models.patterns",
     } <= set(MODULES)
+
+
+def test_scan_covers_the_stripe_sweep():
+    # the K1 and K3 sweep of depths and boards (an experiment run on the
+    # card) is among the modules both checks read
+    assert "tpu_life_torch.experiments.stripe_sweep" in set(MODULES)

@@ -122,49 +122,80 @@ def test_cpu_tensor_takes_the_plain_version_without_launching():
 
 
 @pytest.mark.parametrize(
-    "args,rows",
+    "args,shape",
     [
-        # 16384^2 (512 words: 18 strips) on 132 SMs: one wave of 32 warps an
-        # SM is 4224 warps, 234 runs a strip; of 16, 117
-        ((8, 16384, 512, 132, 32), 71),
-        ((8, 16384, 512, 132, 16), 141),
-        ((1, 16384, 512, 132, 32), 71),
-        # at least four halos of k rows
-        ((32, 16384, 512, 132, 32), 128),
-        # one 4096-row shard of it, as K3 runs it
-        ((8, 4096, 512, 132, 32), 32),
-        ((8, 4096, 512, 132, 16), 36),
-        # 1500x500 (16 words, one strip): four halos give 47 warps; halved
-        # while every warp keeps one of the 528 warp schedulers
-        ((8, 1500, 16, 132, 32), 4),
-        ((4, 1500, 16, 132, 32), 4),
-        ((8, 300, 32, 132, 32), 2),
-        ((8, 5000, 63, 132, 32), 32),
-        ((8, 31, 1, 132, 32), 1),
-        ((8, 1, 1, 132, 32), 1),
-        # wider than a wave: one run a strip
-        ((8, 16384, 200000, 132, 32), 16384),
+        # (k, height, nwords, SMs, radius) -> (tile rows, rows a warp): runs
+        # of two halos (2 r k rows) give no more warps than the 4 * SMs warp
+        # schedulers, so four rows a warp and the tile that puts the fewest
+        # warps on a scheduler.  1500x500 (16 words, one strip), k = 8: 7
+        # warps keep 28 rows, 12 of them output: 125 blocks, one an SM, two
+        # warps a scheduler
+        ((8, 1500, 16, 132, 1), (12, 4)),
+        ((4, 1500, 16, 132, 1), (8, 4)),  # the reference run's remainder launch
+        ((2, 1500, 16, 132, 1), (12, 4)),
+        ((8, 375, 16, 132, 1), (4, 4)),  # a shard of 1500x500 on 4
+        ((8, 1500, 16, 132, 2), (12, 4)),
+        ((16, 1500, 16, 132, 2), (12, 4)),
+        ((32, 1500, 16, 132, 1), (12, 4)),
+        ((8, 300, 32, 132, 1), (8, 4)),  # 2 strips
+        ((8, 2048, 64, 132, 1), (48, 4)),  # 3 strips x 128 runs of 16 rows = 384
+        ((8, 31, 1, 132, 1), (4, 4)),
+        ((8, 1, 1, 132, 1), (1, 4)),
     ],
 )
-def test_run_rows_fill_one_wave(args, rows):
-    # (k, height, nwords, SMs, resident warps an SM) -> rows of a warp's run
-    assert ps.run_rows(*args) == rows
-    k, height, nwords, n_sm, warps = args
+def test_tile_shape_on_boards_that_leave_schedulers_idle(args, shape):
+    k, height, nwords, n_sm, radius = args
+    assert ps.tile_shape(*args) == shape
+    rows, warp_rows = shape
+    halo = 2 * radius * k
+    assert -(-(rows + halo) // warp_rows) <= ps.TILE_WARPS  # the block holds the tile
     strips = -(-nwords // ps.STRIP_WORDS)
-    grid = strips * -(-height // rows)
-    schedulers = ps.SCHEDULERS_PER_SM * n_sm
-    assert grid <= max(strips, n_sm * warps, schedulers)  # never a second wave
-    # runs shorter than four halos only where the board leaves schedulers idle
-    assert rows in (1, height) or rows >= 4 * k or strips * -(-height // -(-rows // 2)) > schedulers
+    assert strips * -(-height // halo) <= ps.SCHEDULERS_PER_SM * n_sm
 
 
-def test_depth_ceiling_of_every_depth():
-    # the kernel instance (levels kept in registers) a launch of k substeps runs
-    assert [ps.depth_ceiling(k) for k in range(1, 33)] == [4] * 4 + [8] * 4 + [16] * 8 + [32] * 16
-    assert [ps.depth_ceiling(k, radius=2) for k in range(1, 17)] == [4] * 4 + [8] * 4 + [16] * 8
-    for k, radius in ((0, 1), (33, 1), (17, 2)):
-        with pytest.raises(ValueError, match="block_steps"):
-            ps.depth_ceiling(k, radius)
+@pytest.mark.parametrize(
+    "args,rows",
+    [
+        # (k, height, nwords, SMs, radius) -> the tile's output rows at eight
+        # rows a warp: the fewest warps of 4, 8, 16 and 32 (32 to 256 rows)
+        # whose halo of 2 r k rows is at most a sixth of their rows, else 32.
+        # 16384^2 (18 strips) on 132 SMs
+        ((1, 16384, 512, 132, 1), 30),
+        ((2, 16384, 512, 132, 1), 28),
+        ((3, 16384, 512, 132, 1), 58),
+        ((4, 16384, 512, 132, 1), 56),
+        ((5, 16384, 512, 132, 1), 54),
+        ((8, 16384, 512, 132, 1), 112),
+        ((12, 16384, 512, 132, 1), 232),
+        ((16, 16384, 512, 132, 1), 224),
+        ((17, 16384, 512, 132, 1), 222),
+        ((32, 16384, 512, 132, 1), 192),
+        # 750 runs of two halos: too many to count as a small board
+        ((1, 1500, 16, 132, 1), 30),
+        # a 4096-row shard of 16384^2, as K3 runs it
+        ((8, 4096, 512, 132, 1), 112),
+        ((8, 5000, 63, 132, 1), 112),
+        ((8, 16384, 200000, 132, 1), 112),
+    ],
+)
+def test_tile_shape_on_larger_boards(args, rows):
+    k, height, nwords, n_sm, radius = args
+    assert ps.tile_shape(*args) == (rows, ps.LARGE_WARP_ROWS)
+    halo = 2 * radius * k
+    warps = -(-(rows + halo) // ps.LARGE_WARP_ROWS)
+    assert warps in (4, 8, 16, 32) and (6 * halo <= warps * ps.LARGE_WARP_ROWS or warps == 32)
+
+
+@pytest.mark.parametrize(
+    "k,radius", [(k, radius) for radius in (1, 2) for k in range(1, ps.MAX_BLOCK_STEPS // radius + 1)]
+)
+def test_tile_shape_holds_every_depth(k, radius):
+    # every depth the clamp allows (1-32; 1-16 at r = 2) gets a tile of at
+    # least one output row whose block holds it, on small boards and large
+    for height, nwords in ((1, 1), (1500, 16), (16384, 512)):
+        rows, warp_rows = ps.tile_shape(k, height, nwords, 132, radius)
+        assert 1 <= rows <= height and warp_rows in (ps.SMALL_WARP_ROWS, ps.LARGE_WARP_ROWS)
+        assert -(-(rows + 2 * radius * k) // warp_rows) <= ps.TILE_WARPS
 
 
 @pytest.mark.parametrize(
@@ -262,3 +293,28 @@ def test_logic_ops_per_word_step(name, ops):
     # conway: carry-save adds 2 + 4, shifts 4, planes b1 and b2, and its
     # 7-literal SOP (b0 b1 ~b2 | x ~b0 ~b1 b2) in 3 three-input instructions
     assert ps.logic_ops_per_word_step(get_rule(name)) == ops
+
+
+def test_stripe_sweep_needs_the_card(monkeypatch):
+    from tpu_life_torch.experiments import stripe_sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        stripe_sweep.main([])
+
+
+@pytest.mark.parametrize("name", ["conway", "highlife", "R2,C2,S2..4,B2..3,NN", "conway:T"])
+def test_stripe_sweep_cases_hold_the_plain_version(monkeypatch, name):
+    # the sweep's cases on CPU tensors (the wrappers' plain versions), with
+    # the profiler's timing replaced: each case runs its launch and checks
+    # it against the plain version without exiting
+    from tpu_life_torch.experiments import stripe_sweep
+
+    launched = []
+    monkeypatch.setattr(stripe_sweep, "_device_ms", lambda launch, reps: launched.append(launch()) or 0.0)
+    rng = np.random.default_rng(5)
+    cpu = torch.device("cpu")
+    if not name.endswith(":T"):
+        assert stripe_sweep.k1_case(name, (40, 70), 3, rng, cpu) == 0.0
+    assert stripe_sweep.k3_case(name, (40, 70), 4, 2, rng, cpu) == 0.0
+    assert len(launched) == (1 if name.endswith(":T") else 2)

@@ -26,6 +26,8 @@ from tpu_life_torch.ops import bitlife
 from tpu_life_torch.ops.boolmin import membership_rule_sop
 from tpu_life_torch.ops.reference import run_np
 
+from test_torch_kernel import kernel_sop
+
 VN_SPEC = "R2,C2,S2..4,B2..3,NN"
 DIAMONDS = [VN_SPEC, "R1,C2,S2..3,B3,NN", "R2,C2,M1,S3..6,B3..5,NN"]
 DIAMOND_IDS = ["r2", "r1", "m1-center"]
@@ -170,22 +172,27 @@ def test_diamond_logic_ops_per_word_step(spec, ops):
 
 
 @pytest.mark.parametrize(
-    "args,rows",
+    "args,shape",
     [
-        # (k, height, nwords, SMs, resident warps an SM, radius): at least
-        # four halos of radius * k rows, else one wave
-        ((8, 16384, 512, 132, 32, 2), 71),
-        ((16, 16384, 512, 132, 32, 2), 128),
-        ((16, 16384, 512, 132, 12, 2), 187),
-        ((8, 4096, 512, 132, 20, 2), 64),
-        # a small board halves its runs while every warp keeps a scheduler
-        ((8, 1500, 16, 132, 12, 2), 4),
-        ((16, 1500, 16, 132, 12, 2), 4),
-        ((1, 1500, 16, 132, 12, 2), 4),
+        # (k, height, nwords, SMs, radius) -> (tile rows, rows a warp): a
+        # diamond of radius 2 has twice the halo, 2 r k rows, so its tiles
+        # are taller for the same k
+        ((1, 16384, 512, 132, 2), (28, 8)),
+        ((2, 16384, 512, 132, 2), (56, 8)),
+        ((5, 16384, 512, 132, 2), (108, 8)),
+        ((8, 16384, 512, 132, 2), (224, 8)),
+        ((12, 16384, 512, 132, 2), (208, 8)),
+        ((16, 16384, 512, 132, 2), (192, 8)),
+        ((8, 4096, 512, 132, 2), (224, 8)),
+        # a small board: four rows a warp and the tile that puts the fewest
+        # warps on a scheduler
+        ((8, 1500, 16, 132, 2), (12, 4)),
+        ((16, 1500, 16, 132, 2), (12, 4)),
+        ((1, 1500, 16, 132, 2), (12, 4)),
     ],
 )
-def test_run_rows_scale_with_the_radius(args, rows):
-    assert ps.run_rows(*args) == rows
+def test_tile_shape_scales_with_the_radius(args, shape):
+    assert ps.tile_shape(*args) == shape
 
 
 @pytest.mark.parametrize(
@@ -203,12 +210,7 @@ def test_diamond_kernel_sop_is_the_rule(spec):
     inputs = [(count, cell) for cell in (0, 1) for count in range(count_max + 1)]
     lits = [sum(((count >> b) & 1) << n for n, (count, _) in enumerate(inputs)) for b in range(nplanes)]
     lits += [0] * (4 - nplanes) + [sum(cell << n for n, (_, cell) in enumerate(inputs))]
-    out = 0
-    for t in range(max(2, table.n_terms)):
-        term = 0xFFFFFFFF
-        for i in range(5):
-            term &= (lits[i] ^ table.flip[t][i]) | table.loose[t][i]
-        out |= term
+    out = kernel_sop(table, lits)
     for n, (count, cell) in enumerate(inputs):
         want = count in (rule.survive if cell else rule.birth)
         assert want == any((count | cell << nplanes) & m == v for m, v in sop)

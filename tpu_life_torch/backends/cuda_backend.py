@@ -60,7 +60,8 @@ from tpu_life_torch.ops import bitlife
 from tpu_life_torch.ops.stencil import live_count_cells
 
 # substeps per kernel launch: device-memory traffic falls as 1/k while the
-# halo recompute grows with k (K1: 2k rows per run of packed_stripe.run_rows)
+# halo recompute grows with k (K1: 2k rows per wavefront run or tile,
+# packed_stripe.tile_rows)
 DEFAULT_BLOCK_STEPS = 8
 
 

@@ -21,35 +21,31 @@
 // diamond at radius 2, against 8 bytes of device memory per k steps (at
 // k = 8, 16384^2 moves 64 MiB per 8 steps, about 20 us at 3.35 TB/s,
 // against about 60 us of integer issue at 64 results per clock and SM).
-// So the design spends as few instructions beyond those as it can.
+// So the design spends as few instructions beyond those as it can, and
+// keeps every row in registers.
 //
-// The wavefront.  A warp owns a strip of 32 word columns, one word a lane:
+// The tiles.  A warp owns a strip of 32 word columns, one word a lane:
 // lanes 1..30 are its output words, lanes 0 and 31 the words beside them.
-// It walks down a run of rows and loads each raw row once, into a ring of
-// three registers two steps ahead of its use.  For each substep level it
-// keeps in registers the rows of the level below that it still needs (two
-// at radius 1, four and two box sums at radius 2), so a level turns the
-// newest row of the level below into its own next row.  The levels are
-// skewed by one step of the walk: level s reads the row level s-1 made in
-// the step before, so the levels of one step are independent and their
-// instructions interleave.  No row goes through shared memory and no
-// barrier is needed: each warp is on its own.  The vertical halo is r*k
-// rows at each end of a run (r the radius), recomputed once per run;
-// sideways, a substep reaches r cells, so after k <= 32 / r substeps the
-// wrong bits that lanes 0 and 31 take from outside the strip (a shuffle
-// past the warp's edge returns the lane's own word) have not reached lanes
-// 1 and 30: no lane is zeroed.  Output rows are stored straight from
-// registers, 120 bytes of 128 a warp-row.
-//
-// The depth.  k is a runtime argument under a compile-time ceiling KMAX
-// (4, 8, 16 and 32; 16 at radius 2, the clamp): the state of KMAX levels
-// lives in registers, and a launch runs the least ceiling >= k.  Every
-// level runs at every step, with no branch; where k < KMAX, the lowest
-// KMAX - k levels pass their centre row on unchanged.  Two forms of a
-// step: where k == KMAX and no row of the run leaves the board, each level
-// only masks the columns; elsewhere (the runs at the board's top and
-// bottom, k < KMAX) one LOP3 a level keeps the new row where it is live and
-// the centre row elsewhere, so the rows off the board stay zero.
+// A substep reaches r cells sideways (r the radius), so after k <= 32 / r
+// substeps the wrong bits that lanes 0 and 31 take from outside the strip
+// (a shuffle past the warp's edge returns the lane's own word) have not
+// reached lanes 1 and 30: no lane is zeroed.  Down the strip, a block of up
+// to 32 warps keeps a tile in registers, R rows a warp (4 or 8, an
+// instance each): its output rows and r*k halo rows at each end.  Every
+// substep computes all of them at once (the rows of a warp interleave),
+// each warp taking the r rows beside its own from the warps above and
+// below through shared memory: two r-row edges a warp, two buffers, one
+// barrier a substep.  Each row is loaded once and stored once.  The halo is
+// recomputed for every tile, but the critical path is k substeps of a
+// warp's R rows, and the wrapper sizes the tiles to the board
+// (packed_stripe.tile_shape): on a board too small to fill the card, four
+// rows a warp and the tile that puts the fewest warps on a warp scheduler;
+// on a larger one, eight rows a warp and the fewest warps whose halo is at
+// most a sixth of their rows, so that several blocks share an SM and hide
+// each other's loads.  (A wavefront that walks runs of rows with the k
+// substeps as levels in registers recomputes less halo, but walks 2rk + k
+// steps in order before its first row and keeps k levels of state; on the
+// H100 it was slower than these tiles at every shape measured, PERF.md.)
 //
 // The rule.  The Moore mode has an instance with Conway's sum of products
 // compiled in (boolmin.rule_sop's ((7, 3), (23, 20)): b0 b1 ~b2 | x ~b0
@@ -61,12 +57,6 @@
 // literals are the raw count's planes b0..b3 (boolmin.membership_rule_sop)
 // and the cell.
 //
-// The grid.  The wrapper picks the run length (packed_stripe.run_rows) so
-// that a launch fills one wave of resident warps (fewer, longer runs
-// recompute less halo), runs at least four halos long, and on a board too
-// small to fill the card shortens the runs until each warp has a warp
-// scheduler of its own.
-//
 // The diamond (2 states, radius R of 1 or 2, with or without the centre in
 // the count) is a stack of 2R+1 horizontal boxes of half-width R - |dy| and
 // does not separate into a vertical and a horizontal pass.  A row takes the
@@ -77,12 +67,12 @@
 // row dy = 0 the arms L1, R1, L2, R2 (+ x).  Carry-save adds reduce the
 // weighted planes to the raw count b0..b3 (at most 13).
 //
-// Kernel K3 runs the same walk (walk_run below) on one shard of a
-// row-sharded board: the chunk int32[rows, nwords] of board rows
-// [row0 + fr, row0 + fr + rows) and its halos top and bot of fr = R*k rows
-// each, three separate buffers (the halo exchange's outputs) stitched as
-// the rows load, so no extended chunk is ever built.  What differs from K1
-// lies in the rows policy (ShardIo) the walk takes:
+// Kernel K3 runs the same tiles on one shard of a row-sharded board: the
+// chunk int32[rows, nwords] of board rows [row0 + fr, row0 + fr + rows)
+// and its halos top and bot of fr = R*k rows each, three separate buffers
+// (the halo exchange's outputs) stitched as the rows load, so no extended
+// chunk is ever built.  What differs from K1 lies in the rows policy
+// (ShardIo) the tiles take:
 // - a row v in [-fr, rows + fr) reads top[v + fr], chunk[v] or
 //   bot[v - rows];
 // - clamped, a row is live where its global row row0 + fr + v lies in
@@ -105,7 +95,7 @@ namespace {
 
 constexpr int kLanes = 32;               // word columns of a strip: one a lane
 constexpr int kInterior = kLanes - 2;    // output words of a strip: lanes 1..30
-constexpr int kWarps = 4;                // warps per block, each with a run of its own
+constexpr int kTileWarps = 32;           // warps of a tile's block, at most
 constexpr int kMaxTerms = 32;            // products in a rule's SOP, at most
 constexpr int kLiterals = 5;             // b0, b1, b2, b3, x
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -144,9 +134,9 @@ struct ConwayRule {
 // Any rule as data: term t is the AND over the literals of (lit ^ flip) |
 // loose, two LOP3 a literal.  Terms 0 and 1 are always evaluated (the
 // table repeats term 0 where the SOP has one term), with no branch; Many:
-// the SOP has more, and a loop takes the rest.  The loop splits a step's
-// levels into blocks that cannot interleave, so the walk runs it only for
-// such rules (walk_run).
+// the SOP has more, and a loop takes the rest.  The loop splits a
+// substep's rows into blocks that cannot interleave, so the tiles run it
+// only for such rules (tile_kernel_body).
 template <bool Many>
 struct DataRule {
   const Sop& sop;
@@ -169,18 +159,18 @@ struct DataRule {
   }
 };
 
-// One substep level of the walk.  step(down, ...) takes the newest row of
-// the level below (r rows under the centre) and returns this level's next
-// row, before the board mask; the level keeps what its later rows need.
+// One substep over a warp's R rows: rows(x, out, ...) takes rows -r ..
+// R+r-1 of the board as it stands in x and writes the new rows 0 .. R-1 to
+// out, before the board mask; cell(...) makes one row.  The rows of a
+// substep are independent, so their instructions interleave.
 
-// The Moore neighbourhood: rows up and mid of the level below.
-struct MooreLevel {
+// The Moore neighbourhood: the 3x3 total, its planes b0..b3, and the rule.
+struct MooreSubstep {
   static constexpr int kReach = 1;
-  uint32_t up = 0, mid = 0;
-  __device__ __forceinline__ uint32_t centre() const { return mid; }
 
   template <class Rule>
-  __device__ __forceinline__ uint32_t step(uint32_t down, const Rule& rule, uint32_t) {
+  static __device__ __forceinline__ uint32_t cell(uint32_t up, uint32_t mid, uint32_t down,
+                                                  const Rule& rule) {
     uint32_t ones, twos;
     csa(up, mid, down, ones, twos);
     const uint32_t ones_l = __shfl_up_sync(kFull, ones, 1);
@@ -195,21 +185,23 @@ struct MooreLevel {
     uint32_t b0, c1, s1, c2;
     csa(o_l, ones, o_r, b0, c1);
     csa(t_l, twos, t_r, s1, c2);
-    const uint32_t out = rule(b0, c1 ^ s1, c2 ^ (c1 & s1), c2 & c1 & s1, mid);
-    up = mid;
-    mid = down;
-    return out;
+    return rule(b0, c1 ^ s1, c2 ^ (c1 & s1), c2 & c1 & s1, mid);
+  }
+  template <int R, class Rule>
+  static __device__ __forceinline__ void rows(const uint32_t (&x)[R + 2], uint32_t (&out)[R],
+                                              const Rule& rule, uint32_t) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) out[i] = cell(x[i], x[i + 1], x[i + 2], rule);
   }
 };
 
 // The diamond at radius 1: count = up + down + L1 + R1 (+ x), at most 5.
-struct Diamond1Level {
+struct Diamond1Substep {
   static constexpr int kReach = 1;
-  uint32_t up = 0, mid = 0;
-  __device__ __forceinline__ uint32_t centre() const { return mid; }
 
   template <class Rule>
-  __device__ __forceinline__ uint32_t step(uint32_t down, const Rule& rule, uint32_t center) {
+  static __device__ __forceinline__ uint32_t cell(uint32_t up, uint32_t mid, uint32_t down,
+                                                  const Rule& rule, uint32_t center) {
     const uint32_t vl = __shfl_up_sync(kFull, mid, 1);
     const uint32_t vr = __shfl_down_sync(kFull, mid, 1);
     const uint32_t l1 = __funnelshift_l(vl, mid, 1);
@@ -217,32 +209,36 @@ struct Diamond1Level {
     uint32_t s0, c0, b0, c1;
     csa(up, down, l1, s0, c0);
     csa(s0, r1, mid & center, b0, c1);
-    const uint32_t out = rule(b0, c0 ^ c1, c0 & c1, 0u, mid);
-    up = mid;
-    mid = down;
-    return out;
+    return rule(b0, c0 ^ c1, c0 & c1, 0u, mid);
+  }
+  template <int R, class Rule>
+  static __device__ __forceinline__ void rows(const uint32_t (&x)[R + 2], uint32_t (&out)[R],
+                                              const Rule& rule, uint32_t center) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) out[i] = cell(x[i], x[i + 1], x[i + 2], rule, center);
   }
 };
 
-// The diamond at radius 2, centre row j: raw rows a..d = j-2 .. j+1 of the
-// level below and the 3-wide boxes (sum, carry) of rows j-1 and j.  The new
-// row is j+2; row j+1's box is formed here, and row j's arms from two
-// shuffles of its own (two shuffles more a row than forming the arms once,
-// which would hold four more registers a level).
-struct Diamond2Level {
+// The diamond at radius 2: row j's count from rows j-2 and j+2, the 3-wide
+// boxes of rows j-1 and j+1, and row j's arms.
+struct Diamond2Substep {
   static constexpr int kReach = 2;
-  uint32_t a = 0, b = 0, c = 0, d = 0;
-  uint32_t above_s = 0, above_c = 0, here_s = 0, here_c = 0;
-  __device__ __forceinline__ uint32_t centre() const { return c; }
 
+  // the 3-wide box L1 + v + R1 of a row, as a two-bit sum
+  static __device__ __forceinline__ void box(uint32_t v, uint32_t& s, uint32_t& cy) {
+    const uint32_t vl = __shfl_up_sync(kFull, v, 1);
+    const uint32_t vr = __shfl_down_sync(kFull, v, 1);
+    csa(__funnelshift_l(vl, v, 1), v, __funnelshift_r(v, vr, 1), s, cy);
+  }
+  // row c's new cells from rows a (c-2) and e (c+2) and the boxes of the
+  // rows beside c
   template <class Rule>
-  __device__ __forceinline__ uint32_t step(uint32_t dn2, const Rule& rule, uint32_t center) {
-    const uint32_t dl = __shfl_up_sync(kFull, d, 1);
-    const uint32_t dr = __shfl_down_sync(kFull, d, 1);
+  static __device__ __forceinline__ uint32_t cell(uint32_t a, uint32_t c, uint32_t e,
+                                                  uint32_t above_s, uint32_t above_c,
+                                                  uint32_t below_s, uint32_t below_c,
+                                                  const Rule& rule, uint32_t center) {
     const uint32_t cl = __shfl_up_sync(kFull, c, 1);
     const uint32_t cr = __shfl_down_sync(kFull, c, 1);
-    uint32_t below_s, below_c;
-    csa(__funnelshift_l(dl, d, 1), d, __funnelshift_r(d, dr, 1), below_s, below_c);
     // L_d[c] = v[c-d]: (v << d) | (left word >> (32 - d)); R_d[c] = v[c+d]
     const uint32_t l1 = __funnelshift_l(cl, c, 1);
     const uint32_t r1 = __funnelshift_r(c, cr, 1);
@@ -251,7 +247,7 @@ struct Diamond2Level {
     // weight 1: the rows at dy = +-2, the four arms, the centre (M1) and
     // the two box sums; weight 2: the two box carries
     uint32_t s_a, c_a, s_b, c_b, s_c, c_c, b0, c_d;
-    csa(a, dn2, l1, s_a, c_a);
+    csa(a, e, l1, s_a, c_a);
     csa(r1, l2, r2, s_b, c_b);
     csa(c & center, above_s, below_s, s_c, c_c);
     csa(s_a, s_b, s_c, b0, c_d);
@@ -260,16 +256,26 @@ struct Diamond2Level {
     csa(c_d, above_c, below_c, t_b, d_b);
     uint32_t b2, b3;
     csa(d_a, d_b, t_a & t_b, b2, b3);
-    const uint32_t out = rule(b0, t_a ^ t_b, b2, b3, c);
-    above_s = here_s;
-    above_c = here_c;
-    here_s = below_s;
-    here_c = below_c;
-    a = b;
-    b = c;
-    c = d;
-    d = dn2;
-    return out;
+    return rule(b0, t_a ^ t_b, b2, b3, c);
+  }
+  template <int R, class Rule>
+  static __device__ __forceinline__ void rows(const uint32_t (&x)[R + 4], uint32_t (&out)[R],
+                                              const Rule& rule, uint32_t center) {
+    // the boxes of rows i-1, i and i+1 as row i is made: three pairs live,
+    // not all R + 2
+    uint32_t above_s, above_c, here_s, here_c;
+    box(x[1], above_s, above_c);
+    box(x[2], here_s, here_c);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      uint32_t below_s, below_c;
+      box(x[i + 3], below_s, below_c);
+      out[i] = cell(x[i], x[i + 2], x[i + 4], above_s, above_c, below_s, below_c, rule, center);
+      above_s = here_s;
+      above_c = here_c;
+      here_s = below_s;
+      here_c = below_c;
+    }
   }
 };
 
@@ -281,11 +287,10 @@ __device__ __forceinline__ uint32_t column_mask(int gw, int nwords, int rem_bits
   return kFull;
 }
 
-// The rows a warp reads and writes, as a policy the walk takes.  `row`
+// The rows a tile reads and writes, as a policy the tile takes.  `row`
 // counts from the board's row 0 (K1) or the chunk's row 0 (K3):
 // - load(row, gw, nwords): the word at row `row`, word column gw;
 // - live(row): whether the substeps keep the row's cells;
-// - rows_live(lo, hi): whether every row of [lo, hi) is live;
 // - substep_cols(gw, ...): the bits the substeps keep in word column gw;
 // - store(row, gw, ...): write an output word of word column gw, which is
 //   on the board.
@@ -303,7 +308,6 @@ struct BoardIo {
     return 0u;
   }
   __device__ __forceinline__ bool live(int row) const { return row >= 0 && row < height; }
-  __device__ __forceinline__ bool rows_live(int lo, int hi) const { return lo >= 0 && hi <= height; }
   __device__ __forceinline__ uint32_t substep_cols(int gw, int nwords, int rem_bits) const {
     return column_mask(gw, nwords, rem_bits);
   }
@@ -378,13 +382,6 @@ struct ShardIo {
       return g >= 0 && g < height;
     }
   }
-  __device__ __forceinline__ bool rows_live(int lo, int hi) const {
-    if constexpr (Torus) {
-      return true;
-    } else {
-      return row0 + fr + lo >= 0 && row0 + fr + hi <= height;
-    }
-  }
   __device__ __forceinline__ uint32_t substep_cols(int gw, int nwords, int rem_bits) const {
     if constexpr (Torus) {
       return kFull;  // every lane holds real cells of the wrapped row
@@ -400,237 +397,154 @@ struct ShardIo {
   }
 };
 
-// The walk of one warp over its run: output rows [r0, r0 + n) of its
-// strip, k substeps (k <= KMAX).  Step t of the walk feeds raw row
-// v0 + t - 1 (v0 = r0 - r*k) to level 1; level s then makes its row
-// v0 + t - s*(r+1) from level s-1's row of step t - 1 (p[s-1]).  Every
-// level runs at every step: the rows a level makes before its window
-// fills, or after the run needs them, are never read by a row that is
-// stored, so a step has no branch and its KMAX levels interleave.  Where
-// k < KMAX, levels 1 .. KMAX-k pass their centre row on unchanged (a
-// delay of r+1 steps each), so level KMAX's row is always the one stored.
-struct Run {
-  int nwords, rem_bits, k, gw;
-  int r0, v0;     // the first output row, the first raw row loaded
-  int first;      // the step that makes output row r0
-  int steps;      // first + the run's output rows
-  int loads;      // raw rows the run needs
-  uint32_t cmask, center;
-  bool out_lane;
-};
-
-// Raw row v0 + t, zero past the rows the run needs.  Nothing is done to
-// the word here: an instruction on it would wait for the load.
-template <class Io>
-__device__ __forceinline__ uint32_t load_raw(const Io& io, const Run& run, int t) {
-  return t < run.loads ? io.load(run.v0 + t, run.gw, run.nwords) : 0u;
+// The rows a tile's warps share: each warp's first and last r rows, in two
+// buffers that the substeps take in turns; one array a kernel, whatever
+// rule its tiles run.
+template <int r>
+__device__ __forceinline__ auto tile_edges() -> uint32_t (*)[kTileWarps][2 * r][kLanes] {
+  __shared__ uint32_t edge[2][kTileWarps][2 * r][kLanes];
+  return edge;
 }
 
-// Step t of the walk with raw row v0 + t - 1 in `raw`.  Exact: k == KMAX
-// and no row of the run leaves the board, so only the columns are masked.
-// Otherwise each level's row keeps the new cells where it is live (on the
-// board, and the level one of the top k) and its centre row elsewhere: its
-// rows and columns off the board are then those of the level below, zero
-// at the raw rows (the loads give zero off the board, and a packed row's
-// padding bits are zero).
-template <int KMAX, bool Exact, class Level, class Rule, class Io>
-__device__ __forceinline__ void walk_step(Level (&lvl)[KMAX], uint32_t (&p)[KMAX + 1],
-                                          uint32_t raw, int t, const Io& io, const Rule& rule,
-                                          const Run& run) {
-  p[0] = raw;
-#pragma unroll
-  for (int s = KMAX; s >= 1; --s) {
-    if (Exact) {
-      p[s] = lvl[s - 1].step(p[s - 1], rule, run.center) & run.cmask;
-    } else {
-      const bool live = s > KMAX - run.k && io.live(run.v0 + t - s * (Level::kReach + 1));
-      const uint32_t m = live ? run.cmask : 0u;
-      const uint32_t centre = lvl[s - 1].centre();
-      p[s] = (lvl[s - 1].step(p[s - 1], rule, run.center) & m) | (centre & ~m);
-    }
-  }
-  if (t >= run.first && t < run.steps && run.out_lane) {
-    io.store(run.r0 + t - run.first, run.gw, run.nwords, run.rem_bits, p[KMAX]);
-  }
-}
-
-// The steps of the run, kRing at a time (the last ones past the run
-// idle): the raw rows go round a ring of kRing registers, each loaded
-// kRing - 1 steps before level 1 reads it, so no instruction waits on a
-// load just issued.  Level 1 runs last in a step, so at KMAX = 32 a load
-// at the end of the step before is far enough ahead, and a ring of one
-// leaves ptxas the registers that more steps in the loop would take.
-template <int KMAX, bool Exact, class Level, class Rule, class Io>
-__device__ __forceinline__ void walk(const Io& io, const Rule& rule, const Run& run) {
-  constexpr int kRing = KMAX < 32 ? 3 : 1;
-  Level lvl[KMAX];
-  uint32_t p[KMAX + 1];
-#pragma unroll
-  for (int s = 0; s <= KMAX; ++s) p[s] = 0u;
-  uint32_t ring[kRing];
-#pragma unroll
-  for (int i = 0; i < kRing; ++i) ring[i] = i + 1 < kRing ? load_raw(io, run, i) : 0u;
-#pragma unroll 1
-  for (int t = 0; t < run.steps; t += kRing) {
-#pragma unroll
-    for (int i = 0; i < kRing; ++i) {
-      const int slot = (i + kRing - 1) % kRing;  // row v0 + t + i - 1
-      walk_step<KMAX, Exact>(lvl, p, ring[slot], t + i, io, rule, run);
-      ring[slot] = load_raw(io, run, t + i + kRing - 1);
-    }
-  }
-}
-
-// k masked steps of the runs of `run_rows` rows that tile `rows` rows, one
-// run and strip a warp: the body of every kernel here.
-template <int KMAX, class Level, class Rule, class Io>
-__device__ __forceinline__ void walk_run(const Io& io, int rows, int nwords, int rem_bits,
-                                         int k, int run_rows, uint32_t center, const Sop& sop) {
-  constexpr int r = Level::kReach;
-  const int warp = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) / kLanes);
+// k masked steps of the tile of output rows [t0, t0 + tile_rows) of a
+// strip (the block's), by the W warps of the block (W = blockDim / 32, at
+// most kTileWarps).  Warp w keeps R rows (4 or 8), board rows t0 - r*k +
+// w*R onwards, one register each; a substep computes them all, the
+// r rows beside them coming from the warps above and below through shared
+// memory (one barrier a substep).  A row keeps its new cells where it is
+// live (on the board) and its columns are masked, so the rows and columns
+// off the board stay zero.  The tile's first and last r*k rows are its
+// halo: each substep spoils r more rows at each end (zeros from past the
+// tile), and the output rows are the ones left.
+template <int R, class Substep, class Rule, class Io>
+__device__ __forceinline__ void tile_run(const Io& io, int rows, int nwords, int rem_bits, int k,
+                                         int tile_rows, uint32_t center, const Sop& sop) {
+  constexpr int r = Substep::kReach;
+  auto edge = tile_edges<r>();
+  const int w = static_cast<int>(threadIdx.x / kLanes);
   const int lane = static_cast<int>(threadIdx.x % kLanes);
+  const int warps = static_cast<int>(blockDim.x / kLanes);
   const int strips = (nwords + kInterior - 1) / kInterior;
-  const int r0 = (warp / strips) * run_rows;
-  if (r0 >= rows) return;  // uniform across the warp
+  const int t0 = static_cast<int>(blockIdx.x) / strips * tile_rows;
+  const int gw = static_cast<int>(blockIdx.x) % strips * kInterior - 1 + lane;
+  const int base = t0 - r * k + w * R;  // board row of v[0]
   const Rule rule(sop);
-  const int gw = (warp % strips) * kInterior - 1 + lane;
-  const int n = min(run_rows, rows - r0);
   const uint32_t cmask = io.substep_cols(gw, nwords, rem_bits);
-  const bool out_lane = lane >= 1 && lane <= kInterior && gw < nwords;
-  // levels KMAX-k+1 .. KMAX make the k substeps, behind KMAX-k that pass
-  // the raw rows on
-  const int first = r * k + KMAX * (r + 1);
-  const Run run{nwords, rem_bits, k, gw, r0, r0 - r * k, first, first + n, n + 2 * r * k,
-                cmask, center, out_lane};
+  uint32_t v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) v[i] = io.load(base + i, gw, nwords);
+#pragma unroll 1
+  for (int s = 0; s < k; ++s) {
+    uint32_t(&mine)[2 * r][kLanes] = edge[s & 1][w];
+#pragma unroll
+    for (int j = 0; j < r; ++j) {
+      mine[j][lane] = v[j];
+      mine[r + j][lane] = v[R - r + j];
+    }
+    __syncthreads();
+    uint32_t x[R + 2 * r];
+#pragma unroll
+    for (int j = 0; j < r; ++j) {
+      x[j] = w > 0 ? edge[s & 1][w - 1][r + j][lane] : 0u;
+      x[r + R + j] = w + 1 < warps ? edge[s & 1][w + 1][j][lane] : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) x[r + i] = v[i];
+    Substep::template rows<R>(x, v, rule, center);
+#pragma unroll
+    for (int i = 0; i < R; ++i) v[i] &= io.live(base + i) ? cmask : 0u;
+  }
+  if (lane >= 1 && lane <= kInterior && gw < nwords) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = base + i;
+      if (row >= t0 && row < t0 + tile_rows && row < rows) io.store(row, gw, nwords, rem_bits, v[i]);
+    }
+  }
+}
+
+// The body of every kernel here: the rule of more than two SOP terms takes
+// its loop (DataRule<true>), every other one none.
+template <int R, class Substep, class Rule, class Io>
+__device__ __forceinline__ void tile_kernel_body(const Io& io, int rows, int nwords, int rem_bits,
+                                                 int k, int tile_rows, uint32_t center,
+                                                 const Sop& sop) {
   if constexpr (std::is_same_v<Rule, DataRule<false>>) {
     if (sop.n_terms > 2) {
-      walk<KMAX, false, Level>(io, DataRule<true>(sop), run);
+      tile_run<R, Substep, DataRule<true>>(io, rows, nwords, rem_bits, k, tile_rows, center, sop);
       return;
     }
   }
-  if (k == KMAX && io.rows_live(r0 - r * (k - 1), r0 + n + r * (k - 1))) {
-    walk<KMAX, true, Level>(io, rule, run);
-  } else {
-    walk<KMAX, false, Level>(io, rule, run);
-  }
+  tile_run<R, Substep, Rule>(io, rows, nwords, rem_bits, k, tile_rows, center, sop);
 }
 
-template <int KMAX, class Rule>
-__global__ void __launch_bounds__(kLanes * kWarps, 1)
+// Each kernel comes in two instances, of R = 4 and 8 rows a warp.
+template <int R, class Rule>
+__global__ void __launch_bounds__(kLanes * kTileWarps, 1)
 packed_stripe_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int height,
-                     int nwords, int rem_bits, int k, int run_rows, uint32_t center,
+                     int nwords, int rem_bits, int k, int tile_rows, uint32_t center,
                      const Sop sop) {
-  walk_run<KMAX, MooreLevel, Rule>(BoardIo{src, dst, height}, height, nwords, rem_bits, k,
-                                   run_rows, center, sop);
+  tile_kernel_body<R, MooreSubstep, Rule>(BoardIo{src, dst, height}, height, nwords, rem_bits, k,
+                                     tile_rows, center, sop);
 }
 
-template <int R, int KMAX>
-__global__ void __launch_bounds__(kLanes * kWarps, 1)
+template <int Radius, int R>
+__global__ void __launch_bounds__(kLanes * kTileWarps, 1)
 packed_diamond_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int height,
-                      int nwords, int rem_bits, int k, int run_rows, uint32_t center,
+                      int nwords, int rem_bits, int k, int tile_rows, uint32_t center,
                       const Sop sop) {
-  using Level = std::conditional_t<R == 1, Diamond1Level, Diamond2Level>;
-  walk_run<KMAX, Level, DataRule<false>>(BoardIo{src, dst, height}, height, nwords, rem_bits, k,
-                                  run_rows, center, sop);
+  using Substep = std::conditional_t<Radius == 1, Diamond1Substep, Diamond2Substep>;
+  tile_kernel_body<R, Substep, DataRule<false>>(BoardIo{src, dst, height}, height, nwords, rem_bits,
+                                           k, tile_rows, center, sop);
 }
 
-template <bool Torus, int KMAX, class Rule>
-__global__ void __launch_bounds__(kLanes * kWarps, 1)
+template <bool Torus, int R, class Rule>
+__global__ void __launch_bounds__(kLanes * kTileWarps, 1)
 sharded_stripe_kernel(const uint32_t* __restrict__ top, const uint32_t* __restrict__ chunk,
                       const uint32_t* __restrict__ bot, uint32_t* __restrict__ dst, int rows,
                       int fr, int row0, int height, int width, int nwords, int rem_bits, int k,
-                      int run_rows, uint32_t center, const Sop sop) {
-  walk_run<KMAX, MooreLevel, Rule>(
+                      int tile_rows, uint32_t center, const Sop sop) {
+  tile_kernel_body<R, MooreSubstep, Rule>(
       ShardIo<Torus>{top, chunk, bot, dst, rows, fr, row0, height, width}, rows, nwords,
-      rem_bits, k, run_rows, center, sop);
+      rem_bits, k, tile_rows, center, sop);
 }
 
-template <int R, int KMAX>
-__global__ void __launch_bounds__(kLanes * kWarps, 1)
+template <int Radius, int R>
+__global__ void __launch_bounds__(kLanes * kTileWarps, 1)
 sharded_diamond_kernel(const uint32_t* __restrict__ top, const uint32_t* __restrict__ chunk,
                        const uint32_t* __restrict__ bot, uint32_t* __restrict__ dst, int rows,
                        int fr, int row0, int height, int width, int nwords, int rem_bits, int k,
-                       int run_rows, uint32_t center, const Sop sop) {
-  using Level = std::conditional_t<R == 1, Diamond1Level, Diamond2Level>;
-  walk_run<KMAX, Level, DataRule<false>>(
+                       int tile_rows, uint32_t center, const Sop sop) {
+  using Substep = std::conditional_t<Radius == 1, Diamond1Substep, Diamond2Substep>;
+  tile_kernel_body<R, Substep, DataRule<false>>(
       ShardIo<false>{top, chunk, bot, dst, rows, fr, row0, height, width}, rows, nwords,
-      rem_bits, k, run_rows, center, sop);
+      rem_bits, k, tile_rows, center, sop);
 }
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
-// f(the instance of the least depth ceiling >= k), the ceilings 4, 8, 16
-// and, where kMax allows it, 32; kInvalid for k outside [1, kMax].
-template <int kMax, class Pick>
-int with_ceiling(int k, Pick pick) {
-  if (k < 1 || k > kMax) return kInvalid;
-  if (k <= 4) return pick(std::integral_constant<int, 4>{});
-  if (k <= 8) return pick(std::integral_constant<int, 8>{});
-  if constexpr (kMax >= 16) {
-    if (k <= 16) return pick(std::integral_constant<int, 16>{});
-  }
-  if constexpr (kMax >= 32) {
-    return pick(std::integral_constant<int, 32>{});
-  }
+// f(the instance of `warp_rows` rows a warp, 4 or 8), else kInvalid.
+template <class Pick>
+int with_warp_rows(int warp_rows, Pick pick) {
+  if (warp_rows == 4) return pick(std::integral_constant<int, 4>{});
+  if (warp_rows == 8) return pick(std::integral_constant<int, 8>{});
   return kInvalid;
 }
 
-// K1's kernel for (mode, radius, k, compiled): mode 0 Moore (compiled:
-// Conway's rule built in), mode 2 the diamond; f(kernel) or kInvalid.
-template <class F>
-int pick_board(int mode, int radius, int k, int compiled, F f) {
-  if (mode == 0 && radius == 1) {
-    return with_ceiling<32>(k, [&](auto c) {
-      constexpr int K = decltype(c)::value;
-      return compiled ? f(packed_stripe_kernel<K, ConwayRule>)
-                      : f(packed_stripe_kernel<K, DataRule<false>>);
-    });
-  }
-  if (mode == 2 && radius == 1) {
-    return with_ceiling<32>(k, [&](auto c) { return f(packed_diamond_kernel<1, decltype(c)::value>); });
-  }
-  if (mode == 2 && radius == 2) {
-    return with_ceiling<16>(k, [&](auto c) { return f(packed_diamond_kernel<2, decltype(c)::value>); });
-  }
-  return kInvalid;
-}
-
-// K3's kernel for (mode, radius, k, compiled): mode 0 Moore clamped, 1
-// Moore on the torus, 2 the diamond, clamped.
-template <class F>
-int pick_shard(int mode, int radius, int k, int compiled, F f) {
-  if (mode == 0 && radius == 1) {
-    return with_ceiling<32>(k, [&](auto c) {
-      constexpr int K = decltype(c)::value;
-      return compiled ? f(sharded_stripe_kernel<false, K, ConwayRule>)
-                      : f(sharded_stripe_kernel<false, K, DataRule<false>>);
-    });
-  }
-  if (mode == 1 && radius == 1) {
-    return with_ceiling<32>(k, [&](auto c) {
-      constexpr int K = decltype(c)::value;
-      return compiled ? f(sharded_stripe_kernel<true, K, ConwayRule>)
-                      : f(sharded_stripe_kernel<true, K, DataRule<false>>);
-    });
-  }
-  if (mode == 2 && radius == 1) {
-    return with_ceiling<32>(k, [&](auto c) { return f(sharded_diamond_kernel<1, decltype(c)::value>); });
-  }
-  if (mode == 2 && radius == 2) {
-    return with_ceiling<16>(k, [&](auto c) { return f(sharded_diamond_kernel<2, decltype(c)::value>); });
-  }
-  return kInvalid;
-}
-
-// Launch `kernel` with one warp per strip and run of `rows` x `nwords`
-// words; returns cudaGetLastError().
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int rows, int nwords, int run_rows, void* stream, Args... args) {
-  if (rows < 1 || nwords < 1 || run_rows < 1) return kInvalid;
+// Launch `kernel` over `rows` x `nwords` words, one block a tile of
+// tile_rows output rows and a strip, of the warps that keep the tile and
+// its halo of reach * k rows at each end, R rows a warp.  kInvalid where k
+// is outside [1, 32 / reach] or the tile needs more than kTileWarps warps;
+// else cudaGetLastError().
+template <int R, typename Kernel, typename... Args>
+int launch(Kernel kernel, int rows, int nwords, int tile_rows, int reach, int k, void* stream,
+           Args... args) {
+  if (rows < 1 || nwords < 1 || tile_rows < 1 || k < 1 || reach * k > 32) return kInvalid;
+  const int warps = (tile_rows + 2 * reach * k + R - 1) / R;
+  if (warps > kTileWarps) return kInvalid;
   const long long strips = (nwords + kInterior - 1) / kInterior;
-  const long long warps = strips * ((rows + run_rows - 1) / run_rows);
-  const dim3 grid(static_cast<unsigned>((warps + kWarps - 1) / kWarps));
-  kernel<<<grid, kLanes * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(args...);
+  const dim3 grid(static_cast<unsigned>(strips * ((rows + tile_rows - 1) / tile_rows)));
+  kernel<<<grid, kLanes * warps, 0, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -639,71 +553,90 @@ int launch(Kernel kernel, int rows, int nwords, int run_rows, void* stream, Args
 extern "C" {
 
 // k masked life-like steps from src into dst (distinct int32[height,
-// nwords] buffers on the current device), in runs of run_rows rows, on
-// `stream`; compiled != 0 runs the instance with Conway's rule built in
-// (the rule must be Conway's), else the rule is `sop`.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for k outside [1, 32].
+// nwords] buffers on the current device) in tiles of tile_rows output
+// rows, warp_rows (4 or 8) rows a warp, on `stream`.  compiled != 0 runs
+// the instance with Conway's rule built in (the rule must be Conway's),
+// else the rule is `sop`.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for k outside [1, 32], another warp_rows or a tile
+// too tall for one block.
 int packed_stripe_multi_step(const void* src, void* dst, int height, int nwords, int rem_bits,
-                             int k, int run_rows, int compiled, const Sop* sop, void* stream) {
-  return pick_board(0, 1, k, compiled, [&](auto kernel) {
-    return launch(kernel, height, nwords, run_rows, stream, static_cast<const uint32_t*>(src),
-                  static_cast<uint32_t*>(dst), height, nwords, rem_bits, k, run_rows, 0u, *sop);
+                             int k, int tile_rows, int warp_rows, int compiled, const Sop* sop,
+                             void* stream) {
+  const auto s = static_cast<const uint32_t*>(src);
+  const auto d = static_cast<uint32_t*>(dst);
+  return with_warp_rows(warp_rows, [&](auto rc) {
+    constexpr int R = decltype(rc)::value;
+    return compiled
+               ? launch<R>(packed_stripe_kernel<R, ConwayRule>, height, nwords, tile_rows, 1, k,
+                           stream, s, d, height, nwords, rem_bits, k, tile_rows, 0u, *sop)
+               : launch<R>(packed_stripe_kernel<R, DataRule<false>>, height, nwords, tile_rows, 1,
+                           k, stream, s, d, height, nwords, rem_bits, k, tile_rows, 0u, *sop);
   });
 }
 
 // k masked von Neumann steps of `radius` 1 or 2 (k * radius <= 32), with
-// the centre in the count where `center` is not 0; buffers, runs and return
-// value as above.  The Sop's literals are the raw count's planes b0..b3 and
-// the cell.
+// the centre in the count where `center` is not 0; buffers, tiles and
+// return value as above.  The Sop's literals are the raw count's planes
+// b0..b3 and the cell.
 int packed_diamond_multi_step(const void* src, void* dst, int height, int nwords, int rem_bits,
-                              int k, int run_rows, int radius, int center, const Sop* sop,
-                              void* stream) {
+                              int k, int tile_rows, int warp_rows, int radius, int center,
+                              const Sop* sop, void* stream) {
+  const auto s = static_cast<const uint32_t*>(src);
+  const auto d = static_cast<uint32_t*>(dst);
   const uint32_t c = center ? kFull : 0u;
-  return pick_board(2, radius, k, 0, [&](auto kernel) {
-    return launch(kernel, height, nwords, run_rows, stream, static_cast<const uint32_t*>(src),
-                  static_cast<uint32_t*>(dst), height, nwords, rem_bits, k, run_rows, c, *sop);
+  return with_warp_rows(warp_rows, [&](auto rc) {
+    constexpr int R = decltype(rc)::value;
+    if (radius == 1) {
+      return launch<R>(packed_diamond_kernel<1, R>, height, nwords, tile_rows, 1, k, stream, s, d,
+                       height, nwords, rem_bits, k, tile_rows, c, *sop);
+    }
+    if (radius == 2) {
+      return launch<R>(packed_diamond_kernel<2, R>, height, nwords, tile_rows, 2, k, stream, s, d,
+                       height, nwords, rem_bits, k, tile_rows, c, *sop);
+    }
+    return kInvalid;
   });
 }
 
 // Kernel K3: k masked steps of one shard, from chunk (int32[rows, nwords],
 // board rows [row0 + fr, row0 + fr + rows)) and its halos top and bot
 // (int32[fr, nwords] each, fr = radius * k) into dst (int32[rows, nwords],
-// not chunk), in runs of run_rows rows, on `stream`.  mode 0: Moore,
-// clamped to `height` rows; mode 1: Moore on the torus of `width` columns
-// (rows are not masked); mode 2: the von Neumann diamond of `radius` 1 or
-// 2, clamped, with the centre in the count where `center` is not 0.
+// not chunk), in tiles as above, on `stream`.  mode 0: Moore, clamped to
+// `height` rows; mode 1: Moore on the torus of `width` columns (rows are
+// not masked); mode 2: the von Neumann diamond of `radius` 1 or 2,
+// clamped, with the centre in the count where `center` is not 0.
 // compiled != 0 (modes 0 and 1) runs Conway's rule built in.  Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for arguments outside these.
 int sharded_stripe_block(const void* top, const void* chunk, const void* bot, void* dst,
-                         int rows, int fr, int row0, int height, int width, int k, int run_rows,
-                         int mode, int radius, int center, int compiled, const Sop* sop,
-                         void* stream) {
+                         int rows, int fr, int row0, int height, int width, int k, int tile_rows,
+                         int warp_rows, int mode, int radius, int center, int compiled,
+                         const Sop* sop, void* stream) {
   if (rows < 1 || width < 1 || k < 1 || fr != radius * k || radius * k > 32) return kInvalid;
   const int nwords = (width + 31) / 32;
   const int rem_bits = width % 32;
   const uint32_t c = center ? kFull : 0u;
-  return pick_shard(mode, radius, k, compiled, [&](auto kernel) {
-    return launch(kernel, rows, nwords, run_rows, stream, static_cast<const uint32_t*>(top),
-                  static_cast<const uint32_t*>(chunk), static_cast<const uint32_t*>(bot),
-                  static_cast<uint32_t*>(dst), rows, fr, row0, height, width, nwords, rem_bits, k,
-                  run_rows, c, *sop);
+  const auto t = static_cast<const uint32_t*>(top);
+  const auto m = static_cast<const uint32_t*>(chunk);
+  const auto b = static_cast<const uint32_t*>(bot);
+  const auto d = static_cast<uint32_t*>(dst);
+  return with_warp_rows(warp_rows, [&](auto rc) {
+    constexpr int R = decltype(rc)::value;
+    auto go = [&](auto kernel) {
+      return launch<R>(kernel, rows, nwords, tile_rows, radius, k, stream, t, m, b, d, rows, fr,
+                       row0, height, width, nwords, rem_bits, k, tile_rows, c, *sop);
+    };
+    if (mode == 0 && radius == 1) {
+      return compiled ? go(sharded_stripe_kernel<false, R, ConwayRule>)
+                      : go(sharded_stripe_kernel<false, R, DataRule<false>>);
+    }
+    if (mode == 1 && radius == 1) {
+      return compiled ? go(sharded_stripe_kernel<true, R, ConwayRule>)
+                      : go(sharded_stripe_kernel<true, R, DataRule<false>>);
+    }
+    if (mode == 2 && radius == 1) return go(sharded_diamond_kernel<1, R>);
+    if (mode == 2 && radius == 2) return go(sharded_diamond_kernel<2, R>);
+    return kInvalid;
   });
-}
-
-// The warps of the kernel for (sharded, mode, radius, k, compiled) that
-// one SM holds at once (CUDA's occupancy calculator: registers, block
-// size); the arguments as above, sharded != 0 for K3.  A negative CUDA
-// error code on failure.
-int packed_stripe_warps_per_sm(int sharded, int mode, int radius, int k, int compiled) {
-  auto occupancy = [](auto kernel) {
-    int blocks = 0;
-    const cudaError_t err =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kLanes * kWarps, 0);
-    return err == cudaSuccess ? blocks * kWarps : -static_cast<int>(err);
-  };
-  const int got = sharded ? pick_shard(mode, radius, k, compiled, occupancy)
-                          : pick_board(mode, radius, k, compiled, occupancy);
-  return got == kInvalid ? -kInvalid : got;
 }
 
 }  // extern "C"

@@ -16,18 +16,18 @@ or the diamond step by the rule.
 
 What bounds the kernel on an H100 is integer issue (about 15 logic
 instructions a word and step for Conway, :func:`logic_ops_per_word_step`),
-so its design spends few instructions beyond those.  Each warp walks a run
-of rows of a 32-word strip and keeps the k substeps as a wavefront of
-levels in registers (no shared memory, no barrier); what the wrapper
-decides for it:
+so its design spends few instructions beyond those and keeps every row of
+a substep in registers: a warp owns a strip of 32 word columns, and a
+block keeps a tile of a strip's rows, four or eight a warp, computing all
+of them each substep (the CUDA source's note).  What the wrapper decides for a
+launch:
 
-- the run length (:func:`run_rows`): one wave of the card's resident
-  warps, runs at least four halos long, shorter on boards too small to fill
-  the card;
-- the kernel instance: the depth ceiling (:func:`depth_ceiling`, the
-  levels it keeps in registers) and, for the Moore mode, Conway's rule
-  compiled in where the rule's minimized SOP is Conway's
-  (:func:`compiled_rule`), else the rule as data (:func:`sop_table`).
+- the tile (:func:`tile_shape`): its output rows and the rows a warp keeps
+  (4 or 8, a kernel instance each), and so its warps and halo, sized to the
+  board;
+- the kernel instance: for the Moore mode, Conway's rule compiled in where
+  the rule's minimized SOP is Conway's (:func:`compiled_rule`), else the
+  rule as data (:func:`sop_table`).
 
 - :func:`packed_multi_step` launches the kernel for a CUDA tensor:
   ``steps // block_steps`` launches of ``block_steps`` substeps each, then
@@ -56,11 +56,10 @@ from tpu_life_torch.ops.boolmin import membership_rule_sop, rule_sop
 SOURCE = _build.CSRC / "packed_stripe.cu"
 MAX_BLOCK_STEPS = 32  # the one-word horizontal halo covers 32 cells of reach
 STRIP_WORDS = 30  # output words of a warp's strip: kInterior in the CUDA source
-CEILINGS = (4, 8, 16, 32)  # the depths the kernel instances keep in registers
-WAVE_WARPS = 16  # resident warps an SM counts for run_rows' wave, at most
 SCHEDULERS_PER_SM = 4  # warp schedulers of a Hopper SM
+SMALL_WARP_ROWS, LARGE_WARP_ROWS = 4, 8  # rows a warp keeps in a tile: the kernel's R
+TILE_WARPS = 32  # warps of a tile's block, at most: kTileWarps in the CUDA source
 CONWAY_SOP = ((7, 3), (23, 20))  # rule_sop of B3/S23, compiled into the Moore kernels
-MOORE, TORUS, DIAMOND = 0, 1, 2  # the kernels' modes (TORUS: K3 only)
 _MAX_TERMS = 32
 _LITERALS = 5
 _ALWAYS_EVALUATED = 2  # SOP terms the kernel evaluates without a test
@@ -175,18 +174,6 @@ def clamp_block_steps(rule: Rule, block_steps: int) -> int:
     return min(block_steps, MAX_BLOCK_STEPS // rule.radius)
 
 
-def depth_ceiling(block_steps: int, radius: int = 1) -> int:
-    """The kernel instance a launch of ``block_steps`` substeps runs: the
-    least of :data:`CEILINGS` (the levels it keeps in registers) that holds
-    them.  Raises past the clamp, ``32 // radius``."""
-    if not 1 <= block_steps <= MAX_BLOCK_STEPS // radius:
-        raise ValueError(
-            f"block_steps must be in [1, {MAX_BLOCK_STEPS // radius}] at radius {radius}, "
-            f"got {block_steps}"
-        )
-    return next(c for c in CEILINGS if c >= block_steps)
-
-
 def compiled_rule(rule: Rule) -> bool:
     """Whether the Moore kernels run ``rule`` with Conway's rule compiled
     in: a life-like rule (clamped or torus) whose minimized SOP is
@@ -196,23 +183,42 @@ def compiled_rule(rule: Rule) -> bool:
     return rule_sop(rule.birth, rule.survive) == CONWAY_SOP
 
 
-def run_rows(
-    block_steps: int, height: int, nwords: int, n_sm: int, warps_per_sm: int, radius: int = 1
-) -> int:
-    """Output rows of one warp's run.  A run recomputes ``radius *
-    block_steps`` halo rows at each end, so fewer, longer runs do less
-    work; each warp walks its run in order, so the runs must keep the card
-    busy.  The run is the shortest that gives one wave of ``warps_per_sm``
-    warps on each of ``n_sm`` SMs (one warp a run of a strip of
-    :data:`STRIP_WORDS` words), but at least four halos long, so the halo
-    stays a minor share of the work.  A board too small to fill the card
-    that way halves its runs (down to one row) while every warp still has a
-    warp scheduler of its own: there a run's time is its walk."""
+def tile_shape(
+    block_steps: int, height: int, nwords: int, n_sm: int, radius: int = 1
+) -> tuple[int, int]:
+    """``(tile_rows, warp_rows)`` of a launch: the output rows of one tile
+    (the rows a block computes for a strip, less its halo of ``radius *
+    block_steps`` rows at each end), and the rows each of its warps keeps.
+
+    A tile of ``w`` warps keeps ``w * warp_rows`` rows (at most
+    :data:`TILE_WARPS` warps) and its warps share their SM's
+    :data:`SCHEDULERS_PER_SM` warp schedulers.  Taller tiles recompute less
+    halo; shorter ones, and fewer rows a warp, put less on each scheduler.
+    So:
+
+    - a board whose runs of two halos (``2 * radius * block_steps`` rows)
+      give no more warps than the card has schedulers cannot fill the card
+      anyway: its time is the critical path, and it takes
+      :data:`SMALL_WARP_ROWS` rows a warp and the tile whose blocks put the
+      fewest warps on a scheduler, ties to the fewer warps;
+    - a larger board takes :data:`LARGE_WARP_ROWS` rows a warp and the
+      fewest warps (4, 8, 16 or 32) whose halo is at most a sixth of their
+      rows, so that several blocks share an SM and hide each other's
+      loads."""
+    halo = 2 * radius * block_steps
     strips = -(-nwords // STRIP_WORDS)
-    rows = max(-(-height // max(1, n_sm * warps_per_sm // strips)), 4 * radius * block_steps)
-    while rows > 1 and strips * -(-height // -(-rows // 2)) <= SCHEDULERS_PER_SM * n_sm:
-        rows = -(-rows // 2)
-    return min(rows, height)
+    if strips * -(-height // halo) <= SCHEDULERS_PER_SM * n_sm:
+        r, best = SMALL_WARP_ROWS, None
+        for warps in range(halo // r + 1, TILE_WARPS + 1):
+            rows = min(warps * r - halo, height)
+            per_scheduler = (-(-strips * -(-height // rows) // n_sm)
+                             * -(-warps // SCHEDULERS_PER_SM))
+            if best is None or per_scheduler < best[0]:
+                best = (per_scheduler, rows)
+        return best[1], r
+    r = LARGE_WARP_ROWS
+    warps = next((w for w in (4, 8, 16) if 6 * halo <= w * r), TILE_WARPS)
+    return min(warps * r - halo, height), r
 
 
 def build() -> Path:
@@ -224,7 +230,7 @@ def build() -> Path:
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
-    ints = [ctypes.c_int] * 5  # height, nwords, rem_bits, k, run_rows
+    ints = [ctypes.c_int] * 6  # height, nwords, rem_bits, k, tile_rows, warp_rows
     for fn, mode in ((lib.packed_stripe_multi_step, [ctypes.c_int]),  # compiled
                      (lib.packed_diamond_multi_step, [ctypes.c_int] * 2)):  # radius, center
         fn.argtypes = [
@@ -233,14 +239,12 @@ def _library() -> ctypes.CDLL:
         ]
         fn.restype = ctypes.c_int
     # kernel K3 (kernels/sharded_stripe.py): top, chunk, bot, dst; rows, fr,
-    # row0, height, width, k, run_rows, mode, radius, center, compiled; sop,
-    # stream
+    # row0, height, width, k, tile_rows, warp_rows, mode, radius, center,
+    # compiled; sop, stream
     lib.sharded_stripe_block.argtypes = [
-        *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 11, ctypes.POINTER(_Sop), ctypes.c_void_p,
+        *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 12, ctypes.POINTER(_Sop), ctypes.c_void_p,
     ]
     lib.sharded_stripe_block.restype = ctypes.c_int
-    lib.packed_stripe_warps_per_sm.argtypes = [ctypes.c_int] * 5
-    lib.packed_stripe_warps_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -250,32 +254,16 @@ def cached_sop_table(rule: Rule) -> _Sop:
     return sop_table(rule)
 
 
-def launch_run_rows(
-    sharded: bool, mode: int, rule: Rule, k: int, rows: int, nwords: int, compiled: bool
-) -> int:
-    """:func:`run_rows` of one launch of ``k`` substeps over ``rows`` x
-    ``nwords`` words on the current card, for the kernel instance it runs."""
-    ceiling = depth_ceiling(k, rule.radius)
-    warps = warps_per_sm(sharded, mode, rule.radius, ceiling, compiled)
-    return run_rows(k, rows, nwords, sm_count(torch.cuda.current_device()), warps, rule.radius)
+def launch_tile_shape(rule: Rule, k: int, rows: int, nwords: int) -> tuple[int, int]:
+    """:func:`tile_shape` of one launch of ``k`` substeps over ``rows`` x
+    ``nwords`` words on the current card."""
+    return tile_shape(k, rows, nwords, sm_count(torch.cuda.current_device()), rule.radius)
 
 
 @functools.cache
 def sm_count(device: int) -> int:
     """The SMs of card ``device``."""
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-@functools.cache
-def warps_per_sm(sharded: bool, mode: int, radius: int, ceiling: int, compiled: bool) -> int:
-    """The warps of one kernel instance that an SM of the current card holds
-    at once (CUDA's occupancy calculator), at most :data:`WAVE_WARPS`: the
-    wave :func:`run_rows` fills.  ``mode``: :data:`MOORE`, :data:`TORUS`
-    or :data:`DIAMOND`."""
-    got = _library().packed_stripe_warps_per_sm(int(sharded), mode, radius, ceiling, int(compiled))
-    if got <= 0:
-        raise RuntimeError(f"packed_stripe_warps_per_sm failed: CUDA error {-got}")
-    return min(got, WAVE_WARPS)
 
 
 def _check(x: torch.Tensor, logical_shape: tuple[int, int], name: str) -> None:
@@ -354,10 +342,9 @@ def packed_multi_step(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for k in ks:
-            rows = launch_run_rows(False, DIAMOND if diamond else MOORE, rule, k, lh, nwords, compiled)
             err = fn(
-                src.data_ptr(), dst.data_ptr(), lh, nwords, lw % bitlife.WORD, k, rows, *mode,
-                ctypes.byref(sop), stream,
+                src.data_ptr(), dst.data_ptr(), lh, nwords, lw % bitlife.WORD, k,
+                *launch_tile_shape(rule, k, lh, nwords), *mode, ctypes.byref(sop), stream,
             )
             if err != 0:
                 raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")

@@ -5,13 +5,12 @@ Replaces the TPU kernel ``make_pallas_sharded_stripe_block`` and its body
 (``tpu_life/backends/pallas_backend.py``): the per-shard stepper of the
 sharded backend for packed rules.  It is K1 per shard and lives in K1's
 source, ``tpu_life_torch/csrc/packed_stripe.cu`` (``sharded_stripe_kernel``
-and ``sharded_diamond_kernel``), running K1's wavefront (``walk_run``) over
-the shard's three buffers; it is built with K1 by ``nvcc`` for ``sm_90a``
-at first use and called through ``ctypes``.  As K1 it is bound by integer
-issue; the wrapper picks its run length for the shard's rows
-(``packed_stripe.run_rows``: one wave of resident warps, so a shard's
-launch has no second wave) and, in the Moore modes, Conway's rule compiled
-in where the rule's minimized SOP is Conway's.
+and ``sharded_diamond_kernel``), running K1's register tiles over the
+shard's three buffers; it is built with K1 by ``nvcc`` for ``sm_90a`` at
+first use and called through ``ctypes``.  As K1 it is bound by integer
+issue; the wrapper sizes its tiles to the shard's rows as K1's does
+(``packed_stripe.tile_shape``) and, in the Moore modes, picks Conway's rule
+compiled in where the rule's minimized SOP is Conway's.
 
 The function both versions compute: ``block(top, chunk, bot, row0) ->
 chunk'``, ``block_steps`` steps of one shard's packed chunk
@@ -43,7 +42,7 @@ from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.ops import bitlife
 from tpu_life_torch.parallel import halo
 
-MOORE, TORUS, DIAMOND = packed_stripe.MOORE, packed_stripe.TORUS, packed_stripe.DIAMOND
+MOORE, TORUS, DIAMOND = 0, 1, 2  # the kernel's modes (sharded_stripe_block's `mode`)
 
 
 def mode_of(rule: Rule) -> int:
@@ -140,11 +139,11 @@ def sharded_stripe_block(
     compiled = packed_stripe.compiled_rule(rule)
     lib = packed_stripe._library()
     with torch.cuda.device(chunk.device):
-        rows = packed_stripe.launch_run_rows(True, mode, rule, block_steps, hl, nwords, compiled)
+        tiles = packed_stripe.launch_tile_shape(rule, block_steps, hl, nwords)
         stream = torch.cuda.current_stream(chunk.device).cuda_stream
         err = lib.sharded_stripe_block(
             top.data_ptr(), chunk.data_ptr(), bot.data_ptr(), out.data_ptr(),
-            hl, fr, row0, lh, lw, block_steps, rows, mode, rule.radius,
+            hl, fr, row0, lh, lw, block_steps, *tiles, mode, rule.radius,
             int(rule.include_center), int(compiled),
             ctypes.byref(packed_stripe.cached_sop_table(rule)), stream,
         )
