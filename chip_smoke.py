@@ -13,13 +13,13 @@ Phases (any failure exits non-zero and prints no result line):
    ``tpu_life_torch/csrc`` (one nvcc each, started together, at first use),
    prints the build seconds and each ptxas report; for every instance of
    K1 and K3 (Moore with Conway's rule compiled in and with the rule as
-   data, clamped and on the torus, and the diamonds at radius 1 and 2)
-   and for K2 and K4 it prints the registers and fails on spill
-   stores or loads; it counts ``LOP3``, ``SHF``, ``SHFL``, ``LDS``,
-   ``STS``, ``BAR`` and all instructions in each K1 and K3 instance's SASS
-   and the shared-memory loads, stores and asynchronous copies (``LDS``,
-   ``STS``, ``LDGSTS``) in K2's and K4's (``cuobjdump -sass`` on the built
-   libraries), and prints K5's registers;
+   data, clamped and on the torus, and the diamonds at radius 1 and 2),
+   of K5 (built with them, at 4 and 8 rows a warp) and for K2 and K4 it
+   prints the registers and fails on spill stores or loads; it counts
+   ``LOP3``, ``SHF``, ``SHFL``, ``LDS``, ``STS``, ``BAR`` and all
+   instructions in each K1, K3 and K5 instance's SASS and the shared-memory
+   loads, stores and asynchronous copies (``LDS``, ``STS``, ``LDGSTS``) in
+   K2's and K4's (``cuobjdump -sass`` on the built libraries);
 3. kernel vs plain — holds each kernel bit-identical (``torch.equal``) to
    its plain PyTorch version on the card (K3 and K4 below the list): K1
    over Conway (its compiled rule) and three life-like rules it runs as
@@ -98,8 +98,10 @@ Phases (any failure exits non-zero and prints no result line):
 10. kernel K5 (the int8 Conway block kernel of the experiment) — K5
    bit-identical to its plain version over the TPU kernel's domain (k < bh,
    k = bh, a block and its halos filling the board, (n, n/2, n/4) in one and
-   in 32 launches, sides not a multiple of 4, 8192^2 and 16384^2, boards
-   random and with all four edges live), and to K2 running ``conway`` at
+   in 32 launches, sides not a multiple of 4 and sides that take 8- and
+   4-byte loads, 8192^2 and 16384^2, boards random and with all four edges
+   live; boards at byte offsets that take 1-, 4- and 8-byte loads), and to
+   K2 running ``conway`` at
    the same k on the same 8192^2 and 16384^2 boards; every shape outside the
    domain refused; ``tpu_life_torch.experiments.block_bench`` at its
    defaults (n=8192, bh=256, k=8, outer=10) in process, with K5's launch
@@ -107,7 +109,7 @@ Phases (any failure exits non-zero and prints no result line):
    subprocess, each printing ``correct after 16 steps: True``; K5 timed at
    8192^2 and 16384^2 (k = 8) with CUDA events and the profiler's kernel
    records beside its bound, its plain version and K2's ``conway`` launch
-   on the same board;
+   on the same board, with the tiles ``conway_block.tile_shape`` picks;
 11. the seeded-board, ``gen``, ``pattern`` and ``--bug-compat`` paths —
    ``run --size 4096 --steps 256 --seed 7`` (K1) and ``--rule brians_brain
    --steps 64`` (K2), each held to ``--backend torch``'s bytes, and at 512^2
@@ -224,10 +226,14 @@ K4_DEPTHS = (1, 2, BLOCK_STEPS)
 # below bh, k = bh (the edge blocks' halos reach the whole next block), a
 # block and its halos filling the board, (n, n/2, n/4) at one launch of the
 # deepest k and at several launches, sides not a multiple of 4 (byte loads),
-# the experiment's defaults and the full side
+# 8- and 4-byte loads (1000 and 996, each with a partial last word), the
+# experiment's defaults and the full side
 K5_CASES = [(32, 16, 8), (48, 16, 3), (64, 16, 16), (64, 16, 4), (96, 32, 8), (128, 64, 32),
             (512, 256, 128), (4096, 2048, 1024), (9, 3, 1), (45, 15, 5), (999, 333, 33),
-            (1000, 200, 37), (8192, 256, 8), (FULL, 512, 8)]
+            (1000, 200, 37), (996, 332, 33), (8192, 256, 8), (FULL, 512, 8)]
+# K5 on a board at these byte offsets into its buffer (n, bh, k = 96, 32,
+# 8): loads and stores of 1, 4 and 8 bytes where the side allows 16
+K5_OFFSETS = (1, 4, 8)
 # shapes outside the domain, which K5 must refuse: bh not dividing n, k past
 # bh (the TPU kernel's wrong board), bh + 2k past n (it does not trace), k = 0
 # K5 held to K2's conway and timed at these sides
@@ -259,14 +265,15 @@ K2_WIDE = [
 ]
 # the shared-memory instructions counted in K2's and K4's SASS
 SASS_OPS = ("LDS", "STS", "LDGSTS")
-# the instructions counted in the SASS of every K1 and K3 instance (and the
-# total): logic, funnel shifts, shuffles, shared memory and barriers
+# the instructions counted in the SASS of every K1, K3 and K5 instance (and
+# the total): logic, funnel shifts, shuffles, shared memory and barriers
 K1_SASS_OPS = ("LOP3", "SHF", "SHFL", "LDS", "STS", "BAR")
 # every kernel instance packed_stripe.cu builds (label, pattern of its
 # mangled name): K1 Moore and K3 Moore (clamped, torus) with Conway's rule
-# compiled in and with the rule as data, and the diamonds at radius 1 and 2,
-# each at 4 and 8 rows a warp
-K1_K3_INSTANCES = [
+# compiled in and with the rule as data, the diamonds at radius 1 and 2,
+# and K5, each at 4 and 8 rows a warp
+K5_MAIN = "K5 conway_int8_kernel<8>"
+STRIPE_INSTANCES = [
     *[(f"K1 packed_stripe_kernel<{n}, {r}Rule>", rf"packed_stripe_kernelILi{n}E\w*{r}Rule")
       for n in (4, 8) for r in ("Conway", "Data")],
     *[(f"K1 packed_diamond_kernel<{rad}, {n}>", rf"packed_diamond_kernelILi{rad}ELi{n}E")
@@ -276,6 +283,7 @@ K1_K3_INSTANCES = [
       for t in ("false", "true") for n in (4, 8) for r in ("Conway", "Data")],
     *[(f"K3 sharded_diamond_kernel<{rad}, {n}>", rf"sharded_diamond_kernelILi{rad}ELi{n}E")
       for rad in (1, 2) for n in (4, 8)],
+    *[(f"K5 conway_int8_kernel<{n}>", rf"conway_int8_kernelILi{n}E") for n in (4, 8)],
 ]
 
 
@@ -365,21 +373,20 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
-        libs = list(pool.map(lambda m: m.build(), (ps, kt, k5)))
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        libs = list(pool.map(lambda m: m.build(), (ps, kt)))
     ps._library()
     kt._library()
-    k5._library()
     print(f"build: {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
         print((lib.parent / "build.log").read_text().strip(), flush=True)
-    # K1 and K3 share the tiles: one instance per kernel and (Moore) rule;
-    # registers, no spill, and their SASS counts
+    # K1, K3 and K5 share the tiles: one instance per kernel and (Moore)
+    # rule; registers, no spill, and their SASS counts
     k1_report = ptxas_report(libs[0])
     k1_sass = sass_counts_of(libs[0])
     k1_instances = {}
-    for label, pattern in K1_K3_INSTANCES:
+    for label, pattern in STRIPE_INSTANCES:
         names = [n for n in k1_report if re.search(pattern, n)]
         if len(names) != 1:
             fail(f"the ptxas report of packed_stripe.cu names {len(names)} kernels for {label}")
@@ -389,9 +396,9 @@ def main() -> int:
         if names[0] not in k1_sass:
             fail(f"cuobjdump -sass of {libs[0].name} does not name {label}")
         k1_instances[label] = dict(registers=regs, sass=k1_sass[names[0]])
-    if len(k1_report) != len(K1_K3_INSTANCES):
-        fail(f"packed_stripe.cu builds {len(k1_report)} kernels, want {len(K1_K3_INSTANCES)}")
-    print(f"K1 and K3 (ptxas, cuobjdump -sass): {len(k1_instances)} instances, no spill; "
+    if len(k1_report) != len(STRIPE_INSTANCES):
+        fail(f"packed_stripe.cu builds {len(k1_report)} kernels, want {len(STRIPE_INSTANCES)}")
+    print(f"K1, K3 and K5 (ptxas, cuobjdump -sass): {len(k1_instances)} instances, no spill; "
           f"registers and SASS ({', '.join(K1_SASS_OPS)}, total):", flush=True)
     for label, inst in k1_instances.items():
         print(f"  {label}: {inst['registers']} registers; "
@@ -422,12 +429,6 @@ def main() -> int:
         f"{kernel} {registers[kernel]} registers, no spill, SASS "
         + ", ".join(f"{op} {n}" for op, n in sass_counts[kernel].items())
         for kernel in ("int8_tiled_kernel", "sharded_int8_kernel")), flush=True)
-    k5_report = re.search(r"Compiling entry function '\w*conway_block_kernel\w*'.*?Used (\d+) registers[^\n]*",
-                          (libs[2].parent / "build.log").read_text(), re.S)
-    if k5_report is None:
-        fail("the ptxas report of conway_block.cu does not name conway_block_kernel")
-    k5_registers = int(k5_report.group(1))
-    print(f"registers: K5 (conway_block_kernel) {k5_registers}", flush=True)
 
     def words(board):
         return torch.from_numpy(bitlife.pack_np(board).view(np.int32).copy()).to(dev)
@@ -1536,6 +1537,20 @@ def main() -> int:
             if err or not torch.equal(x, cells(board)):
                 fail(f"K5 != plain (or its input changed): n={n}, bh={bh}, k={k}, edges={edges}")
         del x, got
+    for offset in K5_OFFSETS:
+        n, bh, k = 96, 32, BLOCK_STEPS
+        buf = torch.zeros(n * n + 16, dtype=torch.int8, device=dev)
+        x = buf[offset:offset + n * n].view(n, n)
+        x.copy_(cells(rng.integers(0, 2, size=(n, n), dtype=np.int8)))
+        out = torch.zeros_like(buf)[offset:offset + n * n].view(n, n)
+        got = k5.conway_block(x, bh, k, out=out)
+        err = int8_err(got, k5.conway_block_plain(x, k))
+        torch.cuda.synchronize()
+        k5_max_err = max(k5_max_err, err)
+        k5_cases += 1
+        if err:
+            fail(f"K5 != plain on a board at byte offset {offset}: n={n}, bh={bh}, k={k}")
+    del buf, x, out, got
     for n, bh, k in K5_REFUSED:
         try:
             k5.conway_block(torch.zeros((n, n), dtype=torch.int8, device=dev), bh, k)
@@ -1553,7 +1568,8 @@ def main() -> int:
             fail(f"K5 != K2 (conway, k={BLOCK_STEPS}) at {n}^2")
         k5_vs_k2[n] = x
     print(f"kernel vs plain: K5 bit-identical to its plain version in {k5_cases} cases "
-          f"(n, bh, k) = {K5_CASES}, boards random and with all four edges live, and to K2's "
+          f"(n, bh, k) = {K5_CASES}, boards random and with all four edges live, and boards at "
+          f"byte offsets {K5_OFFSETS}; and to K2's "
           f"conway at k={BLOCK_STEPS} on {' and '.join(f'{n}^2' for n in K5_SIDES)}; "
           f"{len(K5_REFUSED)} shapes outside "
           f"the domain refused ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1588,8 +1604,8 @@ def main() -> int:
         memory rate and the fewest operations k Conway steps need, K1's
         bit-sliced logic ops a 32-cell word and step (one more per step on
         each row's partial last word, for the mask), over the integer issue
-        rate.  K5's own design issues more (3 ops a cell and step); the
-        bound counts the function, not the design."""
+        rate.  K5 issues more (the packing, K1's instructions beyond the
+        15 and its halo); the bound counts the function, not the design."""
         mem_ms = 2 * n * n / HBM_BYTES_PER_S * 1e3
         ops = k5_ops_per_word * n * bitlife.packed_width(n) * k + (n * k if n % bitlife.WORD else 0)
         ops_ms = ops / int_ops_per_s * 1e3
@@ -1601,7 +1617,7 @@ def main() -> int:
         launch = pingpong(lambda a, b: k5.conway_block(a, 256, k, out=b), x.clone())
         reps = 40 if n == FULL else 100
         k5_ms = cuda_ms(launch, reps)
-        k5_dev_ms = profiled_ms(launch, "conway_block_kernel", reps // 2)
+        k5_dev_ms = profiled_ms(launch, "conway_int8_kernel", reps // 2)
         k2_launch = pingpong(lambda a, b: kt.int8_multi_step(a, conway, (n, n), k, block_steps=k,
                                                              scratch=b), x.clone())
         k2_ms = cuda_ms(k2_launch, reps // 4)
@@ -1612,7 +1628,11 @@ def main() -> int:
         k5_rows[n] = dict(ms=k5_ms, ms_again=k5_ms_again, device_ms=k5_dev_ms, k2_ms=k2_ms,
                           k2_device_ms=k2_dev_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound_ms,
                           bound_by=k5_bound_by)
-        print(f"timing K5 {n}^2 conway, k={k}, {k5.TILE_ROWS}x{k5.tile_cols(k)} tiles: kernel "
+        tile_rows, warp_rows = k5.tile_shape(n, k, n_sm)
+        strips = -(-bitlife.packed_width(n) // ps.STRIP_WORDS)
+        print(f"timing K5 {n}^2 conway, k={k}, tiles of {tile_rows} rows, {warp_rows} rows a warp "
+              f"({-(-(tile_rows + 2 * k) // warp_rows)} warps), {strips} strips of "
+              f"{ps.STRIP_WORDS} words: kernel "
               f"{k5_ms:.4f} and {k5_ms_again:.4f} ms/launch by CUDA events (before and after K2; "
               f"{n * n * k / (k5_ms * 1e-3):.4e} cells/s, {k5_bound_ms / k5_ms:.1%} of the bound); "
               f"device time {fmt(k5_dev_ms)} ms/launch (profiler kernel records); K2 conway on the "
@@ -1835,7 +1855,7 @@ def main() -> int:
     }, {
         "name": "conway_block",
         "route": "cuda",
-        "source": "tpu_life_torch/csrc/conway_block.cu",
+        "source": "tpu_life_torch/csrc/packed_stripe.cu",
         "replaces": "experiments/pallas_bench.py:93",
         "launches": k5_main_launches,
         "max_abs_err": k5_max_err,
@@ -1851,7 +1871,9 @@ def main() -> int:
         "bound_by": k5_rows[K5_SIDES[0]]["bound_by"],
         "library_ms": None,
         "k2_conway_ms": k5_rows[K5_SIDES[0]]["k2_ms"],
-        "registers": k5_registers,
+        "full_device_ms": k5_rows[FULL]["device_ms"],
+        "instance": K5_MAIN,
+        **k1_instances[K5_MAIN],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

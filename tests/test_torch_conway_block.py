@@ -2,8 +2,13 @@
 (``experiments/pallas_bench.py``: ``make_kernel`` with ``conway_pallas``'s
 specs, in Pallas interpret mode on the CPU) and the numpy oracle, on
 boards from ``np.random.default_rng``; every comparison is exact.  Also
-the wrapper's domain, its CPU path, and the port's experiment
+the wrapper's domain, its CPU path, its tiles and launch split, a numpy
+model of the kernel's int8 rows policy (``Int8Io`` in
+``csrc/packed_stripe.cu``: bytes packed to bits as they load, unpacked as
+they store) against ``bitlife.pack_np``, and the port's experiment
 (``tpu_life_torch.experiments.block_bench``)."""
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -18,10 +23,13 @@ from tpu_life.models.rules import get_rule as jget_rule
 from tpu_life.ops.reference import run_np as jrun_np
 from tpu_life_torch.experiments import block_bench
 from tpu_life_torch.kernels import conway_block as k5
+from tpu_life_torch.kernels import packed_stripe as ps
+from tpu_life_torch.ops import bitlife
 
 # (n, bh, k): k < bh, k == bh (the edge blocks' halos reach the whole
 # neighbouring block), a block and its halos filling the board (32, 16, 8)
 CASES = [(32, 16, 8), (48, 16, 3), (64, 16, 4), (64, 16, 16), (96, 32, 8)]
+H100_SMS = 132
 
 
 def _jax_conway_block(n, bh, k):
@@ -97,15 +105,116 @@ def test_cpu_wrapper_runs_the_plain_version_and_launches_nothing():
     assert torch.equal(board, torch.from_numpy(_board(64, seed=5)))  # x left as it was
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 31, k5.MAX_DEPTH])
-def test_tile_columns_leave_a_halo_of_k_in_whole_words(k):
-    # the window's columns beside the tile are a whole number of 4-cell
-    # words and at least k on each side: a launch's k substeps keep the
-    # tile exact
-    cols = k5.tile_cols(k)
-    assert cols > 0 and cols % 4 == 0
-    halo = (k5.WINDOW_COLS - cols) // 2
-    assert halo >= k and halo % 4 == 0 and halo < k + 4
+# the sides K5 runs at: odd (byte loads), 1000 (8-byte loads, a partial
+# last word), the experiment's default and the full side
+@pytest.mark.parametrize("n", [9, 1000, 8192, 16384])
+def test_tile_pick_fits_one_block_at_every_depth(n):
+    for k in range(1, k5.MAX_DEPTH + 1):
+        rows, warp_rows = k5.tile_shape(n, k, H100_SMS)
+        assert warp_rows in (ps.SMALL_WARP_ROWS, ps.LARGE_WARP_ROWS)
+        assert 1 <= rows <= n
+        assert -(-(rows + 2 * k) // warp_rows) <= ps.TILE_WARPS, (n, k)
+
+
+# on a board that fills the card, the fewest rows (never under 16) whose
+# halo of 2k rows is at most a quarter of them, 8 rows a warp from 32 rows
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16, 32])
+def test_tile_pick_on_a_full_board_keeps_the_halo_a_quarter_of_the_rows(k):
+    for n in (8192, 16384):
+        rows, warp_rows = k5.tile_shape(n, k, H100_SMS)
+        assert rows + 2 * k == max(16, 8 * k)
+        assert warp_rows == (ps.SMALL_WARP_ROWS if rows + 2 * k == 16 else ps.LARGE_WARP_ROWS)
+
+
+@pytest.mark.parametrize(
+    "k,want",
+    [(1, [1]), (8, [8]), (32, [32]), (33, [32, 1]), (37, [32, 5]), (128, [32] * 4),
+     (1024, [32] * 32)],
+)
+def test_launch_depths_split_past_max_depth(k, want):
+    assert k5.MAX_DEPTH == 32
+    assert k5.launch_depths(k) == want
+
+
+def _int8io_constants():
+    """The multipliers and mask of ``Int8Io``'s pack and unpack, read from
+    the CUDA source."""
+    src = ps.SOURCE.read_text()
+    return {
+        name: int(re.search(rf"constexpr uint32_t {name} = (0x[0-9A-Fa-f]+)u;", src).group(1), 16)
+        for name in ("kPackMul", "kUnpackMul", "kByteOnes")
+    }
+
+
+def _pack4(w, c):
+    return (int(w) * c["kPackMul"] & 0xFFFFFFFF) >> 24
+
+
+def _unpack4(nib, c):
+    return int(nib) * c["kUnpackMul"] & c["kByteOnes"] & 0xFFFFFFFF
+
+
+def _load_row(row, vec, c):
+    """``Int8Io::load`` over every word column of one int8 row: groups of
+    ``vec`` bytes (4-byte words read little-endian, 4 bits each), group g's
+    bits at ``vec * g``; single bytes at their own bit."""
+    words = []
+    for gw in range(-(-row.size // 32)):
+        seg = row[32 * gw:32 * gw + 32]
+        v = 0
+        if vec == 1:
+            for b, cell in enumerate(seg):
+                v |= int(cell) << b
+        else:
+            for g in range(seg.size // vec):
+                quads = np.ascontiguousarray(seg[vec * g:vec * (g + 1)]).view("<u4")
+                bits = 0
+                for i, w in enumerate(quads):
+                    bits |= _pack4(w, c) << (4 * i)
+                v |= bits << (vec * g)
+        words.append(v)
+    return np.array(words, dtype=np.uint32)
+
+
+def _store_row(words, n, vec, c):
+    """``Int8Io::store`` of every word column: the n bytes of the row."""
+    out = np.zeros(n, dtype=np.int8)
+    for gw, v in enumerate(int(w) for w in words):
+        count = min(32, n - 32 * gw)
+        if vec == 1:
+            for b in range(count):
+                out[32 * gw + b] = v >> b & 1
+            continue
+        for g in range(count // vec):
+            h = v >> (vec * g)
+            quads = [_unpack4(h >> (4 * i) & 0xF, c) for i in range(vec // 4)]
+            at = 32 * gw + vec * g
+            out[at:at + vec] = np.array(quads, dtype="<u4").view(np.int8)
+    return out
+
+
+def test_int8io_pack_and_unpack_round_trip_every_four_cell_pattern():
+    c = _int8io_constants()
+    for pattern in range(16):
+        cells = np.array([pattern >> b & 1 for b in range(4)], dtype=np.int8)
+        word = int(cells.view("<u4")[0])
+        assert _pack4(word, c) == pattern
+        assert _unpack4(pattern, c) == word
+
+
+# n % 32 of 0, 1, 31, 8 and 4; every load width that divides n, as the
+# boards' addresses allow
+@pytest.mark.parametrize("n", [64, 65, 95, 1000, 996])
+def test_int8io_rows_equal_pack_np(n):
+    c = _int8io_constants()
+    rows = np.random.default_rng(n).integers(0, 2, size=(6, n), dtype=np.int8)
+    rows[0] = 1  # every cell live, the last partial word's top bits included
+    want = bitlife.pack_np(rows)
+    for vec in (v for v in (16, 8, 4, 1) if n % v == 0):
+        for row, packed in zip(rows, want):
+            words = _load_row(row, vec, c)
+            np.testing.assert_array_equal(words, packed)
+            np.testing.assert_array_equal(_store_row(words, n, vec, c), row)
 
 
 def test_block_bench_on_the_cpu(capsys):

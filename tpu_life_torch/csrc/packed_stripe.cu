@@ -1,15 +1,22 @@
 // Bit-sliced multi-step kernels for Hopper (sm_90a): the life-like Moore
-// step and the von Neumann diamond, on one board (K1) and on one shard (K3).
+// step and the von Neumann diamond, on one board (K1) and on one shard (K3),
+// and Conway's step on an int8 board (K5).
 //
-// Replaces two TPU kernels of tpu_life/backends/pallas_backend.py:
-// - make_pallas_packed_multi_step with its body _packed_tile_advance (K1):
-//   the Moore mode by packed_stripe_kernel, the diamond mode (the branch of
-//   that body that plugs shift-by-k planes into
-//   bitlife.make_packed_diamond_step) by packed_diamond_kernel;
-// - make_pallas_sharded_stripe_block (K3), the same body with a shard's
-//   row0, by sharded_stripe_kernel (Moore, clamped or torus) and
-//   sharded_diamond_kernel.
-// Each computes `k` masked steps of a packed bitboard, each step equal to
+// Replaces three TPU kernels:
+// - make_pallas_packed_multi_step with its body _packed_tile_advance (K1,
+//   tpu_life/backends/pallas_backend.py): the Moore mode by
+//   packed_stripe_kernel, the diamond mode (the branch of that body that
+//   plugs shift-by-k planes into bitlife.make_packed_diamond_step) by
+//   packed_diamond_kernel;
+// - make_pallas_sharded_stripe_block (K3, same file), the same body with a
+//   shard's row0, by sharded_stripe_kernel (Moore, clamped or torus) and
+//   sharded_diamond_kernel;
+// - conway_pallas / make_kernel with its substep _life_substep (K5,
+//   experiments/pallas_bench.py) by conway_int8_kernel: the Moore tiles
+//   with Conway's rule compiled in, on a board of one int8 byte a cell
+//   that the rows policy (Int8Io) packs to bits as it loads and unpacks as
+//   it stores.
+// K1 and K3 compute `k` masked steps of a packed bitboard, each step equal to
 // bitlife.make_masked_packed_step on the whole board: 32 cells per 32-bit
 // word, bit b of word j is column 32*j + b, int32[H, ceil(W/32)] with no
 // frame.  Cells outside rows [0, H) or past column W are dead.
@@ -86,6 +93,19 @@
 //   width, stitched across the seam (wrapped_word).  Every lane then holds
 //   real cells, the shifts are exact at the seam, nothing is masked during
 //   the substeps, and the store clears the padding bits of the last word.
+//
+// Kernel K5 computes k clamped Conway steps of a contiguous int8[n, n]
+// board of cells 0 and 1 (another value is not valid input) in one launch,
+// what the TPU kernel computes on its domain.  Its bound on an H100 is the
+// bytes, one read and one write a cell a launch (2n^2 bytes against about
+// half an instruction a cell and step bit-sliced).  So it runs K1's tiles
+// unchanged and differs only in its rows policy (Int8Io): a lane loads the
+// 32 bytes of its word column and packs them to the word's bits, 4 bytes
+// by a multiply and a shift; the store unpacks each 4 bits by a multiply
+// and a mask.  The loads and stores are the widest the row's alignment
+// allows (16, 8 or 4 bytes, else single bytes), two 16-byte loads a lane
+// at a 32-byte stride, read through L1.  The masks are K1's, applied after
+// every substep: the TPU kernel's row mask (`valid`) and column mask.
 
 #include <cstdint>
 #include <type_traits>
@@ -99,6 +119,10 @@ constexpr int kTileWarps = 32;           // warps of a tile's block, at most
 constexpr int kMaxTerms = 32;            // products in a rule's SOP, at most
 constexpr int kLiterals = 5;             // b0, b1, b2, b3, x
 constexpr unsigned kFull = 0xFFFFFFFFu;
+// K5's bytes to bits and back, 4 cells at a time (Int8Io)
+constexpr uint32_t kPackMul = 0x01020408u;    // byte b to bit 24 + b
+constexpr uint32_t kUnpackMul = 0x00204081u;  // bit b to bit 8b
+constexpr uint32_t kByteOnes = 0x01010101u;
 
 }  // namespace
 
@@ -397,6 +421,94 @@ struct ShardIo {
   }
 };
 
+// Four cells of bytes 0 and 1 (the first in the low byte) to four bits,
+// the first in bit 0: the product's byte 3 is b0 + 2 b1 + 4 b2 + 8 b3, and
+// no lower byte sums past 255 to carry into it.
+__device__ __forceinline__ uint32_t pack4(uint32_t w) { return (w * kPackMul) >> 24; }
+
+// Bits 0..3 of `nib` (the rest zero) to four bytes 0 and 1: the product
+// holds nib at bits 0, 7, 14 and 21 without overlap, so bit b lands alone
+// at 8b.
+__device__ __forceinline__ uint32_t unpack4(uint32_t nib) { return (nib * kUnpackMul) & kByteOnes; }
+
+// K5: one int8 board of n x n cells, word column gw being the bytes of
+// columns 32 gw .. 32 gw + 31 of a row (fewer in a partial last word);
+// zero outside it.  `vec`: the bytes a load or store moves (16, 8, 4 or 1),
+// which divides n and the alignment of both boards.
+struct Int8Io {
+  const int8_t* src;
+  int8_t* dst;
+  int n;
+  int vec;
+
+  __device__ __forceinline__ uint32_t load(int row, int gw, int nwords) const {
+    if (gw < 0 || gw >= nwords || row < 0 || row >= n) return 0u;
+    const int8_t* p = src + static_cast<size_t>(row) * n + 32 * gw;
+    const int count = min(32, n - 32 * gw);  // whole groups of vec bytes
+    uint32_t v = 0;
+    if (vec == 16) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (16 * c < count) {
+          const uint4 q = __ldg(reinterpret_cast<const uint4*>(p) + c);
+          v |= (pack4(q.x) | pack4(q.y) << 4 | pack4(q.z) << 8 | pack4(q.w) << 12) << (16 * c);
+        }
+      }
+    } else if (vec == 8) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (8 * c < count) {
+          const uint2 q = __ldg(reinterpret_cast<const uint2*>(p) + c);
+          v |= (pack4(q.x) | pack4(q.y) << 4) << (8 * c);
+        }
+      }
+    } else if (vec == 4) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (4 * c < count) v |= pack4(__ldg(reinterpret_cast<const uint32_t*>(p) + c)) << (4 * c);
+      }
+    } else {
+      for (int b = 0; b < count; ++b) v |= static_cast<uint32_t>(__ldg(p + b)) << b;
+    }
+    return v;
+  }
+  __device__ __forceinline__ bool live(int row) const { return row >= 0 && row < n; }
+  __device__ __forceinline__ uint32_t substep_cols(int gw, int nwords, int rem_bits) const {
+    return column_mask(gw, nwords, rem_bits);
+  }
+  __device__ __forceinline__ void store(int row, int gw, int nwords, int rem_bits,
+                                        uint32_t v) const {
+    if (row >= n) return;
+    int8_t* p = dst + static_cast<size_t>(row) * n + 32 * gw;
+    const int count = rem_bits && gw == nwords - 1 ? rem_bits : 32;
+    if (vec == 16) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (16 * c < count) {
+          const uint32_t h = v >> (16 * c);
+          reinterpret_cast<uint4*>(p)[c] = make_uint4(unpack4(h & 0xFu), unpack4(h >> 4 & 0xFu),
+                                                      unpack4(h >> 8 & 0xFu), unpack4(h >> 12 & 0xFu));
+        }
+      }
+    } else if (vec == 8) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (8 * c < count) {
+          const uint32_t h = v >> (8 * c);
+          reinterpret_cast<uint2*>(p)[c] = make_uint2(unpack4(h & 0xFu), unpack4(h >> 4 & 0xFu));
+        }
+      }
+    } else if (vec == 4) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (4 * c < count) reinterpret_cast<uint32_t*>(p)[c] = unpack4(v >> (4 * c) & 0xFu);
+      }
+    } else {
+      for (int b = 0; b < count; ++b) p[b] = static_cast<int8_t>(v >> b & 1u);
+    }
+  }
+};
+
 // The rows a tile's warps share: each warp's first and last r rows, in two
 // buffers that the substeps take in turns; one array a kernel, whatever
 // rule its tiles run.
@@ -521,6 +633,16 @@ sharded_diamond_kernel(const uint32_t* __restrict__ top, const uint32_t* __restr
       rem_bits, k, tile_rows, center, sop);
 }
 
+__constant__ Sop kNoSop;  // the table argument of a kernel whose rule is compiled in; never read
+
+template <int R>
+__global__ void __launch_bounds__(kLanes * kTileWarps, 1)
+conway_int8_kernel(const int8_t* __restrict__ src, int8_t* __restrict__ dst, int n, int nwords,
+                   int rem_bits, int k, int tile_rows, int vec) {
+  tile_kernel_body<R, MooreSubstep, ConwayRule>(Int8Io{src, dst, n, vec}, n, nwords, rem_bits, k,
+                                                tile_rows, 0u, kNoSop);
+}
+
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
 // f(the instance of `warp_rows` rows a warp, 4 or 8), else kInvalid.
@@ -636,6 +758,28 @@ int sharded_stripe_block(const void* top, const void* chunk, const void* bot, vo
     if (mode == 2 && radius == 1) return go(sharded_diamond_kernel<1, R>);
     if (mode == 2 && radius == 2) return go(sharded_diamond_kernel<2, R>);
     return kInvalid;
+  });
+}
+
+// Kernel K5: k clamped Conway steps (1 <= k <= 32) from src into dst
+// (distinct contiguous int8[n, n] boards of 0s and 1s on the current
+// device), in tiles as above, on `stream`; loads and stores of 16, 8 or 4
+// bytes where n and both boards' addresses are multiples of it, else of
+// single bytes.  Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// arguments outside these.
+int conway_block_int8(const void* src, void* dst, int n, int k, int tile_rows, int warp_rows,
+                      void* stream) {
+  if (n < 1) return kInvalid;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst) |
+                      static_cast<uintptr_t>(n);
+  const int vec = a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 1;
+  const auto s = static_cast<const int8_t*>(src);
+  const auto d = static_cast<int8_t*>(dst);
+  const int nwords = (n + 31) / 32;
+  return with_warp_rows(warp_rows, [&](auto rc) {
+    constexpr int R = decltype(rc)::value;
+    return launch<R>(conway_int8_kernel<R>, n, nwords, tile_rows, 1, k, stream, s, d, n, nwords,
+                     n % 32, k, tile_rows, vec);
   });
 }
 

@@ -183,6 +183,14 @@ def compiled_rule(rule: Rule) -> bool:
     return rule_sop(rule.birth, rule.survive) == CONWAY_SOP
 
 
+def fills_card(block_steps: int, height: int, nwords: int, n_sm: int, radius: int = 1) -> bool:
+    """Whether a board's runs of two halos (``2 * radius * block_steps``
+    rows) give more warps than the card has schedulers: below that, a
+    launch's time is its critical path (:func:`tile_shape`)."""
+    strips = -(-nwords // STRIP_WORDS)
+    return strips * -(-height // (2 * radius * block_steps)) > SCHEDULERS_PER_SM * n_sm
+
+
 def tile_shape(
     block_steps: int, height: int, nwords: int, n_sm: int, radius: int = 1
 ) -> tuple[int, int]:
@@ -207,7 +215,7 @@ def tile_shape(
       loads."""
     halo = 2 * radius * block_steps
     strips = -(-nwords // STRIP_WORDS)
-    if strips * -(-height // halo) <= SCHEDULERS_PER_SM * n_sm:
+    if not fills_card(block_steps, height, nwords, n_sm, radius):
         r, best = SMALL_WARP_ROWS, None
         for warps in range(halo // r + 1, TILE_WARPS + 1):
             rows = min(warps * r - halo, height)
@@ -245,6 +253,10 @@ def _library() -> ctypes.CDLL:
         *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 12, ctypes.POINTER(_Sop), ctypes.c_void_p,
     ]
     lib.sharded_stripe_block.restype = ctypes.c_int
+    # kernel K5 (kernels/conway_block.py): src, dst; n, k, tile_rows,
+    # warp_rows; stream
+    lib.conway_block_int8.argtypes = [*[ctypes.c_void_p] * 2, *[ctypes.c_int] * 4, ctypes.c_void_p]
+    lib.conway_block_int8.restype = ctypes.c_int
     return lib
 
 
