@@ -118,7 +118,26 @@ Phases (any failure exits non-zero and prints no result line):
    gosper_glider_gun`` (256^2, 300 steps) then ``run`` and ``pattern
    export``; ``run --bug-compat`` on the reference workload; each in
    process with the K1 and K2 counts set to 0 just before and read just
-   after, and each equal to the numpy backend's bytes.
+   after, and each equal to the numpy backend's bytes;
+12. the driver's instruments and ``bench`` — the fault drill
+   (``--snapshot-every 25 --keep-snapshots 2 --fault-at 60 --max-restarts
+   1`` with ``--metrics-file`` and ``--trace-events``) on the reference
+   workload through K1, through ``--backend sharded --device cuda:0
+   --num-devices 4`` (K3) and through ``--no-bitpack`` (K2): each at the
+   golden sha256 with one restart, its route and its launches counted
+   (16, 64 and 16), the live count of each chunk equal to the numpy
+   oracle's, the trace holding every span of the driver and the newest 2
+   snapshots kept; ``--resume`` from a step-50 snapshot at the golden
+   sha256; ``--profile``, whose exported trace must name
+   ``packed_stripe_kernel`` (once a K1 launch in a fresh process); the
+   reference run's ``Total time`` bare, traced and with the instruments
+   on, in turns; ``gen`` of a 16384^2 board, then ``run --trace-events``
+   on it through K1, held to the plain version, with its host phases
+   (stage, drive, gather, output-write) from the trace; ``bench`` at its defaults (4096^2) and at
+   16384^2 through ``cuda`` and through ``sharded --device cuda:0
+   --num-devices 4 --local-kernel cuda``, each record printed, with
+   ``n_chips`` 1; and K1-K4 timed again at phases 5-9's launches (CUDA
+   events and profiler device time), beside those phases' readings.
 
 Phases 2-4 cover K3 too: it is built with K1 (same source, its instances
 in the ptxas report and the SASS counts); phase 3 holds it bit-identical to its
@@ -198,6 +217,15 @@ K1_DATA = "K1 packed_stripe_kernel<8, DataRule>"
 K1_DIAMOND = "K1 packed_diamond_kernel<2, 8>"
 K3_MAIN = "K3 sharded_stripe_kernel<false, 8, ConwayRule>"
 K1_SMALL = "K1 packed_stripe_kernel<4, ConwayRule>"  # the reference board's tiles
+# phase 12's fault drill on the reference workload (100 steps): a snapshot
+# every 25 steps, 2 kept, a fault crossing step 60 and one restart
+DRILL_EVERY = 25
+DRILL = ["--snapshot-every", str(DRILL_EVERY), "--keep-snapshots", "2", "--fault-at", "60",
+         "--max-restarts", "1"]
+# the driver's spans, each of which a drill's trace must hold (but the
+# profile's)
+TRACE_SPANS = ("run", "config-resolve", "backend-build", "stage", "drive", "chunk",
+               "snapshot-write", "recovery-rewind", "gather", "output-write", "torch-profile")
 # the routes with no kernel in either package, held to the numpy oracle
 OPS_SHAPE, OPS_STEPS = (257, 1000), 5
 OPS_RULES = [("conway:T", "packed_torus"), ("R2,C2,S2..4,B2..3,NN:T", "stencil"),
@@ -876,7 +904,7 @@ def main() -> int:
     print(f"full size: {FULL}^2 x {FULL_STEPS} steps through the cuda backend "
           f"({full_launches} launches, {drive_s:.3f} s host clock incl. first "
           f"launch) equal to plain; live cells {live}", flush=True)
-    runner_cells_per_s = measure_throughput(backend, board, rule, FULL_STEPS, FULL_STEPS // 4)
+    runner_cells_per_s, _ = measure_throughput(backend, board, rule, FULL_STEPS, FULL_STEPS // 4)
     print(f"cell_updates_per_sec_per_chip {runner_cells_per_s:.6e} ({FULL}^2 conway "
           f"through the Runner, host clock, delta of {FULL_STEPS} and "
           f"{FULL_STEPS // 4} steps)", flush=True)
@@ -1015,6 +1043,12 @@ def main() -> int:
     print("ms/step by block_steps at 16384^2: " + ", ".join(
         f"k={k}: {v:.4f}" for k, v in sweep.items()), flush=True)
     full_dev_ms = device_ms((FULL, FULL), BLOCK_STEPS, 20)
+    # phase 12 times these launches again after the driver's runs: (a call
+    # giving the ms of one launch by CUDA events, this reading; one giving
+    # its device time from the profiler's kernel records, this reading)
+    retime = {f"K1 {FULL}^2 conway, k={BLOCK_STEPS}": (
+        lambda: kernel_ms((FULL, FULL), BLOCK_STEPS, 40), ms,
+        lambda: device_ms((FULL, FULL), BLOCK_STEPS, 20), full_dev_ms)}
     print(f"device time {FULL}^2, k={BLOCK_STEPS}: {fmt(full_dev_ms)} ms/launch "
           f"(profiler kernel records)", flush=True)
     # a rule the Moore kernels run as data, beside Conway's compiled one
@@ -1064,7 +1098,7 @@ def main() -> int:
         print(f"full size: {name} {side}^2 x {steps} steps through the cuda backend "
               f"({launches} launches of k={k}, {drive_s:.3f} s host clock incl. first "
               f"launch) equal to plain; live cells {live}", flush=True)
-        cps = measure_throughput(backend, board, rule, steps, steps // 4)
+        cps, _ = measure_throughput(backend, board, rule, steps, steps // 4)
         print(f"cell_updates_per_sec_per_chip {cps:.6e} ({side}^2 {name} through the "
               f"Runner, host clock, delta of {steps} and {steps // 4} steps)", flush=True)
 
@@ -1074,6 +1108,10 @@ def main() -> int:
             cells(board))
         k2_ms = cuda_ms(launch, max(4, 64 // k))
         k2_dev_ms = profiled_ms(launch, "int8_tiled_kernel", max(4, 32 // k))
+        retime[f"K2 {side}^2 {name}, k={k}"] = (
+            lambda launch=launch, k=k: cuda_ms(launch, max(4, 64 // k)), k2_ms,
+            lambda launch=launch, k=k: profiled_ms(launch, "int8_tiled_kernel", max(4, 32 // k)),
+            k2_dev_ms)
         xp = cells(board)
         k2_plain_ms = cuda_ms(lambda: kt.int8_multi_step_plain(xp, rule, shape, k), 2)
         n_cells = side * side
@@ -1141,7 +1179,7 @@ def main() -> int:
     print(f"full size: {DIAMOND} {FULL}^2 x {FULL_STEPS} steps through the cuda backend "
           f"(route k1_diamond, {diamond_full_launches} launches, {drive_s:.3f} s host clock) "
           f"equal to plain; live cells {live}", flush=True)
-    cps = measure_throughput(backend, board, rule, FULL_STEPS, FULL_STEPS // 4)
+    cps, _ = measure_throughput(backend, board, rule, FULL_STEPS, FULL_STEPS // 4)
     print(f"cell_updates_per_sec_per_chip {cps:.6e} ({FULL}^2 {DIAMOND} through the "
           f"Runner, host clock, delta of {FULL_STEPS} and {FULL_STEPS // 4} steps)", flush=True)
     del runner, x0, want
@@ -1211,7 +1249,7 @@ def main() -> int:
     torus_board, torus_final = board, runner.x.clone()  # phase 9's 2-D torus is held to it
     del other
     torch.cuda.empty_cache()
-    cps = measure_throughput(backend, board, rule, steps, steps // 4)
+    cps, _ = measure_throughput(backend, board, rule, steps, steps // 4)
     step = bitlife.make_packed_torus_step(rule, side)
     torus_ms = cuda_ms(lambda: step(runner.x), 5)
     print(f"cell_updates_per_sec_per_chip {cps:.6e} ({side}^2 {name} through the Runner, "
@@ -1244,7 +1282,7 @@ def main() -> int:
         print(f"full size: {name} {side}^2 x {steps} steps through the cuda backend (route "
               f"stencil, no kernel, {drive_s:.3f} s host clock) equal under a roll by "
               f"{shift}; live cells {live}", flush=True)
-        cps = measure_throughput(backend, board, rule, steps, steps // 4)
+        cps, _ = measure_throughput(backend, board, rule, steps, steps // 4)
         step = stencil.make_step(rule)
         stencil_ms = cuda_ms(lambda: step(runner.x), 3)
         print(f"cell_updates_per_sec_per_chip {cps:.6e} ({side}^2 {name} through the "
@@ -1282,7 +1320,7 @@ def main() -> int:
           f"{n_shards} shards of the card (route k3, {full_counts[0]} K3 launches, "
           f"{full_counts[1]} halo copies, {drive_s:.3f} s host clock incl. first launch) "
           f"equal to K1's board; live cells {live}", flush=True)
-    sh_cps = measure_throughput(sharded, k1_board, rule, FULL_STEPS, FULL_STEPS // 4)
+    sh_cps, _ = measure_throughput(sharded, k1_board, rule, FULL_STEPS, FULL_STEPS // 4)
     print(f"cell_updates_per_sec_per_chip {sh_cps:.6e} ({FULL}^2 conway through the sharded "
           f"Runner on {n_shards} shards of one card, host clock, delta of {FULL_STEPS} and "
           f"{FULL_STEPS // 4} steps)", flush=True)
@@ -1293,11 +1331,14 @@ def main() -> int:
     tops, bots = halo.exchange_rows(runner.chunks, fr, periodic=False)
     row0 = hl - fr
     shard_launch = pingpong(
-        lambda a, b: k3.sharded_stripe_block(tops[1], a, bots[1], row0, rule, (FULL, FULL),
-                                             BLOCK_STEPS, out=b),
+        lambda a, b, top=tops[1], bot=bots[1], row0=row0, rule=rule: k3.sharded_stripe_block(
+            top, a, bot, row0, rule, (FULL, FULL), BLOCK_STEPS, out=b),
         runner.chunks[1].clone())
     k3_ms = cuda_ms(shard_launch, 80)
     k3_dev_ms = profiled_ms(shard_launch, "sharded_stripe_kernel<false", 40)
+    retime[f"K3 one shard of {FULL}^2 conway on {n_shards}, k={BLOCK_STEPS}"] = (
+        lambda launch=shard_launch: cuda_ms(launch, 80), k3_ms,
+        lambda launch=shard_launch: profiled_ms(launch, "sharded_stripe_kernel<false", 40), k3_dev_ms)
     k3_plain_ms = cuda_ms(lambda: k3.sharded_stripe_block_plain(
         tops[1], runner.chunks[1], bots[1], row0, rule, (FULL, FULL), BLOCK_STEPS), 2)
     # the bound: the rows each substep must compute (the chunk and what its
@@ -1364,7 +1405,7 @@ def main() -> int:
         fail(f"full-size {name}: k3_torus on {n_shards} shards != packed_torus after {steps} steps")
     del other
     torch.cuda.empty_cache()
-    t_cps = measure_throughput(sharded, board, rule, 4 * steps, steps)
+    t_cps, _ = measure_throughput(sharded, board, rule, 4 * steps, steps)
     t_block_ms = cuda_ms(lambda: runner.advance(BLOCK_STEPS), 20)
     t_split = device_breakdown(lambda: runner.advance(BLOCK_STEPS), 20)
     t0 = time.perf_counter()
@@ -1422,7 +1463,7 @@ def main() -> int:
               f"{n_r}x{n_c} shards of the card (route k4, k={k}: {counts[0]} K4 launches, "
               f"{counts[1]} row and {counts[2]} column halo copies, {drive_s:.3f} s host clock "
               f"incl. first launch) equal to K2's board; live cells {live}", flush=True)
-        cps = measure_throughput(sharded, board, rule, steps, steps // 4)
+        cps, _ = measure_throughput(sharded, board, rule, steps, steps // 4)
         print(f"cell_updates_per_sec_per_chip {cps:.6e} ({side}^2 {name} through the sharded "
               f"Runner on {n_r}x{n_c} shards of one card, host clock, delta of {steps} and "
               f"{steps // 4} steps)", flush=True)
@@ -1439,11 +1480,16 @@ def main() -> int:
         halos = dict(left=lefts[1], right=rights[1], col0=col0)
         reps = max(4, 64 // k)
         shard_launch = pingpong(
-            lambda a, b: k4.sharded_int8_block(tops[1], a, bots[1], row0, rule, (side, side), k,
-                                               out=b, **halos),
+            lambda a, b, top=tops[1], bot=bots[1], row0=row0, rule=rule, side=side, k=k,
+            halos=halos: k4.sharded_int8_block(top, a, bot, row0, rule, (side, side), k, out=b,
+                                               **halos),
             runner.chunks[1].clone())
         k4_ms = cuda_ms(shard_launch, reps)
         k4_dev_ms = profiled_ms(shard_launch, "sharded_int8_kernel", reps)
+        retime[f"K4 one shard of {side}^2 {name} on {n_r}x{n_c}, k={k}"] = (
+            lambda launch=shard_launch, reps=reps: cuda_ms(launch, reps), k4_ms,
+            lambda launch=shard_launch, reps=reps: profiled_ms(launch, "sharded_int8_kernel", reps),
+            k4_dev_ms)
         k4_plain_ms = cuda_ms(lambda: k4.sharded_int8_block_plain(
             tops[1], runner.chunks[1], bots[1], row0, rule, (side, side), k, **halos), 2)
         # the bound: substep s computes the chunk and the halo cells later
@@ -1742,6 +1788,229 @@ def main() -> int:
               f"{pat_counts}, equal to numpy's bytes, and pattern export equal to numpy's "
               f"({gun_rle_lines} RLE lines); run --bug-compat on the reference workload: rule "
               f"B/S2, route {bug_route}, launches {bug_counts}, equal to numpy's bytes", flush=True)
+
+    # -- 12. the driver's instruments and the bench entry point --------------
+    def spans_ms(path: Path) -> dict[str, float]:
+        """Total ms of each span and complete event of a ``--trace-events``
+        file, whose B/E pairs must nest."""
+        open_spans, total = [], {}
+        for e in json.loads(path.read_text())["traceEvents"]:
+            if e["ph"] == "B":
+                open_spans.append(e)
+            elif e["ph"] == "E":
+                b = open_spans.pop() if open_spans else None
+                if b is None or b["name"] != e["name"]:
+                    fail(f"{path.name}: span {e['name']!r} closes out of order")
+                total[e["name"]] = total.get(e["name"], 0.0) + (e["ts"] - b["ts"]) / 1e3
+            elif e["ph"] == "X":
+                total[e["name"]] = total.get(e["name"], 0.0) + e["dur"] / 1e3
+        if open_spans:
+            fail(f"{path.name}: spans left open: {[e['name'] for e in open_spans]}")
+        return total
+
+    def fmt_spans(t: dict[str, float]) -> str:
+        return ", ".join(f"{n} {t[n]:.3f}" for n in TRACE_SPANS if n in t) + " ms"
+
+    def kernel_counts() -> tuple[int, int, int, int]:
+        return (ps.packed_multi_step.launches, kt.int8_multi_step.launches,
+                k3.sharded_stripe_block.launches, k4.sharded_int8_block.launches)
+
+    def counted(args: list[str], what: str):
+        """One in-process CLI call with every launch count set to 0 just
+        before and read just after: (its stdout lines, the K1-K4 counts,
+        the RunResult of a run)."""
+        ps.packed_multi_step.launches = ps.packed_multi_step.diamond_launches = 0
+        kt.int8_multi_step.launches = k3.sharded_stripe_block.launches = 0
+        k4.sharded_int8_block.launches = k5.conway_block.launches = 0
+        out = io.StringIO()
+        driver.run = recording_run
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(args)
+        finally:
+            driver.run = real_run
+        if rc != 0:
+            fail(f"{what} exited {rc}")
+        return out.getvalue().splitlines(), kernel_counts(), results[-1] if args[0] == "run" else None
+
+    def golden(path: Path, what: str) -> None:
+        raw = path.read_bytes()
+        if len(raw) != GOLDEN_BYTES or hashlib.sha256(raw).hexdigest() != GOLDEN_SHA:
+            fail(f"{what}: output.txt is not the golden {GOLDEN_BYTES} bytes, sha256 {GOLDEN_SHA}")
+
+    conway = get_rule("conway")
+    oracle_live, b = {}, ref_board
+    for step in range(DRILL_EVERY, ref_steps + 1, DRILL_EVERY):
+        b = run_np(b, conway, DRILL_EVERY)
+        oracle_live[step] = int(np.count_nonzero(b == 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with gzip.open(FIXTURES / "reference_data.txt.gz", "rb") as f:
+            (tmp / "data.txt").write_bytes(f.read())
+        shutil.copy(FIXTURES / "reference_grid_size_data.txt", tmp / "grid_size_data.txt")
+        ref_files = ["--config-file", str(tmp / "grid_size_data.txt"),
+                     "--input-file", str(tmp / "data.txt")]
+
+        # the fault drill through K1, K3 and K2: snapshots at 25 and 50, a
+        # fault crossing 60, one restart from the step-50 snapshot, then 75
+        # and 100 (2 kept); 4 chunks of 25 steps in all, each 3 blocks of 8
+        # and one of 1
+        chunk_launches = -(-DRILL_EVERY // BLOCK_STEPS)
+        k2_chunk_launches = -(-DRILL_EVERY // kt.clamp_block_steps(conway, BLOCK_STEPS))
+        drill_runs = {}
+        for name, extra, route, want in (
+            ("K1", [], "k1", (4 * chunk_launches, 0, 0, 0)),
+            ("K3", ["--backend", "sharded", "--device", "cuda:0", "--num-devices", "4"], "k3",
+             (0, 0, 4 * 4 * chunk_launches, 0)),
+            ("K2", ["--no-bitpack"], "k2", (0, 4 * k2_chunk_launches, 0, 0)),
+        ):
+            d = tmp / name
+            _, got, res = counted(
+                ["run", *ref_files, *extra, *DRILL, "--snapshot-dir", str(d / "snaps"),
+                 "--metrics-file", str(d / "m.jsonl"), "--trace-events", str(d / "t.json"),
+                 "--output-file", str(d / "out.txt")], f"the {name} fault drill")
+            golden(d / "out.txt", f"the {name} fault drill")
+            if (res.restarts, res.route, got) != (1, route, want):
+                fail(f"the {name} fault drill: restarts {res.restarts}, route {res.route!r}, "
+                     f"(K1, K2, K3, K4) launches {got}; want 1, {route!r}, {want}")
+            recs = [json.loads(line) for line in (d / "m.jsonl").read_text().splitlines()]
+            live = [(r["step"], r["live_cells"]) for r in recs if "kind" not in r]
+            if live != sorted(oracle_live.items()):
+                fail(f"the {name} fault drill: (step, live) {live}, the numpy oracle's "
+                     f"{sorted(oracle_live.items())}")
+            if {r["run_id"] for r in recs} != {res.run_id}:
+                fail(f"the {name} fault drill: metrics records of other runs than {res.run_id}")
+            spans = spans_ms(d / "t.json")
+            if not set(TRACE_SPANS) - {"torch-profile"} <= set(spans):
+                fail(f"the {name} fault drill's trace lacks {set(TRACE_SPANS) - set(spans)}")
+            kept = sorted(p.name for p in (d / "snaps").glob("*.txt"))
+            if kept != ["board_000000075.txt", "board_000000100.txt"]:
+                fail(f"the {name} fault drill kept snapshots {kept}")
+            drill_runs[name] = (got, res.elapsed_s, spans)
+        print("fault drill (" + " ".join(DRILL) + ") on the reference workload: " + "; ".join(
+            f"{name}: golden sha256, 1 restart, launches (K1, K2, K3, K4) {got}, live counts "
+            f"at 25/50/75/100 equal to the numpy oracle's, Total time {t:.4f} s, spans "
+            f"{fmt_spans(spans)}" for name, (got, t, spans) in drill_runs.items()), flush=True)
+
+        # --resume from the step-50 snapshot of a K1 run
+        counted(["run", *ref_files, "--steps", "50", "--snapshot-every", str(DRILL_EVERY),
+                 "--snapshot-dir", str(tmp / "snaps50"), "--output-file", str(tmp / "mid.txt")],
+                "run --steps 50")
+        _, got, res = counted(["run", *ref_files, "--resume", str(tmp / "snaps50"),
+                               "--output-file", str(tmp / "resumed.txt")], "run --resume")
+        golden(tmp / "resumed.txt", "run --resume from the step-50 snapshot")
+        if res.steps_run != 50 or got[0] != -(-50 // BLOCK_STEPS):
+            fail(f"run --resume: {res.steps_run} steps, (K1, K2, K3, K4) launches {got}")
+        print(f"--resume from the step-50 snapshot: golden sha256, {res.steps_run} steps, "
+              f"{got[0]} K1 launches", flush=True)
+
+        # --profile: a torch.profiler trace of the drive that names K1, in
+        # this process and in a fresh one, where it must name every launch
+        # (in a process that has run for minutes the trace may drop the
+        # first kernels of a window this short)
+        def k1_records(trace_dir: Path, what: str) -> list[dict]:
+            exported = list(trace_dir.glob("*.pt.trace.json"))
+            if len(exported) != 1:
+                fail(f"{what} exported {len(exported)} traces")
+            return [e for e in json.loads(exported[0].read_text())["traceEvents"]
+                    if e.get("cat") == "kernel" and "packed_stripe_kernel" in e.get("name", "")]
+
+        _, got, res = counted(["run", *ref_files, "--profile", str(tmp / "prof"), "--trace-events",
+                               str(tmp / "tp.json"), "--output-file", str(tmp / "prof.txt")],
+                              "run --profile")
+        golden(tmp / "prof.txt", "run --profile")
+        in_process = k1_records(tmp / "prof", "run --profile")
+        if not in_process:
+            fail("the exported profile does not name packed_stripe_kernel")
+        if "torch-profile" not in spans_ms(tmp / "tp.json"):
+            fail("the run --profile trace has no torch-profile span")
+        proc = subprocess.run([sys.executable, "-m", "tpu_life_torch", "run", *ref_files, "--profile",
+                               str(tmp / "prof_sub"), "--output-file", str(tmp / "prof_sub.txt")],
+                              cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"python -m tpu_life_torch run --profile exited {proc.returncode}: {proc.stderr[-2000:]}")
+        golden(tmp / "prof_sub.txt", "python -m tpu_life_torch run --profile")
+        fresh = k1_records(tmp / "prof_sub", "python -m tpu_life_torch run --profile")
+        if len(fresh) != got[0]:
+            fail(f"the profile of a fresh process names packed_stripe_kernel {len(fresh)} times for "
+                 f"{got[0]} K1 launches")
+        print(f"--profile: the exported trace names packed_stripe_kernel {len(in_process)} times "
+              f"in process and {len(fresh)} times in a fresh process ({got[0]} launches); "
+              f"{sum(e['dur'] for e in fresh) / len(fresh) / 1e3:.4f} ms of device time a launch "
+              f"of 8 or 4 steps (phase 5: {fmt(ref_dev_ms)} at k={BLOCK_STEPS}); Total time "
+              f"{res.elapsed_s:.4f} s in process, {proc.stdout.strip().splitlines()[-1]} in the "
+              f"fresh one", flush=True)
+
+        # the instruments' cost: the reference run bare and with them on, in turns
+        instruments = ["--snapshot-every", str(DRILL_EVERY), "--keep-snapshots", "2",
+                       "--metrics", "--metrics-file", str(tmp / "o.jsonl"),
+                       "--trace-events", str(tmp / "o.json"), "--snapshot-dir", str(tmp / "osnaps")]
+        overhead = {"bare": [], "trace": [], "instruments": []}
+        for _ in range(3):
+            for what, flags in (("bare", []), ("trace", ["--trace-events", str(tmp / "ot.json")]),
+                                ("instruments", instruments)):
+                _, got, res = counted(["run", *ref_files, *flags, "--output-file",
+                                       str(tmp / "o.txt")], f"run ({what})")
+                golden(tmp / "o.txt", f"run ({what})")
+                overhead[what].append(res.elapsed_s)
+        print(f"Total time of the reference run bare, with --trace-events, and with "
+              f"--snapshot-every {DRILL_EVERY} --keep-snapshots 2 --metrics --metrics-file "
+              "--trace-events (in turns): " + "; ".join(
+                  f"{what} " + ", ".join(f"{t:.4f}" for t in ts) + " s"
+                  for what, ts in overhead.items())
+              + f"; spans of the last traced run: {fmt_spans(spans_ms(tmp / 'ot.json'))}; of the "
+              f"last instrumented run: {fmt_spans(spans_ms(tmp / 'o.json'))}", flush=True)
+
+        # the host phases at 16384^2: gen, then run with --trace-events
+        big = tmp / "big"
+        big_files = ["--config-file", str(big / "grid_size_data.txt"),
+                     "--input-file", str(big / "data.txt")]
+        big.mkdir()
+        t0 = time.perf_counter()
+        counted(["gen", "--height", str(FULL), "--width", str(FULL), "--steps", str(FULL_STEPS),
+                 "--seed", "3", *big_files], f"gen {FULL}^2")
+        gen_s = time.perf_counter() - t0
+        _, got, res = counted(["run", *big_files, "--trace-events", str(big / "t.json"),
+                               "--output-file", str(big / "out.txt")], f"run {FULL}^2")
+        if res.route != "k1" or got != (FULL_STEPS // BLOCK_STEPS, 0, 0, 0):
+            fail(f"run {FULL}^2: route {res.route!r}, (K1, K2, K3, K4) launches {got}")
+        big_board = read_board(big / "data.txt", FULL, FULL)
+        want = ps.packed_multi_step_plain(words(big_board), conway, (FULL, FULL), FULL_STEPS)
+        if diff_cells(words(res.board), want) or (big / "out.txt").stat().st_size != FULL * (FULL + 1):
+            fail(f"run {FULL}^2: output differs from the plain version's board")
+        big_spans = spans_ms(big / "t.json")
+        print(f"{FULL}^2 x {FULL_STEPS} steps (gen --seed 3 in {gen_s:.3f} s, then run "
+              f"--trace-events): route k1, {got[0]} K1 launches, equal to the plain version; "
+              f"Total time {res.elapsed_s:.3f} s; spans {fmt_spans(big_spans)}", flush=True)
+        del big_board, want, res
+        results.clear()
+
+    # bench at its defaults and at 16384^2, through cuda and through 4
+    # shards of the card
+    for flags, kernel in (([], 0), (["--size", str(FULL)], 0),
+                          (["--backend", "sharded", "--device", "cuda:0", "--num-devices", "4",
+                            "--local-kernel", "cuda"], 2),
+                          (["--backend", "sharded", "--device", "cuda:0", "--num-devices", "4",
+                            "--local-kernel", "cuda", "--size", str(FULL)], 2)):
+        lines, got, _ = counted(["bench", *flags], "bench " + " ".join(flags))
+        if len(lines) != 1:
+            fail(f"bench {' '.join(flags)} printed {len(lines)} lines")
+        rec = json.loads(lines[0])
+        print(lines[0], flush=True)
+        if rec["n_chips"] != 1 or not rec["value"] > 0 or rec["platform"] != "cuda" or got[kernel] <= 0:
+            fail(f"bench {' '.join(flags)}: n_chips {rec['n_chips']}, value {rec['value']}, "
+                 f"platform {rec['platform']!r}, (K1, K2, K3, K4) launches {got}")
+
+    # the kernels again, at phases 5-9's launches: the driver's instruments
+    # change no kernel
+    def against(again: float | None, first: float | None) -> str:
+        ratio = f" ({again / first:.3f}x)" if again is not None and first is not None else ""
+        return f"{fmt(again)} against {fmt(first)}{ratio}"
+
+    print("kernels re-timed after the driver's runs, ms per launch by CUDA events and by the "
+          "profiler's kernel records, against phases 5-9 in this run: " + "; ".join(
+              f"{label}: events {against(events(), ev_first)}, device {against(device(), dev_first)}"
+              for label, (events, ev_first, device, dev_first) in retime.items()), flush=True)
 
     diamond = diamond_rows[DIAMOND]
     k4_row = k4_rows[("brians_brain", (2, 2))]

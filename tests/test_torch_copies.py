@@ -226,3 +226,203 @@ def test_prng_constants_copy():
     names = ["SUB_EVEN", "SUB_ODD", "SUB_NOISE", "SUB_BOARD", "NSUB", "MAX_NARROW_CELLS",
              "WIDE_KEY_TAG", "_ROT_A", "_ROT_B"]
     assert {n: getattr(prng, n) for n in names} == {n: getattr(jprng, n) for n in names}
+
+
+# -- the run driver's instruments: obs, metrics, checkpoint, recovery, tuned ----
+
+
+def _source(obj) -> str:
+    return inspect.getsource(obj)
+
+
+REGISTRY_NAMES = ["Counter", "Gauge", "Histogram", "Family", "MetricsRegistry", "_fmt", "_escape",
+                  "_prom_labels"]
+
+
+@pytest.mark.parametrize("name", REGISTRY_NAMES)
+def test_registry_is_a_verbatim_copy(name):
+    from tpu_life.obs import registry as jregistry
+    from tpu_life_torch.obs import registry
+
+    assert _source(getattr(registry, name)) == _source(getattr(jregistry, name))
+
+
+def test_registry_constants_and_exports_copy():
+    from tpu_life.obs import registry as jregistry
+    from tpu_life_torch.obs import registry
+
+    for name in ("DEFAULT_BUCKETS", "MAX_SERIES", "OVERFLOW"):
+        assert getattr(registry, name) == getattr(jregistry, name)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_registry_outputs_equal_on_seeded_observations(seed):
+    from tpu_life.obs import registry as jregistry
+    from tpu_life_torch.obs import registry
+
+    rng = np.random.default_rng(seed)
+    values = rng.exponential(0.05, size=int(rng.integers(1, 200)))
+    labels = [str(v) for v in rng.integers(0, 80, size=len(values))]  # past the series cap
+    out = []
+    for mod in (registry, jregistry):
+        reg = mod.MetricsRegistry()
+        h = reg.histogram("wait_seconds", "help", labels=("rule",))
+        c = reg.counter("jobs_total", 'a "quoted" help')
+        g = reg.gauge("depth")
+        for v, lab in zip(values, labels):
+            h.labels(rule=lab).observe(v)
+            c.inc(v)
+            g.set(v)
+        out.append((reg.snapshot(run_id="r"), reg.prom_text(),
+                    [h.labels(rule=labels[0]).quantile(q) for q in (0.0, 0.3, 0.5, 0.99, 1.0)]))
+    assert out[0] == out[1]
+
+
+TRACER_METHODS = ["__init__", "now", "_ts", "_emit", "span", "complete", "instant", "write"]
+TRACE_FUNCTIONS = ["new_run_id", "ensure_parent", "span_count", "reset_span_count", "active_tracer",
+                   "start_tracing", "stop_tracing", "span", "complete", "instant", "now"]
+
+
+@pytest.mark.parametrize("name", TRACER_METHODS)
+def test_tracer_methods_are_verbatim_copies(name):
+    from tpu_life.obs import trace as jtrace
+    from tpu_life_torch.obs import trace
+
+    assert _source(getattr(trace.Tracer, name)) == _source(getattr(jtrace.Tracer, name))
+
+
+@pytest.mark.parametrize("name", TRACE_FUNCTIONS)
+def test_trace_functions_are_verbatim_copies(name):
+    from tpu_life.obs import trace as jtrace
+    from tpu_life_torch.obs import trace
+
+    assert _source(getattr(trace, name)) == _source(getattr(jtrace, name))
+
+
+def test_trace_schema_copy():
+    from tpu_life.obs import trace as jtrace
+    from tpu_life_torch.obs import trace
+
+    assert trace.TELEMETRY_SCHEMA == jtrace.TELEMETRY_SCHEMA
+    assert trace.DEFAULT_MAX_EVENTS == jtrace.DEFAULT_MAX_EVENTS
+
+
+def test_trace_files_equal_on_the_same_calls(tmp_path):
+    # the same emitter calls write the same document, clocks and ids aside
+    import json
+
+    from tpu_life.obs import trace as jtrace
+    from tpu_life_torch.obs import trace
+
+    docs = []
+    for name, mod in (("port", trace), ("jax", jtrace)):
+        t = mod.Tracer(str(tmp_path / name / "t.json"), run_id="abc123abc123", max_events=5)
+        with t.span("outer", phase="demo"):
+            with t.span("inner"):
+                t.instant("marker", note=1)
+            t.complete("chunk", 0.001, 0.002, step=4)
+        doc = json.loads(open(t.write()).read())
+        for e in doc["traceEvents"]:
+            e.pop("ts"), e.pop("tid"), e.pop("pid")
+        docs.append((doc["traceEvents"], doc["otherData"]["run_id"], doc["otherData"]["dropped"]))
+    assert docs[0] == docs[1] and docs[0][2] == 1  # six events through a ring of five
+
+
+@pytest.mark.parametrize("name", ["MetricsRecorder", "configure_logging", "dump_board"])
+def test_metrics_is_a_verbatim_copy(name):
+    from tpu_life.runtime import metrics as jmetrics
+    from tpu_life_torch.runtime import metrics
+
+    assert _source(getattr(metrics, name)) == _source(getattr(jmetrics, name))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 64), (64, 64), (65, 3)])
+def test_dump_board_copy(shape):
+    from tpu_life.runtime import metrics as jmetrics
+    from tpu_life_torch.runtime import metrics
+
+    board = np.random.default_rng(sum(shape)).integers(0, 4, size=shape, dtype=np.int8)
+    assert metrics.dump_board(board) == jmetrics.dump_board(board)
+
+
+CHECKPOINT_NAMES = ["atomic_publish", "snapshot_path", "crc_path", "write_crc_sidecar", "write_sidecar",
+                    "save_snapshot", "list_snapshots", "latest_snapshot", "snapshot_intact",
+                    "prune_snapshots", "resolve_resume", "load_resume"]
+
+
+@pytest.mark.parametrize("name", CHECKPOINT_NAMES)
+def test_checkpoint_is_a_verbatim_copy(name):
+    from tpu_life.runtime import checkpoint as jckpt
+    from tpu_life_torch.runtime import checkpoint as ckpt
+
+    assert _source(getattr(ckpt, name)) == _source(getattr(jckpt, name))
+    assert ckpt._SNAP_RE.pattern == jckpt._SNAP_RE.pattern
+
+
+@pytest.mark.parametrize("shape,states", [((1, 1), 2), ((9, 70), 3), ((40, 20), 10)])
+def test_checkpoint_round_trip_across_packages(tmp_path, shape, states):
+    from tpu_life.runtime import checkpoint as jckpt
+    from tpu_life_torch.runtime import checkpoint as ckpt
+
+    board = np.random.default_rng(states).integers(0, states, size=shape, dtype=np.int8)
+    ckpt.save_snapshot(tmp_path / "p", 17, board, rule="r")
+    jckpt.save_snapshot(tmp_path / "j", 17, board, rule="r")
+    for f in ("board_000000017.txt", "board_000000017.json", "board_000000017.crc"):
+        assert (tmp_path / "p" / f).read_bytes() == (tmp_path / "j" / f).read_bytes()
+    for loader, d in ((ckpt.load_resume, "j"), (jckpt.load_resume, "p")):
+        got, step = loader(tmp_path / d, *shape)
+        assert step == 17
+        np.testing.assert_array_equal(got, board)
+
+
+def test_recovery_copy():
+    from tpu_life.runtime import recovery as jrecovery
+    from tpu_life_torch.runtime import recovery
+
+    assert _source(recovery.FaultingRunner) == _source(jrecovery.FaultingRunner)
+    assert recovery._OOM_MARKERS == jrecovery._OOM_MARKERS
+    for msg in ("RESOURCE_EXHAUSTED: x", "CUDA out of memory.", "device lost", ""):
+        assert recovery.is_oom(RuntimeError(msg)) == jrecovery.is_oom(RuntimeError(msg))
+
+
+def test_tuned_record_copy():
+    from tpu_life.autotune import space as jspace
+    from tpu_life_torch.autotune import space
+
+    assert _source(space.tuned_record) == _source(jspace.tuned_record)
+    assert [(f.name, f.default) for f in dataclasses.fields(space.TunedConfig)] == [
+        (f.name, f.default) for f in dataclasses.fields(jspace.TunedConfig)]
+    assert space.TunedConfig("cuda", 4).to_dict() == jspace.TunedConfig("cuda", 4).to_dict()
+
+
+@pytest.mark.parametrize(
+    "module,names",
+    [
+        ("obs.trace", TRACE_FUNCTIONS),
+        ("runtime.checkpoint", CHECKPOINT_NAMES),
+        ("runtime.metrics", ["configure_logging", "dump_board", "MetricsRecorder"]),
+        ("runtime.recovery", ["is_oom", "unwrap", "FaultingRunner"]),
+        ("runtime.profiling", ["maybe_profile"]),
+        ("utils.timing", ["delta_seconds_per_step", "paired_delta_seconds_per_step"]),
+        ("backends.base", ["measure_throughput", "measure_parity_interleaved"]),
+        ("autotune.space", ["tuned_record", "TunedConfig"]),
+    ],
+)
+def test_public_signatures_equal(module, names):
+    import importlib
+
+    port = importlib.import_module(f"tpu_life_torch.{module}")
+    jax = importlib.import_module(f"tpu_life.{module}")
+    for name in names:
+        assert inspect.signature(getattr(port, name)) == inspect.signature(getattr(jax, name)), name
+
+
+def test_run_config_has_the_jax_instrument_fields_and_defaults():
+    from tpu_life.config import RunConfig as JRunConfig
+    from tpu_life_torch.config import RunConfig
+
+    names = ["snapshot_every", "snapshot_dir", "keep_snapshots", "resume", "max_restarts", "fault_at",
+             "fault_count", "restart_wait_s", "profile", "trace_events", "verbose", "metrics",
+             "metrics_file"]
+    port, jax = RunConfig(), JRunConfig()
+    assert {n: getattr(port, n) for n in names} == {n: getattr(jax, n) for n in names}

@@ -131,3 +131,20 @@ def test_scan_covers_the_stripe_sweep():
     # the K1 and K3 sweep of depths and boards (an experiment run on the
     # card) is among the modules both checks read
     assert "tpu_life_torch.experiments.stripe_sweep" in set(MODULES)
+
+
+def test_scan_covers_the_instruments_slice():
+    # the run driver's instruments (obs, metrics, snapshots, recovery,
+    # profiling) and the tuned record of bench are among the modules both
+    # checks read
+    assert {
+        "tpu_life_torch.obs",
+        "tpu_life_torch.obs.registry",
+        "tpu_life_torch.obs.trace",
+        "tpu_life_torch.runtime.metrics",
+        "tpu_life_torch.runtime.checkpoint",
+        "tpu_life_torch.runtime.recovery",
+        "tpu_life_torch.runtime.profiling",
+        "tpu_life_torch.autotune",
+        "tpu_life_torch.autotune.space",
+    } <= set(MODULES)

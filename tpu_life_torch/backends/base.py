@@ -152,6 +152,13 @@ def run_with_runner(
     return r.fetch()
 
 
+def n_chips(backend: "Backend") -> int:
+    """The distinct devices a backend's mesh spans (1 without a mesh): a
+    mesh may put several shards on one card, and those are one chip."""
+    mesh = getattr(backend, "mesh", None)
+    return len(set(mesh.devices)) if mesh is not None else 1
+
+
 def measure_throughput(
     backend: "Backend",
     board: np.ndarray,
@@ -159,15 +166,63 @@ def measure_throughput(
     steps: int,
     base_steps: int,
     repeats: int = 3,
-) -> float:
-    """Cells/s of a backend on one device via delta timing
-    (``utils.timing.delta_seconds_per_step``)."""
+) -> tuple[float, int]:
+    """(cells/s/chip, n_chips) of a backend via delta timing.
+
+    The measurement core of the CLI's ``bench`` subcommand: stage the
+    board, difference two runs of the Runner
+    (``utils.timing.delta_seconds_per_step``), and divide by the distinct
+    devices the backend spans (:func:`n_chips`).
+    """
     from tpu_life_torch.utils.timing import delta_seconds_per_step
 
     runner = make_runner(backend, board, rule)
     per_step = delta_seconds_per_step(runner, steps, base_steps, repeats=repeats)
+    chips = n_chips(backend)
     h, w = board.shape
-    return h * w / per_step
+    return h * w / per_step / chips, chips
+
+
+def measure_parity_interleaved(
+    composed: "Backend",
+    single: "Backend",
+    board: np.ndarray,
+    rule: Rule,
+    steps: int,
+    base_steps: int,
+    repeats: int = 6,
+) -> dict:
+    """The parity methodology of ``tpu_life/backends/base.py``:
+    back-to-back (composed, single) delta pairs cancel the device's drift
+    between windows; the reported ratio is the median per-pair
+    composed-per-chip over single-chip throughput.  Returns the
+    ``parity_*`` record fields (``parity_ratio`` None when every pair was
+    timer noise).
+    """
+    import statistics
+
+    from tpu_life_torch.utils.timing import paired_delta_seconds_per_step
+
+    r_comp = make_runner(composed, board, rule)
+    r_single = make_runner(single, board, rule)
+    pairs = paired_delta_seconds_per_step(
+        r_comp, r_single, steps, base_steps, repeats=repeats
+    )
+    if not pairs:
+        return {"parity_ratio": None, "parity_ok": False}
+    chips = n_chips(composed)
+    ratios = [d_single / (d_comp * chips) for d_comp, d_single in pairs]
+    comp_deltas = [d for d, _ in pairs]
+    h, w = board.shape
+    ratio = statistics.median(ratios)
+    return {
+        "parity_single_chip": h * w / min(d for _, d in pairs),
+        "parity_ratio": ratio,
+        "parity_pairs": len(pairs),
+        "parity_window_spread": max(comp_deltas) / min(comp_deltas),
+        "parity_ok": ratio >= 0.8,
+        "parity_in_band": 0.95 <= ratio <= 1.05,
+    }
 
 
 BACKENDS: dict[str, Callable[..., Backend]] = {}

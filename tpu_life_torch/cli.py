@@ -5,11 +5,13 @@
 writes ``output.txt`` and prints ``Total time = <s>``.  With ``--size`` (or
 ``--height``/``--width``) and ``--steps`` and no input file it runs the
 seeded random board of ``--seed``.  It runs on the card; ``--device cpu``
-asks for the plain PyTorch version on the CPU.  ``gen`` writes a random
-board and its config, ``pattern`` converts RLE patterns and named
-patterns to and from the contract files, each with the bytes
-``python -m tpu_life`` writes; ``info`` shows the torch build, the CUDA
-devices, backends and rules.
+asks for the plain PyTorch version on the CPU.  Its snapshot, resume,
+recovery, metrics, trace and profile flags are the JAX ``run``'s.
+``bench`` prints one JSON throughput record with the JAX ``bench``
+record's keys.  ``gen`` writes a random board and its config,
+``pattern`` converts RLE patterns and named patterns to and from the
+contract files, each with the bytes ``python -m tpu_life`` writes;
+``info`` shows the torch build, the CUDA devices, backends and rules.
 """
 
 from __future__ import annotations
@@ -101,6 +103,92 @@ def build_parser() -> argparse.ArgumentParser:
     )
     r.add_argument("--sync-every", type=int, default=0,
                    help="steps per host sync chunk (0 = one run)")
+    r.add_argument("--snapshot-every", type=int, default=0)
+    r.add_argument("--snapshot-dir", default="snapshots")
+    r.add_argument(
+        "--keep-snapshots",
+        type=int,
+        default=0,
+        metavar="N",
+        help="retain only the newest N snapshots (0 = keep all)",
+    )
+    r.add_argument("--resume", default=None)
+    r.add_argument(
+        "--max-restarts",
+        type=int,
+        default=0,
+        help="elastic recovery: on a recoverable device failure, rebuild the "
+        "backend and resume from the newest snapshot (pair with "
+        "--snapshot-every) at most this many times; 0 fails fast",
+    )
+    r.add_argument(
+        "--fault-at",
+        type=int,
+        default=0,
+        metavar="STEP",
+        help="fault-injection drill: simulate a device failure the first "
+        "time the run crosses STEP (exercises the --max-restarts path)",
+    )
+    r.add_argument(
+        "--fault-count",
+        type=int,
+        default=1,
+        help="how many times the --fault-at drill fires (recovery rewinds "
+        "below the fault step, so it re-fires until spent)",
+    )
+    r.add_argument(
+        "--restart-wait",
+        type=float,
+        default=0.0,
+        metavar="SECONDS",
+        help="wait this long before each recovery attempt (device losses "
+        "take time to clear)",
+    )
+    r.add_argument("--profile", default=None, metavar="TRACE_DIR",
+                   help="write a torch.profiler trace of the drive (Chrome "
+                   "trace JSON) into TRACE_DIR")
+    r.add_argument(
+        "--trace-events",
+        default=None,
+        metavar="FILE",
+        help="write Chrome trace-event JSON (Perfetto-loadable): host-phase "
+        "spans — config-resolve, backend-build, staging, each host-sync "
+        "chunk, snapshots, recovery, gather, output — stamped with the "
+        "run's correlation id",
+    )
+    r.add_argument("--metrics", action="store_true")
+    r.add_argument(
+        "--metrics-file",
+        default=None,
+        metavar="JSONL",
+        help="append each metrics record as a JSON line (implies --metrics)",
+    )
+    r.add_argument("--verbose", "-v", action="store_true")
+
+    b = sub.add_parser(
+        "bench",
+        help="quick throughput measurement: cells/s/chip, one JSON line",
+    )
+    # the JAX package's bench flags and defaults; --device takes the place
+    # of its --platform, and the sharded backend's mesh comes from
+    # --num-devices / --mesh-shape (with --device, all shards on it)
+    b.add_argument("--size", type=int, default=4096)
+    b.add_argument("--steps", type=int, default=1000)
+    b.add_argument("--base-steps", type=int, default=100)
+    b.add_argument("--repeats", type=int, default=3)
+    b.add_argument("--rule", default="conway")
+    b.add_argument("--backend", default="auto")
+    b.add_argument("--device", default=None,
+                   help="the device to measure (default: the card); 'cpu' "
+                   "measures the plain PyTorch version")
+    b.add_argument("--block-steps", type=int, default=None)
+    b.add_argument("--local-kernel", default=None,
+                   help="sharded backend only (ignored elsewhere, and "
+                   "recorded as null in the JSON)")
+    b.add_argument("--num-devices", type=int, default=None,
+                   help="shards of the sharded backend")
+    b.add_argument("--mesh-shape", default=None, metavar="R,C",
+                   help="2-D rows,cols mesh of the sharded backend")
     sub.add_parser("info", help="show torch, CUDA devices, backends and rules")
 
     pat = sub.add_parser(
@@ -155,6 +243,8 @@ def main(argv: list[str] | None = None) -> int:
         return _pattern(parser, args)
     if args.command == "gen":
         return _gen(args)
+    if args.command == "bench":
+        return _bench(parser, args)
     mesh_shape = _parse_mesh_shape(parser, args.mesh_shape)
     cfg = RunConfig(
         height=args.height if args.height is not None else args.size,
@@ -174,6 +264,19 @@ def main(argv: list[str] | None = None) -> int:
         block_steps=args.block_steps,
         bitpack=args.bitpack,
         sync_every=args.sync_every,
+        snapshot_every=args.snapshot_every,
+        snapshot_dir=args.snapshot_dir,
+        keep_snapshots=args.keep_snapshots,
+        resume=args.resume,
+        max_restarts=args.max_restarts,
+        fault_at=args.fault_at,
+        fault_count=args.fault_count,
+        restart_wait_s=args.restart_wait,
+        profile=args.profile,
+        trace_events=args.trace_events,
+        metrics=args.metrics,
+        metrics_file=args.metrics_file,
+        verbose=args.verbose,
     )
     from tpu_life_torch.models.rules import GeometryError
     from tpu_life_torch.runtime.driver import run
@@ -196,6 +299,70 @@ def _parse_mesh_shape(parser, spec: str | None) -> tuple[int, int] | None:
     if len(parts) != 2 or min(parts) < 1:
         parser.error(f"--mesh-shape must be two positive ints 'R,C', got {spec!r}")
     return parts
+
+
+def _bench(parser, args) -> int:
+    """In-process delta-timing throughput measurement, one JSON line: the
+    JAX package's ``bench`` (same board, method and record keys).  Two runs
+    of the Runner of different step counts are timed and differenced to
+    cancel the launch and readback latency."""
+    import json
+
+    import numpy as np
+
+    from tpu_life_torch.autotune import tuned_record
+    from tpu_life_torch.backends.base import get_backend, measure_throughput
+    from tpu_life_torch.models.rules import get_rule
+
+    if args.backend == "tuned":
+        print(f"{PROG}: error: --backend tuned is not yet ported (ROADMAP A10: "
+              "autotune); name a backend", file=sys.stderr)
+        return 2
+    # the divisor of the JAX record's vs_baseline (BASELINE.json's
+    # cell-updates/sec/chip figure), kept so the two records mean the same
+    target = 1e11
+    rule = get_rule(args.rule)
+    n = args.size
+    rng = np.random.default_rng(0)
+    board = rng.integers(0, 2, size=(n, n), dtype=np.int8)
+    if rule.states > 2:
+        board *= rng.integers(1, rule.states, size=(n, n), dtype=np.int8)
+
+    kwargs = {}
+    if args.block_steps is not None:
+        kwargs["block_steps"] = args.block_steps
+    if args.local_kernel is not None:
+        # the record carries what the resolved backend applied (null = the
+        # backend has no local-kernel concept)
+        kwargs["local_kernel"] = args.local_kernel
+    placement = {"device": args.device, "num_devices": args.num_devices,
+                 "mesh_shape": _parse_mesh_shape(parser, args.mesh_shape)}
+    backend = get_backend(args.backend, **kwargs, **placement)
+    per_chip, n_chips = measure_throughput(
+        backend, board, rule, args.steps, args.base_steps, args.repeats
+    )
+    mesh = getattr(backend, "mesh", None)
+    device = mesh.devices[0] if mesh is not None else getattr(backend, "device", None)
+    print(
+        json.dumps(
+            {
+                "metric": "cell_updates_per_sec_per_chip",
+                "value": per_chip,
+                "unit": "cells/s/chip",
+                "vs_baseline": per_chip / target,
+                "rule": args.rule,
+                "platform": device.type if device is not None else "cpu",
+                "backend": backend.name,
+                "local_kernel": getattr(backend, "local_kernel", None),
+                "size": n,
+                "steps": args.steps,
+                "n_chips": n_chips,
+                "tuned": tuned_record(backend.name, kwargs),
+                "tuned_source": "flags",
+            }
+        )
+    )
+    return 0
 
 
 def _info() -> int:

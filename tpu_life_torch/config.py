@@ -1,5 +1,6 @@
 """Run configuration: the reference's 3-int config file plus the flags of
-``python -m tpu_life_torch run`` (a subset of ``tpu_life/config.py``)."""
+``python -m tpu_life_torch run`` (a subset of ``tpu_life/config.py``, with
+its names and defaults)."""
 
 from __future__ import annotations
 
@@ -36,6 +37,35 @@ class RunConfig:
     block_steps: int | None = None  # kernel substeps per launch; None = backend default
     bitpack: bool = True  # False: life-like rules run the int8 path (kernel K2)
     sync_every: int = 0  # steps per host sync chunk; 0 = one run
+
+    # aux subsystems (the JAX RunConfig's, with its defaults)
+    snapshot_every: int = 0
+    snapshot_dir: str = "snapshots"
+    # retention: keep only the newest N snapshots (0 = keep all); pruning
+    # happens after each successful snapshot publish
+    keep_snapshots: int = 0
+    resume: str | None = None
+    # elastic recovery: on a recoverable device failure mid-run (a
+    # RuntimeError from a step: a CUDA error, out of memory, the drill),
+    # rebuild the backend and resume from the newest snapshot this run
+    # wrote (or the original input when none exists yet), at most this
+    # many times.  0 = fail fast
+    max_restarts: int = 0
+    # fault injection drill: raise a simulated device failure when the run
+    # crosses this absolute step, fault_count times in a row (recovery
+    # rewinds below fault_at, so the drill re-fires until spent).  0 = off
+    fault_at: int = 0
+    fault_count: int = 1
+    # seconds to wait before each recovery attempt; 0 keeps drills instant
+    restart_wait_s: float = 0.0
+    profile: str | None = None  # torch.profiler trace directory
+    # Chrome trace-event JSON file (Perfetto-loadable): host-phase spans,
+    # stamped with the run's correlation id
+    trace_events: str | None = None
+    verbose: bool = False
+    metrics: bool = False  # per-chunk live-cell counts + throughput
+    # append each metrics record as a JSON line here (implies metrics)
+    metrics_file: str | None = None
 
     def resolved_geometry(self) -> tuple[int, int, int]:
         """(height, width, steps), reading the config file for any None."""

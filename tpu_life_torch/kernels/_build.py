@@ -4,7 +4,8 @@ Every kernel source is CUDA C++ with a plain C interface.  :func:`build`
 compiles one source with ``nvcc`` for ``sm_90a``, once per source and
 flags, into ``tpu_life_torch/_build/<key>/lib<name>.so`` (git-ignored),
 and keeps nvcc's ``-Xptxas -v`` report beside it in ``build.log``.  A
-missing nvcc or a failed build raises; nothing falls back.  Builds of
+missing nvcc or a failed build raises :class:`KernelBuildError`; nothing
+falls back, and the run driver never retries it.  Builds of
 different sources may run at the same time (each writes its own
 directory, and a finished library is published by an atomic rename).
 """
@@ -29,12 +30,18 @@ NVCC_FLAGS = (
 )
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel source could not be built: no nvcc, or nvcc failed.  A
+    rebuild fails the same way, so the run driver's recovery loop raises
+    it at once instead of spending restarts on it."""
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         found = "/usr/local/cuda/bin/nvcc"
     if found is None:
-        raise RuntimeError(
+        raise KernelBuildError(
             "nvcc not found: the port's CUDA kernels are built from "
             f"{CSRC} at first use and need the CUDA toolkit"
         )
@@ -59,7 +66,7 @@ def build(source: Path) -> Path:
     (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stderr[-4000:]}")
+        raise KernelBuildError(f"nvcc failed on {source.name}:\n{proc.stderr[-4000:]}")
     os.replace(tmp, lib)
     return lib
 

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tpu_life_torch.backends.base import CudaUnavailableError
 from tpu_life_torch.models.rules import NotPortedError
 from tpu_life_torch.utils.padding import ceil_div
 
@@ -66,7 +67,7 @@ def _devices(devices) -> list[torch.device]:
     if devices is None:
         n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n_cards == 0:
-            raise RuntimeError(
+            raise CudaUnavailableError(
                 "no CUDA device is available for a mesh of cards; pass "
                 "devices (e.g. --device cpu --num-devices N puts N shards on the CPU)"
             )
