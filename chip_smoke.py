@@ -137,7 +137,26 @@ Phases (any failure exits non-zero and prints no result line):
    16384^2 through ``cuda`` and through ``sharded --device cuda:0
    --num-devices 4 --local-kernel cuda``, each record printed, with
    ``n_chips`` 1; and K1-K4 timed again at phases 5-9's launches (CUDA
-   events and profiler device time), beside those phases' readings.
+   events and profiler device time), beside those phases' readings;
+13. the banded-matmul counts and the continuous (Lenia) tier, which no
+   kernel runs (those runs' K1-K5 counts must stay 0) — ``run --rule
+   lenia:orbium --size 4096 --steps 32 --seed 1`` (``auto``: the ``torch``
+   backend, the matmul correlation), its seeded board through both
+   stencils on the card (allclose at ``FLOAT_ATOL`` after 8 steps, the
+   error at 32 printed), the four known-answer cases through both
+   stencils, ms a step by CUDA events beside the dense-band and the
+   correlation bounds, the operators' memory and cells/s; ``run --backend
+   torch --stencil matmul`` on the reference workload at the golden
+   sha256; ``bugs`` 8192^2 x 64 through ``torch --stencil matmul``,
+   bit-identical to phase 6's K2 board, timed beside the roll stencil;
+   ``auto`` keeping integer rules on roll: ``run --rule bugs --backend
+   sharded --num-devices 4`` at 4096^2 takes K4 (its launches counted),
+   bit-identical to ``torch``'s roll stencil;
+   Lenia on 4 row shards of the card (``--num-devices 4``) allclose to one
+   card after 8 steps; ``bugs:T`` 4096^2 x 32 on ``--mesh-shape 2,2
+   --stencil matmul`` bit-identical to one card's ``--stencil roll``;
+   ``--local-kernel cuda --stencil matmul`` refused; ``bench --rule
+   lenia:orbium --size 4096`` (delta of 20 and 4 steps) printing its record.
 
 Phases 2-4 cover K3 too: it is built with K1 (same source, its instances
 in the ptxas report and the SASS counts); phase 3 holds it bit-identical to its
@@ -170,6 +189,7 @@ The line before the last is the kernels record; the last line is
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import gzip
 import hashlib
@@ -195,6 +215,9 @@ INT_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer/logic results per clock per Hopp
 FULL = 16384
 FULL_STEPS = 256
 BLOCK_STEPS = 8
+# phase 13: lenia:orbium on one card and on 4 row shards of it
+LENIA_SIDE = 4096
+LENIA_STEPS = 32
 # K2's full-size cells: (rule, side, steps through the Runner)
 K2_FULL = [("bugs", 8192, 64), ("brians_brain", 16384, 64)]
 K2_RULES = ["conway", "brians_brain", "star_wars", "bugs", "bugs_decay", "R2,C2,M1,S5..10,B5..8"]
@@ -1533,6 +1556,8 @@ def main() -> int:
                                       launches=counts[0], blocks_per_sm=k4_blocks)
         del runner, tops, bots, lefts, rights, halos, shard_launch, board, k2_board
         torch.cuda.empty_cache()
+    # phase 13 runs bugs through the matmul counts against K2's board
+    bugs_board, bugs_k2 = k2_final["bugs"][0], k2_final["bugs"][1].cpu()
     k2_final.clear()
 
     # conway and conway:T on 2x2 under auto: the packed plain ops, no kernel
@@ -2012,6 +2037,10 @@ def main() -> int:
               f"{label}: events {against(events(), ev_first)}, device {against(device(), dev_first)}"
               for label, (events, ev_first, device, dev_first) in retime.items()), flush=True)
 
+    # -- 13. banded-matmul counts and the continuous (Lenia) tier -------------
+    phase13(dict(dev=dev, smi=smi, n_sm=n_sm, sm_clock_mhz=sm_clock_mhz, cuda_ms=cuda_ms,
+                 counted=counted, golden=golden, bugs=(bugs_board, bugs_k2)))
+
     diamond = diamond_rows[DIAMOND]
     k4_row = k4_rows[("brians_brain", (2, 2))]
     print(json.dumps({"kernels": [{
@@ -2147,6 +2176,227 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase13(ctx: dict) -> None:
+    """Phase 13: the matmul counts and Lenia through the entry points of
+    ``run`` and ``bench`` on the card, no kernel of K1-K5 on their paths
+    (their runs' counts must stay 0), and ``auto`` keeping K4 for a
+    sharded integer rule; every time printed beside the card's name and
+    power limit, and the dense-band and correlation bounds."""
+    import numpy as np
+    import torch
+
+    from tpu_life_torch.backends.base import get_backend, make_runner
+    from tpu_life_torch.io.codec import read_board
+    from tpu_life_torch.kernels import conway_block as k5
+    from tpu_life_torch.models import lenia
+    from tpu_life_torch.models.rules import get_rule
+    from tpu_life_torch.ops import conv, stencil
+
+    dev, smi, cuda_ms, counted = ctx["dev"], ctx["smi"], ctx["cuda_ms"], ctx["counted"]
+    # float32 outside the tensor cores: 128 lanes an SM, a fused multiply-add
+    # a clock
+    fp32_flops = ctx["n_sm"] * 128 * 2 * ctx["sm_clock_mhz"] * 1e6
+    card = f"({smi})"
+    atol = lenia.FLOAT_ATOL
+
+    def no_kernel(got, what: str) -> None:
+        if any(got) or k5.conway_block.launches:
+            fail(f"{what} launched a kernel: (K1, K2, K3, K4) {got}, K5 {k5.conway_block.launches}")
+
+    def max_err(a, b) -> float:
+        a = torch.as_tensor(a, device=dev)
+        return float((a - torch.as_tensor(b, device=dev)).abs().max())
+
+    def bounds(side: int, factors: int, taps: int) -> tuple[float, float]:
+        """(dense-band, correlation) least ms a step: each factor pair is two
+        n x n x n products, 4 n^3 flops; the correlation itself is a
+        multiply-add a tap a cell (each over the card's float32 rate; its
+        bytes, the board read and written once, weigh less)."""
+        dense = factors * 4.0 * side ** 3 / fp32_flops * 1e3
+        corr = max(2.0 * taps * side * side / fp32_flops, 8.0 * side * side / HBM_BYTES_PER_S) * 1e3
+        return dense, corr
+
+    side, steps = LENIA_SIDE, LENIA_STEPS
+    orbium = get_rule("lenia:orbium")
+    n_factors = len(conv.kernel_factors(orbium.kernel))
+    taps = int(np.count_nonzero(orbium.kernel))
+    dense_ms, corr_ms = bounds(side, n_factors, taps)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        absent = ["--input-file", str(tmp / "absent.txt"), "--config-file", str(tmp / "absent_grid.txt")]
+
+        # (a) Lenia on one card: run, then the same board on both stencils
+        args = ["run", "--rule", "lenia:orbium", "--size", str(side), "--steps", str(steps),
+                "--seed", "1", *absent, "--output-file", str(tmp / "lenia.txt")]
+        _, got, res = counted(args, "run --rule lenia:orbium")
+        no_kernel(got, "run --rule lenia:orbium")
+        if (res.backend, res.route, res.seed) != ("torch", "lenia", 1):
+            fail(f"run --rule lenia:orbium: backend {res.backend!r}, route {res.route!r}, seed {res.seed}")
+        out32 = read_board(tmp / "lenia.txt", side, side)
+        if out32.dtype != np.float32 or not np.isfinite(out32).all() or not 0 <= out32.min() <= out32.max() <= 1:
+            fail("run --rule lenia:orbium: output.txt is not a float32 board in [0, 1]")
+        t0 = time.perf_counter()
+        board = lenia.seeded_board(side, side, seed=1)
+        stage_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        mm = lenia.LeniaDeviceRunner(board, orbium, stencil="matmul", device=dev)
+        roll = lenia.LeniaDeviceRunner(board, orbium, stencil="roll", device=dev)
+        mm.advance(8)
+        roll.advance(8)
+        err8 = max_err(mm.x, roll.x)
+        if not err8 <= atol:
+            fail(f"lenia:orbium {side}^2: matmul and roll differ by {err8} after 8 steps (> {atol})")
+        board8 = mm.x.clone()
+        mm.advance(steps - 8)
+        roll.advance(steps - 8)
+        err32, err_run = max_err(mm.x, roll.x), max_err(mm.x, out32)
+        # the entry point and the runner take the same path on the same
+        # board: a driver fault (a step count, the staged board, the stencil,
+        # a chunk) shows here; one Lenia step moves cells by up to dt
+        if not err_run <= atol:
+            fail(f"run --rule lenia:orbium differs from the matmul runner after {steps} steps "
+                 f"by {err_run} (> {atol})")
+        t_mm = cuda_ms(lambda: mm.advance(1), 4)
+        t_roll = cuda_ms(lambda: roll.advance(1), 2)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"lenia:orbium {side}^2 torus, {steps} steps through `run --seed 1` (backend torch, "
+              f"route lenia, stencil auto = matmul, no kernel launch; seeded board staged in "
+              f"{stage_s:.3f} s); matmul vs roll on the card: max abs error {err8:.3e} at 8 steps "
+              f"(gate {atol}), {err32:.3e} at {steps} (not gated: the rule is chaotic), run vs "
+              f"runner {err_run:.3e} (gate {atol}); {n_factors} factor pairs, {taps} taps; operators "
+              f"{n_factors * 2 * 4 * side * side / 2**20:.1f} MiB, peak device memory "
+              f"{peak / 2**30:.2f} GiB; "
+              f"matmul {t_mm:.3f} ms/step ({side * side / (t_mm * 1e-3):.4e} cells/s), roll "
+              f"{t_roll:.3f} ms/step ({side * side / (t_roll * 1e-3):.4e} cells/s) by CUDA events; "
+              f"bounds: dense band {dense_ms:.3f} ms/step ({n_factors} x 4 x {side}^3 flops), "
+              f"correlation {corr_ms:.4f} ms/step (2 x {taps} x {side}^2 flops) at "
+              f"{fp32_flops:.4e} float32 flop/s {card}", flush=True)
+        del mm, roll, out32
+        kat = json.loads((FIXTURES / "lenia_kat.json").read_text())["cases"]
+        for case in kat:
+            rule = get_rule(case["rule"])
+            h, w = case["height"], case["width"]
+            start = np.frombuffer(base64.b64decode(case["board_b64"]), "<f4").reshape(h, w)
+            want = np.frombuffer(base64.b64decode(case["expected_b64"]), "<f4").reshape(h, w)
+            for st in ("roll", "matmul"):
+                r = lenia.LeniaDeviceRunner(start, rule, stencil=st, device=dev)
+                r.advance(case["steps"])
+                if not np.allclose(r.fetch(), want, atol=atol):
+                    fail(f"KAT {case['rule']}@{case['steps']} on the card through {st}: "
+                         f"max abs error {max_err(r.x, want):.3e}")
+        print(f"lenia KAT: {len(kat)} cases x (roll, matmul) on the card allclose to their "
+              f"expected boards at atol {atol}", flush=True)
+
+        # (b) the matmul counts: the reference workload, then phase 6's bugs board
+        # through --stencil matmul against phase 6's K2 board; under auto
+        # bugs keeps roll (no crossover is set on the card) and, sharded,
+        # its kernel K4
+        ref = tmp / "ref"
+        ref.mkdir()
+        with gzip.open(FIXTURES / "reference_data.txt.gz", "rb") as f:
+            (ref / "data.txt").write_bytes(f.read())
+        shutil.copy(FIXTURES / "reference_grid_size_data.txt", ref / "grid_size_data.txt")
+        files = ["--config-file", str(ref / "grid_size_data.txt"), "--input-file", str(ref / "data.txt")]
+        _, got, res = counted(["run", *files, "--backend", "torch", "--stencil", "matmul",
+                               "--output-file", str(ref / "out.txt")], "run --backend torch --stencil matmul")
+        no_kernel(got, "run --backend torch --stencil matmul")
+        ctx["golden"](ref / "out.txt", "run --backend torch --stencil matmul")
+        bugs = get_rule("bugs")
+        bugs_board, bugs_k2 = ctx["bugs"]
+        bugs_side = bugs_board.shape[0]
+        if conv.resolve_stencil(bugs, "auto", "torch") != "roll":
+            fail(f"bugs through torch under auto resolves to {conv.resolve_stencil(bugs, 'auto', 'torch')!r}")
+        runner = make_runner(get_backend("torch", device=dev, stencil="matmul"), bugs_board, bugs)
+        if (runner.route, runner.stencil) != ("stencil", "matmul"):
+            fail(f"bugs through torch --stencil matmul: route {runner.route!r}, stencil {runner.stencil!r}")
+        runner.advance(64)
+        if not torch.equal(runner.x.cpu(), bugs_k2):
+            fail(f"bugs {bugs_side}^2 x 64 steps through the matmul counts != phase 6's K2 board")
+        bugs_mm = cuda_ms(lambda: runner.advance(1), 4)
+        step = stencil.make_step(bugs)
+        x = runner.x.clone()
+        bugs_roll = cuda_ms(lambda: step(x), 2)
+        b_dense, b_corr = bounds(bugs_side, 1, 121)
+        print(f"matmul counts: `run --backend torch --stencil matmul` on the reference workload "
+              f"at the golden sha256, no kernel launch; bugs {bugs_side}^2 x 64 steps through torch "
+              f"--stencil matmul (auto keeps roll: crossover {conv.CROSSOVER_RADIUS}) bit-identical to "
+              f"phase 6's K2 board; {bugs_mm:.3f} ms/step by CUDA events ({bugs_side ** 2 / (bugs_mm * 1e-3):.4e} "
+              f"cells/s), the int8 roll stencil {bugs_roll:.3f} ms/step; bounds: dense band "
+              f"{b_dense:.3f} ms/step (4 x {bugs_side}^3 flops), the box sum {b_corr:.4f} {card}", flush=True)
+        del runner, x
+        seeded = ["--rule", "bugs", "--size", str(side), "--steps", "16", "--seed", "3", *absent]
+        _, got, res = counted(["run", *seeded, "--backend", "sharded", "--device", "cuda:0",
+                               "--num-devices", "4", "--output-file", str(tmp / "bugs4.txt")],
+                              "run --rule bugs --backend sharded")
+        if res.route != "k4" or not got[3] or any(got[:3]):
+            fail(f"run --rule bugs --backend sharded under auto: route {res.route!r}, (K1, K2, K3, K4) {got}")
+        got_k4 = got[3]
+        _, got, _ = counted(["run", *seeded, "--backend", "torch", "--device", "cuda:0",
+                             "--output-file", str(tmp / "bugs1.txt")], "run --rule bugs --backend torch")
+        no_kernel(got, "run --rule bugs --backend torch")
+        if (tmp / "bugs4.txt").read_bytes() != (tmp / "bugs1.txt").read_bytes():
+            fail(f"bugs {side}^2 x 16 on 4 shards through K4 != one card through torch roll")
+        print(f"auto keeps the kernels: `run --rule bugs --backend sharded --num-devices 4` at "
+              f"{side}^2 x 16 took route k4 ({got_k4} K4 launches) and matched torch's roll "
+              f"stencil bit for bit", flush=True)
+
+        # (c) sharded: Lenia on 4 row shards of the card, bugs:T on 2x2
+        args = ["run", "--rule", "lenia:orbium", "--size", str(side), "--steps", "8", "--seed", "1",
+                *absent, "--backend", "sharded", "--device", "cuda:0", "--num-devices", "4",
+                "--output-file", str(tmp / "lenia_sharded.txt")]
+        _, got, res = counted(args, "run --rule lenia:orbium --backend sharded --num-devices 4")
+        no_kernel(got, "run --rule lenia:orbium --backend sharded")
+        if res.route != "shard_ops":
+            fail(f"sharded lenia took route {res.route!r}")
+        err_sh = max_err(read_board(tmp / "lenia_sharded.txt", side, side), board8)
+        if not err_sh <= atol:
+            fail(f"sharded lenia:orbium after 8 steps differs from one card by {err_sh} (> {atol})")
+        sh = make_runner(get_backend("sharded", device="cuda:0", num_devices=4, stencil="auto"),
+                         board, orbium)
+        k = min(8, side // 4 // orbium.radius)  # the backend's depth clamp
+        sh_ms = cuda_ms(lambda: sh.advance(8), 2) / 8
+        print(f"sharded: lenia:orbium {side}^2 on 4 row shards of cuda:0 (route shard_ops, closed "
+              f"rings, k = {k}: halos of {k * orbium.radius} rows and columns, operators of the "
+              f"{side // 4 + 2 * k * orbium.radius}x{side + 2 * k * orbium.radius} extended shard) "
+              f"allclose to one card after 8 steps (max abs error "
+              f"{err_sh:.3e}); {sh_ms:.3f} ms/step by CUDA events ({side * side / (sh_ms * 1e-3):.4e} "
+              f"cells/s) {card}", flush=True)
+        del sh, board8
+        seeded = ["--rule", "bugs:T", "--size", str(side), "--steps", "32", "--seed", "3", *absent]
+        _, got, res = counted(["run", *seeded, "--backend", "sharded", "--device", "cuda:0",
+                               "--mesh-shape", "2,2", "--stencil", "matmul",
+                               "--output-file", str(tmp / "t22.txt")], "run --rule bugs:T --mesh-shape 2,2")
+        no_kernel(got, "run --rule bugs:T --mesh-shape 2,2 --stencil matmul")
+        _, got, _ = counted(["run", *seeded, "--backend", "torch", "--device", "cuda:0", "--stencil",
+                             "roll", "--output-file", str(tmp / "t1.txt")], "run --rule bugs:T --backend torch")
+        if (tmp / "t22.txt").read_bytes() != (tmp / "t1.txt").read_bytes():
+            fail(f"bugs:T {side}^2 x 32 on 2x2 through matmul != one card through roll")
+        try:
+            counted(["run", "--rule", "bugs:T", "--size", "64", "--steps", "2", *absent, "--backend",
+                     "sharded", "--device", "cuda:0", "--num-devices", "2", "--local-kernel", "cuda",
+                     "--stencil", "matmul", "--output-file", str(tmp / "x.txt")],
+                    "run --local-kernel cuda --stencil matmul")
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            fail("--local-kernel cuda --stencil matmul did not raise")
+        print(f"sharded: bugs:T {side}^2 x 32 steps on --mesh-shape 2,2 --stencil matmul "
+              f"bit-identical to one card's --stencil roll; --local-kernel cuda --stencil matmul "
+              f"raises: {refusal}", flush=True)
+
+    # (d) bench
+    lines, got, _ = counted(["bench", "--rule", "lenia:orbium", "--size", str(side), "--steps", "20",
+                             "--base-steps", "4", "--repeats", "2"], "bench --rule lenia:orbium")
+    no_kernel(got, "bench --rule lenia:orbium")
+    rec = json.loads(lines[-1])
+    if (rec["backend"], rec["platform"], rec["n_chips"]) != ("torch", "cuda", 1) or not rec["value"] > 0:
+        fail(f"bench --rule lenia:orbium: {lines[-1]}")
+    print(lines[-1], flush=True)
+    print(f"bench --rule lenia:orbium --size {side}: {rec['value']:.4e} cells/s/chip "
+          f"({side * side / rec['value'] * 1e3:.3f} ms/step) {card}", flush=True)
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

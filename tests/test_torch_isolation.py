@@ -148,3 +148,9 @@ def test_scan_covers_the_instruments_slice():
         "tpu_life_torch.autotune",
         "tpu_life_torch.autotune.space",
     } <= set(MODULES)
+
+
+def test_scan_covers_the_conv_and_lenia_slice():
+    # the banded-matmul counts and the continuous tier are among the
+    # modules both checks read
+    assert {"tpu_life_torch.ops.conv", "tpu_life_torch.models.lenia"} <= set(MODULES)

@@ -215,8 +215,7 @@ def test_rules_of_the_int8_kernel_name_roadmap_b4(spec, bitpack, local_kernel):
 @pytest.mark.parametrize(
     "kwargs,match",
     [(dict(mesh_shape=(2, 2), partition_mode="gspmd"), "ROADMAP A6"),
-     (dict(partition_mode="gspmd"), "ROADMAP A6"),
-     (dict(stencil="matmul"), "ROADMAP A7")],
+     (dict(partition_mode="gspmd"), "ROADMAP A6")],
 )
 def test_options_not_ported_name_their_item(kwargs, match):
     with pytest.raises(NotPortedError, match=match):

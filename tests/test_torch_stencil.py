@@ -11,7 +11,7 @@ import jax.numpy as jnp
 from tpu_life.models.rules import get_rule as jget_rule
 from tpu_life.ops import bitlife as jbitlife
 from tpu_life.ops import stencil as jstencil
-from tpu_life_torch.models.rules import NotPortedError, get_rule
+from tpu_life_torch.models.rules import get_rule
 from tpu_life_torch.ops import stencil
 from tpu_life_torch.ops.reference import run_np
 
@@ -115,8 +115,16 @@ def test_torus_and_diamond_steps_match_jax(spec):
 
 
 def test_make_step_runs_the_roll_stencil_only():
-    with pytest.raises(NotPortedError, match="matmul"):
-        stencil.make_step(get_rule("bugs"), stencil="matmul")
+    # the matmul stencil, once refused here, is ported (ops.conv): it now
+    # gives the roll step's board bit for bit, and only the two stencils
+    # of the JAX package are taken
+    rule = get_rule("bugs")
+    b = _board((23, 25), rule, seed=4)
+    np.testing.assert_array_equal(
+        stencil.make_step(rule, stencil="matmul")(_t(b)).numpy(), stencil.make_step(rule)(_t(b)).numpy()
+    )
+    with pytest.raises(ValueError, match="stencil must be one of"):
+        stencil.make_step(rule, stencil="fft")
     with pytest.raises(ValueError, match="torus"):
         stencil.make_masked_step(get_rule("conway:T"), (8, 8))
 

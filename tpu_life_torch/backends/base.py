@@ -5,16 +5,20 @@ on the same (board, rule, steps) and differ only in where the work runs:
 
 - ``numpy``  the pure-NumPy truth executor, on the host
 - ``torch``  plain PyTorch ops (bit-sliced where the rule allows, else the
-             int8 stencil), on an explicit device
+             int8 stencil, its counts by shift-adds or banded matmuls;
+             the float Lenia step for continuous rules), on an explicit
+             device
 - ``cuda``   the hand-written kernels on the card, and plain PyTorch ops
              there for the rules no kernel counts (the plain versions
-             when the caller asks for the CPU)
+             when the caller asks for the CPU); no float path
 - ``sharded`` the board in row stripes over a mesh of devices, a halo
              exchange and one step of every shard per block (kernel K3
              per shard for packed rules)
 
-Only deterministic rules exist here: the stochastic and continuous rule
-specs are refused when parsed (``models.rules.NotPortedError``).
+Continuous rules (``models.lenia``) run on ``torch``, ``numpy`` and
+``sharded`` only, on float32 boards; ``auto`` sends them to ``torch``.  The
+stochastic rule specs are refused when parsed
+(``models.rules.NotPortedError``).
 """
 
 from __future__ import annotations
@@ -77,8 +81,13 @@ class HostRunner:
 
     def __init__(self, backend: "Backend", board: np.ndarray, rule: Rule):
         self.backend = backend
-        self.board = np.asarray(board, np.int8)
         self.rule = rule
+        if getattr(rule, "continuous", False):
+            from tpu_life_torch.models.lenia import validate_board
+
+            self.board = validate_board(board, rule)
+        else:
+            self.board = np.asarray(board, np.int8)
 
     def advance(self, steps: int) -> None:
         self.board = self.backend.run(self.board, self.rule, steps)
@@ -93,7 +102,9 @@ class HostRunner:
         return lambda board=self.board: board
 
     def live_count(self) -> int:
-        return int(np.count_nonzero(self.board == 1))
+        # a float board's live cells are those at or above one half
+        live = self.board >= 0.5 if self.board.dtype == np.float32 else self.board == 1
+        return int(np.count_nonzero(live))
 
 
 class Backend(Protocol):
@@ -113,7 +124,8 @@ class Backend(Protocol):
 def make_runner(backend: "Backend", board: np.ndarray, rule: Rule) -> Runner:
     """Stage ``board`` on the backend's device and return a Runner:
     ``backend.prepare`` where the backend has device state, else a
-    ``HostRunner``."""
+    ``HostRunner``.  Each backend routes continuous rules itself; the
+    ``cuda`` backend raises for them rather than cast the board to int8."""
     prep = getattr(backend, "prepare", None)
     if prep is not None:
         return prep(board, rule)
@@ -236,8 +248,10 @@ def register_backend(name: str):
     return deco
 
 
-def get_backend(name: str, **kwargs) -> Backend:
-    """Instantiate a backend by name; ``auto`` is the ``cuda`` backend.
+def get_backend(name: str, *, rule: Rule | None = None, **kwargs) -> Backend:
+    """Instantiate a backend by name.  ``auto`` is the ``cuda`` backend, or
+    ``torch`` when the ``rule`` hint is continuous: the kernels have no
+    float path.
 
     ``auto`` never picks the CPU by itself: without a card it raises
     :class:`CudaUnavailableError` unless the caller passes ``device="cpu"``.
@@ -251,7 +265,7 @@ def get_backend(name: str, **kwargs) -> Backend:
     )
 
     if name == "auto":
-        name = "cuda"
+        name = "torch" if getattr(rule, "continuous", False) else "cuda"
     if name not in BACKENDS:
         raise ValueError(f"unknown backend {name!r}; available: {sorted(BACKENDS)}")
     return BACKENDS[name](**kwargs)

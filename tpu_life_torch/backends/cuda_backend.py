@@ -24,6 +24,11 @@ backend's order and records the route in the runner (``runner.route``):
   board, its block depth clamped to the rule's radius as the TPU backend
   clamps it.
 
+As the TPU backend, it takes no ``stencil``: ``--stencil`` is ignored here
+(the kernels count with their own sums, the plain routes with shift-adds),
+and continuous rules raise ``models.lenia.require_float_path``'s error, as
+no kernel has a float path.
+
 The kernels run at every board size: the TPU backend's small-board
 fallback existed for Mosaic's alignment rules, which a CUDA kernel does
 not have.  Each kernel loads zeros outside the board, so there is no frame
@@ -82,6 +87,10 @@ class CudaBackend:
         self.bitpack = bitpack
 
     def prepare(self, board: np.ndarray, rule: Rule) -> DeviceRunner:
+        if getattr(rule, "continuous", False):
+            from tpu_life_torch.models.lenia import require_float_path
+
+            require_float_path(rule, self.name)
         if self.bitpack and bitlife.supports_diamond(rule):
             return self._prepare_packed(board, rule, "k1_diamond")
         if rule.neighborhood != "moore" or rule.boundary != "clamped":

@@ -29,7 +29,21 @@ backend's order and names the route in the runner (``runner.route``):
   not life-like, clamped von Neumann rules the diamond does not take, and
   the 2-D torus (closed rings on both axes: packed where the width is a
   multiple of 32 and its words divide by the mesh's columns, int8 where
-  the width divides by them; the height divides by its rows).
+  the width divides by them; the height divides by its rows).  Continuous
+  (Lenia) rules and rules whose count resolves to ``matmul`` take it too:
+  on the torus the closed-ring 2-D scaffold on the float or int8 cells
+  (also on a row mesh, its one column wrapping onto itself), each shard
+  stepping the clamped twin of the rule by the resolved counting path
+  with operators sized to its halo-extended chunk; clamped matmul rules
+  the masked int8 step.
+
+``stencil`` (``--stencil``) resolves per rule: ``auto`` follows the
+crossover model (``ops.conv.resolve_stencil``) for continuous rules, and
+for integer rules only under ``local_kernel='torch'``; otherwise integer
+rules keep ``roll``, so a rule that has a kernel (K3, K4) keeps it.  An
+explicit ``matmul`` with a ``local_kernel='cuda'`` pin raises, as the
+kernels count with their own sums.  A clamped continuous rule
+raises: its padding rows would need a masked float step.
 
 Geometry is the GPU's own: clamped shards of ``ceil(h / R)`` rows and, on
 a mesh of C > 1 columns, ``ceil(w / C)`` cells or ``ceil(ceil(w / 32) / C)``
@@ -66,6 +80,7 @@ from tpu_life_torch.backends.torch_backend import ShardedRunner, from_words
 from tpu_life_torch.kernels import int8_tiled, packed_stripe, sharded_int8, sharded_stripe
 from tpu_life_torch.models.rules import NotPortedError, Rule
 from tpu_life_torch.ops import bitlife
+from tpu_life_torch.ops.conv import resolve_stencil, validate_stencil
 from tpu_life_torch.ops.stencil import live_count_cells
 from tpu_life_torch.parallel import halo
 from tpu_life_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d, shard_extent, split_blocks
@@ -110,13 +125,9 @@ class ShardedBackend:
             )
         if partition_mode != "shard_map":
             raise ValueError(f"unknown partition_mode {partition_mode!r}")
-        if stencil != "roll":
-            raise NotPortedError(
-                f"stencil {stencil!r} is not yet ported to tpu_life_torch (ROADMAP "
-                f"A7: matmul counting); only 'roll' (the shift-add count) runs here"
-            )
         if local_kernel not in LOCAL_KERNELS:
             raise ValueError(f"local_kernel must be one of {LOCAL_KERNELS}, got {local_kernel!r}")
+        self.stencil = validate_stencil(stencil)
         self.local_kernel = local_kernel
         self.bitpack = bitpack
         # as the JAX backend, any depth asked for runs: prepare clamps it
@@ -142,10 +153,51 @@ class ShardedBackend:
         self.n = self.mesh.n_rows
         self.n_cols = self.mesh.n_cols
 
+    def _stencil(self, rule: Rule) -> str:
+        """The rule's resolved counting path: explicit modes win, ``auto``
+        follows the crossover model, except that integer rules keep
+        ``roll`` unless ``local_kernel='torch'``: the kernels count with
+        their own sums, and the dense bands must not take a kernel's place."""
+        if (self.stencil == "auto" and self.local_kernel != "torch"
+                and not getattr(rule, "continuous", False)):
+            return "roll"
+        return resolve_stencil(rule, self.stencil, self.name)
+
+    def _closed_rings(self, rule: Rule) -> bool:
+        """Whether a torus rule runs on the 2-D scaffold, closed rings on
+        both axes: on a mesh of columns, and for continuous and matmul
+        rules on any mesh (the 1-D torus's column wrap is an int8
+        shift-add construction)."""
+        return rule.boundary == "torus" and (
+            self.n_cols > 1
+            or getattr(rule, "continuous", False)
+            or self._stencil(rule) == "matmul"
+        )
+
     def route(self, rule: Rule) -> str:
         """The per-shard executor of ``rule``, in the JAX backend's order;
         raises for the options a kernel pin cannot honour."""
         kernel = self.local_kernel != "torch"
+        if getattr(rule, "continuous", False):
+            if rule.boundary != "torus":
+                raise ValueError(
+                    f"continuous rule {rule.name!r} on the sharded backend needs the "
+                    f"torus boundary (exact shapes, no padding mask); the clamped float "
+                    f"layout has no masked step"
+                )
+            if self.local_kernel == "cuda":
+                raise ValueError(
+                    "continuous rules run the plain float step on each shard; no "
+                    "kernel has a float path (local_kernel 'auto' or 'torch')"
+                )
+            return "shard_ops"
+        if self._stencil(rule) == "matmul":
+            if self.local_kernel == "cuda":
+                raise ValueError(
+                    "stencil='matmul' runs the plain banded-matmul step; it cannot be "
+                    "combined with local_kernel='cuda'"
+                )
+            return "shard_ops"
         if rule.boundary == "torus":
             if self.n_cols > 1:
                 if self.local_kernel == "cuda":
@@ -182,8 +234,11 @@ class ShardedBackend:
 
     def _use_bits(self, rule: Rule) -> bool:
         """Whether the shards hold packed words: the rules with a
-        bit-sliced step, unless ``bitpack`` is off or a ``cuda`` pin on a
-        2-D mesh asks for K4, which steps cells."""
+        bit-sliced step, unless ``bitpack`` is off, a ``cuda`` pin on a
+        2-D mesh asks for K4, which steps cells, or the rule is continuous
+        or counts by matmul, which step cells too."""
+        if getattr(rule, "continuous", False) or self._stencil(rule) == "matmul":
+            return False
         if rule.boundary == "torus":
             return self.bitpack and bitlife.supports_torus(rule)
         if self.local_kernel == "cuda" and self.n_cols > 1:
@@ -227,7 +282,7 @@ class ShardedBackend:
         sh, sw = self._geometry(h, w, rule, packed)
         r = rule.radius
         k = min(self.block_steps, sh // r)
-        if self.n_cols > 1:
+        if self.n_cols > 1 or self._closed_rings(rule):
             k = min(k, sw * (bitlife.WORD if packed else 1) // r)
         if route.startswith("k3"):
             k = packed_stripe.clamp_block_steps(rule, k)
@@ -238,7 +293,13 @@ class ShardedBackend:
                 f"torus shards of {sh} rows and {sw} {'words' if packed else 'cells'} are "
                 f"smaller than the radius {r} of rule {rule.name!r}; use fewer devices"
             )
-        if packed:
+        if getattr(rule, "continuous", False):
+            from tpu_life_torch.models.lenia import validate_board
+
+            host = validate_board(board, rule)
+            to_np = lambda x: x.cpu().numpy()  # noqa: E731
+            count_live = lambda x: (x >= 0.5).sum()  # noqa: E731
+        elif packed:
             host = bitlife.pack_np(np.asarray(board, np.int8)).view(np.int32)
             to_np = lambda x: from_words(x, w)  # noqa: E731
             count_live = bitlife.live_count_packed
@@ -271,13 +332,18 @@ class ShardedBackend:
         return ShardedRunner(chunks, advance, to_np, count_live, route, grid, host.shape)
 
     def _shard_ops_run(self, rule, logical, packed: bool):
+        stencil = self._stencil(rule)
         if rule.boundary == "clamped":
-            make = halo.make_sharded_run_2d
-        elif self.n_cols > 1:
-            make = halo.make_sharded_run_torus_2d
-        else:
-            make = halo.make_sharded_run_torus
-        return lambda depth: make(rule, self.mesh, logical, block_steps=depth, packed=packed)
+            return lambda depth: halo.make_sharded_run_2d(
+                rule, self.mesh, logical, block_steps=depth, packed=packed, stencil=stencil
+            )
+        if self._closed_rings(rule):
+            return lambda depth: halo.make_sharded_run_torus_2d(
+                rule, self.mesh, logical, block_steps=depth, packed=packed, stencil=stencil
+            )
+        return lambda depth: halo.make_sharded_run_torus(
+            rule, self.mesh, logical, block_steps=depth, packed=packed
+        )
 
     def _kernel_run(self, chunks, launch, fr_of, fc_of, periodic: bool):
         """Runs of kernel blocks: ``launch(top, chunk, bot, row0, left,

@@ -6,11 +6,19 @@ decides the route in the JAX backend's order: with ``bitpack`` on, clamped
 life-like rules, clamped 2-state von Neumann rules of radius <= 2 and
 life-like torus rules run bit-sliced on int32 words in the ``pack_np``
 layout (``ops.bitlife``); every other rule, and every rule with
-``bitpack`` off, runs the int8 stencil (``ops.stencil.multi_step``) on the
+``bitpack`` off, runs the int8 stencil (``ops.stencil.make_step``) on the
 board at its exact shape, which is what a torus needs.  The ``cuda``
 backend hands the rules it has no kernel for to the same function, so one
 place decides them.  ``DeviceRunner`` serves both backends, over packed
 words or int8 boards, and names the route it was built for.
+
+The ``torch`` backend's ``stencil`` (``--stencil auto|roll|matmul``)
+resolves per rule by ``ops.conv.resolve_stencil``: under ``auto`` matmul
+for continuous rules, and for integer rules only from the crossover
+radius a deployment sets.  A matmul rule
+takes the int8 route with its counts by banded matmuls, bit-identical,
+and skips the bit-sliced routes; continuous rules run the float Lenia
+runner (``models.lenia.LeniaDeviceRunner``).
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from tpu_life_torch.backends.base import (
 )
 from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.ops import bitlife
-from tpu_life_torch.ops.stencil import live_count_cells, multi_step
+from tpu_life_torch.ops.conv import resolve_stencil, validate_stencil
+from tpu_life_torch.ops.stencil import live_count_cells, make_step
 
 
 def to_words(board: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -50,7 +59,8 @@ class DeviceRunner:
     host and ``count_live`` reduces its live cells on the device.
     ``route`` names the executor ``advance`` runs: a kernel (``k1``,
     ``k1_diamond``, ``k2``) or plain ops (``packed``, ``packed_diamond``,
-    ``packed_torus``, ``stencil``)."""
+    ``packed_torus``, ``stencil``); ``stencil`` names how the ``stencil``
+    route counts (``roll`` or ``matmul``)."""
 
     def __init__(
         self,
@@ -59,12 +69,14 @@ class DeviceRunner:
         to_np: Callable[[torch.Tensor], np.ndarray],
         count_live: Callable[[torch.Tensor], torch.Tensor],
         route: str = "",
+        stencil: str = "roll",
     ):
         self.x = x
         self._advance = advance
         self._to_np = to_np
         self._count_live = count_live
         self.route = route
+        self.stencil = stencil
 
     def advance(self, steps: int) -> None:
         if steps > 0:
@@ -165,12 +177,15 @@ def packed_device_runner(
 
 
 def plain_runner(
-    board: np.ndarray, rule: Rule, device: torch.device, bitpack: bool = True
+    board: np.ndarray, rule: Rule, device: torch.device, bitpack: bool = True,
+    stencil: str = "roll",
 ) -> DeviceRunner:
     """The plain-ops runner of ``rule``, routed as ``JaxBackend.prepare``
     routes it: packed Moore, packed diamond, packed torus, else the int8
-    stencil on the unpadded board."""
+    stencil on the unpadded board, counting by ``stencil``.  A ``matmul``
+    stencil takes the int8 route whatever ``bitpack`` says."""
     h, w = board.shape
+    bitpack = bitpack and stencil != "matmul"
     if bitpack and bitlife.supports(rule):
         return packed_device_runner(
             board, device,
@@ -195,9 +210,15 @@ def plain_runner(
     # on a torus padding would sit between the edges it glues together.  A
     # copy even on the CPU: the runner's board is not the caller's array
     x = torch.from_numpy(np.ascontiguousarray(board, np.int8)).to(device, copy=True)
+    step = make_step(rule, stencil, (h, w))
+
+    def advance(x, n):
+        for _ in range(n):
+            x = step(x)
+        return x
+
     return DeviceRunner(
-        x, lambda x, n: multi_step(x, rule=rule, steps=n),
-        lambda x: x.cpu().numpy(), live_count_cells, "stencil",
+        x, advance, lambda x: x.cpu().numpy(), live_count_cells, "stencil", stencil
     )
 
 
@@ -205,12 +226,18 @@ def plain_runner(
 class TorchBackend:
     name = "torch"
 
-    def __init__(self, *, device=None, bitpack: bool = True, **_):
+    def __init__(self, *, device=None, bitpack: bool = True, stencil: str = "auto", **_):
         self.device = resolve_device(device)
         self.bitpack = bitpack
+        self.stencil = validate_stencil(stencil)
 
-    def prepare(self, board: np.ndarray, rule: Rule) -> DeviceRunner:
-        return plain_runner(board, rule, self.device, self.bitpack)
+    def prepare(self, board: np.ndarray, rule: Rule):
+        stencil = resolve_stencil(rule, self.stencil, self.name)
+        if getattr(rule, "continuous", False):
+            from tpu_life_torch.models.lenia import LeniaDeviceRunner
+
+            return LeniaDeviceRunner(board, rule, stencil=stencil, device=self.device)
+        return plain_runner(board, rule, self.device, self.bitpack, stencil)
 
     def run(
         self,

@@ -7,8 +7,10 @@ writes ``output.txt`` and prints ``Total time = <s>``.  With ``--size`` (or
 seeded random board of ``--seed``.  It runs on the card; ``--device cpu``
 asks for the plain PyTorch version on the CPU.  Its snapshot, resume,
 recovery, metrics, trace and profile flags are the JAX ``run``'s.
-``bench`` prints one JSON throughput record with the JAX ``bench``
-record's keys.  ``gen`` writes a random board and its config,
+``--rule lenia[:preset|:R..,m..,s..]`` runs the continuous tier on float32
+boards (``auto`` sends it to the ``torch`` backend); ``--stencil`` picks
+the neighbour-counting path.  ``bench`` prints one JSON throughput record
+with the JAX ``bench`` record's keys.  ``gen`` writes a random board and its config,
 ``pattern`` converts RLE patterns and named patterns to and from the
 contract files, each with the bytes ``python -m tpu_life`` writes;
 ``info`` shows the torch build, the CUDA devices, backends and rules.
@@ -40,7 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--height", type=int, default=None)
     r.add_argument("--width", type=int, default=None)
     r.add_argument("--steps", type=int, default=None)
-    r.add_argument("--rule", default="conway", help="name or B/S / LtL spec")
+    r.add_argument("--rule", default="conway",
+                   help="name or B/S / LtL spec, or a continuous "
+                   "lenia[:<preset>|:R..,m..,s..] spec (float32 boards)")
     r.add_argument(
         "--seed", type=int, default=0,
         help="counter-based PRNG seed: names the staged board of a seeded "
@@ -93,6 +97,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--block-steps", type=int, default=None,
         help="CA steps per kernel launch (default 8; clamped to 1..32 and to "
         "what the rule's radius and the shards allow)",
+    )
+    r.add_argument(
+        "--stencil", default="auto", choices=["auto", "roll", "matmul"],
+        help="neighbour-counting path of the torch, numpy and sharded backends: "
+        "roll = shift-adds, matmul = banded matmuls (bit-identical for integer "
+        "rules; the path of the continuous kernels), auto = matmul for "
+        "continuous rules and roll for integer rules (matmul from the radius "
+        "TPU_LIFE_STENCIL_CROSSOVER sets, on torch and on sharded under "
+        "--local-kernel torch; the numpy oracle stays on roll); the cuda "
+        "backend's kernels count with their own sums and ignore it",
     )
     r.add_argument(
         "--no-bitpack", dest="bitpack", action="store_false",
@@ -263,6 +277,7 @@ def main(argv: list[str] | None = None) -> int:
         local_kernel=args.local_kernel,
         block_steps=args.block_steps,
         bitpack=args.bitpack,
+        stencil=args.stencil,
         sync_every=args.sync_every,
         snapshot_every=args.snapshot_every,
         snapshot_dir=args.snapshot_dir,
@@ -337,7 +352,9 @@ def _bench(parser, args) -> int:
         kwargs["local_kernel"] = args.local_kernel
     placement = {"device": args.device, "num_devices": args.num_devices,
                  "mesh_shape": _parse_mesh_shape(parser, args.mesh_shape)}
-    backend = get_backend(args.backend, **kwargs, **placement)
+    # the rule hint sends `auto` to the float path for continuous rules,
+    # whose runner casts this 0/1 board to float32
+    backend = get_backend(args.backend, rule=rule, **kwargs, **placement)
     per_chip, n_chips = measure_throughput(
         backend, board, rule, args.steps, args.base_steps, args.repeats
     )
@@ -377,7 +394,7 @@ def _info() -> int:
     print(f"cuda devices: {n}")
     for i in range(n):
         print(f"  device {i}: {torch.cuda.get_device_name(i)}")
-    print("backends:", ", ".join(sorted(BACKENDS)), "(auto = cuda)")
+    print("backends:", ", ".join(sorted(BACKENDS)), "(auto = cuda; torch for lenia)")
     if n:
         mesh = ", ".join(f"cuda:{i}" for i in range(n))
         print(f"mesh devices (sharded backend, one shard each): {mesh}")
@@ -394,8 +411,10 @@ def _info() -> int:
         "(--mesh-shape R,C), route k3 (K3 per stripe) for life-like and "
         "2-state NN (r <= 2) rules on a row mesh, route k4 (K4 per shard) "
         "for Generations, LtL and --no-bitpack on any mesh, shard_ops (PyTorch "
-        "ops per shard) for the rest; ising, noisy: and lenia are not ported "
-        "yet"
+        "ops per shard) for the rest; --stencil matmul counts by banded "
+        "matmuls on torch, numpy and sharded; continuous rules "
+        "lenia[:<preset>|:R..,m..,s..] (float32 boards) run on torch, numpy and "
+        "sharded (torus); ising and noisy: are not ported yet"
     )
     return 0
 

@@ -36,6 +36,10 @@ class RunConfig:
     local_kernel: str = "auto"  # sharded: per-shard stepper, auto | torch | cuda
     block_steps: int | None = None  # kernel substeps per launch; None = backend default
     bitpack: bool = True  # False: life-like rules run the int8 path (kernel K2)
+    # neighbour-counting path of the torch, numpy and sharded backends:
+    # auto | roll | matmul (ops.conv.resolve_stencil); the cuda backend's
+    # kernels count with their own sums and ignore it
+    stencil: str = "auto"
     sync_every: int = 0  # steps per host sync chunk; 0 = one run
 
     # aux subsystems (the JAX RunConfig's, with its defaults)

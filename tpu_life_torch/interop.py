@@ -3,8 +3,9 @@
 The state of a run is a board and a rule.  These helpers take numpy arrays
 and plain Python values only — never an object of the JAX package — so a
 caller holding both packages (the tests) can hand the same state to each.
-Files need no helper: both packages share the byte codec, so one's
-``output.txt`` is a valid input for the other.
+A continuous-tier board crosses as float32 numpy, a Lenia rule as its spec
+string and its fields.  Files need no helper: both packages share the byte
+codec, so one's ``output.txt`` is a valid input for the other.
 """
 
 from __future__ import annotations
@@ -29,11 +30,19 @@ def board_from_reference(
       and 1 pack into words, so an int8 board holding any other state
       raises ``ValueError`` instead of losing it;
     - ``"cells"``: the int8[H, W] board whole, the layout of kernel K2.
+
+    A float32 board (the continuous tier) crosses whole, as float32 cells.
     """
     h, w = logical_shape
     board = np.asarray(board)
     if layout not in ("words", "cells"):
         raise ValueError(f"layout must be 'words' or 'cells', got {layout!r}")
+    if board.dtype == np.float32:
+        if layout != "cells" or board.shape != (h, w):
+            raise ValueError(
+                f"a float32 board of shape {board.shape} crosses as cells of shape {(h, w)}"
+            )
+        return torch.from_numpy(board.copy())
     if board.dtype == np.uint32:
         want = (h, bitlife.packed_width(w))
         if board.shape != want:
@@ -58,9 +67,9 @@ def board_from_reference(
 
 
 def board_to_reference(x: torch.Tensor, logical_shape: tuple[int, int]) -> np.ndarray:
-    """This package's board (any device) — int32 words or an int8 board —
-    as an ``int8[H, W]`` board."""
-    if x.dtype == torch.int8:
+    """This package's board (any device) — int32 words, an int8 board or a
+    float32 board — as an ``int8[H, W]`` (or ``float32[H, W]``) board."""
+    if x.dtype in (torch.int8, torch.float32):
         if tuple(x.shape) != tuple(logical_shape):
             raise ValueError(f"board has shape {tuple(x.shape)}, want {tuple(logical_shape)}")
         return x.cpu().numpy().copy()
@@ -76,8 +85,33 @@ def rule_from_fields(
     neighborhood: str = "moore",
     boundary: str = "clamped",
     include_center: bool = False,
+    *,
+    mu: float | None = None,
+    sigma: float | None = None,
+    dt: float | None = None,
+    peaks=None,
 ) -> Rule:
-    """A :class:`Rule` from the field values of a JAX-package rule."""
+    """A :class:`Rule` from the field values of a JAX-package rule.  A
+    Lenia rule crosses as its spec string (``name``) and its fields: a
+    ``lenia`` name, or any of ``mu``/``sigma``/``dt``/``peaks``, gives a
+    ``LeniaRule`` whose spec's values are overridden by the fields given."""
+    lenia_fields = {k: float(v) for k, v in (("mu", mu), ("sigma", sigma), ("dt", dt))
+                    if v is not None}
+    if peaks is not None:
+        lenia_fields["peaks"] = tuple(float(b) for b in peaks)
+    spec = name.lower() == "lenia" or name.lower().startswith("lenia:")
+    if lenia_fields or spec:
+        from dataclasses import replace
+
+        from tpu_life_torch.models.lenia import LeniaRule, parse_lenia
+
+        return replace(
+            parse_lenia(name) if spec else LeniaRule(), name=name, radius=int(radius),
+            boundary=boundary,
+            states=int(states), include_center=bool(include_center),
+            neighborhood=neighborhood, birth=frozenset(int(c) for c in birth),
+            survive=frozenset(int(c) for c in survive), **lenia_fields,
+        )
     return Rule(
         name=name,
         birth=frozenset(int(c) for c in birth),

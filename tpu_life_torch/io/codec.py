@@ -1,11 +1,12 @@
 """Byte-exact board / config codec — the I/O contract, numpy path only.
 
-A copy of ``tpu_life/io/codec.py`` without the native C++ codec and the
-float (continuous-tier) boards, so files move between the two packages
-unchanged:
+A copy of ``tpu_life/io/codec.py`` without the native C++ codec, so files
+move between the two packages unchanged:
 
 - Board file (``data.txt`` / ``output.txt``): ``h`` rows of ``w`` ASCII digit
   cells followed by ``'\\n'``; row stride is ``w + 1`` bytes; Unix EOL only.
+  A continuous-tier board is ``4 * h * w`` bytes of little-endian float32
+  instead; the two lengths never coincide.
 - Config file (``grid_size_data.txt``): three whitespace-separated integers
   ``height width epochs``.
 
@@ -27,9 +28,21 @@ def row_stride(width: int) -> int:
     return width + 1
 
 
+def float_board_bytes(height: int, width: int) -> int:
+    """On-disk byte length of a float32 (continuous-tier) board."""
+    return height * width * 4
+
+
 def decode_board(buf: bytes | bytearray | memoryview, height: int, width: int) -> np.ndarray:
     """Parse board bytes into an ``int8`` array of shape ``(height, width)``,
-    validating the newline grid structure and the cell alphabet."""
+    validating the newline grid structure and the cell alphabet — or a
+    ``float32`` array for a continuous-tier board, told apart by its length
+    (``w + 1 == 4w`` has no positive integer solution)."""
+    if len(buf) == float_board_bytes(height, width) and len(buf) != height * row_stride(width):
+        a = np.frombuffer(buf, dtype="<f4").reshape(height, width)
+        if not np.isfinite(a).all():
+            raise ValueError("float board contains NaN or Inf")
+        return a.astype(np.float32)
     stride = row_stride(width)
     expected = height * stride
     if len(buf) != expected:
@@ -48,10 +61,13 @@ def decode_board(buf: bytes | bytearray | memoryview, height: int, width: int) -
 
 
 def encode_board(board: np.ndarray) -> bytes:
-    """Serialize an ``int8`` state array to the on-disk byte format."""
+    """Serialize an ``int8`` state array to the on-disk byte format, or a
+    ``float32`` (continuous-tier) board to its raw little-endian bytes."""
     board = np.asarray(board)
     if board.ndim != 2:
         raise ValueError(f"board must be 2-D, got shape {board.shape}")
+    if np.issubdtype(board.dtype, np.floating):
+        return np.ascontiguousarray(board, dtype="<f4").tobytes()
     h, w = board.shape
     out = np.empty((h, w + 1), dtype=np.uint8)
     out[:, :w] = board.astype(np.uint8) + ASCII_ZERO

@@ -6,9 +6,10 @@ the same fields and the same parse results.  Life-like (``B3/S23``),
 Generations (``B2/S/C3``), Larger-than-Life (``R5,C2,S34..58,B34..45``),
 von Neumann (``NN``) and board-sized torus (``:T``) specs all parse.
 
-The stochastic (``ising``, ``noisy:<p>/<base>``) and continuous
-(``lenia``) tiers are not ported yet: their specs raise a ``ValueError``
-that says so, instead of parsing into a rule nothing here can run.
+Continuous (Lenia) specs parse into ``models.lenia.LeniaRule``.  The
+stochastic tier (``ising``, ``noisy:<p>/<base>``) is not ported yet: its
+specs raise a ``ValueError`` that says so, instead of parsing into a rule
+nothing here can run.
 
 Semantics (synchronous update; boundary per ``Rule.boundary``):
 
@@ -100,15 +101,33 @@ class Rule:
                 t[s] = (s + 1) % self.states
         return t
 
+    @property
+    def stochastic(self) -> bool:
+        """True for Monte-Carlo rules; none is ported yet."""
+        return False
+
+    @property
+    def continuous(self) -> bool:
+        """True for continuous-state rules (``models.lenia``): float32
+        boards in [0, 1], a weighted kernel and an Euler update instead of
+        a transition table.  They run only on executors with a float path
+        (torch / numpy / sharded)."""
+        return False
+
+    @property
+    def board_dtype(self) -> str:
+        """The board element dtype this rule steps: "int8" for every
+        discrete rule, "float32" on the continuous tier."""
+        return "float32" if self.continuous else "int8"
+
     def __str__(self) -> str:
         return self.name
 
 
 class NotPortedError(ValueError):
-    """A rule spec of a tier this package does not run yet (stochastic
-    ``ising`` / ``noisy:``, continuous ``lenia``), or an option of the
-    sharded backend whose port is still queued; the message names the
-    ROADMAP item."""
+    """A rule spec of a tier this package does not run yet (the stochastic
+    ``ising`` / ``noisy:``), or an option of the sharded backend whose port
+    is still queued; the message names the ROADMAP item."""
 
 
 class GeometryError(ValueError):
@@ -162,15 +181,23 @@ def parse_rule(spec: str) -> Rule:
     - Larger-than-Life (Golly-style): ``R5,C2,M0,S34..58,B34..45[,NM|NN]``
     - any of the above + Golly's bounded-grid suffix ``:T`` for a
       board-sized torus: ``conway:T``, ``B3/S23:T``
+    - continuous rules (``models.lenia``): ``lenia`` / ``lenia:<preset>`` /
+      parametric ``lenia:R<r>,m<mu>,s<sigma>[,dt<dt>][,b<a1;a2;...>]``
     """
     spec = spec.strip()
     low = spec.lower()
-    if low.startswith("noisy:") or low.split(":")[0] in ("ising", "lenia"):
+    if low.startswith("noisy:") or low.split(":")[0] == "ising":
         raise NotPortedError(
             f"rule {spec!r} is not yet ported to tpu_life_torch: the "
-            f"stochastic and continuous tiers are queued in ROADMAP.md "
-            f"(use `python -m tpu_life` for them)"
+            f"stochastic tier (ising, noisy:) is queued in ROADMAP.md (A8; "
+            f"use `python -m tpu_life` for it)"
         )
+    if low == "lenia" or low.startswith("lenia:"):
+        # the continuous tier: lenia presets and the parametric spec own
+        # their colon grammar
+        from tpu_life_torch.models.lenia import parse_lenia
+
+        return parse_lenia(spec)
     m_t = re.search(r":\s*[tT](.*)$", spec)
     if m_t is not None:
         dims = m_t.group(1).strip()
@@ -303,5 +330,9 @@ register_rule(
         states=3,
     ),
 )
+# Continuous tier: models/lenia.py registers "lenia" (parse_lenia("lenia"),
+# the orbium preset) when it is imported, so `info` lists it; the parse path
+# resolves the lenia: prefix before the registry.
+from tpu_life_torch.models import lenia as _lenia  # noqa: E402,F401
 # The reference binary's *effective* rule as shipped (B/S2; SURVEY.md §2.2)
 register_rule("reference_bug_compat", Rule("B/S2", frozenset(), frozenset({2})))

@@ -1,8 +1,8 @@
 """Pure-NumPy reference executor — the port's ground truth.
 
-A copy of ``tpu_life/ops/reference.py`` (the roll oracle every executor of
-both packages is held to), without the matmul and continuous-tier
-branches, which belong to tiers not ported yet.
+A copy of ``tpu_life/ops/reference.py``: the roll oracle every executor
+of both packages is held to, whose ``step_np`` also routes the banded-matmul
+counts (``stencil="matmul"``) and the continuous tier's float oracle.
 """
 
 from __future__ import annotations
@@ -66,19 +66,36 @@ def _counts_np(
     return counts
 
 
-def step_np(board: np.ndarray, rule: Rule) -> np.ndarray:
-    """One synchronous CA step via the rule's full transition LUT."""
-    counts = neighbor_counts_np(
-        board,
-        rule.radius,
-        rule.include_center,
-        rule.neighborhood,
-        rule.boundary,
-    )
+def step_np(board: np.ndarray, rule: Rule, stencil: str = "roll") -> np.ndarray:
+    """One synchronous CA step via the rule's full transition LUT.
+
+    ``stencil`` routes the counting executor: ``roll`` (the default —
+    this module IS the roll oracle) or ``matmul`` (the banded-matmul
+    path of ``ops.conv``, bit-identical for integer rules).  The
+    continuous tier dispatches to its own float oracle.
+    """
+    if getattr(rule, "continuous", False):
+        from tpu_life_torch.models import lenia
+
+        return lenia.step_np(board, rule, stencil)
+    if stencil == "matmul":
+        from tpu_life_torch.ops.conv import neighbor_counts_matmul_np
+
+        counts = neighbor_counts_matmul_np(board, rule)
+    else:
+        counts = neighbor_counts_np(
+            board,
+            rule.radius,
+            rule.include_center,
+            rule.neighborhood,
+            rule.boundary,
+        )
     return rule.transition_table[board.astype(np.int64), counts]
 
 
-def run_np(board: np.ndarray, rule: Rule, steps: int) -> np.ndarray:
+def run_np(
+    board: np.ndarray, rule: Rule, steps: int, stencil: str = "roll"
+) -> np.ndarray:
     for _ in range(steps):
-        board = step_np(board, rule)
+        board = step_np(board, rule, stencil)
     return board

@@ -17,8 +17,10 @@ not take).
   (:func:`apply_rule`), with Generations decay.
 
 Counts are int32 (exact for (2r+1)^2 at any radius); the board stays int8.
-The ``matmul`` stencil is not ported: :func:`make_step` raises
-:class:`NotPortedError` for it.
+:func:`make_step`'s ``stencil`` picks the counting path: ``roll`` (the
+shift-adds above) or ``matmul`` (the banded matmuls of ``ops.conv``,
+bit-identical); continuous rules get the float Lenia step
+(``models.lenia``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from tpu_life_torch.models.rules import NotPortedError, Rule
+from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.ops.common import contiguous_ranges
 
 
@@ -55,6 +57,12 @@ def _pad(x: torch.Tensor, radius: int, axis: int, wrap: bool) -> torch.Tensor:
         idx = torch.arange(-radius, n + radius, device=x.device) % n
         return x.index_select(axis, idx)
     return F.pad(x, (0, 0, radius, radius) if axis == 0 else (radius, radius))
+
+
+def pad_board(x: torch.Tensor, radius: int, wrap: bool) -> torch.Tensor:
+    """``x`` padded by ``radius`` on all four sides: zeros, or the periodic
+    continuation."""
+    return _pad(_pad(x, radius, 0, wrap), radius, 1, wrap)
 
 
 def _counts(
@@ -165,23 +173,52 @@ def validity_mask(
     return ((grow >= 0) & (grow < lh))[:, None] & ((gcol >= 0) & (gcol < lw))[None, :]
 
 
-def make_step(rule: Rule, stencil: str = "roll") -> Callable[[torch.Tensor], torch.Tensor]:
-    """One full-array CA step, ``int8[h, w] -> int8[h, w]``, with the
-    shift-add (``roll``) neighbour count.  (Continuous rule specs never
-    reach it: ``models.rules.parse_rule`` refuses them.)"""
-    if stencil != "roll":
-        raise NotPortedError(
-            f"stencil {stencil!r} is not yet ported to tpu_life_torch: only "
-            f"'roll' (the shift-add count) runs here"
-        )
+def _per_shape(make: Callable[[tuple[int, int]], Callable]) -> Callable:
+    """A step that builds ``make(shape)`` at the first board of each shape
+    it is given and keeps it (the matmul operators are shape-static)."""
+    cache: dict[tuple[int, int], Callable] = {}
 
     def step(board: torch.Tensor) -> torch.Tensor:
-        counts = neighbor_counts(
-            board, rule.radius, rule.include_center, rule.neighborhood, rule.boundary
-        )
-        return apply_rule(board, counts, rule)
+        shape = tuple(board.shape)
+        fn = cache.get(shape)
+        if fn is None:
+            fn = cache[shape] = make(shape)
+        return fn(board)
 
     return step
+
+
+def make_step(
+    rule: Rule, stencil: str = "roll", shape: tuple[int, int] | None = None
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """One full-array CA step: ``int8[h, w] -> int8[h, w]`` for discrete
+    rules, ``f32 -> f32`` for continuous ones.  ``stencil`` picks the
+    neighbour count: ``roll`` (shift-adds) or ``matmul`` (banded matmuls,
+    ``ops.conv``: bit-identical for integer rules).  The matmul operators
+    belong to one board shape: with ``shape`` they are built now, without
+    it at the first board of each shape."""
+    from tpu_life_torch.ops.conv import validate_stencil
+
+    validate_stencil(stencil)
+    if getattr(rule, "continuous", False):
+        from tpu_life_torch.models.lenia import make_lenia_step
+
+        make = lambda s: make_lenia_step(rule, s, stencil)  # noqa: E731
+    elif stencil == "matmul":
+        from tpu_life_torch.ops.conv import make_counts_matmul
+
+        def make(s):
+            counts = make_counts_matmul(rule, s)
+            return lambda board: apply_rule(board, counts(board), rule)
+    else:
+        def step(board: torch.Tensor) -> torch.Tensor:
+            counts = neighbor_counts(
+                board, rule.radius, rule.include_center, rule.neighborhood, rule.boundary
+            )
+            return apply_rule(board, counts, rule)
+
+        return step
+    return make(tuple(shape)) if shape is not None else _per_shape(make)
 
 
 def make_masked_step(
@@ -189,6 +226,10 @@ def make_masked_step(
 ) -> Callable[..., torch.Tensor]:
     """A step that also pins physical padding cells dead (see
     :func:`validity_mask`)."""
+    if getattr(rule, "continuous", False):
+        # continuous boards run unpadded; the int8 padding mask would
+        # corrupt a float board
+        raise ValueError("continuous rules cannot run on padded/masked boards")
     if rule.boundary == "torus":
         # padding would sit between the logical edges the torus glues
         # together; torus boards run unpadded (exact shape)
@@ -220,9 +261,11 @@ def multi_step(
     stencil: str = "roll",
 ) -> torch.Tensor:
     """``steps`` CA steps as a Python loop; masked where ``logical_shape``
-    is smaller than the board.  ``board`` itself is never written."""
+    is smaller than the board.  ``board`` itself is never written.  Each
+    call builds its step (on ``matmul`` the operators too); a runner that
+    advances many times builds one with :func:`make_step` instead."""
     if logical_shape is None or tuple(logical_shape) == tuple(board.shape):
-        step = make_step(rule, stencil)
+        step = make_step(rule, stencil, tuple(board.shape))
     else:
         step = make_masked_step(rule, tuple(logical_shape), stencil)
     for _ in range(steps):

@@ -225,6 +225,7 @@ def make_shard_block(
     packed: bool,
     torus: bool = False,
     split_cols: bool = False,
+    stencil: str = "roll",
 ):
     """``block(top, chunk, bot, row0, left=None, right=None, col0=0)``:
     ``block_steps`` steps of one shard in plain ops.  The chunk and its
@@ -243,14 +244,16 @@ def make_shard_block(
     ``make_wrap_cols_step`` on the unpadded int8 board; with column halos
     (the 2-D torus) the clamped twin of the rule runs unmasked, the zeros
     past the extended chunk's edges spoiling only the fringe the block
-    drops.
+    drops.  The unpacked steps count by ``stencil`` (``roll`` or
+    ``matmul``: operators sized to the extended chunk, built at its first
+    step); a continuous rule's twin is the clamped float Lenia step.
     """
     lh, lw = logical_shape
     fr = halo_depth(rule, block_steps)
     fc = col_halo_width(rule, block_steps, packed) if split_cols else 0
     if torus and split_cols:
         twin = get_clamped_twin(rule)
-        step = bitlife.make_packed_step(twin) if packed else make_step(twin)
+        step = bitlife.make_packed_step(twin) if packed else make_step(twin, stencil)
         masked = lambda ext, row0, col0: step(ext)  # noqa: E731
     elif torus:
         step = (
@@ -262,7 +265,7 @@ def make_shard_block(
     elif packed:
         masked = bitlife.make_masked_packed_step(rule, (lh, lw))
     else:
-        masked = make_masked_step(rule, (lh, lw))
+        masked = make_masked_step(rule, (lh, lw), stencil)
 
     def block(top, chunk, bot, row0: int, left=None, right=None, col0: int = 0) -> torch.Tensor:
         if top.shape[0] != fr or bot.shape[0] != fr:
@@ -326,9 +329,10 @@ def run_blocks(
 
 
 def _make_run(rule, mesh: Mesh, logical_shape, block_steps: int, packed: bool, torus: bool,
-              split_cols: bool):
+              split_cols: bool, stencil: str = "roll"):
     block = make_shard_block(
-        rule, logical_shape, block_steps, packed=packed, torus=torus, split_cols=split_cols
+        rule, logical_shape, block_steps, packed=packed, torus=torus, split_cols=split_cols,
+        stencil=stencil,
     )
     fr = halo_depth(rule, block_steps)
     fc = col_halo_width(rule, block_steps, packed) if split_cols else 0
@@ -369,6 +373,7 @@ def make_sharded_run_2d(
     block_steps: int,
     packed: bool,
     torus: bool = False,
+    stencil: str = "roll",
 ) -> Callable[[list[torch.Tensor], int], list[torch.Tensor]]:
     """``run(chunks, num_blocks)``: ``num_blocks * block_steps`` steps of a
     board split in blocks over a mesh, one chunk per mesh device in
@@ -377,9 +382,10 @@ def make_sharded_run_2d(
     column, and this is the 1-D stripe run).  ``torus=True`` (the checked
     entry point is :func:`make_sharded_run_torus_2d`) closes both rings
     and runs the clamped twin unmasked; the chunks must then tile the
-    board exactly along both axes."""
+    board exactly along both axes.  ``stencil`` is the unpacked steps'
+    counting path."""
     split_cols = mesh.n_cols > 1 or torus
-    return _make_run(rule, mesh, logical_shape, block_steps, packed, torus, split_cols)
+    return _make_run(rule, mesh, logical_shape, block_steps, packed, torus, split_cols, stencil)
 
 
 def make_sharded_run_torus(
@@ -403,12 +409,14 @@ def make_sharded_run_torus_2d(
     *,
     block_steps: int,
     packed: bool,
+    stencil: str = "roll",
 ) -> Callable[[list[torch.Tensor], int], list[torch.Tensor]]:
     """The torus on a 2-D mesh: closed rings along both axes, so every
     seam, the board's edges included, is an interior seam and the local
     step needs no wrap.  Packed boards need a word-aligned width (a
     partial last word would sit inside the glued seam); the chunks must
-    tile the board exactly."""
+    tile the board exactly.  A mesh of one column is its own ring (the
+    scaffold of continuous and matmul rules on a row mesh)."""
     lh, lw = logical_shape
     if packed and lw % bitlife.WORD:
         raise ValueError(
@@ -416,5 +424,6 @@ def make_sharded_run_torus_2d(
             f"last word would sit inside the glued seam"
         )
     return make_sharded_run_2d(
-        rule, mesh, logical_shape, block_steps=block_steps, packed=packed, torus=True
+        rule, mesh, logical_shape, block_steps=block_steps, packed=packed, torus=True,
+        stencil=stencil,
     )

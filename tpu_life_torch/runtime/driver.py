@@ -7,8 +7,11 @@ contract line.
 
 A run whose height, width and steps all come from flags, with no input
 file, stages a seeded random board (``mc.prng.seeded_board``, the board
-the JAX driver stages for the same seed); a run that reads its geometry
-from the config file still needs its input file.
+the JAX driver stages for the same seed; a continuous rule's float twin,
+``models.lenia.seeded_board``); a run that reads its geometry from the
+config file still needs its input file.  Float32 boards (the continuous
+tier) are read, checked (``lenia.validate_board``), snapshotted and
+written by the same codec, in the JAX package's bytes.
 
 Telemetry: every invocation generates one ``run_id`` stamped into the
 metrics JSONL records and the ``--trace-events`` Chrome trace, whose spans
@@ -27,7 +30,7 @@ recoverable failure and resumes from the newest snapshot this run wrote.
 
 Not ported yet (ROADMAP.md): multi-process runs, streamed per-shard I/O
 (``--stream-io``, streamed snapshots), the tuned backend and the
-stochastic and continuous rule tiers.
+stochastic rule tier.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from tpu_life_torch.backends.base import drive_runner, get_backend, make_runner
 from tpu_life_torch.config import RunConfig
 from tpu_life_torch.io.codec import read_board, write_board
 from tpu_life_torch.mc.prng import seeded_board
+from tpu_life_torch.models import lenia
 from tpu_life_torch.models.rules import get_rule, validate_rule_geometry
 from tpu_life_torch.runtime import checkpoint as ckpt
 from tpu_life_torch.runtime import recovery
@@ -87,7 +91,7 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
 
     timer = Timer()  # spans I/O too, like the reference's Wtime bracket
 
-    backend_kwargs = {"device": cfg.device, "bitpack": cfg.bitpack}
+    backend_kwargs = {"device": cfg.device, "bitpack": cfg.bitpack, "stencil": cfg.stencil}
     if cfg.block_steps is not None:
         backend_kwargs["block_steps"] = cfg.block_steps
     if cfg.backend == "sharded":
@@ -100,7 +104,8 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
         labels=("backend",),
     )
     with obs.span("backend-build", backend=cfg.backend):
-        backend = get_backend(cfg.backend, **backend_kwargs)
+        # the rule hint sends `auto` to the float path for continuous rules
+        backend = get_backend(cfg.backend, rule=rule, **backend_kwargs)
     builds.labels(backend=backend.name).inc()
 
     # Board source: a contract-format file (+ completed steps when resuming),
@@ -132,15 +137,21 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
         elastic-recovery restart, with the rebuilt ``backend``."""
         with obs.span("stage", resume_step=start):
             if source is None:
-                b = seeded_board(height, width, states=rule.states, seed=cfg.seed)
+                if rule.continuous:
+                    b = lenia.seeded_board(height, width, seed=cfg.seed)
+                else:
+                    b = seeded_board(height, width, states=rule.states, seed=cfg.seed)
             else:
                 b = read_board(source, height, width)
-                max_state = int(b.max(initial=0))
-                if max_state >= rule.states:
-                    raise ValueError(
-                        f"board contains state {max_state} but rule {rule.name!r} has "
-                        f"only {rule.states} states (0..{rule.states - 1})"
-                    )
+                if rule.continuous:
+                    b = lenia.validate_board(b, rule)
+                else:
+                    max_state = int(b.max(initial=0))
+                    if max_state >= rule.states:
+                        raise ValueError(
+                            f"board contains state {max_state} but rule {rule.name!r} has "
+                            f"only {rule.states} states (0..{rule.states - 1})"
+                        )
             r = make_runner(backend, b, rule)
             if cfg.fault_at > 0:
                 r = recovery.FaultingRunner(r, start, cfg.fault_at, fault_fired, cfg.fault_count)
@@ -253,7 +264,7 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
                         with rewind_span:
                             if not first_build:
                                 # a failure poisoned the old backend: start fresh
-                                backend = get_backend(cfg.backend, **backend_kwargs)
+                                backend = get_backend(cfg.backend, rule=rule, **backend_kwargs)
                                 builds.labels(backend=backend.name).inc()
                             first_build = False
                             state["start"] = resume_step
