@@ -156,7 +156,22 @@ Phases (any failure exits non-zero and prints no result line):
    card after 8 steps; ``bugs:T`` 4096^2 x 32 on ``--mesh-shape 2,2
    --stencil matmul`` bit-identical to one card's ``--stencil roll``;
    ``--local-kernel cuda --stencil matmul`` refused; ``bench --rule
-   lenia:orbium --size 4096`` (delta of 20 and 4 steps) printing its record.
+   lenia:orbium --size 4096`` (delta of 20 and 4 steps) printing its record;
+14. streamed per-shard I/O and a run through ``init_distributed``, each run
+   a child process of ``python -m tpu_life_torch`` that reports its launch
+   counts (K1-K4), its peak RSS (``/proc/self/statm`` sampled) and its
+   ``stage``/``gather``/``output-write`` spans from ``--trace-events``:
+   ``gen`` of a 16384^2 board, then (a) 256 Conway steps on ``--backend
+   sharded --device cuda:0 --num-devices 4 --stream-io`` (K3, 128
+   launches, no ``gather`` span, a streamed ``output-write``), byte-equal
+   to the same run with ``--no-stream-io`` and to ``--backend cuda`` (K1,
+   32 launches, in this process); (b) ``brians_brain`` x 64 on
+   ``--mesh-shape 2,2 --no-bitpack --stream-io`` (K4, 32 launches),
+   byte-equal to its gathered run; (c) (a) without the flag, which streams
+   (2^28 cells); (d) (a) with ``--snapshot-every 128``, then ``--resume``
+   from the step-128 snapshot (64 launches); (e) (a) as the one process of
+   a job (``JAX_NUM_PROCESSES=1``), which must join an NCCL group of one;
+   (c), (d) and (e) byte-equal to (a).
 
 Phases 2-4 cover K3 too: it is built with K1 (same source, its instances
 in the ptxas report and the SASS counts); phase 3 holds it bit-identical to its
@@ -2041,6 +2056,9 @@ def main() -> int:
     phase13(dict(dev=dev, smi=smi, n_sm=n_sm, sm_clock_mhz=sm_clock_mhz, cuda_ms=cuda_ms,
                  counted=counted, golden=golden, bugs=(bugs_board, bugs_k2)))
 
+    # -- 14. streamed per-shard I/O and a run through init_distributed --------
+    streamed = phase14(dict(smi=smi, counted=counted, spans_ms=spans_ms, fmt_spans=fmt_spans))
+
     diamond = diamond_rows[DIAMOND]
     k4_row = k4_rows[("brians_brain", (2, 2))]
     print(json.dumps({"kernels": [{
@@ -2125,6 +2143,7 @@ def main() -> int:
         "bound_ms": k3_row["bound_ms"],
         "bound_by": k3_row["bound_by"],
         "library_ms": None,
+        "streamed_launches": streamed["k3"],
         "torus_device_ms": t_dev_ms,
         "instance": K3_MAIN,
         **k1_instances[K3_MAIN],
@@ -2147,6 +2166,7 @@ def main() -> int:
         "bound_ms": k4_row["bound_ms"],
         "bound_by": k4_row["bound_by"],
         "library_ms": None,
+        "streamed_launches": streamed["k4"],
         "registers": registers["sharded_int8_kernel"],
         "blocks_per_sm": k4_row["blocks_per_sm"],
         "sass": sass_counts["sharded_int8_kernel"],
@@ -2176,6 +2196,186 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+# phase 14's children: ``python -m tpu_life_torch`` run as ``__main__`` (as
+# ``-m`` runs it), which then prints its launch counts (K1-K4), whether it
+# joined a process group and over which transport, and its peak host RSS:
+# the most of ``/proc/self/statm``'s resident pages, sampled every 2 ms by a
+# thread, beside its ``ru_maxrss`` (which after exec keeps the forking
+# parent's peak, so it reads the parent's size; some kernels give no
+# ``VmHWM``)
+P14_CHILD = """
+import json, os, resource, runpy, sys, threading, time
+import torch.distributed as dist
+from tpu_life_torch.kernels import int8_tiled, packed_stripe, sharded_int8, sharded_stripe
+page, peak = os.sysconf("SC_PAGE_SIZE"), [None]
+def sample():
+    try:
+        while True:
+            with open("/proc/self/statm") as f:
+                peak[0] = max(peak[0] or 0, int(f.read().split()[1]) * page)
+            time.sleep(0.002)
+    except OSError:  # no statm: the peak stays unmeasured
+        peak[0] = None
+threading.Thread(target=sample, daemon=True).start()
+sys.argv = ["tpu_life_torch", *sys.argv[1:]]
+rc = 0
+try:
+    runpy.run_module("tpu_life_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code or 0
+print("P14 " + json.dumps({
+    "launches": [packed_stripe.packed_multi_step.launches, int8_tiled.int8_multi_step.launches,
+                 sharded_stripe.sharded_stripe_block.launches,
+                 sharded_int8.sharded_int8_block.launches],
+    "process_group": dist.get_backend() if dist.is_initialized() else None,
+    "world": dist.get_world_size() if dist.is_initialized() else None,
+    "statm_peak_bytes": peak[0],
+    "ru_maxrss_kib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss}), flush=True)
+sys.exit(rc)
+"""
+
+
+def phase14(ctx: dict) -> dict:
+    """Phase 14: streamed per-shard I/O (``--stream-io``) and one run through
+    ``init_distributed`` at 16384^2, each run a child process of ``python -m
+    tpu_life_torch``, held byte for byte to the gathered runs and to K1;
+    returns the K3 and K4 launches of the streamed runs."""
+    import socket
+
+    counted, spans_ms, fmt_spans, smi = (ctx["counted"], ctx["spans_ms"], ctx["fmt_spans"],
+                                         ctx["smi"])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    for var in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                "JAX_PROCESS_ID", "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(var, None)
+    shards = ["--backend", "sharded", "--device", "cuda:0", "--num-devices", "4"]
+    k3_run = 4 * FULL_STEPS // BLOCK_STEPS  # 4 shards, 32 blocks
+    t_phase = time.perf_counter()
+
+    def child(tmp: Path, name: str, args: list[str], want: tuple[int, int, int, int],
+              extra_env: dict | None = None) -> dict:
+        """One child run into ``tmp/name.txt`` with a trace: its sha256,
+        launches, spans, Total time, wall seconds and peak RSS."""
+        out, trace = tmp / f"{name}.txt", tmp / f"{name}.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", P14_CHILD, "run", *args, "--trace-events", str(trace),
+             "--output-file", str(out)],
+            cwd=tmp, env=dict(env, **(extra_env or {})), capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        stdout = proc.stdout
+        if proc.returncode != 0:
+            fail(f"phase 14 {name}: exited {proc.returncode}: {proc.stderr[-3000:]}")
+        rec = json.loads([ln for ln in stdout.splitlines() if ln.startswith("P14 ")][-1][4:])
+        total = [ln for ln in stdout.splitlines() if ln.startswith("Total time = ")]
+        if len(total) != 1:
+            fail(f"phase 14 {name}: {len(total)} 'Total time' lines")
+        if tuple(rec["launches"]) != want:
+            fail(f"phase 14 {name}: (K1, K2, K3, K4) launches {rec['launches']}, want {want}")
+        raw = out.read_bytes()
+        if len(raw) != FULL * (FULL + 1):
+            fail(f"phase 14 {name}: output.txt of {len(raw)} bytes")
+        spans = spans_ms(trace)
+        events = json.loads(trace.read_text())["traceEvents"]
+        streamed_writes = [e["args"].get("streamed") for e in events
+                           if e.get("ph") == "B" and e["name"] == "output-write"]
+        out.unlink()
+        return dict(sha=hashlib.sha256(raw).hexdigest(), launches=rec["launches"], spans=spans,
+                    streamed=streamed_writes, total=total[0].split("=")[1].strip(), wall=wall,
+                    rss_mib=(None if rec["statm_peak_bytes"] is None
+                             else rec["statm_peak_bytes"] / 2**20),
+                    ru_mib=rec["ru_maxrss_kib"] / 1024,
+                    pg=(rec["process_group"], rec["world"]))
+
+    def mib(v: float | None) -> str:
+        return "not measured (no /proc/self/statm)" if v is None else f"{v:.1f} MiB"
+
+    def show(name: str, r: dict) -> str:
+        return (f"{name}: sha256 {r['sha'][:12]}, launches (K1, K2, K3, K4) {tuple(r['launches'])}, "
+                f"Total time {r['total']} s, wall {r['wall']:.2f} s, peak RSS {mib(r['rss_mib'])} "
+                f"(ru_maxrss {r['ru_mib']:.1f} MiB, the forking parent's included), "
+                f"spans {fmt_spans(r['spans'])}")
+
+    def streamed_ok(name: str, r: dict, streamed: bool) -> None:
+        if r["streamed"] != [streamed] or ("gather" in r["spans"]) == streamed:
+            fail(f"phase 14 {name}: output-write streamed {r['streamed']}, gather span "
+                 f"{'gather' in r['spans']}; want streamed={streamed}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        files = ["--config-file", str(tmp / "grid_size_data.txt"), "--input-file",
+                 str(tmp / "data.txt")]
+        counted(["gen", "--height", str(FULL), "--width", str(FULL), "--steps", str(FULL_STEPS),
+                 "--seed", "5", *files], f"gen {FULL}^2")
+        runs = {}
+        # (a) streamed on 4 row shards (K3) and gathered, each a child, and
+        # one card (K1) in this process as the yardstick
+        runs["a stream"] = child(tmp, "a", [*files, *shards, "--stream-io"], (0, 0, k3_run, 0))
+        runs["a gathered"] = child(tmp, "a2", [*files, *shards, "--no-stream-io"], (0, 0, k3_run, 0))
+        _, k1_counts, _ = counted(["run", *files, "--device", "cuda:0", "--output-file",
+                                   str(tmp / "k1.txt")], f"run {FULL}^2 through K1")
+        k1_sha = hashlib.sha256((tmp / "k1.txt").read_bytes()).hexdigest()
+        (tmp / "k1.txt").unlink()
+        if k1_counts != (FULL_STEPS // BLOCK_STEPS, 0, 0, 0):
+            fail(f"phase 14 (a): the K1 run's (K1, K2, K3, K4) launches {k1_counts}")
+        streamed_ok("(a) --stream-io", runs["a stream"], True)
+        streamed_ok("(a) --no-stream-io", runs["a gathered"], False)
+        if {runs["a stream"]["sha"], runs["a gathered"]["sha"]} != {k1_sha}:
+            fail("phase 14 (a): streamed, gathered and K1 outputs differ")
+        # (b) brians_brain on 2x2, unpacked (K4), streamed and gathered
+        b_args = [*files, "--rule", "brians_brain", "--steps", "64", "--backend", "sharded",
+                  "--device", "cuda:0", "--mesh-shape", "2,2", "--no-bitpack"]
+        k4_run = 4 * 64 // BLOCK_STEPS
+        runs["b stream"] = child(tmp, "b", [*b_args, "--stream-io"], (0, 0, 0, k4_run))
+        runs["b gathered"] = child(tmp, "b2", [*b_args, "--no-stream-io"], (0, 0, 0, k4_run))
+        streamed_ok("(b) --stream-io", runs["b stream"], True)
+        if runs["b stream"]["sha"] != runs["b gathered"]["sha"]:
+            fail("phase 14 (b): streamed and gathered 2x2 K4 outputs differ")
+        # (c) no flag: 16384^2 is 2^28 cells, so the driver streams
+        runs["c auto"] = child(tmp, "c", [*files, *shards], (0, 0, k3_run, 0))
+        streamed_ok("(c) auto", runs["c auto"], True)
+        # (d) streamed snapshots, then --resume from step 128
+        half = FULL_STEPS // 2
+        runs["d snapshots"] = child(tmp, "d", [*files, *shards, "--stream-io", "--snapshot-every",
+                                               str(half), "--snapshot-dir", str(tmp / "snaps")],
+                                    (0, 0, k3_run, 0))
+        snaps = sorted(p.name for p in (tmp / "snaps").glob("*.txt"))
+        if snaps != [f"board_{half:09d}.txt", f"board_{FULL_STEPS:09d}.txt"]:
+            fail(f"phase 14 (d): snapshots {snaps}")
+        runs["d resume"] = child(tmp, "d2", [*files, *shards, "--stream-io", "--resume",
+                                             str(tmp / "snaps" / f"board_{half:09d}.txt")],
+                                 (0, 0, k3_run // 2, 0))
+        shutil.rmtree(tmp / "snaps")
+        # (e) one process of a job through init_distributed (NCCL, world 1)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        runs["e init_distributed"] = child(
+            tmp, "e", [*files, *shards, "--stream-io"], (0, 0, k3_run, 0),
+            extra_env={"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "JAX_NUM_PROCESSES": "1",
+                       "JAX_PROCESS_ID": "0"})
+        if runs["e init_distributed"]["pg"] != ("nccl", 1):
+            fail(f"phase 14 (e): process group {runs['e init_distributed']['pg']}, want nccl of 1")
+        for name in ("c auto", "d snapshots", "d resume", "e init_distributed"):
+            if runs[name]["sha"] != runs["a stream"]["sha"]:
+                fail(f"phase 14 {name}: output differs from (a)'s")
+    print(f"phase 14, {FULL}^2 (card: {smi}; one child process a run, board gen --seed 5): "
+          f"every output byte-equal within its group (a, c, d, e: conway x {FULL_STEPS} streamed "
+          f"on 4 row shards, gathered, auto-streamed, resumed from the step-{half} snapshot, "
+          f"through init_distributed, and K1 in this process ({k1_counts[0]} launches, sha256 "
+          f"{k1_sha[:12]}); b: brians_brain x 64 on 2x2 streamed and gathered)", flush=True)
+    for name, r in runs.items():
+        print(f"  {show(name, r)}", flush=True)
+    print(f"  peak RSS streamed vs gathered: (a) {mib(runs['a stream']['rss_mib'])} vs "
+          f"{mib(runs['a gathered']['rss_mib'])}, (b) {mib(runs['b stream']['rss_mib'])} vs "
+          f"{mib(runs['b gathered']['rss_mib'])}; (e) joined a {runs['e init_distributed']['pg'][0]} "
+          f"group of {runs['e init_distributed']['pg'][1]}; phase 14 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"k3": runs["a stream"]["launches"][2], "k4": runs["b stream"]["launches"][3]}
 
 
 def phase13(ctx: dict) -> None:

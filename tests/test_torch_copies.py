@@ -514,3 +514,81 @@ def test_float_codec_copy(shape):
     raw = codec.encode_board(board)
     assert raw == jcodec.encode_board(board) and len(raw) == 4 * shape[0] * shape[1]
     assert codec.decode_board(raw, *shape).tobytes() == jcodec.decode_board(raw, *shape).tobytes()
+
+
+# -- the per-shard board I/O: io.sharded, minus the native fast paths ------------
+
+IO_SHARDED = ["stripe_bounds", "read_stripe", "read_block", "write_block", "write_stripe"]
+
+
+def _without_native(fn) -> str:
+    """``fn``'s syntax tree without its docstring and without the JAX
+    module's native fast paths (``nat = codec._native()``, the ``if nat``
+    branches and the import of ``codec`` that serves them)."""
+    import ast
+    import textwrap
+
+    def native(node) -> bool:
+        return any(isinstance(n, ast.Name) and n.id == "nat" for n in ast.walk(node))
+
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    func = tree.body[0]
+    body = func.body[1:] if isinstance(func.body[0], ast.Expr) else func.body
+    func.body = [
+        n for n in body
+        if not (isinstance(n, (ast.Assign, ast.If)) and native(n))
+        and not (isinstance(n, ast.ImportFrom) and n.module == "tpu_life.io")
+    ]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", IO_SHARDED)
+def test_io_sharded_is_a_copy_without_the_native_paths(name):
+    from tpu_life.io import sharded as jsharded
+    from tpu_life_torch.io import sharded
+
+    assert _without_native(getattr(sharded, name)) == _without_native(getattr(jsharded, name))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_io_sharded_bytes_and_errors_equal_jax(tmp_path, monkeypatch, seed):
+    # the same blocks read and the same files written, block by block in a
+    # random order, and the same errors: the JAX module on its Python path
+    from tpu_life.io import codec as jcodec_mod
+    from tpu_life.io import sharded as jsharded
+    from tpu_life_torch.io import sharded
+
+    monkeypatch.setattr(jcodec_mod, "_native", lambda: None)
+    rng = np.random.default_rng(seed)
+    h, w = int(rng.integers(5, 40)), int(rng.integers(5, 70))
+    board = rng.integers(0, 10, (h, w)).astype(np.int8)
+    codec.write_board(tmp_path / "b.txt", board)
+    assert sharded.stripe_bounds(h, 4) == jsharded.stripe_bounds(h, 4)
+    for _ in range(10):
+        r0, c0 = int(rng.integers(0, h)), int(rng.integers(0, w))
+        nr, nc = int(rng.integers(1, h - r0 + 1)), int(rng.integers(1, w - c0 + 1))
+        got = sharded.read_block(tmp_path / "b.txt", r0, nr, c0, nc, w)
+        np.testing.assert_array_equal(got, jsharded.read_block(tmp_path / "b.txt", r0, nr, c0, nc, w))
+        np.testing.assert_array_equal(got, board[r0:r0 + nr, c0:c0 + nc])
+    rows = sharded.stripe_bounds(h, 3)
+    cols = [(0, w // 3), (w // 3, w)]
+    order = rng.permutation(len(rows) * len(cols))
+    for mod, out in ((sharded, "p.txt"), (jsharded, "j.txt")):
+        for k in order:
+            (r0, r1), (c0, c1) = rows[k // 2], cols[k % 2]
+            mod.write_block(tmp_path / out, r0, c0, board[r0:r1, c0:c1], total_rows=h, total_cols=w)
+    assert (tmp_path / "p.txt").read_bytes() == (tmp_path / "j.txt").read_bytes() == codec.encode_board(board)
+    for call in (lambda m: m.read_block(tmp_path / "b.txt", h - 1, 2, 0, 3, w),
+                 lambda m: m.read_block(tmp_path / "b.txt", 0, 2, w - 1, 3, w),
+                 lambda m: m.write_block(tmp_path / "x.txt", h - 1, 0, board[:2, :3], total_rows=h,
+                                         total_cols=w),
+                 lambda m: m.write_block(tmp_path / "x.txt", 0, w - 1, board[:2, :3], total_rows=h,
+                                         total_cols=w),
+                 lambda m: m.write_stripe(tmp_path / "x.txt", -1, board[:2], total_rows=h),
+                 lambda m: m.stripe_bounds(h, 0)):
+        errors = []
+        for mod in (sharded, jsharded):
+            with pytest.raises(ValueError) as e:
+                call(mod)
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]

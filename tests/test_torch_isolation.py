@@ -154,3 +154,14 @@ def test_scan_covers_the_conv_and_lenia_slice():
     # the banded-matmul counts and the continuous tier are among the
     # modules both checks read
     assert {"tpu_life_torch.ops.conv", "tpu_life_torch.models.lenia"} <= set(MODULES)
+
+
+def test_scan_covers_the_streamed_io_and_multi_process_slice():
+    # streamed per-shard I/O and the modules of runs across processes are
+    # among the modules both checks read
+    assert {
+        "tpu_life_torch.io.sharded",
+        "tpu_life_torch.parallel.mesh",
+        "tpu_life_torch.parallel.halo",
+        "tpu_life_torch.runtime.driver",
+    } <= set(MODULES)

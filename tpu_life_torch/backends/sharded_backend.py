@@ -62,6 +62,28 @@ puts every shard on that one device, and with neither every shard gets a
 card of its own.  On CUDA tensors K3 and K4 launch; on CPU tensors their
 wrappers run the plain versions, which is how the CPU tests reach every
 route.
+
+In a job of several processes (``parallel.mesh.init_distributed``) the
+mesh is every process's local devices in rank order: ``device`` (or, by
+default, the process's card) holding ``N / P`` consecutive shards of the
+``N`` asked for (one each by default), and each process loads, steps and
+writes only its own; the halos between processes are sends and receives.
+
+Staging goes through one loader for every path: each shard's chunk is
+built from ``load_block(r0, r1, c0, c1)``, which returns exactly the
+shard's own logical cells, packed on word boundaries where the shards hold
+words, with the padding rows and columns zero.  ``prepare(board)`` slices
+a board in memory; ``prepare_from_file`` reads each shard's bytes from a
+contract board file (``io.sharded.read_block``) and
+``write_runner_to_file`` writes them back per shard, so a streamed run
+(``--stream-io``) never holds the whole board on one host: the analogue of
+the reference's ``MPI_File_read_at`` / ``MPI_File_write_at_all``
+(Parallel_Life_MPI.cpp:85, :175).
+
+``partition_mode='gspmd'`` (the JAX backend's second mode, a whole-board
+masked step whose exchange the compiler derives) is refused: on a
+row-sharded ``DTensor`` the plain step's padding redistributes the whole
+board to every rank each step (:data:`GSPMD_FINDING`).
 """
 
 from __future__ import annotations
@@ -78,14 +100,46 @@ from tpu_life_torch.backends.base import (
 from tpu_life_torch.backends.cuda_backend import DEFAULT_BLOCK_STEPS
 from tpu_life_torch.backends.torch_backend import ShardedRunner, from_words
 from tpu_life_torch.kernels import int8_tiled, packed_stripe, sharded_int8, sharded_stripe
-from tpu_life_torch.models.rules import NotPortedError, Rule
+from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.ops import bitlife
 from tpu_life_torch.ops.conv import resolve_stencil, validate_stencil
 from tpu_life_torch.ops.stencil import live_count_cells
 from tpu_life_torch.parallel import halo
-from tpu_life_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d, shard_extent, split_blocks
+from tpu_life_torch.parallel.mesh import (
+    Mesh,
+    local_card,
+    make_mesh,
+    make_mesh_2d,
+    process_count,
+    process_devices,
+    process_index,
+    shard_extent,
+)
 
 LOCAL_KERNELS = ("auto", "torch", "cuda")
+
+# What the port's plain masked step does on a row-sharded DTensor
+# (torch.distributed.tensor, counted by CommDebugMode on a process group
+# of 2 or more ranks): the zero padding of the row axis cannot run
+# shard-local, so the board is redistributed from Shard(0) to Replicate,
+# one all_gather_into_tensor per step, and every rank then steps the whole
+# board (the JAX step's nine torch.roll shifts gather it nine times).  On a
+# group of one rank there is nothing to gather.
+# tests/test_torch_distributed.py recounts it.
+GSPMD_COLLECTIVE = "all_gather_into_tensor"
+GSPMD_PER_STEP = 1
+GSPMD_FINDING = (
+    f"partition_mode='gspmd' is refused: on a row-sharded DTensor the plain masked step's "
+    f"row padding redistributes the board to every rank, {GSPMD_PER_STEP} "
+    f"{GSPMD_COLLECTIVE} per step (the whole board, not a halo), so a gspmd mode "
+    f"would be a second, coarser exchange beside shard_map's halos (ROADMAP A6.2); "
+    f"use partition_mode='shard_map'"
+)
+
+
+class PartitionModeRefused(ValueError):
+    """``partition_mode='gspmd'``, which the port refuses
+    (:data:`GSPMD_FINDING`); the CLI exits 2 on it."""
 
 
 @register_backend("sharded")
@@ -119,10 +173,7 @@ class ShardedBackend:
             if mesh is not None:
                 raise ValueError("pass either mesh or mesh_shape, not both")
         if partition_mode == "gspmd":
-            raise NotPortedError(
-                "partition_mode='gspmd' is not yet ported to tpu_life_torch "
-                "(ROADMAP A6: gspmd); the halo exchange is explicit"
-            )
+            raise PartitionModeRefused(GSPMD_FINDING)
         if partition_mode != "shard_map":
             raise ValueError(f"unknown partition_mode {partition_mode!r}")
         if local_kernel not in LOCAL_KERNELS:
@@ -137,19 +188,29 @@ class ShardedBackend:
                 raise ValueError(f"a mesh of {mesh.size} contradicts num_devices={num_devices}")
             self.mesh = mesh
         else:
-            devices = None
+            devices = ranks = None
+            n = mesh_shape[0] * mesh_shape[1] if mesh_shape else num_devices
             if device is not None:
                 dev = resolve_device(device)
                 if dev.type == "cuda" and dev.index is None:
                     dev = torch.device("cuda", torch.cuda.current_device())
-                n = mesh_shape[0] * mesh_shape[1] if mesh_shape else num_devices or 1
-                devices = [dev] * n
             else:
                 resolve_device(None)  # no card: the same tidy error as every backend
+                dev = local_card(process_index()) if process_count() > 1 else None
+            if process_count() > 1:
+                world = process_count()
+                if n is not None and n % world:
+                    raise ValueError(
+                        f"{n} shards do not divide among the job's {world} processes"
+                    )
+                devices, ranks = process_devices([dev] * (n // world if n else 1))
+            elif dev is not None:
+                devices = [dev] * (n or 1)
             if mesh_shape is not None and mesh_shape[1] > 1:
-                self.mesh = make_mesh_2d(mesh_shape, devices=devices)
+                self.mesh = make_mesh_2d(mesh_shape, devices=devices, ranks=ranks)
             else:
-                self.mesh = make_mesh(mesh_shape[0] if mesh_shape else num_devices, devices=devices)
+                self.mesh = make_mesh(mesh_shape[0] if mesh_shape else n, devices=devices,
+                                      ranks=ranks)
         self.n = self.mesh.n_rows
         self.n_cols = self.mesh.n_cols
 
@@ -276,7 +337,91 @@ class ShardedBackend:
         return h // n_r, width // n_c
 
     def prepare(self, board: np.ndarray, rule: Rule) -> ShardedRunner:
+        """The runner of a board in memory: the loader slices it."""
+        if getattr(rule, "continuous", False):
+            from tpu_life_torch.models.lenia import validate_board
+
+            board = validate_board(board, rule)
+        else:
+            board = np.asarray(board, np.int8)
         h, w = board.shape
+        return self._prepare_impl(lambda r0, r1, c0, c1: board[r0:r1, c0:c1], h, w, rule)
+
+    def prepare_from_file(self, path, height: int, width: int, rule: Rule) -> ShardedRunner:
+        """The runner of a contract board file, each shard reading its own
+        bytes (``io.sharded.read_block``) and checking its states: the
+        board is never whole on one host."""
+        from tpu_life_torch.io import sharded as io_sharded
+
+        _refuse_float_stream(rule)
+
+        def load_block(r0: int, r1: int, c0: int, c1: int) -> np.ndarray:
+            seg = io_sharded.read_block(path, r0, r1 - r0, c0, c1 - c0, width)
+            mx = int(seg.max(initial=0))
+            if mx >= rule.states:
+                raise ValueError(
+                    f"board rows [{r0}, {r1}) contain state {mx} but rule "
+                    f"{rule.name!r} has only {rule.states} states"
+                )
+            return seg
+
+        return self._prepare_impl(load_block, height, width, rule)
+
+    def prepare_from_blocks(self, load_block, height: int, width: int, rule: Rule) -> ShardedRunner:
+        """The runner of any rectangular block loader
+        (``load_block(r0, r1, c0, c1) -> cells``), each shard pulling
+        exactly its own cells."""
+        return self._prepare_impl(load_block, height, width, rule)
+
+    def iter_runner_tiles(self, runner: ShardedRunner, height: int, width: int, rule: Rule):
+        """Yield ``(r0, c0, cells)``: one tile of logical cells per shard
+        this process holds, the padding cut and packed words unpacked,
+        read back from its own chunk (never through ``gather``)."""
+        packed = self._use_bits(rule)
+        unit = bitlife.WORD if packed else 1
+        sh, sw = runner.block
+        cols = runner.grid[1]
+        for s, chunk in zip(runner.shard_ids, runner.chunks):
+            i, j = divmod(s, cols)
+            r0, cell0 = i * sh, j * sw * unit
+            if r0 >= height or cell0 >= width:
+                continue
+            n = min(r0 + sh, height) - r0
+            cell1 = min((j + 1) * sw * unit, width)
+            data = chunk[:n].cpu().numpy()
+            seg = (bitlife.unpack_np(data.view(np.uint32), cell1 - cell0) if packed
+                   else data[:, : cell1 - cell0])
+            yield r0, cell0, seg
+
+    def write_runner_to_file(self, runner: ShardedRunner, path, height: int, width: int,
+                             rule: Rule) -> None:
+        """Write the shards this process holds at their contract byte
+        offsets (``io.sharded.write_block``), in any order: on a 2-D mesh
+        each column shard writes its row segments, and the last column the
+        newlines."""
+        from tpu_life_torch.io import sharded as io_sharded
+
+        _refuse_float_stream(rule)
+        for r0, cell0, seg in self.iter_runner_tiles(runner, height, width, rule):
+            io_sharded.write_block(path, r0, cell0, seg, total_rows=height, total_cols=width)
+
+    def _load_chunk(self, load_block, s: int, h: int, w: int, block: tuple[int, int],
+                    packed: bool, dtype) -> np.ndarray:
+        """Shard s's chunk from ``load_block``: its own logical cells, the
+        padding zero.  Packed shards start on word boundaries, so each
+        packs its own segment."""
+        (sh, sw), unit = block, bitlife.WORD if packed else 1
+        i, j = divmod(s, self.n_cols)
+        r0, cell0 = i * sh, j * sw * unit
+        n, cell1 = min(r0 + sh, h) - r0, min((j + 1) * sw * unit, w)
+        chunk = np.zeros((sh, sw), dtype)
+        if n > 0 and cell1 > cell0:
+            seg = load_block(r0, r0 + n, cell0, cell1)
+            src = bitlife.pack_np(np.asarray(seg, np.int8)).view(np.int32) if packed else seg
+            chunk[:n, : src.shape[1]] = src
+        return chunk
+
+    def _prepare_impl(self, load_block, h: int, w: int, rule: Rule) -> ShardedRunner:
         route = self.route(rule)
         packed = self._use_bits(rule)
         sh, sw = self._geometry(h, w, rule, packed)
@@ -294,24 +439,23 @@ class ShardedBackend:
                 f"smaller than the radius {r} of rule {rule.name!r}; use fewer devices"
             )
         if getattr(rule, "continuous", False):
-            from tpu_life_torch.models.lenia import validate_board
-
-            host = validate_board(board, rule)
+            dtype = np.float32
             to_np = lambda x: x.cpu().numpy()  # noqa: E731
             count_live = lambda x: (x >= 0.5).sum()  # noqa: E731
         elif packed:
-            host = bitlife.pack_np(np.asarray(board, np.int8)).view(np.int32)
+            dtype = np.int32
             to_np = lambda x: from_words(x, w)  # noqa: E731
             count_live = bitlife.live_count_packed
         else:
-            host = np.asarray(board, np.int8)
+            dtype = np.int8
             to_np = lambda x: x.cpu().numpy()  # noqa: E731
             count_live = live_count_cells
         grid = (self.n, self.n_cols)
-        chunks = [
-            torch.from_numpy(part).to(dev)
-            for part, dev in zip(split_blocks(host, grid, (sh, sw)), self.mesh.devices)
-        ]
+        ids = [s for s in range(self.mesh.size) if self.mesh.is_local(s)]
+        chunks: list = [None] * self.mesh.size  # another process's shards stay None
+        for s in ids:
+            chunk = self._load_chunk(load_block, s, h, w, (sh, sw), packed, dtype)
+            chunks[s] = torch.from_numpy(chunk).to(self.mesh.devices[s])
         if route == "shard_ops":
             make_run = self._shard_ops_run(rule, (h, w), packed)
         elif route == "k4":
@@ -320,16 +464,23 @@ class ShardedBackend:
             make_run = self._k3_run(rule, (h, w), chunks)
         runs: dict[int, object] = {}
 
-        def advance(chunks, n_steps: int):
+        def advance(local, n_steps: int):
+            full = [None] * self.mesh.size
+            for s, c in zip(ids, local):
+                full[s] = c
             num_blocks, rem = divmod(n_steps, k)
             for depth, count in ((k, num_blocks), (rem, 1)):
                 if depth and count:
                     if depth not in runs:
                         runs[depth] = make_run(depth)
-                    chunks = runs[depth](chunks, count)
-            return chunks
+                    full = runs[depth](full, count)
+            return [full[s] for s in ids]
 
-        return ShardedRunner(chunks, advance, to_np, count_live, route, grid, host.shape)
+        width = bitlife.packed_width(w) if packed else w
+        return ShardedRunner(
+            [chunks[s] for s in ids], advance, to_np, count_live, route, grid, (h, width),
+            shard_ids=ids, block=(sh, sw),
+        )
 
     def _shard_ops_run(self, rule, logical, packed: bool):
         stencil = self._stencil(rule)
@@ -350,7 +501,7 @@ class ShardedBackend:
         right, col0, depth, out)`` steps shard s into ``out``, its spare
         buffer; each shard ping-pongs two buffers (the plain versions on
         the CPU allocate their own results)."""
-        spares = [torch.empty_like(c) if c.is_cuda else None for c in chunks]
+        spares = [torch.empty_like(c) if c is not None and c.is_cuda else None for c in chunks]
         cols = self.n_cols
 
         def make_run(depth: int):
@@ -366,7 +517,7 @@ class ShardedBackend:
 
             return lambda chunks, count: halo.run_blocks(
                 chunks, count, fr, block, periodic=periodic, buffers=buffers, cols=cols,
-                fc=fc, col_halos=col_halos,
+                fc=fc, col_halos=col_halos, ranks=self.mesh.ranks,
             )
 
         return make_run
@@ -406,4 +557,15 @@ class ShardedBackend:
     ) -> np.ndarray:
         return run_with_runner(
             self, board, rule, steps, chunk_steps=chunk_steps, callback=callback
+        )
+
+
+def _refuse_float_stream(rule: Rule) -> None:
+    """Streamed I/O reads and writes the digit codec only, as the JAX
+    package's does: a continuous rule's float32 board file has no per-row
+    layout to read or write by shard."""
+    if getattr(rule, "continuous", False):
+        raise ValueError(
+            f"streamed I/O reads and writes digit boards only; continuous rule "
+            f"{rule.name!r} keeps its float32 board whole (pass --no-stream-io)"
         )

@@ -103,14 +103,17 @@ class DeviceRunner:
 
 
 class ShardedRunner:
-    """Runner over a board split into blocks on a ``rows x cols`` mesh, one
-    tensor per mesh device in row-major order (the ``sharded`` backend).
-    ``advance`` queues each block's halo copies and per-shard steps with
-    no host round-trip; ``sync`` waits for every card of the mesh;
+    """Runner over a board split into blocks on a ``rows x cols`` mesh (the
+    ``sharded`` backend): ``chunks`` are the tensors of the shards this
+    process holds, ``shard_ids`` their row-major indices on the mesh (all
+    of them on one process), each chunk ``block`` rows by words or cells.
+    ``advance`` queues each block's halo exchange and per-shard steps with
+    no host round-trip; ``sync`` waits for this process's cards;
     ``gather`` joins the chunks on the first shard's device and drops the
     padding rows and columns (``shape``: the board's rows and its words
-    or cells); ``live_count`` sums the shards' counts.  ``route`` names
-    the per-shard executor: kernel K3 (``k3``, ``k3_diamond``,
+    or cells), which only a process that holds every shard can do;
+    ``live_count`` sums the shards' counts over every process.  ``route``
+    names the per-shard executor: kernel K3 (``k3``, ``k3_diamond``,
     ``k3_torus``), kernel K4 (``k4``) or plain ops (``shard_ops``)."""
 
     def __init__(
@@ -122,6 +125,9 @@ class ShardedRunner:
         route: str,
         grid: tuple[int, int],
         shape: tuple[int, int],
+        *,
+        shard_ids: list[int],
+        block: tuple[int, int],
     ):
         self.chunks = chunks
         self._advance = advance
@@ -130,6 +136,8 @@ class ShardedRunner:
         self.route = route
         self.grid = grid
         self.shape = shape
+        self.shard_ids = list(shard_ids)
+        self.block = block
 
     def advance(self, steps: int) -> None:
         if steps > 0:
@@ -140,7 +148,16 @@ class ShardedRunner:
             torch.cuda.synchronize(device)
         self.chunks[-1][:1, :1].cpu()
 
-    def _stack(self, chunks: list[torch.Tensor]) -> torch.Tensor:
+    def gather(self, chunks: list[torch.Tensor] | None = None) -> torch.Tensor:
+        """The board (words or cells) on the first shard's device, from
+        ``chunks`` (default: the current ones)."""
+        chunks = self.chunks if chunks is None else chunks
+        if len(chunks) != self.grid[0] * self.grid[1]:
+            raise ValueError(
+                f"this process holds {len(chunks)} of the mesh's "
+                f"{self.grid[0] * self.grid[1]} shards and cannot gather the board; a run "
+                f"across processes writes its output per shard (--stream-io)"
+            )
         first = chunks[0].device
         cols = self.grid[1]
         rows = [torch.cat([c.to(first) for c in chunks[i: i + cols]], dim=1)
@@ -148,21 +165,23 @@ class ShardedRunner:
         h, w = self.shape
         return torch.cat(rows)[:h, :w].contiguous()
 
-    def gather(self) -> torch.Tensor:
-        """The board (words or cells) on the first shard's device."""
-        return self._stack(self.chunks)
-
     def fetch(self) -> np.ndarray:
         return self._to_np(self.gather())
 
     def live_count(self) -> int:
         """Exact live-cell count: one scalar per shard, reduced on its
-        device (padding rows and columns are dead)."""
-        return sum(int(self._count_live(c)) for c in self.chunks)
+        device (padding rows and columns are dead), then summed over the
+        processes of the job."""
+        from tpu_life_torch.parallel.mesh import all_reduce_sum, process_count
+
+        counts = [self._count_live(c) for c in self.chunks]
+        if process_count() == 1:
+            return sum(int(c) for c in counts)
+        return all_reduce_sum(sum(c.to(counts[0].device) for c in counts))
 
     def snapshot(self) -> Callable[[], np.ndarray]:
         """Thunk over device copies of the current chunks."""
-        return lambda chunks=[c.clone() for c in self.chunks]: self._to_np(self._stack(chunks))
+        return lambda chunks=[c.clone() for c in self.chunks]: self._to_np(self.gather(chunks))
 
 
 def packed_device_runner(

@@ -2,7 +2,11 @@
 
 ``run`` with no flags reproduces the reference contract, like
 ``python -m tpu_life run``: it reads ``grid_size_data.txt`` + ``data.txt``,
-writes ``output.txt`` and prints ``Total time = <s>``.  With ``--size`` (or
+writes ``output.txt`` and prints ``Total time = <s>``.  ``--stream-io``
+reads and writes the board per shard on the sharded backend, and in a job
+of several processes (the JAX package's ``JAX_COORDINATOR_ADDRESS`` /
+``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``, or torchrun's variables) each
+process runs its own shards.  With ``--size`` (or
 ``--height``/``--width``) and ``--steps`` and no input file it runs the
 seeded random board of ``--seed``.  It runs on the card; ``--device cpu``
 asks for the plain PyTorch version on the CPU.  Its snapshot, resume,
@@ -98,6 +102,21 @@ def build_parser() -> argparse.ArgumentParser:
         help="CA steps per kernel launch (default 8; clamped to 1..32 and to "
         "what the rule's radius and the shards allow)",
     )
+    r.add_argument(
+        "--partition-mode", default="shard_map", choices=["shard_map", "gspmd"],
+        help="sharded backend: shard_map = the explicit halo exchange; gspmd "
+        "(the JAX package's compiler-derived exchange) is refused with exit "
+        "2: a row-sharded DTensor step all-gathers the board every step",
+    )
+    r.add_argument(
+        "--stream-io", action="store_true", default=None,
+        help="per-shard streamed file I/O (sharded backend): each shard reads "
+        "and writes its own bytes of the board files and snapshots, so the "
+        "board is never whole on one host; on by default for boards of "
+        "2^28 cells and more read from a file",
+    )
+    r.add_argument("--no-stream-io", dest="stream_io", action="store_false",
+                   help="stage and write the board whole on the host")
     r.add_argument(
         "--stencil", default="auto", choices=["auto", "roll", "matmul"],
         help="neighbour-counting path of the torch, numpy and sharded backends: "
@@ -275,10 +294,12 @@ def main(argv: list[str] | None = None) -> int:
         num_devices=args.num_devices,
         mesh_shape=mesh_shape,
         local_kernel=args.local_kernel,
+        partition_mode=args.partition_mode,
         block_steps=args.block_steps,
         bitpack=args.bitpack,
         stencil=args.stencil,
         sync_every=args.sync_every,
+        stream_io=args.stream_io,
         snapshot_every=args.snapshot_every,
         snapshot_dir=args.snapshot_dir,
         keep_snapshots=args.keep_snapshots,
@@ -293,12 +314,13 @@ def main(argv: list[str] | None = None) -> int:
         metrics_file=args.metrics_file,
         verbose=args.verbose,
     )
+    from tpu_life_torch.backends.sharded_backend import PartitionModeRefused
     from tpu_life_torch.models.rules import GeometryError
     from tpu_life_torch.runtime.driver import run
 
     try:
         run(cfg)
-    except GeometryError as e:
+    except (GeometryError, PartitionModeRefused) as e:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 2
     return 0

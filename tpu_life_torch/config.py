@@ -34,6 +34,9 @@ class RunConfig:
     num_devices: int | None = None  # sharded: shards (None = one per card)
     mesh_shape: tuple[int, int] | None = None  # sharded: rows x cols of shards
     local_kernel: str = "auto"  # sharded: per-shard stepper, auto | torch | cuda
+    # sharded: shard_map (the explicit halo exchange); gspmd is refused
+    # (backends.sharded_backend.GSPMD_FINDING)
+    partition_mode: str = "shard_map"
     block_steps: int | None = None  # kernel substeps per launch; None = backend default
     bitpack: bool = True  # False: life-like rules run the int8 path (kernel K2)
     # neighbour-counting path of the torch, numpy and sharded backends:
@@ -41,6 +44,10 @@ class RunConfig:
     # kernels count with their own sums and ignore it
     stencil: str = "auto"
     sync_every: int = 0  # steps per host sync chunk; 0 = one run
+    # per-shard streamed board I/O (sharded backend): None = on when the
+    # board has at least driver._STREAM_AUTO_CELLS cells and the result
+    # goes to a file
+    stream_io: bool | None = None
 
     # aux subsystems (the JAX RunConfig's, with its defaults)
     snapshot_every: int = 0

@@ -21,9 +21,20 @@ block advances every chunk ``k`` steps:
    middle.
 
 Clamped boards get zero halos at the mesh ends, which is the dead
-boundary; the torus closes the rings.  Cells outside the board are pinned
-dead after every step by the board coordinates of each chunk cell, so
-padding never comes alive.
+boundary; the torus closes the rings.
+
+On a mesh that spans several processes (``Mesh.ranks``, from
+``mesh.init_distributed``) the chunk list is the global one with None in
+the place of each shard another process owns.  A halo between two shards
+of this process is a copy, as on one process; a halo from or to another
+process is a ``torch.distributed`` send or receive, posted with those of
+the whole exchange as one ``batch_isend_irecv``, the reference's
+``MPI_Sendrecv`` of ghost rows (Parallel_Life_MPI.cpp:104-145).  Every
+process walks the same global list of transfers, so the sends and the
+receives between two processes pair up in order.
+
+Cells outside the board are pinned dead after every step by the board
+coordinates of each chunk cell, so padding never comes alive.
 
 :func:`make_shard_block` is the per-shard block in plain PyTorch ops: the
 executor of the sharded backend's ``shard_ops`` route and the plain
@@ -39,6 +50,7 @@ from dataclasses import replace
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.ops import bitlife
@@ -93,13 +105,19 @@ def on_device(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
+def _zeros(chunks: list, shape) -> list:
+    """A zeroed tensor of ``shape(chunk)`` beside each chunk, on its
+    device (None beside another process's shard)."""
+    return [None if c is None else torch.zeros(shape(c), dtype=c.dtype, device=c.device)
+            for c in chunks]
+
+
 def halo_buffers(chunks: list[torch.Tensor], fr: int) -> tuple[list, list]:
     """Zeroed ``fr``-row halo tensors (tops, bots) beside each chunk, on its
     device.  The exchange writes all but the clamped mesh ends, which stay
     zero: the dead boundary."""
-    tops = [torch.zeros((fr, c.shape[1]), dtype=c.dtype, device=c.device) for c in chunks]
-    bots = [torch.zeros((fr, c.shape[1]), dtype=c.dtype, device=c.device) for c in chunks]
-    return tops, bots
+    shape = lambda c: (fr, c.shape[1])  # noqa: E731
+    return _zeros(chunks, shape), _zeros(chunks, shape)
 
 
 def col_buffers(chunks: list[torch.Tensor], fr: int, fc: int) -> tuple[list, list]:
@@ -107,9 +125,50 @@ def col_buffers(chunks: list[torch.Tensor], fr: int, fc: int) -> tuple[list, lis
     and ``fc`` columns beside each chunk, on its device; the clamped mesh
     ends stay zero."""
     shape = lambda c: (c.shape[0] + 2 * fr, fc)  # noqa: E731
-    lefts = [torch.zeros(shape(c), dtype=c.dtype, device=c.device) for c in chunks]
-    rights = [torch.zeros(shape(c), dtype=c.dtype, device=c.device) for c in chunks]
-    return lefts, rights
+    return _zeros(chunks, shape), _zeros(chunks, shape)
+
+
+def _first(chunks: list) -> torch.Tensor:
+    """A chunk this process holds (every chunk has its shape)."""
+    return next(c for c in chunks if c is not None)
+
+
+class _Transfers:
+    """The halos of one exchange, in the global order every process walks:
+    a copy where this process holds both shards, a send or a receive where
+    it holds one (posted together by :meth:`finish`), nothing where it
+    holds neither.  ``ranks`` names each shard's process."""
+
+    def __init__(self, counter, ranks):
+        self.counter = counter
+        self.ranks = ranks
+        self.ops: list = []
+        self.tag = 0
+
+    def move(self, dst: torch.Tensor | None, s: int, src: list | None, t: int) -> None:
+        """Shard t's pieces ``src`` (``(rows of dst, view)`` pairs, stacked
+        in order; rows None for the whole of ``dst``) into shard s's halo
+        ``dst``; each side is None where another process holds that
+        shard."""
+        self.tag += 1
+        if dst is not None and src is not None:
+            for rows, view in src:
+                _copy(dst if rows is None else dst[rows], view, self.counter)
+        elif dst is not None:
+            self.ops.append(dist.P2POp(dist.irecv, dst, self.ranks[t], tag=self.tag))
+        elif src is not None:
+            views = [view for _, view in src]
+            send = views[0].contiguous() if len(views) == 1 else torch.cat(views)
+            self.ops.append(dist.P2POp(dist.isend, send, self.ranks[s], tag=self.tag))
+            self.counter.sends += 1
+
+    def finish(self) -> None:
+        """Post the sends and receives as one batch and wait for them: on
+        the cards ``wait`` orders the current stream after the transfer,
+        before the next launch."""
+        if self.ops:
+            for work in dist.batch_isend_irecv(self.ops):
+                work.wait()
 
 
 def exchange_rows(
@@ -119,6 +178,7 @@ def exchange_rows(
     periodic: bool,
     buffers: tuple[list, list] | None = None,
     cols: int = 1,
+    ranks: tuple[int, ...] | None = None,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """The row halos of one block on a mesh of ``cols`` columns (chunks in
     row-major order): ``tops[s]`` holds the last ``fr`` rows of the chunk
@@ -136,28 +196,36 @@ def exchange_rows(
     source, and the receiving card's current stream waits for it
     (``Tensor.copy_`` between CUDA devices).  ``exchange_rows.copies``
     counts the copies: 2(R-1)*C per block clamped, 2R*C on rings of R > 1
-    rows.
+    rows.  With ``ranks`` (a mesh across processes) the halos between two
+    processes are sends and receives instead, and ``exchange_rows.sends``
+    counts this process's sends.
     """
     n = len(chunks) // cols
-    hl = chunks[0].shape[0]
+    hl = _first(chunks).shape[0]
     if not 1 <= fr <= hl:
         raise ValueError(
             f"halo depth {fr} must be in [1, shard height {hl}]; lower "
             f"block_steps or use fewer shards"
         )
     if periodic and n == 1:
-        return [c[hl - fr:] for c in chunks], [c[:fr] for c in chunks]
+        return ([None if c is None else c[hl - fr:] for c in chunks],
+                [None if c is None else c[:fr] for c in chunks])
     tops, bots = buffers if buffers is not None else halo_buffers(chunks, fr)
+    moves = _Transfers(exchange_rows, ranks)
     for s in range(len(chunks)):
         i, j = divmod(s, cols)
         if i > 0 or periodic:
-            _copy(tops[s], chunks[(i - 1) % n * cols + j][hl - fr:], exchange_rows)
+            t = (i - 1) % n * cols + j
+            moves.move(tops[s], s, None if chunks[t] is None else [(None, chunks[t][hl - fr:])], t)
         if i < n - 1 or periodic:
-            _copy(bots[s], chunks[(i + 1) % n * cols + j][:fr], exchange_rows)
+            t = (i + 1) % n * cols + j
+            moves.move(bots[s], s, None if chunks[t] is None else [(None, chunks[t][:fr])], t)
+    moves.finish()
     return tops, bots
 
 
 exchange_rows.copies = 0
+exchange_rows.sends = 0
 
 
 def exchange_cols(
@@ -169,6 +237,7 @@ def exchange_cols(
     cols: int,
     periodic: bool,
     buffers: tuple[list, list] | None = None,
+    ranks: tuple[int, ...] | None = None,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """The column halos of one block, after :func:`exchange_rows` gave
     ``tops`` and ``bots``: ``lefts[s]`` holds the last ``fc`` columns of
@@ -183,32 +252,40 @@ def exchange_cols(
     own edges).  Each halo is three copies (the neighbour's top, chunk and
     bottom edge), into preallocated tensors on the receiving shard's
     device (``buffers``, from :func:`col_buffers`).  ``exchange_cols.copies``
-    counts them: 6*R*(C-1) per block clamped, 6*R*C on rings.
+    counts them: 6*R*(C-1) per block clamped, 6*R*C on rings.  Between two
+    processes (``ranks``) a halo is one send of the three edges joined,
+    counted by ``exchange_cols.sends``.
     """
-    hl, wl = chunks[0].shape
-    fr = tops[0].shape[0]
+    hl, wl = _first(chunks).shape
+    fr = _first(tops).shape[0]
     if not 1 <= fc <= wl:
         raise ValueError(
             f"column halo {fc} must be in [1, shard width {wl}]; lower "
             f"block_steps or use fewer column shards"
         )
     lefts, rights = buffers if buffers is not None else col_buffers(chunks, fr, fc)
+    moves = _Transfers(exchange_cols, ranks)
+    pieces = ((slice(0, fr), tops), (slice(fr, fr + hl), chunks), (slice(fr + hl, None), bots))
 
-    def edge(dst, s, cut):
-        for src, rows in ((tops[s], slice(0, fr)), (chunks[s], slice(fr, fr + hl)),
-                          (bots[s], slice(fr + hl, 2 * fr + hl))):
-            _copy(dst[rows], src[:, cut], exchange_cols)
+    def edge(t: int, cut: slice) -> list | None:
+        """Shard t's row-extended edge columns: its top halo's, its chunk's
+        and its bottom halo's."""
+        return None if chunks[t] is None else [(rows, src[t][:, cut]) for rows, src in pieces]
 
     for s in range(len(chunks)):
         i, j = divmod(s, cols)
         if j > 0 or periodic:
-            edge(lefts[s], i * cols + (j - 1) % cols, slice(wl - fc, wl))
+            t = i * cols + (j - 1) % cols
+            moves.move(lefts[s], s, edge(t, slice(wl - fc, wl)), t)
         if j < cols - 1 or periodic:
-            edge(rights[s], i * cols + (j + 1) % cols, slice(0, fc))
+            t = i * cols + (j + 1) % cols
+            moves.move(rights[s], s, edge(t, slice(0, fc)), t)
+    moves.finish()
     return lefts, rights
 
 
 exchange_cols.copies = 0
+exchange_cols.sends = 0
 
 
 def _copy(dst: torch.Tensor, src: torch.Tensor, counter) -> None:
@@ -304,23 +381,30 @@ def run_blocks(
     cols: int = 1,
     fc: int = 0,
     col_halos: tuple[list, list] | None = None,
+    ranks: tuple[int, ...] | None = None,
 ) -> list[torch.Tensor]:
     """The epoch loop: ``num_blocks`` times, one exchange of ``fr``-row
     halos (and, with ``fc``, of ``fc``-column halos) and then
     ``block(s, chunk, halos, row0, col0)`` on every shard s = (i, j) of a
-    mesh of ``cols`` columns, which returns its new chunk.  Its ``row0``
-    is ``i * hl - fr`` and its ``col0`` ``j * wl - fc``: the board
-    coordinate of its extended chunk's cell (0, 0)."""
-    hl, wl = chunks[0].shape
+    mesh of ``cols`` columns that this process holds, which returns its
+    new chunk.  Its ``row0`` is ``i * hl - fr`` and its ``col0``
+    ``j * wl - fc``: the board coordinate of its extended chunk's cell
+    (0, 0).  ``ranks`` names each shard's process on a mesh across
+    processes (None stands for another process's chunk)."""
+    hl, wl = _first(chunks).shape
     for _ in range(num_blocks):
-        tops, bots = exchange_rows(chunks, fr, periodic=periodic, buffers=buffers, cols=cols)
+        tops, bots = exchange_rows(
+            chunks, fr, periodic=periodic, buffers=buffers, cols=cols, ranks=ranks
+        )
         if fc:
             lefts, rights = exchange_cols(
-                chunks, tops, bots, fc, cols=cols, periodic=periodic, buffers=col_halos
+                chunks, tops, bots, fc, cols=cols, periodic=periodic, buffers=col_halos,
+                ranks=ranks,
             )
         else:
             lefts = rights = [None] * len(chunks)
         chunks = [
+            None if chunk is None else
             block(s, chunk, Halos(tops[s], bots[s], lefts[s], rights[s]),
                   s // cols * hl - fr, s % cols * wl - fc)
             for s, chunk in enumerate(chunks)
@@ -343,7 +427,7 @@ def _make_run(rule, mesh: Mesh, logical_shape, block_steps: int, packed: bool, t
         if len(chunks) != mesh.size:
             raise ValueError(f"{len(chunks)} chunks for a mesh of {mesh.size}")
         if torus:
-            hl, wl = chunks[0].shape
+            hl, wl = _first(chunks).shape
             lh, lw = logical_shape
             exact = (lh, bitlife.packed_width(lw) if packed else lw)
             if mesh.n_rows * hl != exact[0] or (split_cols and cols * wl != exact[1]):
@@ -359,7 +443,7 @@ def _make_run(rule, mesh: Mesh, logical_shape, block_steps: int, packed: bool, t
             chunks, num_blocks, fr,
             lambda s, chunk, h, row0, col0: block(h.top, chunk, h.bot, row0, h.left, h.right, col0),
             periodic=torus, buffers=buffers["halos"], cols=cols, fc=fc,
-            col_halos=buffers["cols"],
+            col_halos=buffers["cols"], ranks=mesh.ranks,
         )
 
     return run

@@ -11,18 +11,25 @@ left and right of it.  A device may appear more than once, so one card
 fake XLA devices, and how a one-card machine runs the same exchange and
 per-shard code as a machine with one card per shard.
 
-Not ported yet (ROADMAP A6): multi-process runs.
+A run may span several processes (:func:`init_distributed`, the
+reference's one MPI rank per stripe): the global mesh is then every
+process's local devices in rank order, ``Mesh.ranks`` names the process
+that owns each shard, and a process holds and steps only its own shards.
+The transport is chosen from the device: ``nccl`` for shards on cards,
+``gloo`` for shards on the CPU.
 """
 
 from __future__ import annotations
 
+import atexit
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_life_torch.backends.base import CudaUnavailableError
-from tpu_life_torch.models.rules import NotPortedError
 from tpu_life_torch.utils.padding import ceil_div
 
 ROW_AXIS = "rows"
@@ -36,12 +43,21 @@ class Mesh:
 
     devices: tuple[torch.device, ...]
     cols: int | None = None
+    # the process that owns each shard, None when one process owns them
+    # all; ``devices[s]`` is shard s's device on its owner
+    ranks: tuple[int, ...] | None = None
 
     def __post_init__(self):
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
         if self.cols is not None and (self.cols < 1 or len(self.devices) % self.cols):
             raise ValueError(f"{len(self.devices)} devices do not fill rows of {self.cols} columns")
+        if self.ranks is not None and len(self.ranks) != len(self.devices):
+            raise ValueError(f"{len(self.ranks)} owner ranks for {len(self.devices)} shards")
+
+    def is_local(self, s: int) -> bool:
+        """Whether this process owns shard s."""
+        return self.ranks is None or self.ranks[s] == process_index()
 
     @property
     def n_cols(self) -> int:
@@ -79,7 +95,7 @@ def _devices(devices) -> list[torch.device]:
     return devices
 
 
-def make_mesh(num_devices: int | None = None, *, devices=None) -> Mesh:
+def make_mesh(num_devices: int | None = None, *, devices=None, ranks=None) -> Mesh:
     """A 1-D row mesh.
 
     With ``devices`` given, the mesh is those devices in order, repeats
@@ -97,10 +113,10 @@ def make_mesh(num_devices: int | None = None, *, devices=None) -> Mesh:
                 f"requested {num_devices} devices, only {len(devices)} available"
             )
         devices = devices[:num_devices]
-    return Mesh(tuple(devices))
+    return Mesh(tuple(devices), ranks=_owners(ranks, len(devices)))
 
 
-def make_mesh_2d(shape: tuple[int, int], *, devices=None) -> Mesh:
+def make_mesh_2d(shape: tuple[int, int], *, devices=None, ranks=None) -> Mesh:
     """A ``rows x cols`` mesh over the first ``rows * cols`` of ``devices``
     (repeats allowed, as in :func:`make_mesh`) or of the visible cards.
     Per block a shard exchanges halos with the shards above and below it,
@@ -115,16 +131,154 @@ def make_mesh_2d(shape: tuple[int, int], *, devices=None) -> Mesh:
         raise ValueError(
             f"mesh shape {(r, c)} needs {r * c} devices, only {len(devices)} available"
         )
-    return Mesh(tuple(devices[: r * c]), cols=c)
+    return Mesh(tuple(devices[: r * c]), cols=c, ranks=_owners(ranks, r * c))
 
 
-def init_distributed() -> None:
-    """One process per card over NCCL is not ported yet."""
-    raise NotPortedError(
-        "multi-process runs are not yet ported to tpu_life_torch (ROADMAP "
-        "A6: init_distributed with one process per card over NCCL); one "
-        "process drives every shard of a mesh"
-    )
+def _owners(ranks, n: int) -> tuple[int, ...] | None:
+    if ranks is None:
+        return None
+    ranks = tuple(int(q) for q in ranks)
+    if len(ranks) < n:
+        raise ValueError(f"{len(ranks)} owner ranks for a mesh of {n} shards")
+    return ranks[:n]
+
+
+# -- several processes -------------------------------------------------------
+
+_initialized = False  # init_distributed started the process group
+
+
+def init_distributed(device=None) -> None:
+    """Join a multi-process job if the environment describes one: the
+    analogue of ``MPI_Init`` (Parallel_Life_MPI.cpp:195) and of the JAX
+    package's ``init_distributed``.
+
+    The job is the JAX package's triple (``JAX_COORDINATOR_ADDRESS`` or
+    ``COORDINATOR_ADDRESS``, then ``JAX_NUM_PROCESSES`` and
+    ``JAX_PROCESS_ID``), so one launcher drives either package, or
+    torchrun's ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and
+    ``RANK``.  The transport follows ``device`` (the run's ``--device``):
+    ``gloo`` for the CPU, ``nccl`` for the cards (the default), and then
+    this process's card is made current: ``device``'s index, else
+    ``LOCAL_RANK``, else the rank modulo the visible cards.  With no job in
+    the environment this is a no-op; it is idempotent, as the driver calls
+    it on every run, and the process group is destroyed at exit.
+    """
+    global _initialized
+    if _initialized or dist.is_initialized():
+        return
+    spec = _job_from_env()
+    if spec is None:
+        return
+    init_method, world, rank = spec
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        backend = "gloo"
+    elif dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise CudaUnavailableError(
+                "a multi-process job on the cards needs a CUDA device; pass "
+                "--device cpu to run its shards on the CPU over gloo"
+            )
+        backend = "nccl"
+        torch.cuda.set_device(local_card(rank) if dev.index is None else dev)
+    else:
+        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
+    _initialized = True
+    atexit.register(_shutdown)
+
+
+def _job_from_env() -> tuple[str, int, int] | None:
+    """(init method, processes, this process's rank) from the environment,
+    or None when it describes no job.  torchrun's job joins by ``env://``,
+    which finds the store torchrun's agent already serves."""
+    env = os.environ
+    addr = env.get("JAX_COORDINATOR_ADDRESS") or env.get("COORDINATOR_ADDRESS")
+    if addr:
+        num = env.get("JAX_NUM_PROCESSES")
+        if num is not None:
+            pid = env.get("JAX_PROCESS_ID")
+            if pid is None:
+                raise RuntimeError(
+                    "incomplete distributed process spec: JAX_NUM_PROCESSES "
+                    "is set but JAX_PROCESS_ID is not (the explicit triple is "
+                    "JAX_COORDINATOR_ADDRESS + JAX_NUM_PROCESSES + "
+                    "JAX_PROCESS_ID)"
+                )
+            return f"tcp://{addr}", int(num), int(pid)
+        if env.get("WORLD_SIZE") is not None and env.get("RANK") is not None:
+            return f"tcp://{addr}", int(env["WORLD_SIZE"]), int(env["RANK"])
+        raise RuntimeError(
+            "incomplete distributed process spec: a coordinator address is set "
+            "but no process count; set JAX_NUM_PROCESSES and JAX_PROCESS_ID "
+            "(or torchrun's WORLD_SIZE and RANK)"
+        )
+    if env.get("MASTER_ADDR") and env.get("MASTER_PORT") and env.get("WORLD_SIZE"):
+        if env.get("RANK") is None:
+            raise RuntimeError(
+                "incomplete distributed process spec: WORLD_SIZE is set but RANK "
+                "is not (torchrun sets MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK)"
+            )
+        return "env://", int(env["WORLD_SIZE"]), int(env["RANK"])
+    return None
+
+
+def local_card(rank: int) -> torch.device:
+    """This process's card in a job of one process per card:
+    ``LOCAL_RANK`` (torchrun) or the rank modulo the visible cards."""
+    local = os.environ.get("LOCAL_RANK")
+    index = int(local) if local is not None else rank % torch.cuda.device_count()
+    return torch.device("cuda", index)
+
+
+def _shutdown() -> None:
+    global _initialized
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _initialized = False
+
+
+def process_count() -> int:
+    """Processes in the job (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    """This process's rank (0 without a job)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_lead() -> bool:
+    """Whether this process owns the single-writer side effects: the
+    reference's rank 0 (Parallel_Life_MPI.cpp:234-236)."""
+    return process_index() == 0
+
+
+def process_devices(local: list[torch.device]) -> tuple[list[torch.device], list[int]]:
+    """The global mesh's devices and owner ranks: every process's local
+    devices in rank order.  Each process brings as many as this one; it
+    names the others' by its own, as it never touches them."""
+    world = process_count()
+    return list(local) * world, [q for q in range(world) for _ in local]
+
+
+def all_reduce_sum(x: torch.Tensor) -> int:
+    """The sum of a scalar over every process (``x`` on this process's
+    transport device: the card under nccl, the CPU under gloo)."""
+    if process_count() > 1:
+        x = x.clone()
+        dist.all_reduce(x)
+    return int(x)
+
+
+def barrier() -> None:
+    """Wait for every process of the job (nothing to wait for alone)."""
+    if process_count() > 1:
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
 
 
 def shard_extent(extent: int, n: int, minimum: int = 1) -> int:

@@ -28,9 +28,24 @@ sidecars, so either package resumes the other's.  Elastic recovery
 (``--max-restarts``, ``runtime/recovery.py``) rebuilds the backend after a
 recoverable failure and resumes from the newest snapshot this run wrote.
 
-Not ported yet (ROADMAP.md): multi-process runs, streamed per-shard I/O
-(``--stream-io``, streamed snapshots), the tuned backend and the
-stochastic rule tier.
+Streamed I/O (``--stream-io``, the JAX driver's ``stream`` branches): the
+``sharded`` backend stages the board from the input file shard by shard
+(``prepare_from_file``, a resume too), and writes snapshots and the output
+back per shard (``write_runner_to_file``), so the board is never whole on
+one host and ``RunResult.board`` is None; live counts still come from the
+per-shard reduction.  It is on for boards of ``_STREAM_AUTO_CELLS`` cells
+and more whose result goes to a file, unless ``stream_io`` says otherwise.
+
+Several processes (``parallel.mesh.init_distributed``, joined from the
+environment before any device is touched): the trace file, the metrics
+sink, snapshot retention and sidecars, the whole-board output and the
+``Total time`` line belong to the lead process (rank 0), while every
+process writes its own shards of a streamed output or snapshot.  Elastic
+recovery is process-local, so it is off in such a job: relaunch the whole
+job with ``--resume``.
+
+Not ported yet (ROADMAP.md): the tuned backend and the stochastic rule
+tier.
 """
 
 from __future__ import annotations
@@ -49,16 +64,22 @@ from tpu_life_torch.io.codec import read_board, write_board
 from tpu_life_torch.mc.prng import seeded_board
 from tpu_life_torch.models import lenia
 from tpu_life_torch.models.rules import get_rule, validate_rule_geometry
+from tpu_life_torch.parallel import mesh
+from tpu_life_torch.parallel.mesh import init_distributed
 from tpu_life_torch.runtime import checkpoint as ckpt
 from tpu_life_torch.runtime import recovery
 from tpu_life_torch.runtime.metrics import MetricsRecorder, configure_logging, dump_board, log
 from tpu_life_torch.runtime.profiling import maybe_profile
 from tpu_life_torch.utils.timing import Timer
 
+# auto-streaming threshold: boards of at least this many cells (16384^2)
+# skip the host board when the backend loads and stores per shard
+_STREAM_AUTO_CELLS = 1 << 28
+
 
 @dataclass
 class RunResult:
-    board: np.ndarray
+    board: np.ndarray | None  # None on streamed runs (never whole on one host)
     steps_run: int  # steps this run advanced (past the resume point)
     elapsed_s: float
     backend: str
@@ -70,10 +91,32 @@ class RunResult:
     run_id: str = ""  # correlation id shared by metrics/trace artifacts
 
 
+def _single_process() -> bool:
+    return mesh.process_count() == 1
+
+
+def _is_lead_process() -> bool:
+    """True on the process that owns single-writer side effects (whole-board
+    output, the ``Total time`` report): the reference's rank-0 gating
+    (Parallel_Life_MPI.cpp:234-236).  Streamed per-shard writes are not
+    gated on it: like ``MPI_File_write_at_all`` (Parallel_Life_MPI.cpp:175),
+    every process writes the shards it holds."""
+    return mesh.is_lead()
+
+
 def run(cfg: RunConfig) -> RunResult:
     configure_logging(cfg.verbose)
+    # join a multi-process job if the environment describes one (the
+    # MPI_Init analogue), before any device is touched
+    init_distributed(cfg.device)
     run_id = obs.new_run_id()
-    tracer = obs.start_tracing(cfg.trace_events, run_id=run_id) if cfg.trace_events else None
+    # the trace file is a single-writer side effect, lead-only like the
+    # metrics sink; spans are no-ops on the other processes
+    tracer = (
+        obs.start_tracing(cfg.trace_events, run_id=run_id)
+        if cfg.trace_events and _is_lead_process()
+        else None
+    )
     try:
         with obs.span("run", run_id=run_id, backend=cfg.backend, rule=cfg.rule):
             return _run(cfg, run_id)
@@ -96,7 +139,7 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
         backend_kwargs["block_steps"] = cfg.block_steps
     if cfg.backend == "sharded":
         backend_kwargs.update(num_devices=cfg.num_devices, mesh_shape=cfg.mesh_shape,
-                              local_kernel=cfg.local_kernel)
+                              local_kernel=cfg.local_kernel, partition_mode=cfg.partition_mode)
     registry = obs.MetricsRegistry()
     builds = registry.counter(
         "run_backend_builds_total",
@@ -128,15 +171,58 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
         )
         input_path = None
 
+    can_stream = hasattr(backend, "prepare_from_file")
+    stream = (
+        cfg.stream_io
+        if cfg.stream_io is not None
+        # auto-stream only when the result goes to a file (a library caller
+        # with no output_file needs RunResult.board), from a file (a seeded
+        # board is made whole on the host), and of digits (a continuous
+        # rule's float32 file is read and written whole)
+        else can_stream
+        and bool(cfg.output_file)
+        and input_path is not None
+        and not rule.continuous
+        and height * width >= _STREAM_AUTO_CELLS
+    )
+    if not stream and not _single_process():
+        raise ValueError(
+            f"a run across {mesh.process_count()} processes writes its board per shard and "
+            f"never gathers it: pass --stream-io (the sharded backend)"
+        )
+    if stream and not can_stream:
+        raise ValueError(f"--stream-io needs the sharded backend (got backend {cfg.backend!r})")
+    if stream and input_path is None:
+        raise ValueError(
+            f"stream_io needs an input file to stream from; {cfg.input_file!r} does not exist"
+        )
+    if (
+        stream
+        and not cfg.output_file
+        and cfg.snapshot_every <= 0
+        and not cfg.metrics
+        and not cfg.metrics_file
+    ):
+        # a streamed run's board is never whole on the host: with no output
+        # file, no snapshots and no metrics it would compute into the void
+        raise ValueError(
+            "stream_io=True produces no host board; pass output_file, "
+            "snapshot_every or metrics, or use stream_io=False to get "
+            "RunResult.board"
+        )
+
     origin = (input_path, start_step)  # restart target when no snapshot exists
     fault_fired: list[bool] = []
 
     def build_runner(source, start):
         """The runner staged from a contract-format file (``source=None``:
-        the seeded board).  Called once up front and again after each
-        elastic-recovery restart, with the rebuilt ``backend``."""
+        the seeded board), shard by shard when streamed.  Called once up
+        front and again after each elastic-recovery restart, with the
+        rebuilt ``backend``."""
         with obs.span("stage", resume_step=start):
-            if source is None:
+            if stream:
+                r = backend.prepare_from_file(source, height, width, rule)
+            elif source is None:
                 if rule.continuous:
                     b = lenia.seeded_board(height, width, seed=cfg.seed)
                 else:
@@ -152,7 +238,8 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
                             f"board contains state {max_state} but rule {rule.name!r} has "
                             f"only {rule.states} states (0..{rule.states - 1})"
                         )
-            r = make_runner(backend, b, rule)
+            if not stream:
+                r = make_runner(backend, b, rule)
             if cfg.fault_at > 0:
                 r = recovery.FaultingRunner(r, start, cfg.fault_at, fault_fired, cfg.fault_count)
         return r
@@ -160,11 +247,14 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
     remaining = max(0, steps - start_step)
     recorder = MetricsRecorder(
         height * width,
+        # enabled on every process alike: the live count is a reduction over
+        # the processes, which a lead-only recorder would leave hanging
         cfg.metrics or cfg.verbose or bool(cfg.metrics_file),
         start_step=start_step,
-        # a raw append log: recovery rewinds may repeat steps there
-        # (RunResult.metrics is the deduplicated record)
-        sink=cfg.metrics_file,
+        # the sink is a single-writer side effect: lead-only.  A raw append
+        # log: recovery rewinds may repeat steps there (RunResult.metrics is
+        # the deduplicated record)
+        sink=cfg.metrics_file if _is_lead_process() else None,
         run_id=run_id,
         registry=registry,
         labels={"backend": backend.name, "rule": rule.name},
@@ -187,6 +277,22 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
         "written": [],
         "chunk_t0": 0.0,  # trace clock at the last chunk boundary
     }
+    # retention pruning and sidecars are single-writer side effects
+    lead_snapshots = _is_lead_process()
+
+    def write_streamed(path: Path) -> None:
+        """The board per shard into ``path``: published atomically by one
+        process; in a job of several, every process writes its shards into
+        the one file directly (no rename can publish a file several
+        processes write), and they wait for each other before it counts
+        as written."""
+        path.parent.mkdir(parents=True, exist_ok=True)
+        if _single_process():
+            with ckpt.atomic_publish(path) as tmp:
+                backend.write_runner_to_file(recovery.unwrap(runner), tmp, height, width, rule)
+        else:
+            backend.write_runner_to_file(recovery.unwrap(runner), path, height, width, rule)
+            mesh.barrier()
 
     def on_chunk(done_local: int, get_board) -> None:
         done = state["start"] + done_local
@@ -208,15 +314,22 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
         ):
             state["last_snap"] = done
             with obs.span("snapshot-write", step=done):
-                p = ckpt.save_snapshot(
-                    cfg.snapshot_dir,
-                    done,
-                    board_np if board_np is not None else get_board(),
-                    rule=rule.name,
-                )
+                if stream:
+                    # per-shard snapshot: the board stays sharded
+                    p = ckpt.snapshot_path(cfg.snapshot_dir, done)
+                    write_streamed(p)
+                    if lead_snapshots:
+                        ckpt.write_sidecar(p, done, rule.name, height, width)
+                else:
+                    p = ckpt.save_snapshot(
+                        cfg.snapshot_dir,
+                        done,
+                        board_np if board_np is not None else get_board(),
+                        rule=rule.name,
+                    )
                 state["written"].append(done)
                 log.info("snapshot step=%d -> %s", done, p)
-                if cfg.keep_snapshots > 0:
+                if cfg.keep_snapshots > 0 and lead_snapshots:
                     # retention manages only THIS run's snapshots, and the
                     # kept list replaces state["written"] so recovery never
                     # targets a pruned file
@@ -247,6 +360,18 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
     # and so does the first kernel build, which is why recovery.FATAL
     # (no card, a kernel that does not build) is raised at once.
     restarts = 0
+    # elastic recovery is process-local: in a job of several processes the
+    # others would keep their transfers posted (or rewind to another step)
+    # while this one restarts, so there the unit of recovery is the whole
+    # job, relaunched with --resume
+    max_restarts = cfg.max_restarts
+    if max_restarts > 0 and not _single_process():
+        log.warning(
+            "multi-process job: in-process elastic recovery disabled; "
+            "on failure, relaunch the whole job with --resume %s",
+            cfg.snapshot_dir,
+        )
+        max_restarts = 0
     pending: tuple | None = (input_path, start_step)
     first_build = True
     runner = board = None
@@ -283,13 +408,19 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
                             chunk_steps=chunk,
                             callback=callback,
                         )
-                    # the final gather is as killable as any step, so it sits
-                    # inside the recovery scope too
-                    with obs.span("gather"):
-                        board = runner.fetch()
+                    # the final gather, or the streamed per-shard output
+                    # write, is as killable as any step, so it sits inside
+                    # the recovery scope too
+                    if stream:
+                        if cfg.output_file:
+                            with obs.span("output-write", streamed=True):
+                                write_streamed(Path(cfg.output_file))
+                    else:
+                        with obs.span("gather"):
+                            board = runner.fetch()
                     break
                 except recovery.RECOVERABLE as e:
-                    if isinstance(e, recovery.FATAL) or restarts >= cfg.max_restarts:
+                    if isinstance(e, recovery.FATAL) or restarts >= max_restarts:
                         raise
                     restarts += 1
                     if state["written"]:
@@ -302,11 +433,12 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
                         pending = origin
                     log.warning(
                         "recoverable failure (%s: %s); restart %d/%d from %s at step %d",
-                        type(e).__name__, e, restarts, cfg.max_restarts, pending[0], pending[1],
+                        type(e).__name__, e, restarts, max_restarts, pending[0], pending[1],
                     )
                     if cfg.restart_wait_s > 0:
                         time.sleep(cfg.restart_wait_s)
-        if cfg.output_file:
+        lead = _is_lead_process()
+        if cfg.output_file and not stream and lead:
             with obs.span("output-write", streamed=False):
                 out_p = Path(cfg.output_file)
                 out_p.parent.mkdir(parents=True, exist_ok=True)
@@ -320,7 +452,8 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
         # flushes the registry snapshot (build counts, chunk-duration
         # histogram) into the sink and releases its handle, failed run or not
         recorder.close()
-    print(f"Total time = {elapsed}")
+    if lead:
+        print(f"Total time = {elapsed}")
     return RunResult(
         board=board,
         steps_run=remaining,
