@@ -19,7 +19,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``LOP3``, ``SHF``, ``SHFL``, ``LDS``, ``STS``, ``BAR`` and all
    instructions in each K1, K3 and K5 instance's SASS and the shared-memory
    loads, stores and asynchronous copies (``LDS``, ``STS``, ``LDGSTS``) in
-   K2's and K4's (``cuobjdump -sass`` on the built libraries);
+   K2's and K4's (``cuobjdump -sass`` on the built libraries); and
+   ``mc_threefry.cu`` (K6 and K7), whose registers it prints, failing on
+   spills, with the ``IADD3``, ``IMAD``, ``SHF``, ``LOP3``, ``ISETP`` and
+   all instructions of each;
 3. kernel vs plain — holds each kernel bit-identical (``torch.equal``) to
    its plain PyTorch version on the card (K3 and K4 below the list): K1
    over Conway (its compiled rule) and three life-like rules it runs as
@@ -171,7 +174,32 @@ Phases (any failure exits non-zero and prints no result line):
    (2^28 cells); (d) (a) with ``--snapshot-every 128``, then ``--resume``
    from the step-128 snapshot (64 launches); (e) (a) as the one process of
    a job (``JAX_NUM_PROCESSES=1``), which must join an NCCL group of one;
-   (c), (d) and (e) byte-equal to (a).
+   (c), (d) and (e) byte-equal to (a);
+15. the stochastic tier (kernels K6 and K7, and K2 for a noisy base; the
+   K1, K3, K4 and K5 counts stay 0) — K7 bit-identical to its plain version
+   (``torch.equal``) on the Threefry known-answer vectors (both words) and
+   on draws at 1500x500, 4096^2 and 16384^2 at origins 0, 2^32 - 1000 (a
+   block across the 2^32 boundary) and 2^33, words 0 and 1;
+   ``seeded_board(device="cuda")`` equal to the numpy copy at 4096^2 for
+   states 2 and 3 and densities 0.5 and 0.3, with both staging times; K6
+   bit-identical to its plain version one sweep (two launches) at a time on
+   2x2, 4x30, 258x1002, 1500x500 (T = 0, 2.27 and 10, origins 0, across
+   2^32 and past it) and 16384^2 (2 sweeps at each T, each at one of the
+   origins); 16384^2 Ising at T = 2.27, seed 1, 256 sweeps through the
+   ``cuda`` Runner (route ``mc_packed``, 512 K6 launches) equal to the
+   ``--no-bitpack`` roll path (``mc_roll``, 512 K7 launches) bit for bit,
+   each timed; ``run --rule ising --temperature 2.27 --steps 20`` on the
+   reference workload, ``run --rule ising --temperature 2.27 --size 512
+   --steps 64 --seed 3`` and ``run --rule noisy:0.01/conway --size 512
+   --steps 64 --seed 3`` as child processes of ``python -m tpu_life_torch``
+   reporting their launches (K6 40 and 128, K7 0 and 1; K2 64 and K7 65),
+   each byte-equal to ``--backend numpy``'s (children too); ``--snapshot-every
+   32`` then ``--resume`` from step 32, equal bytes; ``--backend sharded
+   --rule ising`` exiting 2; ``bench --mc`` at its defaults (4096^2, 400 and
+   40 sweeps; the numpy legs at 64 and 128) and at 16384^2 (100 and 20
+   sweeps), each record printed; and K6 (4096^2, 16384^2) and K7 (16384^2)
+   timed by CUDA events and the profiler's kernel records beside their
+   bounds and their plain versions.
 
 Phases 2-4 cover K3 too: it is built with K1 (same source, its instances
 in the ptxas report and the SASS counts); phase 3 holds it bit-identical to its
@@ -331,6 +359,20 @@ K2_WIDE = [
 ]
 # the shared-memory instructions counted in K2's and K4's SASS
 SASS_OPS = ("LDS", "STS", "LDGSTS")
+# the integer instructions counted in K6's and K7's SASS (and the total)
+MC_SASS_OPS = ("IADD3", "IMAD", "SHF", "LOP3", "ISETP")
+# K6's and K7's kernels in mc_threefry.cu (label, pattern of the mangled name)
+MC_INSTANCES = [("K6 packed_metropolis_half_kernel", r"packed_metropolis_half_kernel"),
+                ("K7 cell_uniforms_kernel", r"cell_uniforms_kernel")]
+# phase 15: K7's boards and origins (0, a block across 2^32, past it); K6's
+# shapes against its plain version (W % 32 of 2 and 30, one word a row), at
+# each temperature and origin; the Runner's sweeps at 16384^2
+MC_TEMPS = (0.0, 2.27, 10.0)
+K7_SHAPES = [(1500, 500), (4096, 4096), (FULL, FULL)]
+K7_ORIGINS = (0, 2**32 - 1000, 2**33)
+K6_SHAPES = [(2, 2), (4, 30), (258, 1002), (1500, 500)]
+MC_SWEEPS = 256
+MC_SEEDED = 4096  # the seeded boards drawn on the card and by numpy
 # the instructions counted in the SASS of every K1, K3 and K5 instance (and
 # the total): logic, funnel shifts, shuffles, shared memory and barriers
 K1_SASS_OPS = ("LOP3", "SHF", "SHFL", "LDS", "STS", "BAR")
@@ -379,16 +421,16 @@ def ptxas_report(lib: Path) -> dict[str, tuple[int, int, int]]:
     return report
 
 
-def sass_counts_of(lib: Path) -> dict[str, dict[str, int]]:
-    """The counts of :data:`K1_SASS_OPS` and all instructions in each
-    kernel's SASS (``cuobjdump -sass``), by mangled name."""
+def sass_counts_of(lib: Path, count=K1_SASS_OPS) -> dict[str, dict[str, int]]:
+    """The counts of the instructions ``count`` and of all instructions in
+    each kernel's SASS (``cuobjdump -sass``), by mangled name."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
     counts = {}
     for m in re.finditer(r"Function : (\w+)\n(.*?)(?=\n\s+Function : |\Z)", sass, re.S):
         ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", m.group(2), re.M)
-        counts[m.group(1)] = {**{op: sum(o == op for o in ops) for op in K1_SASS_OPS},
+        counts[m.group(1)] = {**{op: sum(o == op for o in ops) for op in count},
                               "total": len(ops)}
     return counts
 
@@ -415,6 +457,7 @@ def main() -> int:
         from tpu_life_torch.experiments import block_bench
         from tpu_life_torch.kernels import conway_block as k5
         from tpu_life_torch.kernels import int8_tiled as kt
+        from tpu_life_torch.kernels import mc_threefry as mct
         from tpu_life_torch.kernels import packed_stripe as ps
         from tpu_life_torch.kernels import sharded_int8 as k4
         from tpu_life_torch.kernels import sharded_stripe as k3
@@ -439,10 +482,11 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        libs = list(pool.map(lambda m: m.build(), (ps, kt)))
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+        libs = list(pool.map(lambda m: m.build(), (ps, kt, mct)))
     ps._library()
     kt._library()
+    mct._library()
     print(f"build: {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
@@ -491,6 +535,21 @@ def main() -> int:
         ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body.group(1), re.M)
         registers[kernel] = regs
         sass_counts[kernel] = {op: sum(o == op for o in ops) for op in SASS_OPS}
+    # K6 and K7 (mc_threefry.cu): registers, no spill, their integer SASS
+    mc_report, mc_sass = ptxas_report(libs[2]), sass_counts_of(libs[2], MC_SASS_OPS)
+    mc_instances = {}
+    for label, pattern in MC_INSTANCES:
+        names = [n for n in mc_report if re.search(pattern, n)]
+        if len(names) != 1 or names[0] not in mc_sass:
+            fail(f"the ptxas report or the SASS of mc_threefry.cu names {len(names)} kernels for {label}")
+        spill_st, spill_ld, regs = mc_report[names[0]]
+        if spill_st or spill_ld:
+            fail(f"{label} spills: {spill_st} bytes of stores, {spill_ld} bytes of loads")
+        mc_instances[label] = dict(registers=regs, sass=mc_sass[names[0]])
+    print("K6 and K7 (ptxas, cuobjdump -sass): " + "; ".join(
+        f"{label} {inst['registers']} registers, no spill, SASS "
+        + ", ".join(f"{op} {n}" for op, n in inst["sass"].items())
+        for label, inst in mc_instances.items()), flush=True)
     print("K2 and K4 (ptxas, cuobjdump -sass): " + "; ".join(
         f"{kernel} {registers[kernel]} registers, no spill, SASS "
         + ", ".join(f"{op} {n}" for op, n in sass_counts[kernel].items())
@@ -2059,6 +2118,11 @@ def main() -> int:
     # -- 14. streamed per-shard I/O and a run through init_distributed --------
     streamed = phase14(dict(smi=smi, counted=counted, spans_ms=spans_ms, fmt_spans=fmt_spans))
 
+    # -- 15. the stochastic tier: K6 and K7 ------------------------------------
+    mc_rows = phase15(dict(dev=dev, smi=smi, n_sm=n_sm, sm_clock_mhz=sm_clock_mhz,
+                           cuda_ms=cuda_ms, counted=counted,
+                           golden=golden, instances=mc_instances))
+
     diamond = diamond_rows[DIAMOND]
     k4_row = k4_rows[("brians_brain", (2, 2))]
     print(json.dumps({"kernels": [{
@@ -2192,7 +2256,7 @@ def main() -> int:
         "full_device_ms": k5_rows[FULL]["device_ms"],
         "instance": K5_MAIN,
         **k1_instances[K5_MAIN],
-    }]}))
+    }, *mc_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -2598,6 +2662,454 @@ def phase13(ctx: dict) -> None:
           f"({side * side / rec['value'] * 1e3:.3f} ms/step) {card}", flush=True)
     torch.cuda.empty_cache()
 
+
+
+# phase 15's children: ``python -m tpu_life_torch`` run as ``__main__``,
+# which then prints the launch counts of K1-K7
+P15_CHILD = """
+import json, runpy, sys
+from tpu_life_torch.kernels import (conway_block, int8_tiled, mc_threefry, packed_stripe,
+                                    sharded_int8, sharded_stripe)
+sys.argv = ["tpu_life_torch", *sys.argv[1:]]
+rc = 0
+try:
+    runpy.run_module("tpu_life_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code or 0
+print("P15 " + json.dumps([
+    packed_stripe.packed_multi_step.launches + packed_stripe.packed_multi_step.diamond_launches,
+    int8_tiled.int8_multi_step.launches, sharded_stripe.sharded_stripe_block.launches,
+    sharded_int8.sharded_int8_block.launches, conway_block.conway_block.launches,
+    mc_threefry.packed_metropolis_half.launches, mc_threefry.cell_uniforms.launches]), flush=True)
+sys.exit(rc)
+"""
+
+
+# phase 15's profile of K6 and K7 in a fresh process: argv = the saved
+# 16384^2 board (int32 words), the sweep the launches name, the side
+P15_PROFILE = """
+import json, sys
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from tpu_life_torch.kernels import mc_threefry as mct
+from tpu_life_torch.mc import ising, packed, prng
+dev, full = torch.device("cuda:0"), int(sys.argv[3])
+thr = ising.acceptance_thresholds(2.27)
+args = (0, 1, 0, int(sys.argv[2]), int(thr[3]), int(thr[4]))
+def device_ms(launch, name, reps):
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
+out = {}
+for side in (4096, full):
+    x = (torch.from_numpy(np.load(sys.argv[1])) if side == full else torch.from_numpy(
+        packed.pack_board(prng.seeded_board(side, side, seed=1, device=dev).cpu().numpy())
+        .view(np.int32).copy())).to(dev)
+    y = torch.empty_like(x)
+    out[f"k6_{side}"] = device_ms(lambda: mct.packed_metropolis_half(x, *args, width=side, out=y),
+                                  "packed_metropolis_half_kernel", 10)
+out["k7"] = device_ms(lambda: mct.cell_uniforms((full, full), 1, 0, 3, 0, device=dev),
+                      "cell_uniforms_kernel", 5)
+print("P15 " + json.dumps(out), flush=True)
+"""
+
+
+def phase15(ctx: dict) -> list[dict]:
+    """Phase 15: the stochastic tier on the card — K7 and K6 held to their
+    plain versions, the packed path held to the roll path at 16384^2, the
+    entry points (``run --rule ising|noisy:``, ``--resume``, ``bench --mc``)
+    against the numpy oracle's bytes, and both kernels timed beside their
+    bounds.  Returns K6's and K7's rows of the kernels record."""
+    import numpy as np
+    import torch
+
+    from tpu_life_torch.backends.base import get_backend, make_runner
+    from tpu_life_torch.io.codec import read_board
+    from tpu_life_torch.kernels import conway_block as k5
+    from tpu_life_torch.kernels import int8_tiled as kt
+    from tpu_life_torch.kernels import mc_threefry as mct
+    from tpu_life_torch.kernels import packed_stripe as ps
+    from tpu_life_torch.kernels import sharded_int8 as k4
+    from tpu_life_torch.kernels import sharded_stripe as k3
+    from tpu_life_torch.mc import ising, packed, prng
+    from tpu_life_torch.models.rules import get_rule
+
+    dev, smi, cuda_ms = ctx["dev"], ctx["smi"], ctx["cuda_ms"]
+    card = f"({smi})"
+    clock = ctx["n_sm"] * ctx["sm_clock_mhz"] * 1e6  # SM clocks a second, all SMs
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    ising_rule = get_rule("ising")
+
+    def counts() -> tuple[int, int]:
+        return mct.packed_metropolis_half.launches, mct.cell_uniforms.launches
+
+    def k1_to_k5() -> tuple[int, ...]:
+        return (ps.packed_multi_step.launches + ps.packed_multi_step.diamond_launches,
+                kt.int8_multi_step.launches, k3.sharded_stripe_block.launches,
+                k4.sharded_int8_block.launches, k5.conway_block.launches)
+
+    def zero() -> None:
+        mct.packed_metropolis_half.launches = mct.cell_uniforms.launches = 0
+
+    def counted(args: list[str], what: str):
+        """``ctx['counted']`` with the K6 and K7 counts also set to 0 just
+        before: (stdout lines, (K1, K2, K3, K4, K5, K6, K7), RunResult)."""
+        zero()
+        lines, got, res = ctx["counted"](args, what)
+        return lines, (*got, k5.conway_block.launches, *counts()), res
+
+    def bound(alu_ops: float, all_ops: float, n_bytes: float) -> tuple[float, str]:
+        """Least ms for integer work and bytes: the logic ops and funnel
+        shifts issue on the integer pipe only (64 a clock an SM), the adds
+        also on the multiply-add pipe as IMAD (128 a clock an SM for both
+        pipes, which K6's and K7's SASS use: see the IMAD counts); the bytes
+        over the memory rate."""
+        ops_ms = max(alu_ops / (INT_OPS_PER_CLOCK_PER_SM * clock),
+                     all_ops / (2 * INT_OPS_PER_CLOCK_PER_SM * clock)) * 1e3
+        mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
+
+    # word 0 of a draw: 18 rotates (SHF) and 19 xors (LOP3) on the integer
+    # pipe, 29 adds on either (mct.ALU_OPS_PER_DRAW, mct.OPS_PER_DRAW); K6
+    # adds a decided cell's select of thr3 or thr4 and one unsigned compare
+    draw_alu, draw_all = mct.ALU_OPS_PER_DRAW, mct.OPS_PER_DRAW
+    accept_ops = 2
+
+    def words_of(board: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(packed.pack_board(board).view(np.int32).copy()).to(dev)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        absent = ["--input-file", str(tmp / "absent.txt"), "--config-file", str(tmp / "absent_grid.txt")]
+        ref = tmp / "ref"
+        ref.mkdir()
+        with gzip.open(FIXTURES / "reference_data.txt.gz", "rb") as f:
+            (ref / "data.txt").write_bytes(f.read())
+        shutil.copy(FIXTURES / "reference_grid_size_data.txt", ref / "grid_size_data.txt")
+        ref_files = ["--config-file", str(ref / "grid_size_data.txt"), "--input-file", str(ref / "data.txt")]
+        hot = ["--rule", "ising", "--temperature", "2.27"]
+        main_runs = {
+            "ising, reference workload x 20": ([*ref_files, *hot, "--steps", "20"], (0, 0, 0, 0, 0, 40, 0)),
+            "ising 512^2 x 64": ([*absent, *hot, "--size", "512", "--steps", "64", "--seed", "3"],
+                                 (0, 0, 0, 0, 0, 128, 1)),
+            "noisy:0.01/conway 512^2 x 64": ([*absent, "--rule", "noisy:0.01/conway", "--size", "512",
+                                              "--steps", "64", "--seed", "3"], (0, 64, 0, 0, 0, 0, 65)),
+        }
+        # the entry points as child processes, on the card and on numpy,
+        # all started now and read after the in-process checks
+        children = {}
+        for name, (args, _) in main_runs.items():
+            for where, extra in (("cuda", []), ("numpy", ["--backend", "numpy"])):
+                out = tmp / f"{len(children)}.txt"
+                children[(name, where)] = (out, subprocess.Popen(
+                    [sys.executable, "-c", P15_CHILD, "run", *args, *extra, "--output-file", str(out)],
+                    cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        # numpy's Threefry stages the seeded boards meanwhile, in threads
+        pool = ThreadPoolExecutor(4)
+        seeded_cases = [(0.5, 2), (0.3, 2), (0.5, 3), (0.3, 3)]
+        np_seeded = {case: pool.submit(
+            lambda c: (time.perf_counter(), prng.seeded_board(MC_SEEDED, MC_SEEDED, c[0], states=c[1], seed=7),
+                       time.perf_counter()), case) for case in seeded_cases}
+
+        # (a) K7 against its plain version: the KAT vectors (counter word
+        # c1 = step * NSUB + substream, c0 = the origin), then boards
+        kat = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+               ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF), (0x1CB996FC, 0xBB002BE7)),
+               ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0))]
+        t0 = time.perf_counter()
+        k7_cases = 0
+        for key, ctr, want in kat:
+            for word in (0, 1):
+                args = ((1, 1), key[0], key[1], ctr[1] >> 2, ctr[1] & 3)
+                got = mct.cell_uniforms(*args, origin=ctr[0], device=dev, word=word)
+                plain = mct.cell_uniforms_plain(*args, origin=ctr[0], device=dev, word=word)
+                if prng.as_u32(got.item()) != want[word] or not torch.equal(got, plain):
+                    fail(f"K7 on the known-answer vector key {key} counter {ctr}, word {word}: "
+                         f"{prng.as_u32(got.item()):#x}, want {want[word]:#x}")
+                k7_cases += 1
+        for shape in K7_SHAPES:
+            for origin in K7_ORIGINS:
+                for word in (0, 1):
+                    got = mct.cell_uniforms(shape, 7, 9, 5, prng.SUB_NOISE, origin=origin, device=dev, word=word)
+                    plain = mct.cell_uniforms_plain(shape, 7, 9, 5, prng.SUB_NOISE, origin=origin,
+                                                    device=dev, word=word)
+                    if not torch.equal(got, plain):
+                        fail(f"K7 != plain: {shape[0]}x{shape[1]}, origin {origin}, word {word}")
+                    k7_cases += 1
+                    del got, plain
+        print(f"K7 vs plain: {k7_cases} cases bit-identical (3 known-answer vectors x 2 words; "
+              f"{', '.join(f'{h}x{w}' for h, w in K7_SHAPES)} at origins {K7_ORIGINS} x words 0, 1) "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        # (b) K6 against its plain version, a sweep (two launches) at a time
+        rng = np.random.default_rng(15)
+        t0 = time.perf_counter()
+        k6_cases = 0
+
+        def k6_case(board: np.ndarray, temp: float, origin: int, sweeps: int) -> None:
+            nonlocal k6_cases
+            h, w = board.shape
+            thr = ising.acceptance_thresholds(temp)
+            x = y = words_of(board)
+            for step in range(sweeps):
+                for parity in (0, 1):
+                    args = (parity, 11, 3, step, int(thr[3]), int(thr[4]))
+                    x = mct.packed_metropolis_half(x, *args, width=w, origin=origin)
+                    y = mct.packed_metropolis_half_plain(y, *args, width=w, origin=origin)
+                if not torch.equal(x, y):
+                    fail(f"K6 != plain: {h}x{w}, T = {temp}, origin {origin}, sweep {step}")
+                k6_cases += 1
+
+        for h, w in K6_SHAPES:
+            board = rng.integers(0, 2, size=(h, w), dtype=np.int8)
+            for temp in MC_TEMPS:
+                for origin in (0, 2**32 - h * w // 2, 2**33 + 6):
+                    k6_case(board, temp, origin, 3)
+        full_board = rng.integers(0, 2, size=(FULL, FULL), dtype=np.int8)
+        for temp, origin in zip(MC_TEMPS, (0, 2**32 - FULL * FULL // 2, 2**33 + 6)):
+            k6_case(full_board, temp, origin, 2)
+        del full_board
+        print(f"K6 vs plain: {k6_cases} sweeps bit-identical ({', '.join(f'{h}x{w}' for h, w in K6_SHAPES)} "
+              f"x T {MC_TEMPS} x origins 0, across 2^32, past 2^33, 3 sweeps each; {FULL}^2 at T = 0, "
+              f"2.27, 10 with one origin each, 2 sweeps) ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        # (c) the entry points' children: byte-equal to numpy's, launches counted
+        main_launches = {}
+        for name, (args, want) in main_runs.items():
+            got_bytes = {}
+            for where in ("cuda", "numpy"):
+                out, proc = children[(name, where)]
+                stdout, stderr = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    fail(f"phase 15 child run {name} ({where}): exited {proc.returncode}: {stderr[-3000:]}")
+                launches = tuple(json.loads([ln for ln in stdout.splitlines() if ln.startswith("P15 ")][-1][4:]))
+                if launches != (want if where == "cuda" else (0,) * 7):
+                    fail(f"phase 15 child run {name} ({where}): (K1..K7) launches {launches}, want {want}")
+                got_bytes[where] = out.read_bytes()
+                if where == "cuda":
+                    main_launches[name] = launches
+            if got_bytes["cuda"] != got_bytes["numpy"]:
+                fail(f"phase 15 run {name}: the card's output.txt differs from --backend numpy's")
+        (tmp / "ising512.txt").write_bytes(
+            children[("ising 512^2 x 64", "cuda")][0].read_bytes())
+        print("phase 15 entry points as child processes of python -m tpu_life_torch, each byte-equal "
+              "to its --backend numpy twin (also a child): " + "; ".join(
+                  f"{name}: (K1..K7) launches {main_launches[name]}" for name in main_runs), flush=True)
+
+        # (d) seeded boards on the card against numpy's
+        t_card = {}
+        for density, states in seeded_cases:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = prng.seeded_board(MC_SEEDED, MC_SEEDED, density, states=states, seed=7, device=dev)
+            torch.cuda.synchronize()
+            t_card[(density, states)] = time.perf_counter() - t0
+            t_np0, want, t_np1 = np_seeded[(density, states)].result()
+            if not np.array_equal(got.cpu().numpy(), want):
+                fail(f"seeded_board {MC_SEEDED}^2 (density {density}, states {states}) on the card "
+                     f"!= the numpy copy")
+            np_seeded[(density, states)] = t_np1 - t_np0
+        pool.shutdown()
+        print(f"seeded_board {MC_SEEDED}^2 on the card (K7) equal to numpy's for densities 0.5, 0.3 "
+              f"and states 2, 3: " + ", ".join(
+                  f"({d}, {st}) card {t_card[(d, st)] * 1e3:.2f} ms, numpy {np_seeded[(d, st)]:.3f} s "
+                  f"(4 in threads)" for d, st in seeded_cases), flush=True)
+
+        # (e) 16384^2 Ising through the cuda Runner: packed (K6) against the roll path (K7)
+        board = prng.seeded_board(FULL, FULL, seed=1, device=dev).cpu().numpy()
+        runs = {}
+        others = k1_to_k5()
+        for bitpack in (True, False):
+            runner = make_runner(get_backend("cuda", device=dev, bitpack=bitpack), board, ising_rule,
+                                 seed=1, temperature=2.27)
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.advance(MC_SWEEPS)
+            runner.sync()
+            secs = time.perf_counter() - t0
+            runs[bitpack] = (runner.route, counts(), secs, runner.fetch(), runner)
+        (p_route, p_counts, p_secs, p_board, p_runner), (r_route, r_counts, r_secs, r_board, _) = (
+            runs[True], runs[False])
+        if (p_route, p_counts) != ("mc_packed", (2 * MC_SWEEPS, 0)):
+            fail(f"{FULL}^2 ising through cuda: route {p_route!r}, (K6, K7) launches {p_counts}")
+        if (r_route, r_counts) != ("mc_roll", (0, 2 * MC_SWEEPS)):
+            fail(f"{FULL}^2 ising through cuda --no-bitpack: route {r_route!r}, (K6, K7) {r_counts}")
+        if k1_to_k5() != others:
+            fail(f"{FULL}^2 ising through cuda launched K1-K5: {others} -> {k1_to_k5()}")
+        if not np.array_equal(p_board, r_board):
+            fail(f"{FULL}^2 ising x {MC_SWEEPS}: the packed path (K6) != the roll path (K7)")
+        mag = ising.magnetization(p_board)
+        print(f"{FULL}^2 ising, T = 2.27, seed 1 (seeded on the card), {MC_SWEEPS} sweeps through the "
+              f"cuda Runner: route mc_packed ({p_counts[0]} K6 launches) {p_secs:.3f} s "
+              f"({FULL * FULL * MC_SWEEPS / p_secs:.4e} spin updates/s, host clock), route mc_roll "
+              f"(--no-bitpack, {r_counts[1]} K7 launches) {r_secs:.3f} s "
+              f"({FULL * FULL * MC_SWEEPS / r_secs:.4e}); boards bit-identical, |m| = {mag:.4f} "
+              f"{card}", flush=True)
+        k6_main_launches = p_counts[0]
+        timing_board = p_runner.x.clone()  # the lattice after 256 sweeps at T = 2.27
+        del runs, p_runner, board, r_board
+        torch.cuda.empty_cache()
+
+        # (f) snapshots and --resume, the refusal
+        seeded = [*absent, *hot, "--size", "512", "--steps", "64", "--seed", "3"]
+        snaps = tmp / "snaps"
+        _, got, res = counted(["run", *seeded, "--snapshot-every", "32", "--snapshot-dir", str(snaps),
+                               "--output-file", str(tmp / "s.txt")], "run --rule ising --snapshot-every 32")
+        if got != (0, 0, 0, 0, 0, 128, 1) or (res.route, res.seed, res.temperature) != ("mc_packed", 3, 2.27):
+            fail(f"run --rule ising --snapshot-every 32: launches {got}, route {res.route!r}, "
+                 f"seed {res.seed}, temperature {res.temperature}")
+        _, got, _ = counted(["run", *seeded, "--resume", str(snaps / "board_000000032.txt"),
+                             "--output-file", str(tmp / "r.txt")], "run --rule ising --resume")
+        want = (tmp / "ising512.txt").read_bytes()
+        if got != (0, 0, 0, 0, 0, 64, 0) or (tmp / "s.txt").read_bytes() != want or \
+                (tmp / "r.txt").read_bytes() != want:
+            fail(f"--resume from step 32: launches {got}; the outputs differ from the full run's")
+        rc = cli_main_rc(["run", *seeded, "--backend", "sharded", "--device", "cuda:0",
+                          "--output-file", str(tmp / "x.txt")])
+        if rc != 2:
+            fail(f"run --backend sharded --rule ising exited {rc}, want 2")
+        print("--snapshot-every 32 then --resume from step 32 (64 K6 launches): both outputs equal "
+              "the full run's; --backend sharded --rule ising exits 2", flush=True)
+
+    # (g) bench --mc at its defaults and at 16384^2
+    bench_recs = []
+    for flags in (["--mc-sizes", "64,128"],
+                  ["--mc-size", str(FULL), "--mc-steps", "100", "--mc-base-steps", "20", "--mc-sizes", "64"]):
+        lines, got, _ = counted(["bench", "--mc", *flags], "bench --mc " + " ".join(flags))
+        rec = json.loads(lines[-1])
+        print(lines[-1], flush=True)
+        if (rec["metric"], rec["platform"], rec["packed"], rec["route"]) != (
+                "mc_sweeps_per_sec", "cuda", True, "mc_packed") or not rec["value"] > 0 or not got[5] \
+                or any(got[:5]):
+            fail(f"bench --mc {' '.join(flags)}: {lines[-1]}; (K1..K7) {got}")
+        bench_recs.append(rec)
+    print(f"bench --mc: {bench_recs[0]['size']}^2 {bench_recs[0]['value']:.2f} sweeps/s "
+          f"({bench_recs[0]['spin_updates_per_sec']:.4e} spin updates/s), {FULL}^2 "
+          f"{bench_recs[1]['value']:.2f} sweeps/s ({bench_recs[1]['spin_updates_per_sec']:.4e}) "
+          f"{card}", flush=True)
+
+    # (h) K6 and K7 timed: CUDA events, the profiler's kernel records (in a
+    # fresh child process: this long-lived one's profiles may hold no kernel
+    # records, PERF.md §7), the plain versions, and the bounds of this input
+    thr = ising.acceptance_thresholds(2.27)
+    args = (0, 1, 0, MC_SWEEPS, int(thr[3]), int(thr[4]))
+    k6_rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = Path(tmp) / "board.npy"
+        np.save(saved, timing_board.cpu().numpy())
+        proc = subprocess.run([sys.executable, "-c", P15_PROFILE, str(saved), str(MC_SWEEPS), str(FULL)],
+                              cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"phase 15 profile child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    device = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("P15 ")][-1][4:])
+
+    def fmt_dev(v: float | None) -> str:
+        return "not measured (no kernel records)" if v is None else f"{v:.4f}"
+
+    for side in (4096, FULL):
+        x = (timing_board if side == FULL
+             else words_of(prng.seeded_board(side, side, seed=1, device=dev).cpu().numpy()))
+        out = torch.empty_like(x)
+        ms = cuda_ms(lambda: mct.packed_metropolis_half(x, *args, width=side, out=out), 20)
+        dev_ms = device[f"k6_{side}"]
+        plain_ms = cuda_ms(lambda: mct.packed_metropolis_half_plain(x, *args, width=side), 2)
+        # the cells whose move the table decides (parity 0, dE > 0): the
+        # function needs their draws only
+        cells = torch.from_numpy(packed.unpack_board(x.cpu().numpy().view(np.uint32), side)).to(dev)
+        s = cells.to(torch.int32) * 2 - 1
+        nsum = s.roll(1, 0) + s.roll(-1, 0) + s.roll(1, 1) + s.roll(-1, 1)
+        rows = torch.arange(side, device=dev)
+        on = ((rows[:, None] + rows[None, :]) & 1) == 0
+        decided = int((((s * nsum + 4) >> 1 >= 3) & on).sum())
+        n_words = x.numel()
+        b_ms, b_by = bound(decided * (draw_alu + accept_ops) + 18 * n_words,
+                           decided * (draw_all + accept_ops) + 18 * n_words, 2 * 4 * n_words)
+        all_ms, _ = bound(side * side // 2 * (draw_alu + accept_ops),
+                          side * side // 2 * (draw_all + accept_ops), 0)
+        k6_rows[side] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             decided=decided, all_cells_bound_ms=all_ms)
+        what = (f"the board after {MC_SWEEPS} sweeps at T = 2.27" if side == FULL
+                else "the seeded board of seed 1")
+        print(f"K6 {side}^2 half-sweep (parity 0, {what}): {ms:.4f} ms a launch by CUDA events, "
+              f"{fmt_dev(dev_ms)} device, plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}: "
+              f"{decided} of {side * side // 2} active cells decided by a draw, "
+              f"{draw_alu + accept_ops} integer-pipe and {draw_all + accept_ops} integer ops each, "
+              f"18 a word), {b_ms / ms:.1%} of it; every active cell hashed: {all_ms:.4f} ms "
+              f"{card}", flush=True)
+        del cells, s, nsum, on, out
+    del timing_board
+    n = FULL * FULL
+    k7_args = ((FULL, FULL), 1, 0, 3, prng.SUB_EVEN)
+    k7_ms = cuda_ms(lambda: mct.cell_uniforms(*k7_args, device=dev), 10)
+    k7_dev = device["k7"]
+    k7_plain = cuda_ms(lambda: mct.cell_uniforms_plain(*k7_args, device=dev), 1)
+    k7_bound, k7_by = bound(n * draw_alu, n * draw_all, 4 * n)
+    print(f"K7 {FULL}^2 word 0: {k7_ms:.4f} ms by CUDA events, {fmt_dev(k7_dev)} device, plain "
+          f"{k7_plain:.3f} ms; bound {k7_bound:.4f} ms ({k7_by}: {draw_alu} integer-pipe and "
+          f"{draw_all} integer ops a draw; {4 * n / 2**30:.0f} GiB written "
+          f"{4 * n / HBM_BYTES_PER_S * 1e3:.4f} ms), {k7_bound / k7_ms:.1%} of it {card}; "
+          f"phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    k6 = k6_rows[FULL]
+    return [{
+        "name": "packed_metropolis_half",
+        "route": "cuda",
+        "source": "tpu_life_torch/csrc/mc_threefry.cu",
+        "replaces": "tpu_life/mc/packed.py:208",
+        "launches": k6_main_launches,
+        "max_abs_err": 0,
+        "equal_to_plain": True,
+        "shape": [FULL, FULL],
+        "ms": k6["ms"],
+        "kernel_ms": k6["ms"],
+        "device_ms": k6["device_ms"],
+        "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"],
+        "bound_by": k6["bound_by"],
+        "library_ms": None,
+        "decided_cells": k6["decided"],
+        "all_cells_bound_ms": k6["all_cells_bound_ms"],
+        "ms_4096": k6_rows[4096]["ms"],
+        "device_ms_4096": k6_rows[4096]["device_ms"],
+        "bound_ms_4096": k6_rows[4096]["bound_ms"],
+        "cli_launches": {name: got[5] for name, got in main_launches.items()},
+        **ctx["instances"]["K6 packed_metropolis_half_kernel"],
+    }, {
+        "name": "cell_uniforms",
+        "route": "cuda",
+        "source": "tpu_life_torch/csrc/mc_threefry.cu",
+        "replaces": "tpu_life/mc/prng.py:155",
+        "launches": main_launches["noisy:0.01/conway 512^2 x 64"][6],
+        "max_abs_err": 0,
+        "equal_to_plain": True,
+        "shape": [FULL, FULL],
+        "ms": k7_ms,
+        "kernel_ms": k7_ms,
+        "device_ms": k7_dev,
+        "plain_ms": k7_plain,
+        "bound_ms": k7_bound,
+        "bound_by": k7_by,
+        "library_ms": None,
+        "roll_launches": r_counts[1],
+        "cli_launches": {name: got[6] for name, got in main_launches.items()},
+        **ctx["instances"]["K7 cell_uniforms_kernel"],
+    }]
+
+
+def cli_main_rc(args: list[str]) -> int:
+    """The exit code of one in-process CLI call, its output discarded."""
+    from tpu_life_torch import cli
+
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        return cli.main(args)
 
 if __name__ == "__main__":
     raise SystemExit(main())

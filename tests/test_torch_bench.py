@@ -71,6 +71,23 @@ def test_tuned_record_equals_jax_for_the_flags(capsys):
     assert rec["tuned"] == jtuned_record("sharded", {"block_steps": 4, "local_kernel": "torch"})
 
 
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_no_bitpack_reaches_the_backend_and_the_record(monkeypatch, capsys, backend):
+    # bench.py honours --no-bitpack for every bench, not only --mc
+    seen = []
+    real = base.measure_throughput
+
+    def measure(b, *args, **kwargs):
+        seen.append(b.bitpack)
+        return real(b, *args, **kwargs)
+
+    monkeypatch.setattr(base, "measure_throughput", measure)
+    rec = _record(cli.main, ["--backend", backend, "--device", "cpu", "--no-bitpack"], capsys)
+    assert seen == [False]
+    assert rec["tuned"] == jtuned_record(backend, {"bitpack": False})
+    assert rec["tuned"]["bitpack"] is False
+
+
 @pytest.mark.parametrize("rule", ["conway", "brians_brain", "star_wars"])
 def test_bench_board_equals_jax(monkeypatch, capsys, rule):
     # both commands measure the same board: default_rng(0), times a states mask

@@ -146,9 +146,10 @@ def test_jax_output_is_a_valid_port_input(tmp_path, reference_dir):
     "args,match",
     [
         (["--rule", "B9x/S"], "unrecognized rule spec"),
-        (["--rule", "ising"], "not yet ported"),
+        (["--rule", "ising"], "needs a temperature"),
         (["--config-file", "missing.txt"], "config file 'missing.txt' not found"),
-        (["--rule", "noisy:0.1/conway:T", "--device", "cpu"], "not yet ported"),
+        (["--rule", "noisy:0.1/conway:T", "--device", "cpu", "--temperature", "2"],
+         "temperature only applies to the 'ising' rule"),
         ([], "pass --device cpu"),
     ],
 )

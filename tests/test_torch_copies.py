@@ -9,18 +9,21 @@ import inspect
 import numpy as np
 import pytest
 
+from tpu_life import mc as jmc
 from tpu_life.io import codec as jcodec
+from tpu_life.mc import ising as jising
+from tpu_life.mc import packed as jpacked
 from tpu_life.models import rules as jrules
 from tpu_life.ops import bitlife as jbitlife
 from tpu_life.ops import boolmin as jboolmin
 from tpu_life.ops import common as jcommon
 from tpu_life.ops import reference as jref
-from tpu_life_torch import interop
+from tpu_life_torch import interop, mc
 from tpu_life_torch.io import codec
+from tpu_life_torch.mc import ising, packed
 from tpu_life_torch.models import rules
 from tpu_life_torch.ops import bitlife, boolmin, common, reference
 
-NOT_PORTED = {"ising"}
 FIELDS = [f.name for f in dataclasses.fields(rules.Rule)]
 
 
@@ -29,10 +32,11 @@ def _fields(rule):
 
 
 def test_registry_holds_every_deterministic_rule():
-    assert set(rules.RULE_REGISTRY) == set(jrules.RULE_REGISTRY) - NOT_PORTED
+    # every rule of the JAX registry, the stochastic ``ising`` included
+    assert set(rules.RULE_REGISTRY) == set(jrules.RULE_REGISTRY)
 
 
-@pytest.mark.parametrize("name", sorted(set(jrules.RULE_REGISTRY) - NOT_PORTED))
+@pytest.mark.parametrize("name", sorted(jrules.RULE_REGISTRY))
 def test_registry_rule_fields_and_tables(name):
     want = jrules.RULE_REGISTRY[name]
     got = rules.parse_rule(name)
@@ -68,10 +72,13 @@ def test_bad_spec_fails_alike(spec):
 
 @pytest.mark.parametrize("spec", ["ising", "ising:T", "noisy:0.01/conway", "noisy:0.05/B36/S23:T", "Ising"])
 def test_unported_tiers_raise_typed_error(spec):
-    with pytest.raises(rules.NotPortedError, match="not yet ported") as e:
-        rules.parse_rule(spec)
-    # the message names only what is still unported
-    assert "stochastic tier (ising, noisy:)" in str(e.value) and "lenia" not in str(e.value)
+    # the stochastic tier, once refused here as not yet ported, parses as
+    # the JAX package parses it: the same class, fields and flip probability
+    want, got = jrules.parse_rule(spec), rules.parse_rule(spec)
+    assert type(got).__name__ == type(want).__name__ and got.stochastic
+    assert _fields(got) == _fields(want)
+    assert getattr(got, "flip_p", None) == getattr(want, "flip_p", None)
+    assert interop.rule_from_fields(**_fields(want)) == got
 
 
 def test_geometry_check_alike():
@@ -592,3 +599,99 @@ def test_io_sharded_bytes_and_errors_equal_jax(tmp_path, monkeypatch, seed):
                 call(mod)
             errors.append(str(e.value))
         assert errors[0] == errors[1]
+
+
+# -- the stochastic tier's copies (tpu_life/mc) ---------------------------------
+
+@pytest.mark.parametrize("temperature", [0.0, 0.1, 1.0, 2.27, 10.0, 1e12])
+def test_acceptance_thresholds_copy(temperature):
+    got, want = ising.acceptance_thresholds(temperature), jising.acceptance_thresholds(temperature)
+    assert got.dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 31), (4, 32), (5, 33), (7, 100), (2, 64)])
+def test_pack_unpack_column_mask_and_live_count_copies(shape):
+    board = np.random.default_rng(shape[1]).integers(0, 2, size=shape, dtype=np.int8)
+    x = packed.pack_board(board)
+    np.testing.assert_array_equal(x, jpacked.pack_board(board))
+    np.testing.assert_array_equal(x, jbitlife.pack_np(board))  # the shared layout
+    np.testing.assert_array_equal(packed.unpack_board(x, shape[1]), jpacked.unpack_board(x, shape[1]))
+    np.testing.assert_array_equal(packed.column_mask(shape[1]), jpacked.column_mask(shape[1]))
+    assert packed.live_count(x) == jpacked.live_count(x) == int(board.sum())
+    assert packed.packed_width(shape[1]) == jpacked.packed_width(shape[1])
+
+
+@pytest.mark.parametrize("origin", [0, 2**32 - 50, 2**33])
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("shape", [(4, 30), (6, 64), (8, 66)])
+def test_parity_draw_coords_and_hshifts_copies(shape, parity, origin):
+    h, w = shape
+    got, want = packed._parity_draw_coords(h, w, parity, origin), jpacked._parity_draw_coords(
+        h, w, parity, origin)
+    for g, wnt in zip(got, want):
+        if wnt is None:
+            assert g is None
+        else:
+            np.testing.assert_array_equal(g, wnt)
+    x = packed.pack_board(np.random.default_rng(w).integers(0, 2, size=shape, dtype=np.int8))
+    for g, wnt in zip(packed._make_torus_hshifts(np, w), jpacked._make_torus_hshifts(np, w)):
+        np.testing.assert_array_equal(g(x), wnt(x))
+    bits = np.random.default_rng(h).integers(0, 2, size=(h, packed.packed_width(w) * 16)).astype(bool)
+    row_off = ((np.arange(h) + parity) & 1).astype(np.uint32)
+    np.testing.assert_array_equal(
+        packed._spread_to_lanes(np, bits, h, packed.packed_width(w), row_off),
+        jpacked._spread_to_lanes(np, bits, h, packed.packed_width(w), row_off))
+
+
+def _refusal(fn) -> str:
+    with pytest.raises(ValueError) as e:
+        fn()
+    return str(e.value)
+
+
+@pytest.mark.parametrize(
+    "spec,temperature", [("ising", None), ("ising", -2.0), ("ising", float("nan")),
+                         ("conway", 1.0), ("noisy:0.1/conway", 0.5)])
+def test_validate_params_messages_copy(spec, temperature):
+    assert _refusal(lambda: mc.validate_params(rules.parse_rule(spec), temperature)) == _refusal(
+        lambda: jmc.validate_params(jrules.parse_rule(spec), temperature))
+
+
+@pytest.mark.parametrize("shape,wide", [((9, 8), False), ((8, 9), True), ((2**16, 2**16 + 2), False)])
+def test_validate_board_shape_messages_copy(shape, wide):
+    assert _refusal(lambda: mc.validate_board_shape(rules.parse_rule("ising"), shape,
+                                                    wide_counter=wide)) == _refusal(
+        lambda: jmc.validate_board_shape(jrules.parse_rule("ising"), shape, wide_counter=wide))
+    # deterministic rules pass any shape; noisy rules any parity
+    mc.validate_board_shape(rules.parse_rule("conway"), (9, 9))
+    mc.validate_board_shape(rules.parse_rule("noisy:0.1/conway"), (9, 9))
+
+
+def test_key_schedule_refusal_names_the_backend_as_jax_does():
+    got = _refusal(lambda: mc.require_key_schedule(rules.parse_rule("ising"), "sharded"))
+    want = _refusal(lambda: jmc.require_key_schedule(jrules.parse_rule("ising"), "sharded"))
+    # the supported executors differ by name (cuda, torch, numpy against
+    # jax, numpy); the rest of the message is the JAX package's
+    tail = "(the counter-based per-cell key schedule is not implemented for 'sharded')"
+    assert tail in got and tail in want
+    assert got.split(tail)[1] == want.split(tail)[1]
+    mc.ensure_backend_supported(rules.parse_rule("ising"), "auto")
+    mc.ensure_backend_supported(rules.parse_rule("conway"), "sharded")
+
+
+@pytest.mark.parametrize("spec,temperature", [("ising", 2.27), ("ising", 0.0),
+                                              ("noisy:0.05/conway", None), ("noisy:1/conway:T", None)])
+def test_numpy_oracles_copy(spec, temperature):
+    board = np.random.default_rng(3).integers(0, 2, size=(12, 36), dtype=np.int8)
+    rule, jrule = rules.parse_rule(spec), jrules.parse_rule(spec)
+    np.testing.assert_array_equal(
+        mc.run_np(rule, board, 9, 6, temperature=temperature, start_step=3),
+        jmc.run_np(jrule, board, 9, 6, temperature=temperature, start_step=3))
+    np.testing.assert_array_equal(
+        mc.step_np(rule, board, 9, 4, temperature=temperature),
+        jmc.step_np(jrule, board, 9, 4, temperature=temperature))
+    if spec == "ising":
+        np.testing.assert_array_equal(
+            packed.run_packed_np(rule, board, 9, 6, temperature=temperature, start_step=3),
+            jpacked.run_packed_np(jrule, board, 9, 6, temperature=temperature, start_step=3))

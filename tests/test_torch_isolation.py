@@ -165,3 +165,19 @@ def test_scan_covers_the_streamed_io_and_multi_process_slice():
         "tpu_life_torch.parallel.halo",
         "tpu_life_torch.runtime.driver",
     } <= set(MODULES)
+
+
+def test_scan_covers_the_stochastic_tier():
+    # the mc package and kernels K6 and K7's wrapper are among the modules
+    # both checks read (the AST scan and the import in a fresh process)
+    assert {
+        "tpu_life_torch.mc",
+        "tpu_life_torch.mc.prng",
+        "tpu_life_torch.mc.ising",
+        "tpu_life_torch.mc.noisy",
+        "tpu_life_torch.mc.packed",
+        "tpu_life_torch.mc.engine",
+        "tpu_life_torch.kernels.mc_threefry",
+    } <= set(MODULES)
+    for path in (*sorted((PKG / "mc").glob("*.py")), PKG / "kernels" / "mc_threefry.py"):
+        assert path in SOURCES

@@ -249,11 +249,11 @@ def test_failure_during_initial_staging_is_retried(tmp_path, monkeypatch):
     calls = {"n": 0}
     real = driver.make_runner
 
-    def flaky(backend, board, rule):
+    def flaky(backend, board, rule, **prng_state):  # seed, temperature, start_step
         calls["n"] += 1
         if calls["n"] == 1:
             raise RuntimeError("device detaching during staging")
-        return real(backend, board, rule)
+        return real(backend, board, rule, **prng_state)
 
     monkeypatch.setattr(driver, "make_runner", flaky)
     board, base = _setup(tmp_path)
@@ -304,7 +304,7 @@ def test_a_missing_card_is_not_retried(tmp_path, monkeypatch):
     # on the first attempt, not spent against the budget
     calls = []
 
-    def no_card(backend, board, rule):
+    def no_card(backend, board, rule, **prng_state):
         calls.append(1)
         raise CudaUnavailableError("no CUDA device is available")
 

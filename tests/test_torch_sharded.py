@@ -325,6 +325,8 @@ def test_cli_sharded_not_ported_is_a_tidy_error(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(sys, "argv", ["tpu_life_torch", "run", "--backend", "sharded", "--device",
                                       "cpu", "--mesh-shape", "2,2", "--rule", "ising"])
-    assert cli.console_main() == 1
+    # the stochastic rule, once not yet ported, is now the JAX package's
+    # typed refusal of an executor without the key schedule: exit 2
+    assert cli.console_main() == 2
     err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and "not yet ported" in err[0] and "ROADMAP" in err[0]
+    assert len(err) == 1 and "key schedule is not implemented for 'sharded'" in err[0]

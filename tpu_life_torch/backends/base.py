@@ -16,9 +16,11 @@ on the same (board, rule, steps) and differ only in where the work runs:
              per shard for packed rules)
 
 Continuous rules (``models.lenia``) run on ``torch``, ``numpy`` and
-``sharded`` only, on float32 boards; ``auto`` sends them to ``torch``.  The
-stochastic rule specs are refused when parsed
-(``models.rules.NotPortedError``).
+``sharded`` only, on float32 boards; ``auto`` sends them to ``torch``.
+Stochastic rules (``ising``, ``noisy:``) run on ``cuda``, ``torch`` and
+``numpy`` through the Runners of ``mc.engine`` (:func:`make_runner`);
+``auto`` sends them to ``cuda`` (the JAX package's ``auto`` picks its
+fused XLA path, ``jax``), and ``sharded`` refuses them.
 """
 
 from __future__ import annotations
@@ -121,11 +123,36 @@ class Backend(Protocol):
     ) -> np.ndarray: ...
 
 
-def make_runner(backend: "Backend", board: np.ndarray, rule: Rule) -> Runner:
+def make_runner(
+    backend: "Backend",
+    board: np.ndarray,
+    rule: Rule,
+    *,
+    seed: int = 0,
+    temperature: float | None = None,
+    start_step: int = 0,
+    packed: bool | None = None,
+) -> Runner:
     """Stage ``board`` on the backend's device and return a Runner:
     ``backend.prepare`` where the backend has device state, else a
     ``HostRunner``.  Each backend routes continuous rules itself; the
-    ``cuda`` backend raises for them rather than cast the board to int8."""
+    ``cuda`` backend raises for them rather than cast the board to int8.
+
+    Stochastic rules go to the Runners of ``mc.engine``, which also take
+    the counter-based PRNG state: ``seed`` names the stream, ``start_step``
+    is the absolute resume point (so checkpoint/resume re-enters the stream
+    exactly), ``temperature`` is the ising scalar.  Backends without the
+    key schedule are a typed rejection.  ``packed`` pins the stochastic
+    bitplane path on or off (None = the backend's own ``bitpack``);
+    deterministic rules ignore it (their packing is a backend-construction
+    knob)."""
+    if getattr(rule, "stochastic", False):
+        from tpu_life_torch.mc.engine import mc_runner_for
+
+        return mc_runner_for(
+            backend, board, rule, seed=seed, temperature=temperature,
+            start_step=start_step, packed=packed,
+        )
     prep = getattr(backend, "prepare", None)
     if prep is not None:
         return prep(board, rule)
@@ -251,7 +278,8 @@ def register_backend(name: str):
 def get_backend(name: str, *, rule: Rule | None = None, **kwargs) -> Backend:
     """Instantiate a backend by name.  ``auto`` is the ``cuda`` backend, or
     ``torch`` when the ``rule`` hint is continuous: the kernels have no
-    float path.
+    float path.  Stochastic rules stay on ``cuda``, whose kernels K6 and K7
+    carry their draws.
 
     ``auto`` never picks the CPU by itself: without a card it raises
     :class:`CudaUnavailableError` unless the caller passes ``device="cpu"``.

@@ -13,11 +13,15 @@ asks for the plain PyTorch version on the CPU.  Its snapshot, resume,
 recovery, metrics, trace and profile flags are the JAX ``run``'s.
 ``--rule lenia[:preset|:R..,m..,s..]`` runs the continuous tier on float32
 boards (``auto`` sends it to the ``torch`` backend); ``--stencil`` picks
-the neighbour-counting path.  ``bench`` prints one JSON throughput record
-with the JAX ``bench`` record's keys.  ``gen`` writes a random board and its config,
-``pattern`` converts RLE patterns and named patterns to and from the
-contract files, each with the bytes ``python -m tpu_life`` writes;
-``info`` shows the torch build, the CUDA devices, backends and rules.
+the neighbour-counting path.  ``--rule ising --temperature T`` and
+``--rule noisy:<p>/<base>`` run the stochastic tier, whose trajectory
+``--seed`` names (kernels K6 and K7 on the card).  ``bench`` prints one
+JSON throughput record with the JAX ``bench`` record's keys; ``bench
+--mc`` prints ``bench.py --mc``'s record of Metropolis sweeps.  ``gen``
+writes a random board and its config, ``pattern`` converts RLE patterns
+and named patterns to and from the contract files, each with the bytes
+``python -m tpu_life`` writes; ``info`` shows the torch build, the CUDA
+devices, backends and rules.
 """
 
 from __future__ import annotations
@@ -47,13 +51,20 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--width", type=int, default=None)
     r.add_argument("--steps", type=int, default=None)
     r.add_argument("--rule", default="conway",
-                   help="name or B/S / LtL spec, or a continuous "
-                   "lenia[:<preset>|:R..,m..,s..] spec (float32 boards)")
+                   help="name or B/S / LtL spec, a continuous "
+                   "lenia[:<preset>|:R..,m..,s..] spec (float32 boards), or a "
+                   "stochastic ising / noisy:<p>/<base> spec")
     r.add_argument(
         "--seed", type=int, default=0,
-        help="counter-based PRNG seed: names the staged board of a seeded "
+        help="counter-based PRNG seed: names the whole trajectory of a "
+        "stochastic rule (ising / noisy:*) and the staged board of a seeded "
         "run (geometry and steps from flags, no input file); stamped into "
         "the run record so the run is replayable",
+    )
+    r.add_argument(
+        "--temperature", type=float, default=None, metavar="T",
+        help="Metropolis temperature for --rule ising (required there, "
+        "invalid elsewhere); the Onsager critical point is T~2.269",
     )
     r.add_argument(
         "--bug-compat", action="store_true",
@@ -64,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="auto = cuda: the hand-written kernels for clamped Moore rules "
         "(life-like, Generations, Larger-than-Life) and clamped 2-state von "
         "Neumann rules of radius <= 2, plain PyTorch ops on the card for the "
-        "other von Neumann rules and the torus (':T') rules; torch = plain "
+        "other von Neumann rules and the torus (':T') rules, kernels K6 and K7 "
+        "for the stochastic rules (sharded refuses them); torch = plain "
         "PyTorch ops for every rule; numpy = the host oracle; sharded = the "
         "board in row stripes (--num-devices) or blocks (--mesh-shape) over a "
         "mesh of devices, kernel K3 per stripe for life-like and 2-state von "
@@ -222,6 +234,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shards of the sharded backend")
     b.add_argument("--mesh-shape", default=None, metavar="R,C",
                    help="2-D rows,cols mesh of the sharded backend")
+    # bench.py's --mc capture: Metropolis sweep throughput through the
+    # stochastic tier, with its flags and defaults
+    b.add_argument("--mc", action="store_true",
+                   help="stochastic-tier bench: checkerboard Metropolis sweeps "
+                   "(emits mc_sweeps_per_sec + spin_updates_per_sec)")
+    b.add_argument("--mc-size", type=int, default=4096, help="square lattice edge")
+    b.add_argument("--mc-steps", type=int, default=400, help="sweeps per timed run")
+    b.add_argument("--mc-base-steps", type=int, default=40,
+                   help="sweeps in the baseline run of the delta pair")
+    b.add_argument("--mc-sizes", default=None, metavar="N1,N2,N3",
+                   help="lattice edges of the packed-vs-roll legs on the numpy "
+                   "reference executor (default 256,512,1024)")
+    b.add_argument("--mc-temperature", type=float, default=2.27,
+                   help="Metropolis temperature (default ~ the Onsager critical point)")
+    b.add_argument("--mc-seed", type=int, default=0)
+    b.add_argument("--mc-rule", default="ising",
+                   help="stochastic rule to measure (ising / noisy:<p>/<base>)")
+    b.add_argument("--no-bitpack", dest="bitpack", action="store_false",
+                   help="pin the int8 path instead of the bit-packed one "
+                   "(with --mc, the roll path)")
     sub.add_parser("info", help="show torch, CUDA devices, backends and rules")
 
     pat = sub.add_parser(
@@ -289,6 +321,7 @@ def main(argv: list[str] | None = None) -> int:
         rule=args.rule,
         bug_compat=args.bug_compat,
         seed=args.seed,
+        temperature=args.temperature,
         backend=args.backend,
         device=args.device,
         num_devices=args.num_devices,
@@ -315,12 +348,13 @@ def main(argv: list[str] | None = None) -> int:
         verbose=args.verbose,
     )
     from tpu_life_torch.backends.sharded_backend import PartitionModeRefused
+    from tpu_life_torch.mc import StochasticBackendError
     from tpu_life_torch.models.rules import GeometryError
     from tpu_life_torch.runtime.driver import run
 
     try:
         run(cfg)
-    except (GeometryError, PartitionModeRefused) as e:
+    except (GeometryError, PartitionModeRefused, StochasticBackendError) as e:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 2
     return 0
@@ -355,6 +389,8 @@ def _bench(parser, args) -> int:
         print(f"{PROG}: error: --backend tuned is not yet ported (ROADMAP A10: "
               "autotune); name a backend", file=sys.stderr)
         return 2
+    if args.mc:
+        return _bench_mc(parser, args)
     # the divisor of the JAX record's vs_baseline (BASELINE.json's
     # cell-updates/sec/chip figure), kept so the two records mean the same
     target = 1e11
@@ -365,7 +401,11 @@ def _bench(parser, args) -> int:
     if rule.states > 2:
         board *= rng.integers(1, rule.states, size=(n, n), dtype=np.int8)
 
+    # bitpack enters kwargs only on a --no-bitpack pin, so the record's
+    # "tuned" carries it as bench.py's does
     kwargs = {}
+    if not args.bitpack:
+        kwargs["bitpack"] = False
     if args.block_steps is not None:
         kwargs["block_steps"] = args.block_steps
     if args.local_kernel is not None:
@@ -404,6 +444,119 @@ def _bench(parser, args) -> int:
     return 0
 
 
+def _bench_mc(parser, args) -> int:
+    """``bench --mc``: Metropolis sweeps per second through the stochastic
+    tier, ``bench.py``'s ``run_mc_bench`` record.  The primary measurement
+    runs on ``--backend`` (packed by default, ``--no-bitpack`` pins the roll
+    path) by delta timing; the packed-vs-roll legs run on the numpy
+    reference executor at ``--mc-sizes``, as ``bench.py`` runs them on
+    every platform.  The board is the seeded board of ``--mc-seed``, drawn
+    on the card when the backend is there."""
+    import json
+
+    from tpu_life_torch import mc, obs
+    from tpu_life_torch.backends.base import get_backend, make_runner
+    from tpu_life_torch.models.rules import IsingRule, get_rule
+    from tpu_life_torch.utils.timing import delta_seconds_per_step
+
+    try:
+        rule = get_rule(args.mc_rule)
+    except ValueError as e:
+        parser.error(f"unknown rule: {e}")
+    if not rule.stochastic:
+        parser.error(f"--mc needs a stochastic rule, got {args.mc_rule!r}")
+    temperature = args.mc_temperature if isinstance(rule, IsingRule) else None
+    n = args.mc_size
+    try:
+        mc.validate_params(rule, temperature)
+        mc.validate_board_shape(rule, (n, n))
+    except ValueError as e:
+        parser.error(str(e))
+    backend = get_backend(args.backend, rule=rule, bitpack=args.bitpack, device=args.device)
+    device = getattr(backend, "device", None)
+    on_card = device is not None and device.type == "cuda"
+    board = mc.seeded_board(n, n, seed=args.mc_seed, device=device if on_card else None)
+    board = board.cpu().numpy() if on_card else board
+    runner = make_runner(backend, board, rule, seed=args.mc_seed, temperature=temperature)
+    per_sweep = delta_seconds_per_step(runner, args.mc_steps, args.mc_base_steps,
+                                       repeats=args.repeats)
+
+    # the packed-vs-roll legs on the numpy reference executor
+    legs: list[dict] = []
+    crossover = None
+    speedups: dict[str, float] = {}
+    if mc.packed_supports(rule):
+        sizes = (
+            tuple(int(s) for s in args.mc_sizes.split(","))
+            if args.mc_sizes
+            else (256, 512, 1024)
+        )
+        ref = get_backend("numpy")
+        base_size = min(sizes)
+        for size in sizes:
+            leg_board = mc.seeded_board(size, size, seed=args.mc_seed)
+            # scale sweeps down with area so every leg costs roughly what
+            # the smallest one does; delta timing floors at 3-over-1
+            scale = (base_size / size) ** 2
+            steps = max(3, int(round(args.mc_steps * scale)))
+            base_steps = max(1, steps // 6)
+            by_path: dict[bool, float] = {}
+            for packed in (False, True):
+                leg_runner = make_runner(ref, leg_board, rule, seed=args.mc_seed,
+                                         temperature=temperature, packed=packed)
+                per = delta_seconds_per_step(leg_runner, steps, base_steps, repeats=args.repeats)
+                by_path[packed] = size * size / per
+                legs.append({
+                    "size": size,
+                    "packed": packed,
+                    "lanes": getattr(leg_runner, "lanes", None),
+                    "backend": "numpy",
+                    "sweeps_per_sec": 1.0 / per,
+                    "spin_updates_per_sec": by_path[packed],
+                    "steps": steps,
+                    "base_steps": base_steps,
+                    "seed": args.mc_seed,
+                    "temperature": temperature,
+                })
+            speedups[str(size)] = by_path[True] / by_path[False]
+            if crossover is None and by_path[True] >= by_path[False]:
+                crossover = size
+
+    platform = device.type if device is not None else "cpu"
+    print(json.dumps({
+        "metric": "mc_sweeps_per_sec",
+        "value": 1.0 / per_sweep,
+        "unit": "sweeps/s",
+        # one sweep proposes a flip at every site (two half-lattice
+        # checkerboard updates), so spin-updates/s = cells * sweeps/s
+        "spin_updates_per_sec": n * n / per_sweep,
+        "rule": args.mc_rule,
+        "temperature": temperature,
+        "seed": args.mc_seed,
+        "run_id": obs.new_run_id(),
+        # the storage-path stamp: which executor produced the primary
+        # number (packed runners carry packed=True, lanes=32)
+        "packed": bool(getattr(runner, "packed", False)),
+        "lanes": getattr(runner, "lanes", None),
+        "route": getattr(runner, "route", backend.name),
+        "platform": platform,
+        "platform_actual": platform,
+        "platform_pinned": args.device,
+        "backend": backend.name,
+        "size": n,
+        "steps": args.mc_steps,
+        "base_steps": args.mc_base_steps,
+        "repeats": args.repeats,
+        # the packed-vs-roll comparison (empty legs for non-packable
+        # stochastic rules, e.g. noisy:*)
+        "legs": legs,
+        "packed_speedup": speedups,
+        "crossover_size": crossover,
+        "degraded": False,
+    }))
+    return 0
+
+
 def _info() -> int:
     import torch
 
@@ -436,7 +589,9 @@ def _info() -> int:
         "ops per shard) for the rest; --stencil matmul counts by banded "
         "matmuls on torch, numpy and sharded; continuous rules "
         "lenia[:<preset>|:R..,m..,s..] (float32 boards) run on torch, numpy and "
-        "sharded (torus); ising and noisy: are not ported yet"
+        "sharded (torus); the stochastic rules ising (needs --temperature) and "
+        "noisy:<p>/<base> run on cuda (kernels K6 and K7, K2 for noisy bases "
+        "it steps), torch and numpy"
     )
     return 0
 

@@ -24,9 +24,11 @@ class RunConfig:
 
     rule: str = "conway"
     bug_compat: bool = False  # replicate the reference binary's effective B/S2 rule
-    # names the board a seeded run stages (height, width and steps from
+    # the counter-based PRNG seed: names the trajectory of a stochastic
+    # rule and the board a seeded run stages (height, width and steps from
     # flags and no input file); stamped into RunResult
     seed: int = 0
+    temperature: float | None = None  # Metropolis temperature of the ising rule
 
     # execution
     backend: str = "auto"  # auto | cuda | torch | numpy | sharded

@@ -94,7 +94,21 @@ def rule_from_fields(
     """A :class:`Rule` from the field values of a JAX-package rule.  A
     Lenia rule crosses as its spec string (``name``) and its fields: a
     ``lenia`` name, or any of ``mu``/``sigma``/``dt``/``peaks``, gives a
-    ``LeniaRule`` whose spec's values are overridden by the fields given."""
+    ``LeniaRule`` whose spec's values are overridden by the fields given.
+    A stochastic rule crosses the same way: an ``ising`` or ``noisy:`` name
+    gives the ``IsingRule`` or ``NoisyRule`` its spec parses to, with the
+    fields given."""
+    low = name.lower()
+    if low.split(":")[0] == "ising" or low.startswith("noisy:"):
+        from dataclasses import replace
+
+        from tpu_life_torch.models.rules import parse_rule
+
+        return replace(
+            parse_rule(name), radius=int(radius), states=int(states),
+            include_center=bool(include_center), neighborhood=neighborhood, boundary=boundary,
+            birth=frozenset(int(c) for c in birth), survive=frozenset(int(c) for c in survive),
+        )
     lenia_fields = {k: float(v) for k, v in (("mu", mu), ("sigma", sigma), ("dt", dt))
                     if v is not None}
     if peaks is not None:
@@ -133,3 +147,40 @@ def shards_from_reference(
     the layout of :func:`board_from_reference`."""
     x = board_from_reference(board, logical_shape, layout)
     return [torch.from_numpy(part) for part in split_rows(x.numpy(), n)]
+
+
+def mc_state_from_reference(
+    board: np.ndarray,
+    step: int,
+    seed: int,
+    temperature: float | None,
+    layout: str = "words",
+    *,
+    width: int | None = None,
+) -> dict:
+    """A stochastic run's state as the JAX package holds it — its board
+    (``int8[H, W]`` cells, or packed ``uint32[H, ceil(W/32)]`` words in the
+    ``pack_np`` layout, ``width`` = W), its absolute step, seed and
+    temperature — as this package's tensors and plain values: ``board`` a
+    CPU tensor in ``layout`` (``"words"``, the layout of kernel K6;
+    ``"cells"``, the int8 roll path's), ``step`` the absolute step a Runner
+    resumes at, ``keys`` the seed's key halves ``(k0, k1)`` and
+    ``thresholds`` the acceptance table as int32 bit patterns (zeros without
+    a temperature, as the rules that ignore it carry)."""
+    from tpu_life_torch.mc.ising import acceptance_thresholds
+    from tpu_life_torch.mc.prng import key_halves
+
+    board = np.asarray(board)
+    if width is None:
+        width = board.shape[1] if board.dtype != np.uint32 else board.shape[1] * bitlife.WORD
+    table = (
+        acceptance_thresholds(temperature)
+        if temperature is not None
+        else np.zeros(5, dtype=np.uint32)
+    )
+    return {
+        "board": board_from_reference(board, (board.shape[0], int(width)), layout),
+        "step": int(step),
+        "keys": key_halves(seed),
+        "thresholds": torch.from_numpy(table.view(np.int32).copy()),
+    }

@@ -1,0 +1,193 @@
+"""Kernels K6 and K7: the stochastic tier's Threefry, hand-written CUDA.
+
+No Pallas kernel precedes them: the JAX package runs the tier as
+``jax.jit`` over ``lax.scan`` (``tpu_life/mc/engine.py``:
+``MCPackedDeviceRunner`` over ``mc/packed.py::make_sweep``,
+``MCDeviceRunner`` over ``mc/ising.py::sweep``), which XLA fuses into one
+pass a half-sweep.  PyTorch has no call that hashes by a cell's
+coordinates, and as plain ops one Threefry evaluation is some 112
+launches, each writing a whole board; so the hash is two kernels of
+``tpu_life_torch/csrc/mc_threefry.cu``, compiled by ``nvcc`` for ``sm_90a``
+at first use (``kernels._build``) and called through ``ctypes``.
+
+- :func:`cell_uniforms` (K7): one word of the hash for every cell of an
+  ``[h, w]`` block at ``(k0, k1, step, substream, origin)`` — the draws of
+  the int8 roll path, of the noisy flip and of seeded staging.  Its plain
+  version is :func:`cell_uniforms_plain` (``prng.cell_uniforms_torch``).
+- :func:`packed_metropolis_half` (K6): one checkerboard half-sweep of the
+  packed spins, the neighbour count, the hash of the active cells and the
+  acceptance all in registers, one thread a word.  Its plain version is
+  :func:`packed_metropolis_half_plain` (``mc.packed.half_sweep_torch``).
+
+Each launches its kernel for a CUDA tensor and runs its plain version for a
+CPU one; any other device raises, and nothing falls back.  Each counts its
+launches (``cell_uniforms.launches``, ``packed_metropolis_half.launches``).
+Both are bound by integer operations on an H100: of the
+:data:`OPS_PER_DRAW` that word 0 of a draw needs, the
+:data:`ALU_OPS_PER_DRAW` rotates and xors issue only on the integer pipe
+(the adds also as IMAD), so K7 at 16384^2 is bound by about 0.59 ms; K6 by
+the draws the table needs (the cells with dE > 0), PERF.md §6.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from tpu_life_torch.kernels import _build
+from tpu_life_torch.mc import packed, prng
+
+SOURCE = _build.CSRC / "mc_threefry.cu"
+#: 32-bit integer operations a cell that word 0 of one Threefry-2x32/20
+#: evaluation needs, counted from the hash's data flow.  The rotates and
+#: xors (integer pipe only): round 1 rotates x1 = c1 + k1, the same for
+#: every cell of a launch, and round 20's rotate and xor feed only word 1,
+#: which leaves 18 rotates and 19 xors.
+ALU_OPS_PER_DRAW = 18 + 19
+#: ... and the adds: the x0 add of each of the 20 rounds (round 1's folds
+#: the counter's key, c0 + (k0 + x1), into one add of a uniform), the 5 key
+#: injections into x0 and the 4 into x1 that word 0 reads (the round
+#: constant folded into the key): 29, on either pipe.
+OPS_PER_DRAW = ALU_OPS_PER_DRAW + 20 + 5 + 4
+
+
+def build() -> Path:
+    """Compile the kernel library (K6 and K7, ``_build.build``) and return
+    its path; ``build.log`` beside it keeps nvcc's ``-Xptxas -v`` report."""
+    return _build.build(SOURCE)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _build.library(SOURCE)
+    lib.mc_cell_uniforms.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.mc_packed_metropolis_half.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_ulonglong, ctypes.c_uint32,
+        ctypes.c_uint32, ctypes.c_void_p,
+    ]
+    for fn in (lib.mc_cell_uniforms, lib.mc_packed_metropolis_half):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+#: The plain PyTorch version of K7, on any device.
+cell_uniforms_plain = prng.cell_uniforms_torch
+
+
+def cell_uniforms(
+    shape: tuple[int, int], k0: int, k1: int, step: int, substream: int, *, origin: int = 0,
+    device: str | torch.device, word: int = 0,
+) -> torch.Tensor:
+    """Word ``word`` (0, or 1) of the hash for every cell of an ``[h, w]``
+    block whose cell (0, 0) has flat index ``origin``, at absolute ``step``
+    and ``substream`` under the run's key halves ``k0``/``k1``: an
+    int32[h, w] tensor of the uint32 draws' bit patterns on ``device``.
+    Word 0 is ``prng.cell_uniforms``; word 1 is the state draw of seeded
+    staging.  Kernel K7 on a CUDA device, the plain version on the CPU."""
+    device = torch.device(device)
+    h, w = (int(v) for v in shape)
+    if word not in (0, 1):
+        raise ValueError(f"word must be 0 or 1, got {word}")
+    if device.type == "cpu":
+        return cell_uniforms_plain((h, w), k0, k1, step, substream, origin=origin,
+                                   device=device, word=word)
+    if device.type != "cuda":
+        raise ValueError(f"cell_uniforms runs on cuda or cpu devices, got {device}")
+    prng.check_block(h * w, int(origin))
+    out = torch.empty((h, w), dtype=torch.int32, device=device)
+    if h * w == 0:
+        return out
+    with torch.cuda.device(device):
+        err = _library().mc_cell_uniforms(
+            out.data_ptr(), h * w, prng.as_u32(k0), prng.as_u32(k1),
+            prng.counter_word(step, substream), int(origin), word, _stream(device),
+        )
+    if err != 0:
+        raise RuntimeError(f"mc_cell_uniforms launch failed: CUDA error {err}")
+    cell_uniforms.launches += 1
+    return out
+
+
+cell_uniforms.launches = 0
+
+
+def packed_metropolis_half_plain(
+    x: torch.Tensor, parity: int, k0: int, k1: int, step: int, thr3: int, thr4: int, *,
+    width: int, origin: int = 0, out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of K6 on any device
+    (``mc.packed.half_sweep_torch``).  It returns a new tensor and ignores
+    ``out``, which it takes so that it and :func:`packed_metropolis_half`
+    are interchangeable."""
+    return packed.half_sweep_torch(x, parity, k0, k1, step, thr3, thr4, width=width, origin=origin)
+
+
+def _check_words(x: torch.Tensor, width: int, name: str) -> None:
+    if x.dtype != torch.int32 or x.dim() != 2:
+        raise TypeError(f"{name} must be int32 packed words [H, ceil(W/32)], got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if x.shape[1] != packed.packed_width(width):
+        raise ValueError(f"{name} has {x.shape[1]} words a row, want {packed.packed_width(width)} "
+                         f"for width {width}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def packed_metropolis_half(
+    x: torch.Tensor, parity: int, k0: int, k1: int, step: int, thr3: int, thr4: int, *,
+    width: int, origin: int = 0, out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One checkerboard half-sweep of parity ``parity`` of the packed board
+    ``x`` (int32[H, ceil(W/32)] words, ``width`` = W, H and W even) at
+    absolute sweep ``step``, against the acceptance table's entries
+    ``thr3``/``thr4`` (uint32 values or their int32 bit patterns), the
+    board's cell (0, 0) at flat index ``origin``.
+
+    On a CUDA tensor kernel K6 writes the result into ``out`` (a second
+    buffer of ``x``'s shape on its device, allocated when None) and returns
+    it; ``x`` is left as it was.  On a CPU tensor it returns the plain
+    version's result.
+    """
+    if parity not in (0, 1):
+        raise ValueError(f"parity must be 0 or 1, got {parity}")
+    h = x.shape[0]
+    if h % 2 or width % 2 or h < 2 or width < 2:
+        raise ValueError(f"the packed half-sweep needs even dimensions, got {h}x{width}")
+    if origin < 0:
+        raise ValueError(f"origin must be >= 0, got {origin}")
+    _check_words(x, width, "x")
+    if x.device.type == "cpu":
+        return packed_metropolis_half_plain(x, parity, k0, k1, step, thr3, thr4,
+                                            width=width, origin=origin)
+    if x.device.type != "cuda":
+        raise ValueError(f"packed_metropolis_half runs on cuda or cpu tensors, got {x.device}")
+    if out is None:
+        out = torch.empty_like(x)
+    _check_words(out, width, "out")
+    if out.shape != x.shape or out.device != x.device or out.data_ptr() == x.data_ptr():
+        raise ValueError("out must be a second buffer of x's shape on x's device")
+    substream = prng.SUB_ODD if parity else prng.SUB_EVEN
+    with torch.cuda.device(x.device):
+        err = _library().mc_packed_metropolis_half(
+            x.data_ptr(), out.data_ptr(), h, width, x.shape[1], parity, prng.as_u32(k0),
+            prng.as_u32(k1), prng.counter_word(step, substream), int(origin),
+            prng.as_u32(thr3), prng.as_u32(thr4), _stream(x.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"mc_packed_metropolis_half launch failed: CUDA error {err}")
+    packed_metropolis_half.launches += 1
+    return out
+
+
+packed_metropolis_half.launches = 0

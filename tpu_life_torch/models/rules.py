@@ -6,10 +6,10 @@ the same fields and the same parse results.  Life-like (``B3/S23``),
 Generations (``B2/S/C3``), Larger-than-Life (``R5,C2,S34..58,B34..45``),
 von Neumann (``NN``) and board-sized torus (``:T``) specs all parse.
 
-Continuous (Lenia) specs parse into ``models.lenia.LeniaRule``.  The
-stochastic tier (``ising``, ``noisy:<p>/<base>``) is not ported yet: its
-specs raise a ``ValueError`` that says so, instead of parsing into a rule
-nothing here can run.
+Continuous (Lenia) specs parse into ``models.lenia.LeniaRule``; the
+stochastic tier's into :class:`IsingRule` (registered as ``ising``) and
+:class:`NoisyRule` (``noisy:<p>/<base>``), which ``tpu_life_torch.mc``
+runs.
 
 Semantics (synchronous update; boundary per ``Rule.boundary``):
 
@@ -103,7 +103,9 @@ class Rule:
 
     @property
     def stochastic(self) -> bool:
-        """True for Monte-Carlo rules; none is ported yet."""
+        """True for Monte-Carlo rules (``tpu_life_torch.mc``): their steps
+        consume the counter-based PRNG stream and run only on executors
+        that implement its key schedule (``mc.SUPPORTED_BACKENDS``)."""
         return False
 
     @property
@@ -124,10 +126,127 @@ class Rule:
         return self.name
 
 
+@dataclass(frozen=True)
+class IsingRule(Rule):
+    """The 2-D Ising model under Metropolis–Hastings (J = 1, H = 0).
+
+    Spins live on the board as int8 {0, 1} <-> {-1, +1}; one CA "step" is
+    one full Metropolis **sweep** via the checkerboard decomposition (two
+    half-lattice updates — cells of one (row+col) parity see only frozen
+    cells of the other, so the vectorized update is exactly sequential
+    single-site Metropolis within a parity).  Temperature is NOT part of
+    the rule: it is a per-run scalar; the rule itself stays a frozen
+    hashable value like every other ``Rule``.
+
+    The inherited fields pin the neighborhood structure: radius-1 von
+    Neumann (the 4-neighbor coupling), 2 states, torus topology (the
+    periodic lattice Onsager's solution assumes).  ``birth``/``survive``
+    are unused — the transition is the Metropolis acceptance rule in
+    ``tpu_life_torch.mc.ising``, not a count LUT.
+    """
+
+    name: str = "ising"
+    radius: int = 1
+    states: int = 2
+    neighborhood: str = "von_neumann"
+    boundary: str = "torus"
+
+    @property
+    def stochastic(self) -> bool:
+        return True
+
+
+@dataclass(frozen=True)
+class NoisyRule(Rule):
+    """A registered 2-state rule composed with per-cell flip noise.
+
+    Spec ``noisy:<p>/<base>``: apply ``base`` deterministically, then
+    flip each cell 0<->1 with probability ``flip_p`` from the counter
+    stream's ``SUB_NOISE`` substream.  The base rule's structural fields
+    (birth/survive/radius/neighborhood/boundary) are copied onto this
+    rule, so the deterministic half reuses the exact stencil machinery
+    (``ops.stencil.make_step`` / ``ops.reference.step_np``, and kernel K2
+    on the ``cuda`` backend) unchanged; ``base`` is kept for provenance.
+    ``flip_p`` is frozen in the rule (it is part of the spec string),
+    unlike the ising temperature which rides per run.
+    """
+
+    flip_p: float = 0.0
+    base: Rule | None = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not (0.0 <= self.flip_p <= 1.0):
+            raise ValueError(
+                f"noise probability must be in [0, 1], got {self.flip_p}"
+            )
+        if self.states != 2:
+            raise ValueError(
+                f"noisy rules need a 2-state base (flip is 0<->1); "
+                f"{self.base.name if self.base else self.name!r} has "
+                f"{self.states} states"
+            )
+
+    @property
+    def stochastic(self) -> bool:
+        return True
+
+
+def _parse_noisy(spec: str) -> NoisyRule:
+    """``noisy:<p>/<base>`` -> :class:`NoisyRule`, with typed errors for
+    every malformation (mirroring :func:`parse_rule`'s loud failures)."""
+    body = spec[len("noisy:"):]
+    if "/" not in body:
+        raise ValueError(
+            f"bad noisy spec {spec!r}: expected 'noisy:<p>/<base>' "
+            f"(e.g. 'noisy:0.01/conway')"
+        )
+    p_str, base_spec = body.split("/", 1)
+    try:
+        p = float(p_str)
+    except ValueError:
+        raise ValueError(
+            f"bad noise probability {p_str!r} in {spec!r}: not a number"
+        ) from None
+    if not np.isfinite(p) or not (0.0 <= p <= 1.0):
+        raise ValueError(
+            f"noise probability must be in [0, 1], got {p_str!r} in {spec!r}"
+        )
+    if not base_spec.strip():
+        raise ValueError(f"bad noisy spec {spec!r}: empty base rule")
+    base = parse_rule(base_spec)
+    if base.stochastic:
+        raise ValueError(
+            f"noisy base must be deterministic, got stochastic rule "
+            f"{base.name!r} in {spec!r} (substream composition of two "
+            f"stochastic rules is not defined)"
+        )
+    if base.continuous:
+        raise ValueError(
+            f"noisy base must be a discrete rule, got continuous rule "
+            f"{base.name!r} in {spec!r} (a 0<->1 flip is meaningless on "
+            f"float boards)"
+        )
+    # a multi-state base is rejected by NoisyRule.__post_init__ (the one
+    # check that also guards direct construction)
+    return NoisyRule(
+        name=f"noisy:{p_str}/{base.name}",
+        birth=base.birth,
+        survive=base.survive,
+        radius=base.radius,
+        states=base.states,
+        include_center=base.include_center,
+        neighborhood=base.neighborhood,
+        boundary=base.boundary,
+        flip_p=p,
+        base=base,
+    )
+
+
 class NotPortedError(ValueError):
-    """A rule spec of a tier this package does not run yet (the stochastic
-    ``ising`` / ``noisy:``), or an option of the sharded backend whose port
-    is still queued; the message names the ROADMAP item."""
+    """An option whose port is still queued; the message names the ROADMAP
+    item.  No rule spec raises it since the stochastic tier was ported: the
+    tests of the sharded backend hold its errors apart from this one."""
 
 
 class GeometryError(ValueError):
@@ -183,15 +302,18 @@ def parse_rule(spec: str) -> Rule:
       board-sized torus: ``conway:T``, ``B3/S23:T``
     - continuous rules (``models.lenia``): ``lenia`` / ``lenia:<preset>`` /
       parametric ``lenia:R<r>,m<mu>,s<sigma>[,dt<dt>][,b<a1;a2;...>]``
+    - stochastic rules (``tpu_life_torch.mc``): ``ising`` (Metropolis,
+      per-run temperature) and ``noisy:<p>/<base>`` (per-cell flip
+      probability ``p`` over any 2-state rule): ``noisy:0.01/conway``,
+      ``noisy:0.05/B36/S23:T``
     """
     spec = spec.strip()
     low = spec.lower()
-    if low.startswith("noisy:") or low.split(":")[0] == "ising":
-        raise NotPortedError(
-            f"rule {spec!r} is not yet ported to tpu_life_torch: the "
-            f"stochastic tier (ising, noisy:) is queued in ROADMAP.md (A8; "
-            f"use `python -m tpu_life` for it)"
-        )
+    if low.startswith("noisy:"):
+        # before the ':T' scan: the noisy prefix's own colon must not be
+        # mistaken for a bounded-grid suffix; the base spec inside may
+        # still carry ':T' (parsed recursively)
+        return _parse_noisy(spec)
     if low == "lenia" or low.startswith("lenia:"):
         # the continuous tier: lenia presets and the parametric spec own
         # their colon grammar
@@ -334,5 +456,9 @@ register_rule(
 # the orbium preset) when it is imported, so `info` lists it; the parse path
 # resolves the lenia: prefix before the registry.
 from tpu_life_torch.models import lenia as _lenia  # noqa: E402,F401
+# Stochastic tier (tpu_life_torch.mc): Metropolis Ising on the periodic
+# lattice.  Temperature is per run, not part of the rule; `noisy:<p>/<base>`
+# specs are parsed, not registered (p-parameterized).
+register_rule("ising", IsingRule())
 # The reference binary's *effective* rule as shipped (B/S2; SURVEY.md §2.2)
 register_rule("reference_bug_compat", Rule("B/S2", frozenset(), frozenset({2})))

@@ -7,9 +7,20 @@ contract line.
 
 A run whose height, width and steps all come from flags, with no input
 file, stages a seeded random board (``mc.prng.seeded_board``, the board
-the JAX driver stages for the same seed; a continuous rule's float twin,
+the JAX driver stages for the same seed, drawn on the card by kernel K7
+when the run is there; a continuous rule's float twin,
 ``models.lenia.seeded_board``); a run that reads its geometry from the
-config file still needs its input file.  Float32 boards (the continuous
+config file still needs its input file.
+
+Stochastic rules (``ising`` with ``--temperature``, ``noisy:<p>/<base>``;
+``tpu_life_torch.mc``) are gated before any backend is built, as the JAX
+driver gates them: an executor without the counter-based key schedule
+(``sharded``) is refused, the (rule, temperature) pairing validated, and
+the board's shape checked against the checkerboard and the PRNG counter's
+width.  Their Runners take the seed, the temperature and the absolute
+start step, so snapshots, ``--resume`` and elastic recovery re-enter the
+stream at the right counter; ``RunResult`` stamps the seed and the
+temperature.  Float32 boards (the continuous
 tier) are read, checked (``lenia.validate_board``), snapshotted and
 written by the same codec, in the JAX package's bytes.
 
@@ -44,8 +55,7 @@ process writes its own shards of a streamed output or snapshot.  Elastic
 recovery is process-local, so it is off in such a job: relaunch the whole
 job with ``--resume``.
 
-Not ported yet (ROADMAP.md): the tuned backend and the stochastic rule
-tier.
+Not ported yet (ROADMAP.md): the tuned backend.
 """
 
 from __future__ import annotations
@@ -57,7 +67,7 @@ from pathlib import Path
 
 import numpy as np
 
-from tpu_life_torch import obs
+from tpu_life_torch import mc, obs
 from tpu_life_torch.backends.base import drive_runner, get_backend, make_runner
 from tpu_life_torch.config import RunConfig
 from tpu_life_torch.io.codec import read_board, write_board
@@ -85,10 +95,22 @@ class RunResult:
     backend: str
     rule: str
     route: str  # the executor the runner took (``DeviceRunner.route``), or the backend's name
-    seed: int | None = None  # the seed of a seeded board; None when the board came from a file
+    # the counter-based PRNG seed: stamped for stochastic rules and for
+    # seeded-board staging, so the record replays the run; None when the
+    # run consumed no seed
+    seed: int | None = None
+    temperature: float | None = None  # the ising scalar (None elsewhere)
     metrics: list[dict] = field(default_factory=list)
     restarts: int = 0  # recoveries taken by the elastic-recovery loop
     run_id: str = ""  # correlation id shared by metrics/trace artifacts
+
+
+def _staging_device(backend):
+    """The card a seeded board is drawn on: the backend's device, or its
+    mesh's first, when that is a CUDA device; None (numpy) otherwise."""
+    grid = getattr(backend, "mesh", None)
+    device = grid.devices[0] if grid is not None else getattr(backend, "device", None)
+    return device if device is not None and device.type == "cuda" else None
 
 
 def _single_process() -> bool:
@@ -130,6 +152,19 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
     with obs.span("config-resolve"):
         height, width, steps = cfg.resolved_geometry()
         rule = get_rule(cfg.effective_rule())
+        # stochastic-tier gating before any backend is built: an executor
+        # without the counter-based key schedule is a typed rejection, and
+        # the (rule, temperature) pairing is validated once for every front
+        mc.ensure_backend_supported(rule, cfg.backend)
+        mc.validate_params(rule, cfg.temperature)
+        # board area vs the PRNG counter's width: the packed path (the
+        # default of cuda and torch) carries the wide two-word cell index,
+        # the roll path rejects over-2^32-cell lattices
+        mc.validate_board_shape(
+            rule,
+            (height, width),
+            wide_counter=mc.wide_counter_capable(rule, cfg.backend, bitpack=cfg.bitpack),
+        )
         validate_rule_geometry(rule, (height, width))
 
     timer = Timer()  # spans I/O too, like the reference's Wtime bracket
@@ -225,6 +260,10 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
             elif source is None:
                 if rule.continuous:
                     b = lenia.seeded_board(height, width, seed=cfg.seed)
+                elif (dev := _staging_device(backend)) is not None:
+                    # drawn on the card (kernel K7), the numpy board's bytes
+                    b = seeded_board(height, width, states=rule.states, seed=cfg.seed,
+                                     device=dev).cpu().numpy()
                 else:
                     b = seeded_board(height, width, states=rule.states, seed=cfg.seed)
             else:
@@ -239,7 +278,8 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
                             f"only {rule.states} states (0..{rule.states - 1})"
                         )
             if not stream:
-                r = make_runner(backend, b, rule)
+                r = make_runner(backend, b, rule, seed=cfg.seed, temperature=cfg.temperature,
+                                start_step=start)
             if cfg.fault_at > 0:
                 r = recovery.FaultingRunner(r, start, cfg.fault_at, fault_fired, cfg.fault_count)
         return r
@@ -461,7 +501,8 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
         backend=backend.name,
         rule=rule.name,
         route=getattr(recovery.unwrap(runner), "route", backend.name),
-        seed=cfg.seed if origin[0] is None else None,
+        seed=cfg.seed if (rule.stochastic or origin[0] is None) else None,
+        temperature=cfg.temperature,
         metrics=recorder.records,
         restarts=restarts,
         run_id=run_id,
