@@ -199,7 +199,30 @@ Phases (any failure exits non-zero and prints no result line):
    40 sweeps; the numpy legs at 64 and 128) and at 16384^2 (100 and 20
    sweeps), each record printed; and K6 (4096^2, 16384^2) and K7 (16384^2)
    timed by CUDA events and the profiler's kernel records beside their
-   bounds and their plain versions.
+   bounds and their plain versions;
+16. the serving tier (``tpu_life_torch.serve``: K1's batch mode, built with
+   K1, its instances in phase 2's report and SASS counts) — (a) the batch
+   mode bit-identical to its plain version launch by launch over a chunk of
+   16 steps, on 8 slots with budgets 0, 1, k-1, k, k+1, 16, 3 and 100
+   (Conway 8x512^2 and 8x4096^2, ``highlife`` 8x1500x500, the R2 diamond
+   8x1000x333), the small boards' slots equal to ``run_np``; one launch
+   (every slot stepping, k = 8) timed at 8x512^2 and 8x4096^2 by CUDA
+   events and by a fresh child's profiler records, beside its bound, its
+   plain version and 8 single-board K1 launches on the same boards; (b) the
+   JAX serve bench's mix (32 sessions of 512^2 Conway x 128 steps, 8
+   distinct boards, capacity 8, chunk 16, half queued at once) through
+   ``python -m tpu_life_torch serve`` on ``cuda``, ``torch``, ``sharded``
+   and ``numpy`` under the pipelined and the synchronous pump, every result
+   equal to the numpy oracle's bytes, with sessions/s, rounds/s, batch
+   occupancy, the device-idle share and K1 batch launches a chunk (2 on
+   ``cuda``, counted from 0 around each run; none elsewhere); the
+   governor's estimate beside ``torch.cuda.max_memory_allocated`` for one
+   ``cuda`` engine; (c) ``submit`` + ``serve`` of the reference workload at
+   the golden sha256; (d) a 16384^2 Conway session served on ``mesh:2x2`` of
+   the card (``--mesh-devices 4`` under a 1 GiB budget the batch
+   overflows), equal to the ``cuda`` backend's run; (e) a ``lenia:orbium``
+   batch of 4 x 512^2 on ``cuda`` (route ``ops``), allclose at
+   ``FLOAT_ATOL`` to the numpy oracle.
 
 Phases 2-4 cover K3 too: it is built with K1 (same source, its instances
 in the ptxas report and the SASS counts); phase 3 holds it bit-identical to its
@@ -379,7 +402,8 @@ K1_SASS_OPS = ("LOP3", "SHF", "SHFL", "LDS", "STS", "BAR")
 # every kernel instance packed_stripe.cu builds (label, pattern of its
 # mangled name): K1 Moore and K3 Moore (clamped, torus) with Conway's rule
 # compiled in and with the rule as data, the diamonds at radius 1 and 2,
-# and K5, each at 4 and 8 rows a warp
+# K5, and K1's batch mode (Moore compiled in and as data, the diamonds),
+# each at 4 and 8 rows a warp
 K5_MAIN = "K5 conway_int8_kernel<8>"
 STRIPE_INSTANCES = [
     *[(f"K1 packed_stripe_kernel<{n}, {r}Rule>", rf"packed_stripe_kernelILi{n}E\w*{r}Rule")
@@ -392,7 +416,21 @@ STRIPE_INSTANCES = [
     *[(f"K3 sharded_diamond_kernel<{rad}, {n}>", rf"sharded_diamond_kernelILi{rad}ELi{n}E")
       for rad in (1, 2) for n in (4, 8)],
     *[(f"K5 conway_int8_kernel<{n}>", rf"conway_int8_kernelILi{n}E") for n in (4, 8)],
+    *[(f"K1 batch packed_batch_kernel<{rad}, {n}, {r}Rule>",
+       rf"packed_batch_kernelILi{rad}ELi{n}E\w*{r}Rule")
+      for rad, r in ((0, "Conway"), (0, "Data"), (1, "Data"), (2, "Data")) for n in (4, 8)],
 ]
+K1_BATCH = "K1 batch packed_batch_kernel<0, 8, ConwayRule>"
+# phase 16: K1's batch mode timed on 8 boards of these sides; the serve mix
+# (the JAX serve bench's: sessions of P16_SIDE^2 conway x P16_STEPS,
+# capacity 8, chunk P16_CHUNK), run P16_REPEATS times on each card backend
+# and pump; the K2 keys' sessions (brians_brain x P16_K2_STEPS); the
+# mega-board's steps
+P16_SIDES = (512, 4096)
+P16_SIDE, P16_STEPS, P16_SESSIONS, P16_CHUNK = 512, 128, 32, 16
+P16_REPEATS = 7
+P16_K2_STEPS = 32
+P16_MEGA_STEPS = 64
 
 
 def fail(msg: str) -> None:
@@ -2123,6 +2161,10 @@ def main() -> int:
                            cuda_ms=cuda_ms, counted=counted,
                            golden=golden, instances=mc_instances))
 
+    # -- 16. the serving tier: K1's batch mode, submit and serve --------------
+    batch_row = phase16(dict(dev=dev, smi=smi, n_sm=n_sm, sm_clock_mhz=sm_clock_mhz,
+                             instances=k1_instances))
+
     diamond = diamond_rows[DIAMOND]
     k4_row = k4_rows[("brians_brain", (2, 2))]
     print(json.dumps({"kernels": [{
@@ -2174,6 +2216,7 @@ def main() -> int:
         "source": "tpu_life_torch/csrc/int8_tiled.cu",
         "replaces": "tpu_life/backends/pallas_backend.py:104",
         "launches": k2_main_launches,
+        "serve_launches": batch_row.pop("k2_serve_launches"),
         "max_abs_err": k2_max_err,
         "equal_to_plain": k2_max_err == 0,
         "rule": k2["rule"],
@@ -2256,7 +2299,7 @@ def main() -> int:
         "full_device_ms": k5_rows[FULL]["device_ms"],
         "instance": K5_MAIN,
         **k1_instances[K5_MAIN],
-    }, *mc_rows]}))
+    }, *mc_rows, batch_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -2824,13 +2867,21 @@ def phase15(ctx: dict) -> list[dict]:
                ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF), (0x1CB996FC, 0xBB002BE7)),
                ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0))]
         t0 = time.perf_counter()
-        k7_cases = 0
+        k7_cases = k7_max_err = 0
+
+        def draw_err(got: torch.Tensor, plain: torch.Tensor) -> int:
+            """Max |draw difference| between two uint32 draw tensors."""
+            nonlocal k7_max_err
+            err = int((got.long() - plain.long()).abs().max().item()) if got.numel() else 0
+            k7_max_err = max(k7_max_err, err)
+            return err
+
         for key, ctr, want in kat:
             for word in (0, 1):
                 args = ((1, 1), key[0], key[1], ctr[1] >> 2, ctr[1] & 3)
                 got = mct.cell_uniforms(*args, origin=ctr[0], device=dev, word=word)
                 plain = mct.cell_uniforms_plain(*args, origin=ctr[0], device=dev, word=word)
-                if prng.as_u32(got.item()) != want[word] or not torch.equal(got, plain):
+                if prng.as_u32(got.item()) != want[word] or draw_err(got, plain):
                     fail(f"K7 on the known-answer vector key {key} counter {ctr}, word {word}: "
                          f"{prng.as_u32(got.item()):#x}, want {want[word]:#x}")
                 k7_cases += 1
@@ -2840,7 +2891,7 @@ def phase15(ctx: dict) -> list[dict]:
                     got = mct.cell_uniforms(shape, 7, 9, 5, prng.SUB_NOISE, origin=origin, device=dev, word=word)
                     plain = mct.cell_uniforms_plain(shape, 7, 9, 5, prng.SUB_NOISE, origin=origin,
                                                     device=dev, word=word)
-                    if not torch.equal(got, plain):
+                    if draw_err(got, plain):
                         fail(f"K7 != plain: {shape[0]}x{shape[1]}, origin {origin}, word {word}")
                     k7_cases += 1
                     del got, plain
@@ -2851,10 +2902,10 @@ def phase15(ctx: dict) -> list[dict]:
         # (b) K6 against its plain version, a sweep (two launches) at a time
         rng = np.random.default_rng(15)
         t0 = time.perf_counter()
-        k6_cases = 0
+        k6_cases = k6_max_err = 0
 
         def k6_case(board: np.ndarray, temp: float, origin: int, sweeps: int) -> None:
-            nonlocal k6_cases
+            nonlocal k6_cases, k6_max_err
             h, w = board.shape
             thr = ising.acceptance_thresholds(temp)
             x = y = words_of(board)
@@ -2863,7 +2914,9 @@ def phase15(ctx: dict) -> list[dict]:
                     args = (parity, 11, 3, step, int(thr[3]), int(thr[4]))
                     x = mct.packed_metropolis_half(x, *args, width=w, origin=origin)
                     y = mct.packed_metropolis_half_plain(y, *args, width=w, origin=origin)
-                if not torch.equal(x, y):
+                err = int(bool((x ^ y).any()))  # max |spin difference|: 0 or 1
+                k6_max_err = max(k6_max_err, err)
+                if err:
                     fail(f"K6 != plain: {h}x{w}, T = {temp}, origin {origin}, sweep {step}")
                 k6_cases += 1
 
@@ -3065,8 +3118,8 @@ def phase15(ctx: dict) -> list[dict]:
         "source": "tpu_life_torch/csrc/mc_threefry.cu",
         "replaces": "tpu_life/mc/packed.py:208",
         "launches": k6_main_launches,
-        "max_abs_err": 0,
-        "equal_to_plain": True,
+        "max_abs_err": k6_max_err,
+        "equal_to_plain": k6_max_err == 0,
         "shape": [FULL, FULL],
         "ms": k6["ms"],
         "kernel_ms": k6["ms"],
@@ -3088,8 +3141,8 @@ def phase15(ctx: dict) -> list[dict]:
         "source": "tpu_life_torch/csrc/mc_threefry.cu",
         "replaces": "tpu_life/mc/prng.py:155",
         "launches": main_launches["noisy:0.01/conway 512^2 x 64"][6],
-        "max_abs_err": 0,
-        "equal_to_plain": True,
+        "max_abs_err": k7_max_err,
+        "equal_to_plain": k7_max_err == 0,
         "shape": [FULL, FULL],
         "ms": k7_ms,
         "kernel_ms": k7_ms,
@@ -3102,6 +3155,435 @@ def phase15(ctx: dict) -> list[dict]:
         "cli_launches": {name: got[6] for name, got in main_launches.items()},
         **ctx["instances"]["K7 cell_uniforms_kernel"],
     }]
+
+
+# phase 16's profile of K1's batch mode in a fresh process: argv = the
+# batch shapes' sides; each side's 8 random packed boards, every slot at a
+# full chunk's budget, one launch of depth 8; and 8 single-board K1
+# launches of depth 8 on the same boards (their total a rep)
+P16_PROFILE = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from tpu_life_torch.kernels import packed_batch as kb, packed_stripe as ps
+from tpu_life_torch.models.rules import get_rule
+dev, rule = torch.device("cuda:0"), get_rule("conway")
+def device_ms(launch, name, reps):
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
+    return (sum(us) / reps / 1e3, len(us) // reps) if us else (None, 0)
+out = {}
+for side in map(int, sys.argv[1:]):
+    g = torch.Generator(device=dev).manual_seed(side)
+    x = torch.randint(-2**31, 2**31 - 1, (8, side, side // 32), generator=g, dtype=torch.int32,
+                      device=dev)
+    y = torch.empty_like(x)
+    steps = torch.full((8,), 16, dtype=torch.int32, device=dev)
+    out[f"batch_{side}"] = device_ms(
+        lambda: kb.packed_batch_multi_step(x, steps, rule, (side, side), 8, out=y),
+        "packed_batch_kernel", 10)
+    def singles():
+        for s in range(8):
+            ps.packed_multi_step(x[s], rule, (side, side), 8, block_steps=8, scratch=y[s])
+    out[f"single_{side}"] = device_ms(singles, "packed_stripe_kernel", 10)
+print("P16 " + json.dumps(out), flush=True)
+"""
+
+
+def phase16(ctx: dict) -> dict:
+    """Phase 16: the serving tier on the card — K1's batch mode held to its
+    plain version and timed beside its bound and 8 single-board K1
+    launches, the serve mix through ``serve`` on every backend and pump
+    against the numpy oracle's bytes, the K2 keys' sessions through K2 per
+    slot, the governor's estimate beside the allocator's peak, the
+    reference workload as a served request, a mega-board session on
+    ``mesh:2x2`` of the card, and a Lenia batch.  Returns K1's batch
+    mode's row of the kernels record, with K2's serve launches under
+    ``k2_serve_launches`` for K2's row."""
+    import numpy as np
+    import torch
+
+    from tpu_life_torch import cli
+    from tpu_life_torch.backends.base import get_backend, make_runner
+    from tpu_life_torch.io.codec import encode_board, read_board, write_board
+    from tpu_life_torch.kernels import int8_tiled as kt
+    from tpu_life_torch.kernels import packed_batch as kb
+    from tpu_life_torch.kernels import packed_stripe as ps
+    from tpu_life_torch.mc.prng import seeded_board
+    from tpu_life_torch.models import lenia
+    from tpu_life_torch.models.rules import get_rule
+    from tpu_life_torch.ops import bitlife
+    from tpu_life_torch.ops.reference import run_np
+    from tpu_life_torch.serve import ServeConfig, SimulationService, governor
+    from tpu_life_torch.serve.engine import BatchEngine, SlotLoopEngine
+
+    dev, smi = ctx["dev"], ctx["smi"]
+    card = f"({smi})"
+    int_ops_per_s = ctx["n_sm"] * INT_OPS_PER_CLOCK_PER_SM * ctx["sm_clock_mhz"] * 1e6
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    rng = np.random.default_rng(16)
+    conway = get_rule("conway")
+
+    def events_ms(launch, reps: int) -> float:
+        launch()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def packed_batch_of(boards: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.stack([bitlife.pack_np(b).view(np.int32) for b in boards])).to(dev)
+
+    # (a) K1's batch mode against its plain version, launch by launch over
+    # a chunk of 16 steps (launches of depth k at offsets 0, k, ...), with
+    # budgets 0, 1, k-1, k, k+1, a full chunk, 3 and past the chunk
+    cases = [("conway", (512, 512)), ("conway", (4096, 4096)), ("highlife", (1500, 500)),
+             ("R2,C2,S2..4,B2..3,NN", (1000, 333))]
+    checked = batch_max_err = 0
+    for spec, (h, w) in cases:
+        rule = get_rule(spec)
+        k = ps.clamp_block_steps(rule, BLOCK_STEPS)
+        budgets = [0, 1, k - 1, k, k + 1, P16_CHUNK, 3, 100]
+        boards = (rng.random((8, h, w)) < 0.35).astype(np.int8)
+        boards[0, 0, :] = boards[1, :, 0] = boards[2, -1, :] = boards[3, :, -1] = 1  # edges live
+        x = packed_batch_of(boards)
+        steps = torch.tensor(budgets, dtype=torch.int32, device=dev)
+        kern, plain = x, x
+        for offset in range(0, P16_CHUNK, k):
+            kern = kb.packed_batch_multi_step(kern, steps, rule, (h, w), k, out=torch.empty_like(x),
+                                              offset=offset)
+            plain = kb.packed_batch_multi_step_plain(plain, steps, rule, (h, w), k,
+                                                     out=torch.empty_like(x), offset=offset)
+            err = int(bool((kern ^ plain).any()))  # max |cell difference|: 0 or 1
+            batch_max_err = max(batch_max_err, err)
+            if err:
+                fail(f"phase 16 (a): K1's batch mode differs from its plain version: {spec} "
+                     f"8x{h}x{w}, k {k}, offset {offset}, budgets {budgets}")
+            checked += 1
+        for s, n in enumerate(budgets):  # and the slots to independent runs
+            want = run_np(boards[s], rule, min(n, P16_CHUNK)) if h * w <= 1 << 20 else None
+            if want is not None and not np.array_equal(bitlife.unpack_np(
+                    kern[s].cpu().numpy().view(np.uint32), w), want):
+                fail(f"phase 16 (a): {spec} {h}x{w} slot {s} (budget {n}) differs from run_np")
+    print(f"phase 16 (a): K1's batch mode bit-identical to its plain version in {checked} launches "
+          f"(conway 8x512^2 and 8x4096^2, highlife 8x1500x500, R2 NN 8x1000x333; budgets "
+          f"0, 1, k-1, k, k+1, {P16_CHUNK}, 3, 100; every slot of the small boards equal to run_np)",
+          flush=True)
+
+    # timed: every slot at a full chunk's budget, one launch of depth 8,
+    # by CUDA events; its plain version; 8 single-board K1 launches; the
+    # device times from the profiler in a fresh child
+    rows = {}
+    for side in P16_SIDES:
+        g = torch.Generator(device=dev).manual_seed(side)
+        x = torch.randint(-2**31, 2**31 - 1, (8, side, side // 32), generator=g, dtype=torch.int32,
+                          device=dev)
+        y = torch.empty_like(x)
+        steps = torch.full((8,), P16_CHUNK, dtype=torch.int32, device=dev)
+        ms = events_ms(lambda: kb.packed_batch_multi_step(x, steps, conway, (side, side),
+                                                          BLOCK_STEPS, out=y), 20)
+        plain_ms = events_ms(lambda: kb.packed_batch_multi_step_plain(
+            x, steps, conway, (side, side), BLOCK_STEPS, out=y), 2)
+
+        def singles():
+            for s in range(8):
+                ps.packed_multi_step(x[s], conway, (side, side), BLOCK_STEPS,
+                                     block_steps=BLOCK_STEPS, scratch=y[s])
+        single_ms = events_ms(singles, 10)
+        n_words = 8 * side * (side // 32)
+        mem_ms = 2 * n_words * 4 / HBM_BYTES_PER_S * 1e3
+        ops_ms = ps.logic_ops_per_word_step(conway) * n_words * BLOCK_STEPS / int_ops_per_s * 1e3
+        bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
+        rows[side] = dict(ms=ms, plain_ms=plain_ms, single_ms=single_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, tiles=ps.launch_tile_shape(conway, BLOCK_STEPS,
+                                                                        8 * side, side // 32))
+    proc = subprocess.run([sys.executable, "-c", P16_PROFILE, *map(str, P16_SIDES)], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"phase 16 profile child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    device = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("P16 ")][-1][4:])
+
+    def fmt_dev(v) -> str:
+        return "not measured (no kernel records)" if v is None else f"{v:.4f}"
+
+    for side, r in rows.items():
+        r["device_ms"], _ = device[f"batch_{side}"]
+        r["single_device_ms"], n_single = device[f"single_{side}"]
+        print(f"K1's batch mode, conway 8x{side}^2, k = {BLOCK_STEPS}, every slot stepping "
+              f"(tiles {r['tiles']}): {r['ms']:.4f} ms a launch by CUDA events, device "
+              f"{fmt_dev(r['device_ms'])}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{ps.logic_ops_per_word_step(conway)} logic ops a word a step over every slot's "
+              f"words, or each word read and written once); plain {r['plain_ms']:.3f} ms; 8 "
+              f"single-board K1 launches {r['single_ms']:.4f} ms by events, device "
+              f"{fmt_dev(r['single_device_ms'])} ({n_single} kernel records a rep) {card}",
+              flush=True)
+    torch.cuda.empty_cache()
+
+    def serve_cli(args: list[str]) -> tuple[int, dict]:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args)
+        return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    # (b) the serve mix through `serve`: 32 sessions of 512^2 Conway x 128
+    # steps (8 distinct boards), capacity 8, chunk 16, half the sessions
+    # queued at once (--max-queue 16) and the rest admitted as the pump
+    # runs, on every backend and pump; each result equal to the numpy
+    # oracle's bytes.  A run lasts about a tenth of a second on the card,
+    # so each card backend and pump runs P16_REPEATS times and the rates
+    # are read as their median and range; the numpy oracle runs once
+    mix = {}
+    main_launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        oracle = []
+        for i in range(8):
+            b = seeded_board(P16_SIDE, P16_SIDE, seed=100 + i)
+            write_board(tmp / f"b{i}.txt", b)
+            oracle.append(encode_board(run_np(b, conway, P16_STEPS)))
+        spool = tmp / "mix.jsonl"
+        spool.write_text("".join(json.dumps({
+            "input_file": str(tmp / f"b{i % 8}.txt"), "height": P16_SIDE, "width": P16_SIDE,
+            "steps": P16_STEPS, "rule": "conway", "seed": 0}) + "\n" for i in range(P16_SESSIONS)))
+        for backend in ("cuda", "sharded", "numpy"):
+            for pump in ("pipelined", "sync"):
+                runs = []
+                for rep in range(1 if backend == "numpy" else P16_REPEATS):
+                    out = tmp / f"out_{backend}_{pump}_{rep}"
+                    kb.packed_batch_multi_step.launches = BatchEngine.dispatched = 0
+                    rc, summary = serve_cli([
+                        "serve", "--requests", str(spool), "--output-dir", str(out),
+                        "--serve-backend", backend, "--capacity", "8", "--chunk-steps",
+                        str(P16_CHUNK), "--max-queue", str(P16_SESSIONS // 2),
+                        *(["--sync-pump"] if pump == "sync" else [])])
+                    launches, chunks = kb.packed_batch_multi_step.launches, BatchEngine.dispatched
+                    if rc != 0 or summary["done"] != P16_SESSIONS or summary["written"] != P16_SESSIONS:
+                        fail(f"phase 16 (b) serve {backend} {pump}: rc {rc}, {summary}")
+                    for i in range(P16_SESSIONS):
+                        if (out / f"s{i:06d}.txt").read_bytes() != oracle[i % 8]:
+                            fail(f"phase 16 (b) serve {backend} {pump}: session {i} differs from "
+                                 f"the numpy oracle's bytes")
+                    shutil.rmtree(out)
+                    if backend == "cuda" and not (chunks and launches == 2 * chunks):
+                        fail(f"phase 16 (b) serve cuda {pump}: {launches} K1 batch launches over "
+                             f"{chunks} chunks, want 2 a chunk")
+                    if backend != "cuda" and launches:
+                        fail(f"phase 16 (b) serve {backend} {pump}: {launches} K1 batch launches")
+                    if backend == "cuda" and pump == "pipelined" and rep == 0:
+                        main_launches = launches
+                    el = summary["elapsed_s"]
+                    runs.append(dict(
+                        sessions_per_s=summary["sessions_per_sec"], rounds=summary["rounds"],
+                        rounds_per_s=summary["rounds"] / el if el > 0 else 0.0,
+                        occupancy=summary["batch_occupancy_mean"],
+                        idle=summary["device_idle_s"] / el if el > 0 else 0.0,
+                        elapsed_s=el, launches=launches, chunks=chunks))
+                mix[(backend, pump)] = runs
+    print(f"phase 16 (b): the serve mix ({P16_SESSIONS} x {P16_SIDE}^2 conway x {P16_STEPS}, "
+          f"capacity 8, chunk {P16_CHUNK}, --max-queue {P16_SESSIONS // 2}) through serve, every "
+          f"result equal to the numpy oracle's bytes; median [min, max] of {P16_REPEATS} runs on "
+          f"the card's backends, 1 on numpy {card}:", flush=True)
+
+    def spread(runs: list[dict], name: str, fmt: str) -> str:
+        v = sorted(r[name] for r in runs)
+        med = v[len(v) // 2]
+        return f"{med:{fmt}}" if len(v) == 1 else f"{med:{fmt}} [{v[0]:{fmt}}, {v[-1]:{fmt}}]"
+
+    for (backend, pump), runs in mix.items():
+        m = runs[0]
+        per = f"{m['launches'] / m['chunks']:.2f}" if m["chunks"] else "n/a"
+        print(f"  {backend:8s} {pump:9s}: {spread(runs, 'sessions_per_s', '.2f')} sessions/s, "
+              f"{spread(runs, 'rounds_per_s', '.2f')} rounds/s ({m['rounds']} rounds, "
+              f"{spread(runs, 'elapsed_s', '.4f')} s), occupancy {m['occupancy']:.3f}, device "
+              f"idle {spread(runs, 'idle', '.4f')} of the run, K1 batch launches "
+              f"{m['launches']} over {m['chunks']} batch chunks ({per} a chunk)", flush=True)
+
+    # (b') the keys K1 does not take go to K2 on cuda, one Runner a slot:
+    # 8 sessions of 512^2 brians_brain x P16_K2_STEPS under both pumps, each
+    # equal to the numpy oracle's bytes; K2 launches 2 a slot a chunk (K2's
+    # depth at radius 1 is 8, the chunk 16), K1's batch mode none
+    brain = get_rule("brians_brain")
+    k2_depth = kt.clamp_block_steps(brain, BLOCK_STEPS)
+    k2_want = 8 * (P16_K2_STEPS // P16_CHUNK) * -(-P16_CHUNK // k2_depth)
+    k2_runs = {}
+    k2_serve_launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        oracle = []
+        for i in range(8):
+            b = rng.integers(0, 3, (P16_SIDE, P16_SIDE)).astype(np.int8)
+            write_board(tmp / f"b{i}.txt", b)
+            oracle.append(encode_board(run_np(b, brain, P16_K2_STEPS)))
+        spool = tmp / "k2.jsonl"
+        spool.write_text("".join(json.dumps({
+            "input_file": str(tmp / f"b{i}.txt"), "height": P16_SIDE, "width": P16_SIDE,
+            "steps": P16_K2_STEPS, "rule": "brians_brain", "seed": 0}) + "\n" for i in range(8)))
+        for pump in ("pipelined", "sync"):
+            out = tmp / f"out_{pump}"
+            kb.packed_batch_multi_step.launches = kt.int8_multi_step.launches = 0
+            rc, summary = serve_cli([
+                "serve", "--requests", str(spool), "--output-dir", str(out), "--capacity", "8",
+                "--chunk-steps", str(P16_CHUNK), *(["--sync-pump"] if pump == "sync" else [])])
+            launches = (kb.packed_batch_multi_step.launches, kt.int8_multi_step.launches)
+            if rc != 0 or summary["done"] != 8 or launches != (0, k2_want):
+                fail(f"phase 16 (b') serve brians_brain {pump}: rc {rc}, (K1 batch, K2) launches "
+                     f"{launches}, want (0, {k2_want}); {summary}")
+            for i in range(8):
+                if (out / f"s{i:06d}.txt").read_bytes() != oracle[i]:
+                    fail(f"phase 16 (b') serve brians_brain {pump}: session {i} differs from the "
+                         f"numpy oracle's bytes")
+            if pump == "pipelined":
+                k2_serve_launches = launches[1]
+            k2_runs[pump] = summary["elapsed_s"]
+    svc = SimulationService(ServeConfig(backend="cuda", capacity=2, chunk_steps=P16_CHUNK))
+    try:
+        svc.submit(np.zeros((64, 64), np.int8), "brians_brain", 1)
+        svc.drain()
+        engines = [type(e) for e in svc.scheduler.engines.values()]
+    finally:
+        svc.close()
+    if engines != [SlotLoopEngine]:
+        fail(f"phase 16 (b'): a brians_brain key on cuda built {engines}, want the K2 slot loop")
+    print(f"phase 16 (b'): 8 x {P16_SIDE}^2 brians_brain x {P16_K2_STEPS} on cuda (capacity 8, chunk "
+          f"{P16_CHUNK}) through K2 per slot, {k2_want} K2 launches a run and no K1 batch launch, "
+          f"every result equal to the numpy oracle's bytes; serve took "
+          f"{k2_runs['pipelined']:.4f} s pipelined, {k2_runs['sync']:.4f} s sync {card}", flush=True)
+
+    # the governor's estimate beside the allocator's peak for one cuda engine
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    svc = SimulationService(ServeConfig(backend="cuda", capacity=8, chunk_steps=P16_CHUNK))
+    try:
+        for i in range(8):
+            svc.submit(seeded_board(P16_SIDE, P16_SIDE, seed=100 + i), "conway", 32)
+        svc.drain()
+        (key,) = svc.scheduler.engines
+        estimate = governor.estimate_engine_bytes(key, 8)
+    finally:
+        svc.close()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"phase 16 governor: one cuda engine of 8 x {P16_SIDE}^2 conway (route k1_batch): "
+          f"estimate {estimate} bytes, torch.cuda.max_memory_allocated {peak} bytes over the "
+          f"baseline ({peak / estimate:.3f} of the estimate)", flush=True)
+
+    # (c) the reference workload as a served request: submit, then serve
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with gzip.open(FIXTURES / "reference_data.txt.gz", "rb") as f:
+            (tmp / "data.txt").write_bytes(f.read())
+        shutil.copy(FIXTURES / "reference_grid_size_data.txt", tmp / "grid_size_data.txt")
+        spool = str(tmp / "ref.jsonl")
+        if cli_main_rc(["submit", "--requests", spool, "--input-file", str(tmp / "data.txt"),
+                        "--config-file", str(tmp / "grid_size_data.txt"),
+                        "--output-file", str(tmp / "output.txt")]) != 0:
+            fail("phase 16 (c): submit of the reference workload failed")
+        kb.packed_batch_multi_step.launches = 0
+        rc = cli_main_rc(["serve", "--requests", spool, "--output-dir", str(tmp / "out")])
+        ref_launches = kb.packed_batch_multi_step.launches
+        raw = (tmp / "output.txt").read_bytes() if (tmp / "output.txt").exists() else b""
+        if rc != 0 or len(raw) != GOLDEN_BYTES or hashlib.sha256(raw).hexdigest() != GOLDEN_SHA \
+                or not ref_launches:
+            fail(f"phase 16 (c): served reference workload rc {rc}, {len(raw)} bytes, "
+                 f"{ref_launches} K1 batch launches; want the golden sha256")
+    print(f"phase 16 (c): submit + serve of the reference workload: golden sha256, "
+          f"{ref_launches} K1 batch launches", flush=True)
+
+    # (d) a mega-board session of FULL^2 on mesh:2x2 of the card (a budget
+    # the board's batch overflows), held to a one-card run's bytes
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        spool = str(tmp / "mega.jsonl")
+        cli_main_rc(["submit", "--requests", spool, "--size", str(FULL), "--steps",
+                     str(P16_MEGA_STEPS), "--seed", "5", "--input-file", str(tmp / "absent.txt"),
+                     "--output-file", str(tmp / "mega.txt")])
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["serve", "--requests", spool, "--output-dir", str(tmp / "out"),
+                           "--mesh-devices", "4", "--memory-budget-bytes", str(1 << 30)])
+        mega_s = time.perf_counter() - t0
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if rc != 0 or summary["done"] != 1:
+            fail(f"phase 16 (d): mega-board serve rc {rc}: {summary}")
+        board = seeded_board(FULL, FULL, seed=5, device=dev).cpu().numpy()
+        runner = make_runner(get_backend("cuda"), board, conway)
+        runner.advance(P16_MEGA_STEPS)
+        want = runner.fetch()
+        del runner
+        got = read_board(tmp / "mega.txt", FULL, FULL)
+        if not np.array_equal(got, want):
+            fail("phase 16 (d): the mesh:2x2 mega-board differs from the one-card run")
+    print(f"phase 16 (d): a {FULL}^2 conway x {P16_MEGA_STEPS} session served on mesh:2x2 of the "
+          f"card (--mesh-devices 4, budget 1 GiB), equal to the cuda backend's run; serve took "
+          f"{mega_s:.1f} s {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    # (e) a lenia:orbium 512^2 batch on cuda (route ops), allclose to the
+    # numpy oracle at the Lenia tier's tolerance
+    orbium = get_rule("lenia:orbium")
+    boards = [lenia.seeded_board(P16_SIDE, P16_SIDE, seed=s) for s in range(4)]
+    budgets = [8, 3, 8, 5]
+    svc = SimulationService(ServeConfig(backend="cuda", capacity=8, chunk_steps=4))
+    try:
+        sids = [svc.submit(b, "lenia:orbium", n) for b, n in zip(boards, budgets)]
+        svc.drain()
+        routes = {e.route for e in svc.scheduler.engines.values()}
+        err = max(float(np.abs(svc.result(sid) - lenia.run_np(b, orbium, n)).max())
+                  for sid, b, n in zip(sids, boards, budgets))
+    finally:
+        svc.close()
+    if routes != {"ops"} or not err <= lenia.FLOAT_ATOL:
+        fail(f"phase 16 (e): lenia:orbium batch routes {routes}, max error {err}")
+    print(f"phase 16 (e): lenia:orbium 4 x {P16_SIDE}^2 (budgets {budgets}) on cuda, route ops: max "
+          f"abs error {err:.3e} against the numpy oracle (<= {lenia.FLOAT_ATOL}); phase 16 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    big = rows[P16_SIDES[-1]]
+    small = rows[P16_SIDES[0]]
+    return {
+        "name": "packed_batch_multi_step",
+        "route": "cuda",
+        "source": "tpu_life_torch/csrc/packed_stripe.cu",
+        "replaces": "tpu_life/serve/engine.py:453",
+        "launches": main_launches,
+        "max_abs_err": batch_max_err,
+        "equal_to_plain": batch_max_err == 0,
+        "rule": "conway",
+        "shape": [8, P16_SIDES[-1], P16_SIDES[-1]],
+        "steps_per_launch": BLOCK_STEPS,
+        "ms": big["ms"],
+        "kernel_ms": big["ms"],
+        "device_ms": big["device_ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
+        "library_ms": None,
+        "single_board_ms": big["single_ms"],
+        "single_board_device_ms": big["single_device_ms"],
+        "ms_512": small["ms"],
+        "device_ms_512": small["device_ms"],
+        "bound_ms_512": small["bound_ms"],
+        "single_board_ms_512": small["single_ms"],
+        "chunks": mix[("cuda", "pipelined")][0]["chunks"],
+        "reference_launches": ref_launches,
+        "serve_mix": {f"{b} {p}": {k: [r[k] for r in runs] for k in (
+            "sessions_per_s", "rounds_per_s", "occupancy", "idle")}
+                      for (b, p), runs in mix.items()},
+        "k2_serve_launches": k2_serve_launches,
+        **ctx["instances"][K1_BATCH],
+    }
 
 
 def cli_main_rc(args: list[str]) -> int:

@@ -695,3 +695,129 @@ def test_numpy_oracles_copy(spec, temperature):
         np.testing.assert_array_equal(
             packed.run_packed_np(rule, board, 9, 6, temperature=temperature, start_step=3),
             jpacked.run_packed_np(jrule, board, 9, 6, temperature=temperature, start_step=3))
+
+
+# -- the serving tier: errors, sessions, qos, stream, flight, time series,
+# chaos and the governor's arithmetic ---------------------------------------
+
+
+def _as_jax(src: str) -> str:
+    """A port source read under the JAX package's module names."""
+    return src.replace("tpu_life_torch", "tpu_life")
+
+
+SERVING_COPIES = ["tpu_life.serve.errors", "tpu_life.serve.sessions", "tpu_life.serve.qos",
+                  "tpu_life.serve.stream", "tpu_life.obs.flight", "tpu_life.obs.timeseries"]
+
+
+def _body(mod) -> str:
+    """A module's source after its docstring."""
+    src = _source(mod)
+    return src[src.index('"""\n\nfrom __future__') + 3:]
+
+
+@pytest.mark.parametrize("name", [*SERVING_COPIES, "tpu_life.obs.trace"])
+def test_serving_modules_are_copies_but_their_docstrings(name):
+    import importlib
+
+    jmod = importlib.import_module(name)
+    port = importlib.import_module(name.replace("tpu_life", "tpu_life_torch", 1))
+    assert _as_jax(_body(port)) == _body(jmod)
+
+
+CHAOS_NAMES = ["ChaosError", "Fault", "Decision", "arm", "disarm", "armed", "active_plan",
+               "armed_plan", "maybe_arm_from_env", "injection_count", "counts", "bind_registry",
+               "_record", "decide", "record_fire", "delay", "skew", "corrupt",
+               "partitioned", "crash"]
+CHAOS_PLAN_METHODS = ["__init__", "from_spec", "spec", "digest", "_decide", "decide",
+                      "decide_pair", "_preview", "preview_pair", "preview"]
+
+
+@pytest.mark.parametrize("name", CHAOS_NAMES)
+def test_chaos_functions_are_verbatim_copies(name):
+    from tpu_life import chaos as jchaos
+    from tpu_life_torch import chaos
+
+    assert _as_jax(_source(getattr(chaos, name))) == _source(getattr(jchaos, name))
+
+
+@pytest.mark.parametrize("name", CHAOS_PLAN_METHODS)
+def test_chaos_plan_methods_are_verbatim_copies(name):
+    from tpu_life import chaos as jchaos
+    from tpu_life_torch import chaos
+
+    assert _as_jax(_source(getattr(chaos.ChaosPlan, name))) == _source(
+        getattr(jchaos.ChaosPlan, name))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_chaos_schedules_equal_on_the_same_plan(seed):
+    # _hit calls the port's threefry (no xp argument): the same draws
+    from tpu_life import chaos as jchaos
+    from tpu_life_torch import chaos
+
+    spec = {"seed": seed, "points": {"engine.dispatch": {"rate": 0.3, "mode": "fault"},
+                                     "spill.write": {"rate": 0.7, "mode": "enospc", "times": 3}}}
+    plans = chaos.ChaosPlan.from_spec(spec), jchaos.ChaosPlan.from_spec(spec)
+    for point in ("engine.dispatch", "spill.write"):
+        assert plans[0].preview(point, 200) == plans[1].preview(point, 200)
+    assert plans[0].digest() == plans[1].digest()
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("point,mode,marker", [("engine.dispatch", "fault", "injected device fault"),
+                                               ("engine.oom", "oom", "RESOURCE_EXHAUSTED")])
+def test_chaos_inject_raises_alike(point, mode, marker):
+    # inject's one comment differs (the port names no XLA): its raises agree
+    from tpu_life import chaos as jchaos
+    from tpu_life_torch import chaos
+    from tpu_life_torch.runtime import recovery
+
+    msgs = []
+    for mod in (chaos, jchaos):
+        with mod.armed_plan({"seed": 0, "points": {point: {"mode": mode}}}):
+            with pytest.raises(RuntimeError, match=marker) as err:
+                mod.inject(point)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+    assert recovery.is_oom(RuntimeError(msgs[0])) == (mode == "oom")
+
+
+def test_governor_constants_and_mesh_arithmetic_copy():
+    from tpu_life.serve import governor as jgov
+    from tpu_life_torch.serve import governor
+
+    port_kinds = {k: v for k, v in jgov.DEFAULT_BYTES_PER_DEVICE.items() if k in
+                  ("gpu", "cuda", "cpu", "host")}
+    assert governor.DEFAULT_BYTES_PER_DEVICE == port_kinds
+    assert governor.MESH_COPIES == jgov.MESH_COPIES
+    for name in ("estimate_mesh_bytes", "estimate_mesh_shard_bytes", "mesh_min_devices",
+                 "check_admission", "reserved_bytes"):
+        assert _as_jax(_source(getattr(governor, name))) == _source(getattr(jgov, name)), name
+
+
+@pytest.mark.parametrize("spec", ["conway", "brians_brain", "bugs", "lenia:mini",
+                                  "R2,C2,S2..4,B2..3,NN", "star_wars", "conway:T"])
+@pytest.mark.parametrize("shape", [(16, 16), (100, 37), (4096, 4096)])
+@pytest.mark.parametrize("backend,jbackend", [("cuda", "jax"), ("numpy", "numpy"),
+                                              ("sharded", "sharded"), ("mesh:2x2", "mesh:2x2")])
+def test_governor_estimates_equal_under_the_backend_mapping(spec, shape, backend, jbackend):
+    # a cuda key's JAX counterpart follows its route: the device batch
+    # (jax) or, for the K2 slot loop, the pallas backend's slot loop
+    from tpu_life.models.rules import get_rule as jget_rule
+    from tpu_life.serve import engine as jengine
+    from tpu_life.serve import governor as jgov
+    from tpu_life_torch.models.rules import get_rule
+    from tpu_life_torch.serve import engine, governor
+
+    if backend == "cuda" and engine.cuda_route(get_rule(spec)) == "k2_slots":
+        jbackend = "pallas"
+    board = np.zeros(shape, dtype=np.int8)
+    key = engine.compile_key_for(get_rule(spec), board, backend)
+    jkey = jengine.compile_key_for(jget_rule(spec), board, jbackend)
+    for capacity in (1, 8):
+        assert governor.estimate_engine_bytes(key, capacity) == jgov.estimate_engine_bytes(
+            jkey, capacity)
+    if backend.startswith("mesh"):
+        assert governor.estimate_mesh_shard_bytes(key, (2, 2)) == jgov.estimate_mesh_shard_bytes(
+            jkey, (2, 2))

@@ -181,3 +181,29 @@ def test_scan_covers_the_stochastic_tier():
     } <= set(MODULES)
     for path in (*sorted((PKG / "mc").glob("*.py")), PKG / "kernels" / "mc_threefry.py"):
         assert path in SOURCES
+
+
+def test_scan_covers_the_serving_tier():
+    # the serving tier (service, scheduler, engines, spill, streams, the
+    # governor), its obs and chaos copies, the device probe and K1's batch
+    # mode are among the modules both checks read
+    assert {
+        "tpu_life_torch.serve",
+        "tpu_life_torch.serve.engine",
+        "tpu_life_torch.serve.errors",
+        "tpu_life_torch.serve.governor",
+        "tpu_life_torch.serve.mesh_engine",
+        "tpu_life_torch.serve.qos",
+        "tpu_life_torch.serve.scheduler",
+        "tpu_life_torch.serve.service",
+        "tpu_life_torch.serve.sessions",
+        "tpu_life_torch.serve.spill",
+        "tpu_life_torch.serve.stream",
+        "tpu_life_torch.obs.flight",
+        "tpu_life_torch.obs.timeseries",
+        "tpu_life_torch.chaos",
+        "tpu_life_torch.utils.platform",
+        "tpu_life_torch.kernels.packed_batch",
+    } <= set(MODULES)
+    for path in (*sorted((PKG / "serve").glob("*.py")), PKG / "chaos" / "__init__.py"):
+        assert path in SOURCES

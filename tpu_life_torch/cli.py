@@ -21,7 +21,11 @@ JSON throughput record with the JAX ``bench`` record's keys; ``bench
 writes a random board and its config, ``pattern`` converts RLE patterns
 and named patterns to and from the contract files, each with the bytes
 ``python -m tpu_life`` writes; ``info`` shows the torch build, the CUDA
-devices, backends and rules.
+devices, backends and rules.  ``submit`` appends a request line to a
+spool and ``serve`` runs every request of a spool through the serving
+tier (``tpu_life_torch.serve``), printing one summary JSON line: the JAX
+``submit``/``serve`` with ``--device`` for ``--platform`` and the port's
+serve backends (``cuda``, the default, ``numpy``, ``sharded``).
 """
 
 from __future__ import annotations
@@ -284,6 +288,8 @@ def build_parser() -> argparse.ArgumentParser:
                      help="rule string stamped into the exported RLE header "
                      "(record what the board was actually evolved under)")
 
+    _add_serve_parsers(sub)
+
     g = sub.add_parser("gen", help="generate a random board + config")
     g.add_argument("--height", type=int, required=True)
     g.add_argument("--width", type=int, required=True)
@@ -310,6 +316,10 @@ def main(argv: list[str] | None = None) -> int:
         return _gen(args)
     if args.command == "bench":
         return _bench(parser, args)
+    if args.command == "submit":
+        return _submit(args)
+    if args.command == "serve":
+        return _serve(args)
     mesh_shape = _parse_mesh_shape(parser, args.mesh_shape)
     cfg = RunConfig(
         height=args.height if args.height is not None else args.size,
@@ -692,6 +702,333 @@ def _gen(args) -> int:
     write_config(args.config_file, args.height, args.width, args.steps)
     print(f"wrote {args.input_file} ({args.height}x{args.width}) and {args.config_file}")
     return 0
+
+
+# -- submit / serve: the spool front-end of the serving tier ------------------
+
+#: the port's serve backends, and the JAX package's that wait for later items
+SERVE_BACKEND_CHOICES = ["cuda", "numpy", "sharded", "tuned", "stripes", "native"]
+
+
+def _add_serve_parsers(sub) -> None:
+    """``submit`` and ``serve`` with the JAX package's flags and defaults;
+    ``--device`` takes the place of ``--platform``, and ``--serve-backend``
+    takes the port's names."""
+    srv = sub.add_parser(
+        "serve",
+        help="multi-tenant batched serving: run every request in a JSONL "
+        "spool file through the continuous-batching service",
+    )
+    srv.add_argument("--requests", default="serve_requests.jsonl", metavar="JSONL",
+                     help="request spool file (one JSON object per line; see `submit`)")
+    srv.add_argument("--output-dir", default="serve_out",
+                     help="where results land for requests without an output_file "
+                     "(<output-dir>/<session-id>.txt, contract board format)")
+    srv.add_argument("--capacity", type=int, default=8, help="batch slots per compile key")
+    srv.add_argument("--chunk-steps", type=int, default=16,
+                     help="device steps per scheduling round")
+    srv.add_argument("--max-queue", type=int, default=64,
+                     help="bounded admission queue (backpressure threshold)")
+    srv.add_argument(
+        "--serve-backend", default="cuda", choices=SERVE_BACKEND_CHOICES,
+        help="engine executor: cuda = the card: K1's batch mode for the rules "
+        "kernel K1 takes, one K2 Runner per slot for the other clamped Moore "
+        "rules, and the device batch in plain ops for the rest; numpy = the "
+        "host oracle; sharded = one sharded Runner per slot (K3/K4); tuned, "
+        "stripes and native are not ported yet",
+    )
+    srv.add_argument("--sync-pump", action="store_true",
+                     help="run the host-synchronous scheduling round instead of the "
+                     "default pipelined (double-buffered) pump")
+    srv.add_argument("--no-bitpack", action="store_true",
+                     help="the stochastic tier's knob; its serving engines are not "
+                     "ported yet")
+    srv.add_argument("--stencil", default="auto", choices=["auto", "roll", "matmul"],
+                     help="neighbour-counting path of the plain-op engines: roll, "
+                     "matmul, or auto (matmul for continuous rules; the numpy "
+                     "oracle stays on roll)")
+    srv.add_argument("--timeout", type=float, default=None, metavar="SECONDS",
+                     help="default per-request deadline")
+    srv.add_argument("--spill-dir", default=None, metavar="DIR",
+                     help="durable sessions: spill every live session's board + "
+                     "manifest here through the checkpoint contract")
+    srv.add_argument("--spill-every", type=int, default=4, metavar="K",
+                     help="rounds between spill passes")
+    srv.add_argument("--metrics-file", default=None, metavar="JSONL",
+                     help="append per-round serve metrics as JSON lines")
+    srv.add_argument("--trace-events", default=None, metavar="FILE",
+                     help="write Chrome trace-event JSON: round spans + per-session "
+                     "queue-wait intervals, run_id-correlated with the metrics sink")
+    srv.add_argument("--prom-file", default=None, metavar="FILE",
+                     help="write a Prometheus text snapshot of the serve metrics "
+                     "registry at shutdown")
+    srv.add_argument("--memory-budget-bytes", type=int, default=None, metavar="BYTES",
+                     help="admission memory budget for estimated engine footprints "
+                     "(default: devices x per-kind default; 0 disables)")
+    srv.add_argument("--engine-max-restarts", type=int, default=3, metavar="N",
+                     help="in-place engine recoveries per compile key (rebuild and "
+                     "replay; OOM: halve the chunk, then the host engine)")
+    srv.add_argument("--settle-deadline", type=float, default=None, metavar="SECONDS",
+                     help="wedge watchdog: a pipelined settle window still blocked "
+                     "after this many seconds marks the service wedged")
+    srv.add_argument("--mesh-devices", type=int, default=0, metavar="N",
+                     help="mega-board tier: reserve an N-device slice (on one card, "
+                     "N shards of it) for boards the governor would reject as "
+                     "never-fits (0 = tier off; needs >= 2)")
+    srv.add_argument("--device", default=None,
+                     help="the device of the device engines (default: the card); "
+                     "'cpu' runs their plain PyTorch versions")
+    srv.add_argument("--profile", default=None, metavar="TRACE_DIR")
+    srv.add_argument("--verbose", "-v", action="store_true")
+
+    sm = sub.add_parser(
+        "submit",
+        help="append one simulation request to the serve spool file "
+        "(board + rule + step budget)",
+    )
+    sm.add_argument("--requests", default="serve_requests.jsonl", metavar="JSONL")
+    sm.add_argument("--input-file", default="data.txt")
+    sm.add_argument("--config-file", default="grid_size_data.txt",
+                    help="geometry fallback for unset --height/--width/--steps")
+    sm.add_argument("--size", type=int, default=None,
+                    help="square board: shorthand for --height N --width N "
+                    "(explicit --height/--width win); with --steps and no "
+                    "input file, queues a seeded random board")
+    sm.add_argument("--height", type=int, default=None)
+    sm.add_argument("--width", type=int, default=None)
+    sm.add_argument("--steps", type=int, default=None)
+    sm.add_argument("--seed", type=int, default=0,
+                    help="seed for the no-input-file random board")
+    sm.add_argument("--rule", default="conway")
+    sm.add_argument("--temperature", type=float, default=None, metavar="T",
+                    help="Metropolis temperature for --rule ising (rides the spool line)")
+    sm.add_argument("--output-file", default=None,
+                    help="where `serve` writes this request's result "
+                    "(default: <output-dir>/<session-id>.txt)")
+    sm.add_argument("--timeout", type=float, default=None, metavar="SECONDS")
+    sm.add_argument("--id", default=None, help="client request tag echoed in the summary")
+
+
+def _submit(args) -> int:
+    """Append one request line to the serve spool, the JAX ``submit``'s
+    line.  Geometry falls back to the contract config file exactly like
+    ``run``; fully flag-specified geometry with no input file queues a
+    seeded random board."""
+    import json
+    from pathlib import Path
+
+    height = args.height if args.height is not None else args.size
+    width = args.width if args.width is not None else args.size
+    if (
+        height is not None
+        and width is not None
+        and args.steps is not None
+        and not Path(args.input_file).exists()
+    ):
+        # a seeded request: the line carries no input_file; `serve` stages
+        # the seed's board
+        steps = args.steps
+        req = {"height": height, "width": width, "steps": steps, "rule": args.rule,
+               "seed": args.seed}
+        source = f"seeded random board (seed {args.seed})"
+    else:
+        height, width, steps = RunConfig(
+            height=height, width=width, steps=args.steps, config_file=args.config_file,
+        ).resolved_geometry()
+        req = {"input_file": args.input_file, "height": height, "width": width,
+               "steps": steps, "rule": args.rule, "seed": args.seed}
+        source = args.input_file
+    if args.temperature is not None:
+        req["temperature"] = args.temperature
+    if args.output_file is not None:
+        req["output_file"] = args.output_file
+    if args.timeout is not None:
+        req["timeout_s"] = args.timeout
+    if args.id is not None:
+        req["id"] = args.id
+    p = Path(args.requests)
+    if p.parent != Path("."):
+        p.parent.mkdir(parents=True, exist_ok=True)
+    with open(p, "a") as f:
+        f.write(json.dumps(req) + "\n")
+        f.flush()
+    print(f"queued {source} ({height}x{width}, {steps} steps) -> {p}")
+    return 0
+
+
+def _read_spool(path: str) -> list[dict]:
+    import json
+    from pathlib import Path
+
+    spool = Path(path)
+    if not spool.exists():
+        raise FileNotFoundError(
+            f"request spool {path!r} not found; queue requests with `submit` first"
+        )
+    requests = []
+    with open(spool) as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            try:
+                requests.append(json.loads(line))
+            except json.JSONDecodeError as e:
+                raise ValueError(f"{path}:{lineno}: bad request line: {e}") from e
+    return requests
+
+
+def _stage_request(req: dict, rule, device):
+    """A request's board: its input file, or the seed's board, drawn on
+    the card by kernel K7 where the service runs on one (the numpy board's
+    bytes either way); a continuous rule stages the float board."""
+    from tpu_life_torch.io.codec import read_board
+
+    if "input_file" in req:
+        return read_board(req["input_file"], req["height"], req["width"])
+    seed = int(req.get("seed", 0))
+    if rule.continuous:
+        from tpu_life_torch.models.lenia import seeded_board as lenia_seeded_board
+
+        return lenia_seeded_board(req["height"], req["width"], seed=seed)
+    from tpu_life_torch.mc.prng import seeded_board
+
+    if device is None:
+        return seeded_board(req["height"], req["width"], states=rule.states, seed=seed)
+    return seeded_board(req["height"], req["width"], states=rule.states, seed=seed,
+                        device=device).cpu().numpy()
+
+
+def _serve(args) -> int:
+    """The serving loop: spool in, result boards + one summary JSON line
+    out, with the JAX ``serve``'s keys.  Exit 0 when every session
+    completed, 1 when any failed, 2 for what is not ported yet (a
+    stochastic request, the tuned/stripes/native backends)."""
+    import json
+    from pathlib import Path
+
+    from tpu_life_torch.io.codec import write_board
+    from tpu_life_torch.models.rules import NotPortedError, get_rule
+    from tpu_life_torch.runtime.metrics import configure_logging
+    from tpu_life_torch.serve import (
+        InsufficientMemory,
+        QueueFull,
+        ServeConfig,
+        SessionState,
+        SimulationService,
+    )
+    from tpu_life_torch.serve.engine import check_backend, refuse_stochastic
+
+    configure_logging(args.verbose)
+    requests = _read_spool(args.requests)
+    try:
+        check_backend(args.serve_backend)
+        for req in requests:
+            refuse_stochastic(get_rule(req.get("rule", "conway")))
+    except NotPortedError as e:
+        print(f"{PROG}: {e}", file=sys.stderr)
+        return 2
+    svc = SimulationService(
+        ServeConfig(
+            capacity=args.capacity,
+            chunk_steps=args.chunk_steps,
+            max_queue=args.max_queue,
+            backend=args.serve_backend,
+            device=args.device,
+            pipeline=not args.sync_pump,
+            default_timeout_s=args.timeout,
+            metrics=True,
+            metrics_file=args.metrics_file,
+            profile=args.profile,
+            trace_events=args.trace_events,
+            prom_file=args.prom_file,
+            spill_dir=args.spill_dir,
+            spill_every=args.spill_every,
+            mc_packed=not args.no_bitpack,
+            stencil=args.stencil,
+            memory_budget_bytes=args.memory_budget_bytes,
+            mesh_devices=args.mesh_devices,
+            engine_max_restarts=args.engine_max_restarts,
+            settle_deadline_s=args.settle_deadline,
+        )
+    )
+    # seeded boards are drawn on the card when the engines run there
+    stage_on = None
+    if args.serve_backend != "numpy" and (args.device is None or args.device.startswith("cuda")):
+        stage_on = args.device or "cuda"
+    submitted: list[tuple[str, dict]] = []
+    rejected: list[dict] = []
+    try:
+        for req in requests:
+            board = _stage_request(req, get_rule(req.get("rule", "conway")), stage_on)
+            sid = None
+            while True:
+                try:
+                    sid = svc.submit(
+                        board,
+                        req.get("rule", "conway"),
+                        int(req["steps"]),
+                        timeout_s=req.get("timeout_s"),
+                        seed=req.get("seed"),
+                        temperature=req.get("temperature"),
+                    )
+                    break
+                except QueueFull:
+                    # a well-behaved client of its own service: pump until
+                    # the bounded queue takes the next request
+                    svc.pump()
+                except InsufficientMemory as e:
+                    rejected.append({"session": None, "id": req.get("id"), "state": "rejected",
+                                     "error": f"{type(e).__name__}: {e}"})
+                    break
+            if sid is not None:
+                submitted.append((sid, req))
+        svc.drain()
+    finally:
+        # a failed serve still flushes its telemetry
+        svc.close()
+
+    out_dir = Path(args.output_dir)
+    failures = list(rejected)
+    written = 0
+    for sid, req in submitted:
+        view = svc.poll(sid)
+        if view.state is SessionState.DONE:
+            out = Path(req.get("output_file") or out_dir / f"{sid}.txt")
+            out.parent.mkdir(parents=True, exist_ok=True)
+            write_board(out, view.result)
+            written += 1
+        else:
+            failures.append({"session": sid, "id": req.get("id"), "state": view.state.value,
+                             "error": view.error})
+    stats = svc.stats()
+    print(
+        json.dumps(
+            {
+                "mode": "serve",
+                "run_id": stats["run_id"],
+                "backend": args.serve_backend,
+                "pump": stats["pump"],
+                "device_idle_s": stats["device_idle_seconds"],
+                "capacity": args.capacity,
+                "chunk_steps": args.chunk_steps,
+                "sessions": len(submitted),
+                "done": stats["done"],
+                "failed": stats["failed"],
+                "written": written,
+                "rounds": stats["rounds"],
+                "elapsed_s": stats["elapsed_s"],
+                "sessions_per_sec": stats["sessions_per_sec"],
+                "batch_occupancy_mean": stats["batch_occupancy_mean"],
+                "queue_wait_p50": stats["queue_wait_p50"],
+                "queue_wait_p95": stats["queue_wait_p95"],
+                "completion_p50": stats["completion_p50"],
+                "rejections": stats["rejections"],
+                "failures": failures,
+            }
+        )
+    )
+    return 0 if not failures else 1
 
 
 def console_main() -> int:

@@ -1,6 +1,7 @@
 // Bit-sliced multi-step kernels for Hopper (sm_90a): the life-like Moore
-// step and the von Neumann diamond, on one board (K1) and on one shard (K3),
-// and Conway's step on an int8 board (K5).
+// step and the von Neumann diamond, on one board (K1), on every board of a
+// batch (K1's batch mode) and on one shard (K3), and Conway's step on an
+// int8 board (K5).
 //
 // Replaces three TPU kernels:
 // - make_pallas_packed_multi_step with its body _packed_tile_advance (K1,
@@ -16,6 +17,16 @@
 //   with Conway's rule compiled in, on a board of one int8 byte a cell
 //   that the rows policy (Int8Io) packs to bits as it loads and unpacks as
 //   it stores.
+// K1's batch mode has no Pallas counterpart: it computes the chunk of the
+// JAX serving tier's batched engine (VmapEngine in tpu_life/serve/engine.py,
+// a lax.scan over a vmapped step with a freeze mask).  One launch takes a
+// batch of `slots` boards of one shape, int32[slots, H, ceil(W/32)], and a
+// device vector of per-slot step budgets, and advances slot s by
+// n_s = min(k, max(budget[s] - offset, 0)) masked steps, the tiles of K1
+// with the slot from the grid's y axis (BatchIo).  The halo depth stays k
+// for every block; a block whose slot runs fewer substeps computes n_s of
+// them, and a slot of n_s = 0 is copied through.
+//
 // K1 and K3 compute `k` masked steps of a packed bitboard, each step equal to
 // bitlife.make_masked_packed_step on the whole board: 32 cells per 32-bit
 // word, bit b of word j is column 32*j + b, int32[H, ceil(W/32)] with no
@@ -340,6 +351,16 @@ struct BoardIo {
   }
 };
 
+// K1's batch mode: the board of slot blockIdx.y of a batch of boards of
+// `height` x nwords words each, laid out one after the other.
+struct BatchIo : BoardIo {
+  __device__ __forceinline__ BatchIo(const uint32_t* src, uint32_t* dst, int height, int nwords)
+      : BoardIo{src + slot_offset(height, nwords), dst + slot_offset(height, nwords), height} {}
+  static __device__ __forceinline__ size_t slot_offset(int height, int nwords) {
+    return static_cast<size_t>(blockIdx.y) * height * nwords;
+  }
+};
+
 // `n` (1..32) cells of a packed row from column `col`, with col + n at most
 // the row's width: the bits of one word or two.
 __device__ __forceinline__ uint32_t row_bits(const uint32_t* row, int col, int n) {
@@ -518,9 +539,10 @@ __device__ __forceinline__ auto tile_edges() -> uint32_t (*)[kTileWarps][2 * r][
   return edge;
 }
 
-// k masked steps of the tile of output rows [t0, t0 + tile_rows) of a
+// n <= k masked steps of the tile of output rows [t0, t0 + tile_rows) of a
 // strip (the block's), by the W warps of the block (W = blockDim / 32, at
-// most kTileWarps).  Warp w keeps R rows (4 or 8), board rows t0 - r*k +
+// most kTileWarps); k sets the halo, n the substeps (equal but in K1's
+// batch mode, where n = 0 copies the tile through).  Warp w keeps R rows (4 or 8), board rows t0 - r*k +
 // w*R onwards, one register each; a substep computes them all, the
 // r rows beside them coming from the warps above and below through shared
 // memory (one barrier a substep).  A row keeps its new cells where it is
@@ -530,7 +552,7 @@ __device__ __forceinline__ auto tile_edges() -> uint32_t (*)[kTileWarps][2 * r][
 // tile), and the output rows are the ones left.
 template <int R, class Substep, class Rule, class Io>
 __device__ __forceinline__ void tile_run(const Io& io, int rows, int nwords, int rem_bits, int k,
-                                         int tile_rows, uint32_t center, const Sop& sop) {
+                                         int n, int tile_rows, uint32_t center, const Sop& sop) {
   constexpr int r = Substep::kReach;
   auto edge = tile_edges<r>();
   const int w = static_cast<int>(threadIdx.x / kLanes);
@@ -546,7 +568,7 @@ __device__ __forceinline__ void tile_run(const Io& io, int rows, int nwords, int
 #pragma unroll
   for (int i = 0; i < R; ++i) v[i] = io.load(base + i, gw, nwords);
 #pragma unroll 1
-  for (int s = 0; s < k; ++s) {
+  for (int s = 0; s < n; ++s) {
     uint32_t(&mine)[2 * r][kLanes] = edge[s & 1][w];
 #pragma unroll
     for (int j = 0; j < r; ++j) {
@@ -579,15 +601,16 @@ __device__ __forceinline__ void tile_run(const Io& io, int rows, int nwords, int
 // its loop (DataRule<true>), every other one none.
 template <int R, class Substep, class Rule, class Io>
 __device__ __forceinline__ void tile_kernel_body(const Io& io, int rows, int nwords, int rem_bits,
-                                                 int k, int tile_rows, uint32_t center,
+                                                 int k, int n, int tile_rows, uint32_t center,
                                                  const Sop& sop) {
   if constexpr (std::is_same_v<Rule, DataRule<false>>) {
     if (sop.n_terms > 2) {
-      tile_run<R, Substep, DataRule<true>>(io, rows, nwords, rem_bits, k, tile_rows, center, sop);
+      tile_run<R, Substep, DataRule<true>>(io, rows, nwords, rem_bits, k, n, tile_rows, center,
+                                           sop);
       return;
     }
   }
-  tile_run<R, Substep, Rule>(io, rows, nwords, rem_bits, k, tile_rows, center, sop);
+  tile_run<R, Substep, Rule>(io, rows, nwords, rem_bits, k, n, tile_rows, center, sop);
 }
 
 // Each kernel comes in two instances, of R = 4 and 8 rows a warp.
@@ -597,7 +620,7 @@ packed_stripe_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ ds
                      int nwords, int rem_bits, int k, int tile_rows, uint32_t center,
                      const Sop sop) {
   tile_kernel_body<R, MooreSubstep, Rule>(BoardIo{src, dst, height}, height, nwords, rem_bits, k,
-                                     tile_rows, center, sop);
+                                     k, tile_rows, center, sop);
 }
 
 template <int Radius, int R>
@@ -607,7 +630,22 @@ packed_diamond_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ d
                       const Sop sop) {
   using Substep = std::conditional_t<Radius == 1, Diamond1Substep, Diamond2Substep>;
   tile_kernel_body<R, Substep, DataRule<false>>(BoardIo{src, dst, height}, height, nwords, rem_bits,
-                                           k, tile_rows, center, sop);
+                                           k, k, tile_rows, center, sop);
+}
+
+// K1's batch mode: slot blockIdx.y advances min(k, max(steps[slot] -
+// offset, 0)) substeps, the Moore step or the diamond of radius Radius
+// (Radius 0: Moore).
+template <int Radius, int R, class Rule>
+__global__ void __launch_bounds__(kLanes * kTileWarps, 1)
+packed_batch_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
+                    const int* __restrict__ steps, int offset, int height, int nwords,
+                    int rem_bits, int k, int tile_rows, uint32_t center, const Sop sop) {
+  using Substep = std::conditional_t<
+      Radius == 0, MooreSubstep, std::conditional_t<Radius == 1, Diamond1Substep, Diamond2Substep>>;
+  const int n = min(k, max(steps[blockIdx.y] - offset, 0));
+  tile_kernel_body<R, Substep, Rule>(BatchIo(src, dst, height, nwords), height, nwords, rem_bits,
+                                     k, n, tile_rows, center, sop);
 }
 
 template <bool Torus, int R, class Rule>
@@ -618,7 +656,7 @@ sharded_stripe_kernel(const uint32_t* __restrict__ top, const uint32_t* __restri
                       int tile_rows, uint32_t center, const Sop sop) {
   tile_kernel_body<R, MooreSubstep, Rule>(
       ShardIo<Torus>{top, chunk, bot, dst, rows, fr, row0, height, width}, rows, nwords,
-      rem_bits, k, tile_rows, center, sop);
+      rem_bits, k, k, tile_rows, center, sop);
 }
 
 template <int Radius, int R>
@@ -630,7 +668,7 @@ sharded_diamond_kernel(const uint32_t* __restrict__ top, const uint32_t* __restr
   using Substep = std::conditional_t<Radius == 1, Diamond1Substep, Diamond2Substep>;
   tile_kernel_body<R, Substep, DataRule<false>>(
       ShardIo<false>{top, chunk, bot, dst, rows, fr, row0, height, width}, rows, nwords,
-      rem_bits, k, tile_rows, center, sop);
+      rem_bits, k, k, tile_rows, center, sop);
 }
 
 __constant__ Sop kNoSop;  // the table argument of a kernel whose rule is compiled in; never read
@@ -640,7 +678,7 @@ __global__ void __launch_bounds__(kLanes * kTileWarps, 1)
 conway_int8_kernel(const int8_t* __restrict__ src, int8_t* __restrict__ dst, int n, int nwords,
                    int rem_bits, int k, int tile_rows, int vec) {
   tile_kernel_body<R, MooreSubstep, ConwayRule>(Int8Io{src, dst, n, vec}, n, nwords, rem_bits, k,
-                                                tile_rows, 0u, kNoSop);
+                                                k, tile_rows, 0u, kNoSop);
 }
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
@@ -653,21 +691,31 @@ int with_warp_rows(int warp_rows, Pick pick) {
   return kInvalid;
 }
 
-// Launch `kernel` over `rows` x `nwords` words, one block a tile of
-// tile_rows output rows and a strip, of the warps that keep the tile and
-// its halo of reach * k rows at each end, R rows a warp.  kInvalid where k
-// is outside [1, 32 / reach] or the tile needs more than kTileWarps warps;
-// else cudaGetLastError().
+// Launch `kernel` over `rows` x `nwords` words of each of `slots` boards
+// (grid y), one block a tile of tile_rows output rows and a strip, of the
+// warps that keep the tile and its halo of reach * k rows at each end, R
+// rows a warp.  kInvalid where k is outside [1, 32 / reach], the tile needs
+// more than kTileWarps warps or slots is outside [1, 65535]; else
+// cudaGetLastError().
 template <int R, typename Kernel, typename... Args>
-int launch(Kernel kernel, int rows, int nwords, int tile_rows, int reach, int k, void* stream,
-           Args... args) {
+int launch_slots(Kernel kernel, int slots, int rows, int nwords, int tile_rows, int reach, int k,
+                 void* stream, Args... args) {
   if (rows < 1 || nwords < 1 || tile_rows < 1 || k < 1 || reach * k > 32) return kInvalid;
+  if (slots < 1 || slots > 65535) return kInvalid;
   const int warps = (tile_rows + 2 * reach * k + R - 1) / R;
   if (warps > kTileWarps) return kInvalid;
   const long long strips = (nwords + kInterior - 1) / kInterior;
-  const dim3 grid(static_cast<unsigned>(strips * ((rows + tile_rows - 1) / tile_rows)));
+  const dim3 grid(static_cast<unsigned>(strips * ((rows + tile_rows - 1) / tile_rows)),
+                  static_cast<unsigned>(slots));
   kernel<<<grid, kLanes * warps, 0, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_slots of one board
+template <int R, typename Kernel, typename... Args>
+int launch(Kernel kernel, int rows, int nwords, int tile_rows, int reach, int k, void* stream,
+           Args... args) {
+  return launch_slots<R>(kernel, 1, rows, nwords, tile_rows, reach, k, stream, args...);
 }
 
 }  // namespace
@@ -716,6 +764,37 @@ int packed_diamond_multi_step(const void* src, void* dst, int height, int nwords
       return launch<R>(packed_diamond_kernel<2, R>, height, nwords, tile_rows, 2, k, stream, s, d,
                        height, nwords, rem_bits, k, tile_rows, c, *sop);
     }
+    return kInvalid;
+  });
+}
+
+// K1's batch mode: up to k masked steps of each of `slots` boards, from src
+// into dst (distinct int32[slots, height, nwords] buffers on the current
+// device): slot s advances min(k, max(steps[s] - offset, 0)) steps, steps
+// being a device int32[slots]; a slot of none is copied through.
+// diamond == 0: the life-like Moore step, compiled != 0 with Conway's rule
+// built in; else the von Neumann diamond of `radius` 1 or 2 with the centre
+// where `center` is not 0.  Tiles, stream and return value as above.
+int packed_batch_multi_step(const void* src, void* dst, const void* steps, int slots, int offset,
+                            int height, int nwords, int rem_bits, int k, int tile_rows,
+                            int warp_rows, int diamond, int radius, int center, int compiled,
+                            const Sop* sop, void* stream) {
+  const auto s = static_cast<const uint32_t*>(src);
+  const auto d = static_cast<uint32_t*>(dst);
+  const auto b = static_cast<const int*>(steps);
+  const uint32_t c = center ? kFull : 0u;
+  return with_warp_rows(warp_rows, [&](auto rc) {
+    constexpr int R = decltype(rc)::value;
+    auto go = [&](auto kernel, int reach) {
+      return launch_slots<R>(kernel, slots, height, nwords, tile_rows, reach, k, stream, s, d, b,
+                             offset, height, nwords, rem_bits, k, tile_rows, c, *sop);
+    };
+    if (!diamond) {
+      return compiled ? go(packed_batch_kernel<0, R, ConwayRule>, 1)
+                      : go(packed_batch_kernel<0, R, DataRule<false>>, 1);
+    }
+    if (radius == 1) return go(packed_batch_kernel<1, R, DataRule<false>>, 1);
+    if (radius == 2) return go(packed_batch_kernel<2, R, DataRule<false>>, 2);
     return kInvalid;
   });
 }

@@ -11,13 +11,17 @@ file runs against any tree of the port that has them::
     python -m tpu_life_torch.experiments.stripe_sweep            # every case
     python -m tpu_life_torch.experiments.stripe_sweep small      # 1500x500 only
     python -m tpu_life_torch.experiments.stripe_sweep k5_tiles   # K5 at every tile
+    python -m tpu_life_torch.experiments.stripe_sweep ab         # three cases, three times
 
 Each case prints one JSON line ``{"kernel", "rule", "shape", "k", "ms"}``
 (``ms``: mean device time of one launch); a board that differs from the
 plain version exits 1.  ``k5_tiles`` times K5 at every tile shape that
 fits a block (``tiles``: output rows and rows a warp), through the C entry
 with the tile forced; it needs a tree whose K5 takes its tiles from the
-caller.  It runs on the card only.
+caller.  ``ab`` times K1 (16384^2), a K3 shard (16384^2 on 4) and K5
+(8192^2), Conway at k = 8, three times in turn: the cases a change to the
+tiles K1, K3 and K5 share must leave as they were, for a parent tree and a
+change run in one call.  It runs on the card only.
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ K5_CASES = (
     (16384, 256, (1, 2, 4, 8, 16, 32)),
     (1000, 200, (8,)),
 )
+# the ab mode's rounds of (K1, K3, K5) readings
+AB_ROUNDS = 3
 K5_TILE_SIDES = (8192, 16384)
 K5_TILE_DEPTHS = (1, 2, 4, 8, 16, 32)
 
@@ -186,6 +192,15 @@ def main(argv: list[str]) -> None:
     small = "small" in argv
     device = torch.device("cuda:0")
     rng = np.random.default_rng(0)
+    if "ab" in argv:
+        for _ in range(AB_ROUNDS):
+            cases = (("K1", FULL, lambda: k1_case("conway", FULL, 8, rng, device)),
+                     ("K3", FULL, lambda: k3_case("conway", FULL, 4, 8, rng, device)),
+                     ("K5", (8192, 8192), lambda: k5_case(8192, 256, 8, rng, device)))
+            for kernel, shape, case in cases:
+                print(json.dumps({"kernel": kernel, "rule": "conway", "shape": list(shape), "k": 8,
+                                  "ms": round(case(), 5)}), flush=True)
+        return
     if "k5_tiles" in argv:
         for n in K5_TILE_SIDES:
             for k in K5_TILE_DEPTHS:

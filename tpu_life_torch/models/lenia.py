@@ -163,11 +163,11 @@ def _make_roll_conv(rule: LeniaRule):
     wrap = rule.boundary == "torus"
 
     def conv(a: torch.Tensor) -> torch.Tensor:
-        h, w = a.shape
+        h, w = a.shape[-2:]
         padded = pad_board(a, r, wrap)
         out = None
         for dy, dx, wgt in taps:
-            sl = padded[r + dy : r + dy + h, r + dx : r + dx + w] * wgt
+            sl = padded[..., r + dy : r + dy + h, r + dx : r + dx + w] * wgt
             out = sl if out is None else out + sl
         return out
 

@@ -1,15 +1,19 @@
-"""tpu_life_torch.obs: trace spans and the metrics registry, tied to one
-``run_id`` per invocation (the part of ``tpu_life/obs`` the run driver
-uses).
+"""tpu_life_torch.obs: trace spans, the metrics registry, the flight
+recorder and the time series, tied to one ``run_id`` per invocation (the
+part of ``tpu_life/obs`` the run driver and the serving tier use).
 
 - :mod:`tpu_life_torch.obs.trace`: Chrome trace-event spans
-  (``--trace-events FILE``) bracketing the driver's host phases.
+  (``--trace-events FILE``) bracketing the driver's host phases and the
+  service's rounds, with async queue-wait intervals and trace ids.
 - :mod:`tpu_life_torch.obs.registry`: ``Counter`` / ``Gauge`` /
   ``Histogram`` families, exported as records of the metrics JSONL sink.
+- :mod:`tpu_life_torch.obs.flight`: the bounded ring of structured
+  lifecycle events the service records.
+- :mod:`tpu_life_torch.obs.timeseries`: the bounded ring of registry
+  snapshots the service's pump samples.
 
-The JAX package's console, flight recorder, SLOs, stats, time series and
-journeys belong to its serving tier and wait for that port.  This package
-imports neither torch nor numpy.
+The JAX package's console, SLOs, stats and journeys belong to entry points
+still queued.  This package imports neither torch nor numpy.
 """
 
 from tpu_life_torch.obs.registry import (
@@ -24,18 +28,25 @@ from tpu_life_torch.obs.trace import (
     DEFAULT_MAX_EVENTS,
     TELEMETRY_SCHEMA,
     Tracer,
+    activate,
     active_tracer,
+    async_begin,
+    async_end,
     complete,
     ensure_parent,
     instant,
     new_run_id,
+    new_trace_id,
     now,
     reset_span_count,
     span,
     span_count,
     start_tracing,
     stop_tracing,
+    tracing,
+    valid_trace_id,
 )
+from tpu_life_torch.obs import flight, timeseries
 
 __all__ = [
     "TELEMETRY_SCHEMA",
@@ -47,15 +58,23 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "Tracer",
+    "activate",
     "active_tracer",
+    "async_begin",
+    "async_end",
     "complete",
     "ensure_parent",
+    "flight",
     "instant",
     "new_run_id",
+    "new_trace_id",
     "now",
     "reset_span_count",
     "span",
     "span_count",
     "start_tracing",
     "stop_tracing",
+    "timeseries",
+    "tracing",
+    "valid_trace_id",
 ]

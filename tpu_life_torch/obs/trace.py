@@ -1,13 +1,13 @@
-"""Run-correlated trace spans in Chrome trace-event JSON (a trimmed copy
-of ``tpu_life/obs/trace.py``).
+"""Run-correlated trace spans in Chrome trace-event JSON (a copy of
+``tpu_life/obs/trace.py``).
 
 A :class:`Tracer` collects Chrome trace events (the format Perfetto and
 ``chrome://tracing`` load directly) and writes them as one JSON object
 ``{"traceEvents": [...], "otherData": {"run_id": ...}}``, the schema
 (``TELEMETRY_SCHEMA``) the JAX package writes.  The driver brackets each
-host phase of a run with a span: config resolution, the backend build,
+host phase of a run with a span (config resolution, the backend build,
 staging, each host-sync chunk, snapshot writes, recovery rewinds, the
-gather and the output write.
+gather and the output write); the serving tier brackets its rounds.
 
 - **Disabled tracing is free.**  :func:`span` returns a shared
   ``nullcontext`` when no tracer is active: no event, no clock read, no
@@ -20,15 +20,19 @@ gather and the output write.
 
 Events (timestamps in microseconds since the tracer started): ``ph:
 "B"/"E"`` nested duration spans, ``ph: "X"`` complete events measured
-after the fact (the per-chunk records) and ``ph: "i"`` instant markers.
-The JAX module's async spans, trace ids and ring draining serve its
-serving tier and wait for that port.
+after the fact (the per-chunk records), ``ph: "b"/"e"`` async intervals
+keyed by ``id`` (the service's per-session queue waits) and ``ph: "i"``
+instant markers.  A **trace id** (:func:`new_trace_id`) names one
+session's journey; the service stamps it on the session's spans and its
+spill manifest.  The buffer is a bounded ring (:data:`DEFAULT_MAX_EVENTS`,
+drops counted in ``Tracer.dropped``) and :meth:`Tracer.drain` takes it.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 import time
 import uuid
@@ -37,12 +41,23 @@ from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 #: Version of the telemetry record vocabulary (trace event args, metrics
-#: JSONL fields); equal to the JAX package's, whose files these match.
+#: JSONL fields, BENCH stamp).  Bump when a consumer-visible field changes
+#: meaning, so perf-trajectory tooling can join records across PRs safely.
 TELEMETRY_SCHEMA = 1
 
-#: Span-ring capacity (events): past it the OLDEST events are evicted and
-#: ``Tracer.dropped`` counts the loss.
+
+#: Span-ring capacity (events) — a long-running serve process must not
+#: grow its trace buffer without bound between scrapes.  At roughly 200
+#: bytes per event dict this caps the buffer near ~13 MB; past it the
+#: OLDEST events are evicted (flight-recorder semantics: the most recent
+#: window survives) and ``Tracer.dropped`` counts the loss, exported as
+#: the ``trace_spans_dropped_total`` metric by the serve tier.
 DEFAULT_MAX_EVENTS = 65536
+
+#: The wire shape of a trace id: bounded, filesystem- and header-safe.
+#: Anything else on ``X-Trace-Id`` / ``trace_id`` is a typed 400 — a
+#: hostile header must not mint unbounded junk into every span.
+TRACE_ID_RE = re.compile(r"[A-Za-z0-9][A-Za-z0-9._:-]{0,63}")
 
 
 def new_run_id() -> str:
@@ -50,13 +65,25 @@ def new_run_id() -> str:
     return uuid.uuid4().hex[:12]
 
 
+def new_trace_id() -> str:
+    """A fresh distributed-trace id: 16 hex chars, minted once per
+    submitted session (by the fleet router, or the gateway when it fronts
+    clients directly) and carried through every hop the session takes."""
+    return uuid.uuid4().hex[:16]
+
+
+def valid_trace_id(s) -> bool:
+    """True when ``s`` is a legal client-supplied trace id."""
+    return isinstance(s, str) and TRACE_ID_RE.fullmatch(s) is not None
+
+
 def ensure_parent(path) -> None:
     """Create a file's parent directories (the shared exporter prelude)."""
     Path(path).parent.mkdir(parents=True, exist_ok=True)
 
 
-# the span probe: a mutable holder so tests hold a live view through the
-# module, not a stale int import
+# the span probe, mirroring autotune.runner._MEASURED: a mutable holder so
+# tests hold a live view through the module, not a stale int import
 _PROBE = {"spans": 0}
 
 
@@ -72,13 +99,15 @@ def reset_span_count() -> None:
 
 class Tracer:
     """Collects Chrome trace events in a bounded ring; :meth:`write`
-    emits the file.
+    emits the file, :meth:`drain` hands the buffer to a fleet scraper.
 
     In-memory buffering keeps the hot path to one deque append; the
-    driver calls :meth:`write` from a ``finally`` so a failed run still
-    leaves its partial trace on disk.  The ring is bounded
-    (``max_events``): past it the OLDEST events are evicted and
-    ``dropped`` counts the evictions.
+    driver and the serve service call :meth:`write` from a ``finally`` so
+    a failed run still leaves its partial trace on disk.  The ring is
+    bounded (``max_events``): a months-running serve process evicts its
+    OLDEST events rather than growing without bound, and ``dropped``
+    counts the evictions (a B whose E was evicted — or vice versa — is
+    an unmatched pair the Perfetto loader tolerates).
     """
 
     def __init__(
@@ -125,6 +154,16 @@ class Tracer:
             while len(self._events) > self.max_events:
                 self._events.popleft()
                 self.dropped += 1
+
+    def drain(self) -> list[dict]:
+        """Atomically take (and clear) the buffered events — the fleet
+        scrape path (``GET /v1/debug/trace``): each scrape is an
+        increment, and a graceful :meth:`write` afterwards emits only
+        what was never drained.  Locked against emitters, so a span
+        racing a scrape lands on exactly one side of the drain."""
+        with self._buf_lock:
+            taken, self._events = self._events, deque()
+        return list(taken)
 
     # -- event emitters ---------------------------------------------------
     @contextmanager
@@ -183,6 +222,36 @@ class Tracer:
             }
         )
 
+    def async_begin(self, name: str, aid: str, **attrs) -> None:
+        """Open an async interval (``ph: "b"``) keyed by ``aid`` — for
+        overlapping non-nested intervals like per-session queue waits."""
+        self._emit(
+            {
+                "name": name,
+                "cat": name,
+                "ph": "b",
+                "id": aid,
+                "ts": self._ts(),
+                "pid": self._pid,
+                "tid": threading.get_ident(),
+                "args": attrs,
+            }
+        )
+
+    def async_end(self, name: str, aid: str, **attrs) -> None:
+        self._emit(
+            {
+                "name": name,
+                "cat": name,
+                "ph": "e",
+                "id": aid,
+                "ts": self._ts(),
+                "pid": self._pid,
+                "tid": threading.get_ident(),
+                "args": attrs,
+            }
+        )
+
     # -- output -----------------------------------------------------------
     def write(self) -> str:
         """Write the Chrome-trace JSON object; returns the path written."""
@@ -214,8 +283,8 @@ class Tracer:
 
 
 # -- the module-level switchboard ------------------------------------------
-# one active tracer per process (the driver owns one invocation); disabled
-# == None == every entry point below is a no-op
+# one active tracer per process (the driver and the serve service each own
+# one invocation); disabled == None == every entry point below is a no-op
 
 _NULL = nullcontext()
 _ACTIVE: Tracer | None = None
@@ -235,6 +304,25 @@ def start_tracing(path: str, run_id: str | None = None) -> Tracer:
     return _ACTIVE
 
 
+@contextmanager
+def activate(tracer: Tracer | None):
+    """Make ``tracer`` the active one for the enclosed block, restoring the
+    previous tracer after — how a long-lived owner (the serve service)
+    routes the emissions of everything it calls into ITS file without
+    claiming the process-global slot between rounds.  ``tracer=None``
+    leaves the ambient tracer untouched (a no-op scope)."""
+    global _ACTIVE
+    if tracer is None:
+        yield None
+        return
+    prev = _ACTIVE
+    _ACTIVE = tracer
+    try:
+        yield tracer
+    finally:
+        _ACTIVE = prev
+
+
 def stop_tracing(tracer: Tracer | None = None) -> str | None:
     """Write and deactivate (``tracer=None`` stops whichever is active).
     Returns the path written, or None when there was nothing to stop."""
@@ -245,6 +333,13 @@ def stop_tracing(tracer: Tracer | None = None) -> str | None:
     if _ACTIVE is t:
         _ACTIVE = None
     return t.write()
+
+
+def tracing() -> bool:
+    """True while a tracer is active — the ONE global check callers use
+    before building costly span attributes (per-slot sid/trace lists):
+    the disarmed path stays a single ``None`` test, nothing allocated."""
+    return _ACTIVE is not None
 
 
 def span(name: str, **attrs):
@@ -265,6 +360,18 @@ def instant(name: str, **attrs) -> None:
     t = _ACTIVE
     if t is not None:
         t.instant(name, **attrs)
+
+
+def async_begin(name: str, aid: str, **attrs) -> None:
+    t = _ACTIVE
+    if t is not None:
+        t.async_begin(name, aid, **attrs)
+
+
+def async_end(name: str, aid: str, **attrs) -> None:
+    t = _ACTIVE
+    if t is not None:
+        t.async_end(name, aid, **attrs)
 
 
 def now() -> float:

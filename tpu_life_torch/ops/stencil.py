@@ -50,12 +50,14 @@ def neighbor_counts(
 
 
 def _pad(x: torch.Tensor, radius: int, axis: int, wrap: bool) -> torch.Tensor:
-    """``x`` padded by ``radius`` on both sides of ``axis``: zeros, or the
-    periodic continuation (``np.pad`` mode ``wrap``, any radius)."""
+    """``x`` padded by ``radius`` on both sides of board ``axis`` (0 rows,
+    1 columns: the last two dimensions, after any batch dimensions): zeros,
+    or the periodic continuation (``np.pad`` mode ``wrap``, any radius)."""
     if wrap:
-        n = x.shape[axis]
+        dim = x.dim() - 2 + axis
+        n = x.shape[dim]
         idx = torch.arange(-radius, n + radius, device=x.device) % n
-        return x.index_select(axis, idx)
+        return x.index_select(dim, idx)
     return F.pad(x, (0, 0, radius, radius) if axis == 0 else (radius, radius))
 
 
@@ -75,25 +77,26 @@ def _counts(
 ) -> torch.Tensor:
     """The shared counting body, with the boundary expressed per axis as a
     padding mode (rows clamped and columns wrapped is the sharded torus's
-    per-shard substep)."""
-    h, w = alive.shape
+    per-shard substep).  Boards are the last two dimensions: a batch of
+    boards counts each on its own."""
+    h, w = alive.shape[-2:]
     padded = _pad(_pad(alive, radius, 0, row_wrap), radius, 1, col_wrap)
     if neighborhood == "von_neumann":
         counts = None
         for dy in range(-radius, radius + 1):
             half = radius - abs(dy)
-            row = padded[radius + dy : radius + dy + h, :]
+            row = padded[..., radius + dy : radius + dy + h, :]
             for dx in range(-half, half + 1):
-                c = row[:, radius + dx : radius + dx + w]
+                c = row[..., radius + dx : radius + dx + w]
                 counts = c if counts is None else counts + c
     else:
         k = 2 * radius + 1
-        rows = padded[0:h, :]
+        rows = padded[..., 0:h, :]
         for dy in range(1, k):
-            rows = rows + padded[dy : dy + h, :]
-        counts = rows[:, 0:w]
+            rows = rows + padded[..., dy : dy + h, :]
+        counts = rows[..., 0:w]
         for dx in range(1, k):
-            counts = counts + rows[:, dx : dx + w]
+            counts = counts + rows[..., dx : dx + w]
     if not include_center:
         counts = counts - alive
     return counts

@@ -62,9 +62,9 @@ _OOM_MARKERS = ("RESOURCE_EXHAUSTED", "out of memory", "Out of memory")
 
 def is_oom(e: BaseException) -> bool:
     """True when a RECOVERABLE error is a device out-of-memory: the one
-    failure shape the JAX package's serving tier answers with its own
-    ladder (halve the chunk, then the host engine) rather than a plain
-    rebuild-and-replay."""
+    failure shape the serving tier answers with its own ladder (halve the
+    chunk, then fail the key typed; the JAX package demotes it to the host
+    engine instead) rather than a plain rebuild-and-replay."""
     msg = str(e)
     return any(m in msg for m in _OOM_MARKERS)
 
