@@ -20,9 +20,9 @@ Phases (any failure exits non-zero and prints no result line):
    instructions in each K1, K3 and K5 instance's SASS and the shared-memory
    loads, stores and asynchronous copies (``LDS``, ``STS``, ``LDGSTS``) in
    K2's and K4's (``cuobjdump -sass`` on the built libraries); and
-   ``mc_threefry.cu`` (K6 and K7), whose registers it prints, failing on
-   spills, with the ``IADD3``, ``IMAD``, ``SHF``, ``LOP3``, ``ISETP`` and
-   all instructions of each;
+   ``mc_threefry.cu`` (K6's narrow and wide instances and K7), whose
+   registers it prints, failing on spills, with the ``IADD3``, ``IMAD``,
+   ``SHF``, ``LOP3``, ``ISETP`` and all instructions of each;
 3. kernel vs plain — holds each kernel bit-identical (``torch.equal``) to
    its plain PyTorch version on the card (K3 and K4 below the list): K1
    over Conway (its compiled rule) and three life-like rules it runs as
@@ -183,9 +183,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``seeded_board(device="cuda")`` equal to the numpy copy at 4096^2 for
    states 2 and 3 and densities 0.5 and 0.3, with both staging times; K6
    bit-identical to its plain version one sweep (two launches) at a time on
-   2x2, 4x30, 258x1002, 1500x500 (T = 0, 2.27 and 10, origins 0, across
-   2^32 and past it) and 16384^2 (2 sweeps at each T, each at one of the
-   origins); 16384^2 Ising at T = 2.27, seed 1, 256 sweeps through the
+   2x2, 4x30, 10x66, 258x1002, 1500x500 (random, all-up, Neel and
+   half-and-half boards; T = 0, 2.27 and 10, origins 0, across 2^32 and
+   past it: both instances) and 16384^2 (2 sweeps at each T, each at one
+   of the origins); 16384^2 Ising at T = 2.27, seed 1, 256 sweeps through the
    ``cuda`` Runner (route ``mc_packed``, 512 K6 launches) equal to the
    ``--no-bitpack`` roll path (``mc_roll``, 512 K7 launches) bit for bit,
    each timed; ``run --rule ising --temperature 2.27 --steps 20`` on the
@@ -197,9 +198,10 @@ Phases (any failure exits non-zero and prints no result line):
    32`` then ``--resume`` from step 32, equal bytes; ``--backend sharded
    --rule ising`` exiting 2; ``bench --mc`` at its defaults (4096^2, 400 and
    40 sweeps; the numpy legs at 64 and 128) and at 16384^2 (100 and 20
-   sweeps), each record printed; and K6 (4096^2, 16384^2) and K7 (16384^2)
-   timed by CUDA events and the profiler's kernel records beside their
-   bounds and their plain versions;
+   sweeps), each record printed; and K6 (4096^2, 16384^2: the instance
+   launched, the draws it hashes against the active cells) and K7
+   (16384^2) timed by CUDA events and the profiler's kernel records beside
+   their bounds and their plain versions;
 16. the serving tier (``tpu_life_torch.serve``: K1's batch mode, built with
    K1, its instances in phase 2's report and SASS counts) — (a) the batch
    mode bit-identical to its plain version launch by launch over a chunk of
@@ -384,16 +386,24 @@ K2_WIDE = [
 SASS_OPS = ("LDS", "STS", "LDGSTS")
 # the integer instructions counted in K6's and K7's SASS (and the total)
 MC_SASS_OPS = ("IADD3", "IMAD", "SHF", "LOP3", "ISETP")
-# K6's and K7's kernels in mc_threefry.cu (label, pattern of the mangled name)
-MC_INSTANCES = [("K6 packed_metropolis_half_kernel", r"packed_metropolis_half_kernel"),
+# K6's two instances and K7 in mc_threefry.cu (label, pattern of the
+# mangled name)
+K6_NARROW, K6_WIDE = ("K6 packed_metropolis_half_kernel<false>",
+                      "K6 packed_metropolis_half_kernel<true>")
+MC_INSTANCES = [(K6_NARROW, r"packed_metropolis_half_kernelILb0E"),
+                (K6_WIDE, r"packed_metropolis_half_kernelILb1E"),
                 ("K7 cell_uniforms_kernel", r"cell_uniforms_kernel")]
 # phase 15: K7's boards and origins (0, a block across 2^32, past it); K6's
-# shapes against its plain version (W % 32 of 2 and 30, one word a row), at
-# each temperature and origin; the Runner's sweeps at 16384^2
+# shapes (W % 32 of 2 and 30, one word a row, 3 words a row so that a warp
+# spans rows) and boards against its plain version, at each temperature and
+# origin; the Runner's sweeps at 16384^2
 MC_TEMPS = (0.0, 2.27, 10.0)
 K7_SHAPES = [(1500, 500), (4096, 4096), (FULL, FULL)]
 K7_ORIGINS = (0, 2**32 - 1000, 2**33)
-K6_SHAPES = [(2, 2), (4, 30), (258, 1002), (1500, 500)]
+K6_SHAPES = [(2, 2), (4, 30), (10, 66), (258, 1002), (1500, 500)]
+# random (5/16 of the active cells decided), all-up (every one), Neel (none)
+# and half-and-half (the columns left of w / 2 up: the domains' insides)
+K6_BOARDS = ("random", "all-up", "Neel", "half-and-half")
 MC_SWEEPS = 256
 MC_SEEDED = 4096  # the seeded boards drawn on the card and by numpy
 # the instructions counted in the SASS of every K1, K3 and K5 instance (and
@@ -573,7 +583,7 @@ def main() -> int:
         ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body.group(1), re.M)
         registers[kernel] = regs
         sass_counts[kernel] = {op: sum(o == op for o in ops) for op in SASS_OPS}
-    # K6 and K7 (mc_threefry.cu): registers, no spill, their integer SASS
+    # K6's instances and K7 (mc_threefry.cu): registers, no spill, their integer SASS
     mc_report, mc_sass = ptxas_report(libs[2]), sass_counts_of(libs[2], MC_SASS_OPS)
     mc_instances = {}
     for label, pattern in MC_INSTANCES:
@@ -584,7 +594,7 @@ def main() -> int:
         if spill_st or spill_ld:
             fail(f"{label} spills: {spill_st} bytes of stores, {spill_ld} bytes of loads")
         mc_instances[label] = dict(registers=regs, sass=mc_sass[names[0]])
-    print("K6 and K7 (ptxas, cuobjdump -sass): " + "; ".join(
+    print("K6's two instances and K7 (ptxas, cuobjdump -sass): " + "; ".join(
         f"{label} {inst['registers']} registers, no spill, SASS "
         + ", ".join(f"{op} {n}" for op, n in inst["sass"].items())
         for label, inst in mc_instances.items()), flush=True)
@@ -2772,6 +2782,7 @@ def phase15(ctx: dict) -> list[dict]:
     import torch
 
     from tpu_life_torch.backends.base import get_backend, make_runner
+    from tpu_life_torch.experiments import stripe_sweep
     from tpu_life_torch.io.codec import read_board
     from tpu_life_torch.kernels import conway_block as k5
     from tpu_life_torch.kernels import int8_tiled as kt
@@ -2920,18 +2931,31 @@ def phase15(ctx: dict) -> list[dict]:
                     fail(f"K6 != plain: {h}x{w}, T = {temp}, origin {origin}, sweep {step}")
                 k6_cases += 1
 
+        def k6_board(kind: str, h: int, w: int) -> np.ndarray:
+            if kind == "random":
+                return rng.integers(0, 2, size=(h, w), dtype=np.int8)
+            if kind == "all-up":
+                return np.ones((h, w), np.int8)
+            if kind == "Neel":
+                return ((np.arange(h)[:, None] + np.arange(w)[None, :]) & 1).astype(np.int8)
+            board = np.zeros((h, w), np.int8)
+            board[:, : w // 2] = 1
+            return board
+
         for h, w in K6_SHAPES:
-            board = rng.integers(0, 2, size=(h, w), dtype=np.int8)
-            for temp in MC_TEMPS:
-                for origin in (0, 2**32 - h * w // 2, 2**33 + 6):
-                    k6_case(board, temp, origin, 3)
+            for kind in K6_BOARDS:
+                board = k6_board(kind, h, w)
+                for temp in MC_TEMPS:
+                    for origin in (0, 2**32 - h * w // 2, 2**33 + 6):
+                        k6_case(board, temp, origin, 3)
         full_board = rng.integers(0, 2, size=(FULL, FULL), dtype=np.int8)
         for temp, origin in zip(MC_TEMPS, (0, 2**32 - FULL * FULL // 2, 2**33 + 6)):
             k6_case(full_board, temp, origin, 2)
         del full_board
         print(f"K6 vs plain: {k6_cases} sweeps bit-identical ({', '.join(f'{h}x{w}' for h, w in K6_SHAPES)} "
-              f"x T {MC_TEMPS} x origins 0, across 2^32, past 2^33, 3 sweeps each; {FULL}^2 at T = 0, "
-              f"2.27, 10 with one origin each, 2 sweeps) ({time.perf_counter() - t0:.1f} s)", flush=True)
+              f"x boards {', '.join(K6_BOARDS)} x T {MC_TEMPS} x origins 0 (narrow instance), across "
+              f"2^32 and past 2^33 (wide), 3 sweeps each; {FULL}^2 random at T = 0, 2.27, 10 with one "
+              f"origin each, 2 sweeps) ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         # (c) the entry points' children: byte-equal to numpy's, launches counted
         main_launches = {}
@@ -3075,29 +3099,27 @@ def phase15(ctx: dict) -> list[dict]:
         dev_ms = device[f"k6_{side}"]
         plain_ms = cuda_ms(lambda: mct.packed_metropolis_half_plain(x, *args, width=side), 2)
         # the cells whose move the table decides (parity 0, dE > 0): the
-        # function needs their draws only
-        cells = torch.from_numpy(packed.unpack_board(x.cpu().numpy().view(np.uint32), side)).to(dev)
-        s = cells.to(torch.int32) * 2 - 1
-        nsum = s.roll(1, 0) + s.roll(-1, 0) + s.roll(1, 1) + s.roll(-1, 1)
-        rows = torch.arange(side, device=dev)
-        on = ((rows[:, None] + rows[None, :]) & 1) == 0
-        decided = int((((s * nsum + 4) >> 1 >= 3) & on).sum())
+        # function needs their draws only, and K6 hashes only those
+        decided = stripe_sweep.decided_cells(x, side)
         n_words = x.numel()
         b_ms, b_by = bound(decided * (draw_alu + accept_ops) + 18 * n_words,
                            decided * (draw_all + accept_ops) + 18 * n_words, 2 * 4 * n_words)
         all_ms, _ = bound(side * side // 2 * (draw_alu + accept_ops),
                           side * side // 2 * (draw_all + accept_ops), 0)
+        instance = "narrow" if mct.narrow_launch(side, side, 0) else "wide"
         k6_rows[side] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             decided=decided, all_cells_bound_ms=all_ms)
+                             decided=decided, all_cells_bound_ms=all_ms, instance=instance)
         what = (f"the board after {MC_SWEEPS} sweeps at T = 2.27" if side == FULL
                 else "the seeded board of seed 1")
-        print(f"K6 {side}^2 half-sweep (parity 0, {what}): {ms:.4f} ms a launch by CUDA events, "
-              f"{fmt_dev(dev_ms)} device, plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}: "
-              f"{decided} of {side * side // 2} active cells decided by a draw, "
-              f"{draw_alu + accept_ops} integer-pipe and {draw_all + accept_ops} integer ops each, "
-              f"18 a word), {b_ms / ms:.1%} of it; every active cell hashed: {all_ms:.4f} ms "
-              f"{card}", flush=True)
-        del cells, s, nsum, on, out
+        print(f"K6 {side}^2 half-sweep (parity 0, {what}), {instance} instance, hashing the "
+              f"{decided} draws a launch of the cells a draw decides against {side * side // 2} "
+              f"active cells ({decided / (side * side // 2):.1%}): {ms:.4f} ms a launch by CUDA "
+              f"events, {fmt_dev(dev_ms)} device, plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}: {draw_alu + accept_ops} integer-pipe and {draw_all + accept_ops} integer "
+              f"ops a decided cell, 18 a word), {b_ms / ms:.1%} of it"
+              + ("" if dev_ms is None else f" ({b_ms / dev_ms:.1%} by device time)")
+              + f"; every active cell hashed: {all_ms:.4f} ms {card}", flush=True)
+        del out
     del timing_board
     n = FULL * FULL
     k7_args = ((FULL, FULL), 1, 0, 3, prng.SUB_EVEN)
@@ -3130,11 +3152,13 @@ def phase15(ctx: dict) -> list[dict]:
         "library_ms": None,
         "decided_cells": k6["decided"],
         "all_cells_bound_ms": k6["all_cells_bound_ms"],
+        "instance": k6["instance"],
         "ms_4096": k6_rows[4096]["ms"],
         "device_ms_4096": k6_rows[4096]["device_ms"],
         "bound_ms_4096": k6_rows[4096]["bound_ms"],
         "cli_launches": {name: got[5] for name, got in main_launches.items()},
-        **ctx["instances"]["K6 packed_metropolis_half_kernel"],
+        **ctx["instances"][K6_NARROW],
+        "wide_instance": ctx["instances"][K6_WIDE],
     }, {
         "name": "cell_uniforms",
         "route": "cuda",

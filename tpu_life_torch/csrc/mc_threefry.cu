@@ -33,31 +33,62 @@
 // K6, packed_metropolis_half_kernel: one checkerboard half-sweep of
 // mc/packed.py::make_sweep on the packed spins (uint32[h, wp] words, spin
 // (r, c) at bit c % 32 of word c / 32, wp = ceil(w / 32)), from x into y.
-// One thread a word, all in registers: it reads its word and the four torus
-// neighbour words (rows mod h; the column seam at the logical width w, not
-// at 32 * wp), reduces the four neighbour planes by carry-save adders to the
-// bit planes of the count, forms the planes needs3 and needs4 (the cells
-// whose table index (s * nsum + 4) >> 1 is 3 or 4; the rest force-accept),
-// hashes the word's active-parity cells (columns a + 2t, a = (r + parity) &
-// 1, those at c < w only: the plain version pads the row with draws the
-// column mask never consumes), compares each draw unsigned against the
-// table's entries 3 and 4, and writes x ^ (accept & parity mask & column
-// mask).  The odd half reads the even half's result, so a sweep is two
-// launches.  Its plain version is mc/packed.py::half_sweep_torch.  Bound on
-// an H100: the function needs the draw of an active cell only where the
-// table decides its move (dE > 0: 5/16 of a random board's active cells,
-// most of a lattice ordering near T_c), 39 integer-pipe operations each
-// (word 0's 37, the select of the table entry that the cell's index names
-// and one unsigned compare), and some 18 logic operations a word; the
-// words read and written weigh less, so operations bound it.
-// This first kernel hashes every active cell, decided or not (ROADMAP
-// A3.7).
+// One thread a word: it reads its word and the four torus neighbour words
+// (rows mod h; the column seam at the logical width w, not at 32 * wp),
+// reduces the four neighbour planes by carry-save adders to the bit planes
+// of the count, and forms the planes needs3 and needs4 (the cells whose
+// table index (s * nsum + 4) >> 1 is 3 or 4).  The odd half reads the even
+// half's result, so a sweep is two launches.  Its plain version is
+// mc/packed.py::half_sweep_torch.
+//
+// Bound on an H100: the function needs the draw of an active cell only
+// where the table decides its move (dE > 0: needs3 | needs4, 5/16 of a
+// random board's active cells, most of a lattice ordering near T_c; every
+// other active cell force-accepts), 39 integer-pipe operations each (word
+// 0's 37, the select of the table entry and one unsigned compare), and
+// some 18 logic operations a word; the words read and written weigh less,
+// so operations bound it.  The design does that work and little else:
+// - Only the decided cells are hashed, spread evenly over the warp.  A
+//   lane forms its word's masks d3 = needs3 & active and d4 = needs4 &
+//   active (active: the parity's columns a + 2t, a = (r + parity) & 1, and
+//   c < w; the plain version pads the row with draws the column mask never
+//   consumes); the warp takes exclusive prefix sums of popc(d3) and
+//   popc(d4) in one shuffle scan (a half-word each), and each lane appends
+//   one 16-bit entry (owner lane, bit) a set bit to the warp's list in
+//   shared memory, by predicated stores: the cells held against the
+//   table's entry 3 first, then those held against entry 4.  Lane l then
+//   hashes entries l, l + 32, ...: ceil(total / 32) draws a lane, where
+//   hashing cell by cell in its owner's lane would cost the warp its
+//   busiest lane's count, close to 16 on any board.  The cell's index
+//   comes from its owner's word (a warp spans rows where wp is not a
+//   multiple of 32).
+// - One compare a decided cell: needs3 and needs4 are disjoint, and the
+//   part of the list an entry lies in names its table entry, so each of
+//   the two loops over the list compares against one threshold.  An accept
+//   sets the owner's bit in the warp's result word (atomicOr in shared
+//   memory), and the owner writes x ^ ((active & ~d) | accepted): the
+//   undecided active cells force-accept.
+// - Two instances.  The narrow one (Wide = false) serves a launch whose
+//   cells all lie in the first 2^32-cell block of draws (origin + h * w <=
+//   2^32: every board up to 65536^2 at origin 0): the key is the run's,
+//   the index a 32-bit lo, round 1 hoisted (x1 = c1 + k1 is the same for
+//   every cell, so x0 = lo + (k0 + c1 + k1) and x1 = rotl(c1 + k1, 13) ^ x0
+//   are one add and one xor of a uniform) and each key injection folded
+//   into a constant of the launch (NarrowHash, built on the host); its
+//   adds issue on the multiply-add pipe, beside the rotates and xors on
+//   the integer pipe.  The wide one (Wide = true) takes any origin: a
+//   64-bit index and the key of the index's 2^32-cell block (block_key)
+//   checked draw by draw, since a warp's entries may lie on either side of
+//   a block's end.
+// Lanes past the board's end take part in every shuffle with d = 0, so a
+// warp never leaves a _sync call short of lanes.
 //
 // Both launch on the caller's stream, allocate nothing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments outside what
 // they take).
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -111,66 +142,194 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = word ? u.y : u.x;
 }
 
+// The uniforms of one K6 launch: the run's key, the counter word and the
+// acceptance table's entries 3 and 4 (a batch of boards would take one a
+// slot).
+struct Draws {
+  uint32_t k0, k1, c1;
+  uint32_t thr3, thr4;
+};
+
+// Word 0 of threefry2x32((k0, k1), (lo, c1)) with every term that does not
+// depend on lo folded into a constant of the launch: round 1's add and
+// rotate, and the key injections with their round constants.
+struct NarrowHash {
+  uint32_t x0;       // k0 + (c1 + k1): x0 after round 1's add is lo + x0
+  uint32_t x1;       // rotl(c1 + k1, 13): x1 after round 1 is x1 ^ x0
+  uint32_t inj0[5];  // the key injected into x0 after group g
+  uint32_t inj1[4];  // ... into x1, with g + 1 (group 4's feeds only word 1)
+  // 1, which the hash's adds multiply by so that they issue as IMAD on the
+  // multiply-add pipe: left with plain adds, the compiler fuses pairs of
+  // them into IADD3 on the integer pipe, which the rotates and xors fill
+  uint32_t one;
+};
+
+NarrowHash narrow_hash(uint32_t k0, uint32_t k1, uint32_t c1) {
+  const uint32_t keys[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const uint32_t x1 = c1 + k1;
+  NarrowHash n{};
+  n.x0 = k0 + x1;
+  n.one = 1;
+  n.x1 = (x1 << 13) | (x1 >> 19);
+  for (int g = 0; g < 5; ++g) {
+    n.inj0[g] = keys[(g + 1) % 3];
+    if (g < 4) n.inj1[g] = keys[(g + 2) % 3] + static_cast<uint32_t>(g + 1);
+  }
+  return n;
+}
+
+// word 0 of threefry2x32 at counter (lo, c1) under the run's key, from the
+// launch's NarrowHash: 19 rounds after the hoisted round 1
+__device__ __forceinline__ uint32_t threefry2x32_word0_narrow(const NarrowHash& n,
+                                                             uint32_t lo) {
+  const auto add = [&n](uint32_t a, uint32_t b) { return b * n.one + a; };  // IMAD
+  uint32_t x0 = add(lo, n.x0);
+  uint32_t x1 = n.x1 ^ x0;
+#pragma unroll
+  for (int g = 0; g < 5; ++g) {
+#pragma unroll
+    for (int i = g == 0 ? 1 : 0; i < 4; ++i) {
+      x0 = add(x0, x1);
+      x1 = __funnelshift_l(x1, x1, rotation(g, i));
+      x1 ^= x0;
+    }
+    x0 = add(x0, n.inj0[g]);
+    if (g < 4) x1 = add(x1, n.inj1[g]);
+  }
+  return x0;
+}
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kEntries = 32 * 16;  // a warp's most decided cells
+
+// Appends entry v to a warp's list at the shared address `at` where `take`
+// is not 0, and advances `at` past it: a predicated store and add, no
+// branch.
+__device__ __forceinline__ void append_if(uint32_t take, uint32_t& at, uint32_t v) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.u32 p, %1, 0;\n\t@p st.shared.u16 [%0], %2;\n\t"
+      "@p add.u32 %0, %0, 2;\n\t}"
+      : "+r"(at)
+      : "r"(take), "h"(static_cast<unsigned short>(v))
+      : "memory");
+}
+
+// The draw of the cell at index idx: the narrow instance's hash of a
+// 32-bit index, or the wide one's under the key of the index's 2^32-cell
+// block (key_hi, key: the last block's, kept across draws).
+template <bool Wide, typename Index>
+__device__ __forceinline__ uint32_t cell_draw(const Draws& draws, const NarrowHash& narrow,
+                                              Index idx, uint32_t& key_hi, uint2& key) {
+  if constexpr (Wide) {
+    const uint32_t hi = static_cast<uint32_t>(idx >> 32);
+    if (hi != key_hi) {
+      key = block_key(draws.k0, draws.k1, hi);
+      key_hi = hi;
+    }
+    return threefry2x32(key.x, key.y, static_cast<uint32_t>(idx), draws.c1).x;
+  } else {
+    return threefry2x32_word0_narrow(narrow, idx);
+  }
+}
+
+template <bool Wide>
 __global__ void __launch_bounds__(kThreads)
     packed_metropolis_half_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-                                  int h, int w, int wp, int parity, uint32_t k0, uint32_t k1,
-                                  uint32_t c1, unsigned long long origin, uint32_t thr3,
-                                  uint32_t thr4) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= static_cast<long long>(h) * wp) return;
-  const int r = static_cast<int>(i / wp);
-  const int j = static_cast<int>(i - static_cast<long long>(r) * wp);
-  const uint32_t* row = x + static_cast<long long>(r) * wp;
-  const uint32_t c = row[j];
-  const uint32_t up = x[static_cast<long long>(r + 1 == h ? 0 : r + 1) * wp + j];
-  const uint32_t down = x[static_cast<long long>(r == 0 ? h - 1 : r - 1) * wp + j];
-  const int rem = w & 31;
-  const int top = (rem ? rem : 32) - 1;  // bit of column w-1 in the last word
-  // L[c] = x[(c-1) mod w], R[c] = x[(c+1) mod w]
-  const uint32_t carry_l = j > 0 ? row[j - 1] >> 31 : (row[wp - 1] >> top) & 1u;
-  const uint32_t left = (c << 1) | carry_l;
-  const uint32_t right =
-      j < wp - 1 ? (c >> 1) | (row[j + 1] << 31) : (c >> 1) | ((row[0] & 1u) << top);
-  // carry-save reduction of the four neighbour planes to the count's planes
-  const uint32_t s1 = up ^ down ^ left;
-  const uint32_t cs1 = (up & down) | ((up ^ down) & left);
-  const uint32_t b0 = s1 ^ right;
-  const uint32_t cs2 = s1 & right;
-  const uint32_t b1 = cs1 ^ cs2;
-  const uint32_t b2 = cs1 & cs2;
-  const uint32_t n3 = b0 & b1 & ~b2;
-  const uint32_t n1 = b0 & ~b1 & ~b2;
-  const uint32_t n0 = ~(b0 | b1 | b2);
-  const uint32_t needs3 = (c & n3) | (~c & n1);
-  const uint32_t needs4 = (c & b2) | (~c & n0);
-  // the draws of the active-parity cells of this word
-  const int a = (r + parity) & 1;
-  const int cols = min(32, w - 32 * j);  // valid columns in this word
-  const unsigned long long base =
-      origin + static_cast<unsigned long long>(r) * static_cast<unsigned long long>(w) +
-      32ull * static_cast<unsigned long long>(j) + static_cast<unsigned long long>(a);
-  uint32_t key_hi = 0;
-  uint2 key = make_uint2(k0, k1);
-  uint32_t cmp3 = 0, cmp4 = 0;
+                                  int h, int w, int wp, int parity, unsigned long long origin,
+                                  Draws draws, NarrowHash narrow) {
+  // a 32-bit word and cell index where the launch's cells lie below 2^32
+  using Index = typename std::conditional<Wide, unsigned long long, uint32_t>::type;
+  // each warp's list of entries owner << 7 | bit: first the cells held
+  // against the table's entry 3, then those held against entry 4
+  __shared__ uint16_t entries[kWarps][kEntries];
+  __shared__ Index first_cell[kWarps][32];  // the index of each lane's bit 0
+  __shared__ uint32_t accepted[kWarps][32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const Index n = static_cast<Index>(h) * static_cast<Index>(wp);
+  const Index i = static_cast<Index>(blockIdx.x) * kThreads + threadIdx.x;
+  uint32_t c = 0, active = 0, d3 = 0, d4 = 0;
+  int a = 0;  // the active parity's bits are a + 2t
+  if (i < n) {
+    const Index r = i / static_cast<Index>(wp);
+    const int j = static_cast<int>(i - r * static_cast<Index>(wp));
+    const uint32_t* row = x + r * static_cast<Index>(wp);
+    c = row[j];
+    const uint32_t up = x[(r + 1 == static_cast<Index>(h) ? 0 : r + 1) * wp + j];
+    const uint32_t down = x[(r == 0 ? static_cast<Index>(h) - 1 : r - 1) * wp + j];
+    const int rem = w & 31;
+    const int top = (rem ? rem : 32) - 1;  // bit of column w-1 in the last word
+    // L[c] = x[(c-1) mod w], R[c] = x[(c+1) mod w]
+    const uint32_t carry_l = j > 0 ? row[j - 1] >> 31 : (row[wp - 1] >> top) & 1u;
+    const uint32_t left = (c << 1) | carry_l;
+    const uint32_t right =
+        j < wp - 1 ? (c >> 1) | (row[j + 1] << 31) : (c >> 1) | ((row[0] & 1u) << top);
+    // carry-save reduction of the four neighbour planes to the count's planes
+    const uint32_t s1 = up ^ down ^ left;
+    const uint32_t cs1 = (up & down) | ((up ^ down) & left);
+    const uint32_t b0 = s1 ^ right;
+    const uint32_t cs2 = s1 & right;
+    const uint32_t b1 = cs1 ^ cs2;
+    const uint32_t b2 = cs1 & cs2;
+    const uint32_t n3 = b0 & b1 & ~b2;
+    const uint32_t n1 = b0 & ~b1 & ~b2;
+    const uint32_t n0 = ~(b0 | b1 | b2);
+    const int cols = min(32, w - 32 * j);  // valid columns in this word
+    a = static_cast<int>((r + parity) & 1);
+    active = (a ? 0xAAAAAAAAu : 0x55555555u) & (cols == 32 ? 0xFFFFFFFFu : (1u << cols) - 1u);
+    // needs3 and needs4, the cells the table's entries 3 and 4 decide (disjoint)
+    d3 = ((c & n3) | (~c & n1)) & active;
+    d4 = ((c & b2) | (~c & n0)) & active;
+    first_cell[warp][lane] = static_cast<Index>(origin) + r * static_cast<Index>(w) +
+                             32 * static_cast<Index>(j);
+  }
+  accepted[warp][lane] = 0;
+  // the warp's exclusive prefix sums of its lanes' decided cells, entry 3's
+  // in the low half-word and entry 4's in the high one
+  const int count = __popc(d3) | __popc(d4) << 16;
+  int below = count;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xFFFFFFFFu, below, o);
+    if (lane >= o) below += v;
+  }
+  const int sums = __shfl_sync(0xFFFFFFFFu, below, 31);
+  below -= count;
+  const int total3 = sums & 0xFFFF;
+  const int total = total3 + (sums >> 16);
+  // one entry a decided cell, in the lane's slices of the two parts
+  const uint32_t list = static_cast<uint32_t>(__cvta_generic_to_shared(entries[warp]));
+  uint32_t at3 = list + 2 * (below & 0xFFFF);
+  uint32_t at4 = list + 2 * (total3 + (below >> 16));
+  const uint32_t even3 = d3 >> a, even4 = d4 >> a;
+  const uint32_t tag = static_cast<uint32_t>(lane) << 7 | static_cast<uint32_t>(a);
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
-    const int bit = a + 2 * t;
-    if (bit < cols) {
-      const unsigned long long idx = base + 2ull * static_cast<unsigned long long>(t);
-      const uint32_t hi = static_cast<uint32_t>(idx >> 32);
-      if (hi != key_hi) {
-        key = block_key(k0, k1, hi);
-        key_hi = hi;
+    append_if(even3 & 1u << 2 * t, at3, tag + 2 * t);
+    append_if(even4 & 1u << 2 * t, at4, tag + 2 * t);
+  }
+  __syncwarp();
+  // lane l hashes entries l, l + 32, ...: one compare each, against the
+  // threshold of the part of the list the entry lies in
+  [[maybe_unused]] uint32_t key_hi = 0;
+  [[maybe_unused]] uint2 key = make_uint2(draws.k0, draws.k1);
+  const uint16_t* got = entries[warp];
+  int e = lane;
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    const uint32_t thr = part ? draws.thr4 : draws.thr3;
+    for (const int end = part ? total : total3; e < end; e += 32) {
+      const uint32_t entry = got[e];
+      const uint32_t bit = entry & 31u;
+      const Index idx = first_cell[warp][entry >> 7] + bit;
+      if (cell_draw<Wide>(draws, narrow, idx, key_hi, key) < thr) {
+        atomicOr(&accepted[warp][entry >> 7], 1u << bit);
       }
-      const uint32_t u = threefry2x32(key.x, key.y, static_cast<uint32_t>(idx), c1).x;
-      cmp3 |= static_cast<uint32_t>(u < thr3) << bit;
-      cmp4 |= static_cast<uint32_t>(u < thr4) << bit;
     }
   }
-  const uint32_t accept = ~(needs3 | needs4) | (needs3 & cmp3) | (needs4 & cmp4);
-  const uint32_t pmask = a ? 0xAAAAAAAAu : 0x55555555u;
-  const uint32_t cmask = cols == 32 ? 0xFFFFFFFFu : (1u << cols) - 1u;
-  y[i] = c ^ (accept & pmask & cmask);
+  __syncwarp();
+  // the undecided active cells force-accept
+  if (i < n) y[i] = c ^ ((active & ~(d3 | d4)) | accepted[warp][lane]);
 }
 
 unsigned int blocks_for(long long n) {
@@ -200,19 +359,28 @@ int mc_cell_uniforms(void* out, long long n, uint32_t k0, uint32_t k1, uint32_t 
 // column w zero) into y (a distinct buffer of the same shape), at counter
 // word c1 (step * NSUB + the parity's substream) under the run's key,
 // the board's cell (0, 0) at flat index origin, against the acceptance
-// table's entries thr3 and thr4, on `stream`.  h and w must be even.
+// table's entries thr3 and thr4, on `stream`, by the wide instance where
+// `wide` is 1 and the narrow one where it is 0.  h and w must be even, and
+// a narrow launch's cells must lie below 2^32 (origin + h * w <= 2^32).
 int mc_packed_metropolis_half(const void* x, void* y, int h, int w, int wp, int parity,
                               uint32_t k0, uint32_t k1, uint32_t c1, unsigned long long origin,
-                              uint32_t thr3, uint32_t thr4, void* stream) {
+                              uint32_t thr3, uint32_t thr4, int wide, void* stream) {
+  constexpr unsigned long long kBlock = 1ull << 32;
   if (h < 2 || w < 2 || (h & 1) || (w & 1) || wp != (w + 31) / 32 ||
-      (parity != 0 && parity != 1) || x == y) {
+      (parity != 0 && parity != 1) || x == y || (wide != 0 && wide != 1) ||
+      (!wide && (origin > kBlock ||
+                 static_cast<unsigned long long>(h) * static_cast<unsigned long long>(w) >
+                     kBlock - origin))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long n = static_cast<long long>(h) * wp;
-  packed_metropolis_half_kernel<<<blocks_for(n), kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y), h, w, wp, parity, k0, k1, c1,
-      origin, thr3, thr4);
+  const Draws draws{k0, k1, c1, thr3, thr4};
+  const NarrowHash narrow = narrow_hash(k0, k1, c1);
+  const auto kernel =
+      wide ? packed_metropolis_half_kernel<true> : packed_metropolis_half_kernel<false>;
+  kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y), h, w, wp, parity, origin,
+      draws, narrow);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,4 @@
-"""Kernels K1, K3 and K5 alone: device time per launch across depths and boards.
+"""Kernels K1, K3, K5 and K6 alone: device time per launch across depths and boards.
 
 Times one launch of ``k`` substeps through the public wrappers
 (``packed_stripe.packed_multi_step`` with ``block_steps=k``,
@@ -12,6 +12,7 @@ file runs against any tree of the port that has them::
     python -m tpu_life_torch.experiments.stripe_sweep small      # 1500x500 only
     python -m tpu_life_torch.experiments.stripe_sweep k5_tiles   # K5 at every tile
     python -m tpu_life_torch.experiments.stripe_sweep ab         # three cases, three times
+    python -m tpu_life_torch.experiments.stripe_sweep k6         # the stochastic tier's readings
 
 Each case prints one JSON line ``{"kernel", "rule", "shape", "k", "ms"}``
 (``ms``: mean device time of one launch); a board that differs from the
@@ -21,13 +22,24 @@ with the tile forced; it needs a tree whose K5 takes its tiles from the
 caller.  ``ab`` times K1 (16384^2), a K3 shard (16384^2 on 4) and K5
 (8192^2), Conway at k = 8, three times in turn: the cases a change to the
 tiles K1, K3 and K5 share must leave as they were, for a parent tree and a
-change run in one call.  It runs on the card only.
+change run in one call.  ``k6`` reads what a change to kernel K6 must
+move or leave: a 16384^2 Ising board (seeded, seed 1) through 256 sweeps
+of the ``cuda`` Runner at T = 2.27 (host clock, spin updates/s); K6's
+device time on that board and on the seeded 4096^2 board of seed 1 (parity
+0, sweep 256, held to the plain version first), each with the cells a draw
+decides and the bound they give; K7's on a 16384^2 block; and ``bench
+--mc`` at 4096^2 and 16384^2 (a child process each).  Run it as a file
+from the root of the tree to measure (``PYTHONPATH=. python
+<this file> k6``), so that a parent tree and a change are read by the same
+code.  Every mode runs on the card only.
 """
 
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -70,6 +82,16 @@ K5_CASES = (
 )
 # the ab mode's rounds of (K1, K3, K5) readings
 AB_ROUNDS = 3
+# the k6 mode: the Runner's sweeps at T = 2.27 (near Onsager's 2.269), the
+# boards K6 is timed on, and bench --mc's two readings (chip_smoke.py's)
+K6_SWEEPS, K6_TEMP = 256, 2.27
+K6_SIDES = (4096, 16384)
+MC_BENCHES = (["--mc-sizes", "64,128"],
+              ["--mc-size", "16384", "--mc-steps", "100", "--mc-base-steps", "20", "--mc-sizes", "64"])
+# K6's bound (chip_smoke.py phase 15): a decided cell's word 0 and 2 more
+# integer ops (the select of its table entry and one compare), 18 logic ops
+# a word; 64 integer-pipe results a clock an SM, 128 over both pipes
+ACCEPT_OPS, K6_WORD_OPS, INT_OPS_PER_CLOCK_PER_SM = 2, 18, 64
 K5_TILE_SIDES = (8192, 16384)
 K5_TILE_DEPTHS = (1, 2, 4, 8, 16, 32)
 
@@ -186,12 +208,89 @@ def k5_tile_cases(n: int, k: int, rng, device) -> list[tuple[int, int, float]]:
     return out
 
 
+def decided_cells(x: torch.Tensor, side: int) -> int:
+    """The active cells of parity 0 on the packed square board ``x`` (int32
+    words of a ``side``^2 torus) whose move a draw decides (dE > 0): the
+    draws K6 needs at sweep parity 0."""
+    from tpu_life_torch.mc import packed
+
+    s = torch.from_numpy(packed.unpack_board(x.cpu().numpy().view(np.uint32), side)).to(x.device)
+    s = s.to(torch.int32) * 2 - 1
+    nsum = s.roll(1, 0) + s.roll(-1, 0) + s.roll(1, 1) + s.roll(-1, 1)
+    rows = torch.arange(side, device=x.device)
+    on = ((rows[:, None] + rows[None, :]) & 1) == 0
+    return int((((s * nsum + 4) >> 1 >= 3) & on).sum())
+
+
+def k6_cases(device: torch.device) -> list[dict]:
+    """The k6 mode's readings, one dict a JSON line."""
+    from tpu_life_torch.backends.base import get_backend, make_runner
+    from tpu_life_torch.kernels import mc_threefry as mct
+    from tpu_life_torch.mc import ising, packed, prng
+    from tpu_life_torch.models.rules import get_rule
+
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    full = K6_SIDES[-1]
+    board = prng.seeded_board(full, full, seed=1, device=device).cpu().numpy()
+    runner = make_runner(get_backend("cuda", device=device), board, get_rule("ising"), seed=1,
+                         temperature=K6_TEMP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.advance(K6_SWEEPS)
+    runner.sync()
+    secs = time.perf_counter() - t0
+    out = [{"runner": "mc_packed", "shape": [full, full], "sweeps": K6_SWEEPS, "seconds": secs,
+            "spin_updates_per_sec": full * full * K6_SWEEPS / secs}]
+    thr = ising.acceptance_thresholds(K6_TEMP)
+    args = (0, 1, 0, K6_SWEEPS, int(thr[3]), int(thr[4]))
+    for side in K6_SIDES:
+        x = (runner.x if side == full else torch.from_numpy(packed.pack_board(
+            prng.seeded_board(side, side, seed=1, device=device).cpu().numpy()).view(np.int32).copy())
+            .to(device))
+        y = torch.empty_like(x)
+        if not torch.equal(mct.packed_metropolis_half(x, *args, width=side, out=y),
+                           mct.packed_metropolis_half_plain(x, *args, width=side)):
+            print(f"K6 {side}^2: differs from the plain version", flush=True)
+            sys.exit(1)
+        ms = _device_ms(lambda: mct.packed_metropolis_half(x, *args, width=side, out=y),
+                        20 if side == full else 200, ("packed_metropolis_half_kernel",))
+        decided, words = decided_cells(x, side), x.numel()
+        alu_ops = decided * (mct.ALU_OPS_PER_DRAW + ACCEPT_OPS) + words * K6_WORD_OPS
+        all_ops = decided * (mct.OPS_PER_DRAW + ACCEPT_OPS) + words * K6_WORD_OPS
+        bound_ms = max(alu_ops / INT_OPS_PER_CLOCK_PER_SM,
+                       all_ops / (2 * INT_OPS_PER_CLOCK_PER_SM)) / (sms * clock) * 1e3
+        out.append({"kernel": "K6", "shape": [side, side], "board": (
+            f"after {K6_SWEEPS} sweeps" if side == full else "seeded, seed 1"), "ms": ms,
+            "decided": decided, "active": side * side // 2, "bound_ms": bound_ms,
+            "of_bound": bound_ms / ms})
+    del runner, x, y
+    torch.cuda.empty_cache()
+    ms = _device_ms(lambda: mct.cell_uniforms((full, full), 1, 0, 3, prng.SUB_EVEN, device=device),
+                    10, ("cell_uniforms_kernel",))
+    out.append({"kernel": "K7", "shape": [full, full], "ms": ms})
+    for flags in MC_BENCHES:
+        proc = subprocess.run([sys.executable, "-m", "tpu_life_torch", "bench", "--mc", *flags],
+                              capture_output=True, text=True, check=True, timeout=600)
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        out.append({"bench": "--mc " + " ".join(flags), "size": rec["size"],
+                    "mc_sweeps_per_sec": rec["value"],
+                    "spin_updates_per_sec": rec["spin_updates_per_sec"]})
+    return out
+
+
 def main(argv: list[str]) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("stripe_sweep times the CUDA kernels: no CUDA device")
     small = "small" in argv
     device = torch.device("cuda:0")
     rng = np.random.default_rng(0)
+    if "k6" in argv:
+        for rec in k6_cases(device):
+            print(json.dumps(rec), flush=True)
+        return
     if "ab" in argv:
         for _ in range(AB_ROUNDS):
             cases = (("K1", FULL, lambda: k1_case("conway", FULL, 8, rng, device)),

@@ -15,9 +15,13 @@ at first use (``kernels._build``) and called through ``ctypes``.
   the int8 roll path, of the noisy flip and of seeded staging.  Its plain
   version is :func:`cell_uniforms_plain` (``prng.cell_uniforms_torch``).
 - :func:`packed_metropolis_half` (K6): one checkerboard half-sweep of the
-  packed spins, the neighbour count, the hash of the active cells and the
-  acceptance all in registers, one thread a word.  Its plain version is
-  :func:`packed_metropolis_half_plain` (``mc.packed.half_sweep_torch``).
+  packed spins, one thread a word: the neighbour count and the cells whose
+  move a draw decides (dE > 0) in registers, then only those cells hashed,
+  spread evenly over the warp's lanes, with one compare each.  A launch
+  whose cells all lie below 2^32 (:func:`narrow_launch`) takes the narrow
+  instance (32-bit index, Threefry's round 1 hoisted), any other the wide
+  one.  Its plain version is :func:`packed_metropolis_half_plain`
+  (``mc.packed.half_sweep_torch``).
 
 Each launches its kernel for a CUDA tensor and runs its plain version for a
 CPU one; any other device raises, and nothing falls back.  Each counts its
@@ -26,7 +30,8 @@ Both are bound by integer operations on an H100: of the
 :data:`OPS_PER_DRAW` that word 0 of a draw needs, the
 :data:`ALU_OPS_PER_DRAW` rotates and xors issue only on the integer pipe
 (the adds also as IMAD), so K7 at 16384^2 is bound by about 0.59 ms; K6 by
-the draws the table needs (the cells with dE > 0), PERF.md §6.
+the draws the table needs (the cells with dE > 0), the only ones it
+hashes, PERF.md §6.
 """
 
 from __future__ import annotations
@@ -70,7 +75,7 @@ def _library() -> ctypes.CDLL:
     lib.mc_packed_metropolis_half.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_ulonglong, ctypes.c_uint32,
-        ctypes.c_uint32, ctypes.c_void_p,
+        ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
     ]
     for fn in (lib.mc_cell_uniforms, lib.mc_packed_metropolis_half):
         fn.restype = ctypes.c_int
@@ -133,6 +138,15 @@ def packed_metropolis_half_plain(
     return packed.half_sweep_torch(x, parity, k0, k1, step, thr3, thr4, width=width, origin=origin)
 
 
+def narrow_launch(height: int, width: int, origin: int) -> bool:
+    """Whether K6's narrow instance serves a half-sweep of an ``[height,
+    width]`` board whose cell (0, 0) has flat index ``origin``: every cell
+    index ``origin + r * width + c`` lies in the first 2^32-cell block of
+    draws, so it is its own 32-bit low word and the draw takes the run's
+    key (``prng.derive_wide_keys`` leaves block 0's key as it is)."""
+    return int(origin) + int(height) * int(width) <= prng.MAX_NARROW_CELLS
+
+
 def _check_words(x: torch.Tensor, width: int, name: str) -> None:
     if x.dtype != torch.int32 or x.dim() != 2:
         raise TypeError(f"{name} must be int32 packed words [H, ceil(W/32)], got {x.dtype} "
@@ -156,8 +170,9 @@ def packed_metropolis_half(
 
     On a CUDA tensor kernel K6 writes the result into ``out`` (a second
     buffer of ``x``'s shape on its device, allocated when None) and returns
-    it; ``x`` is left as it was.  On a CPU tensor it returns the plain
-    version's result.
+    it; ``x`` is left as it was.  The launch takes K6's narrow instance
+    where :func:`narrow_launch` holds and the wide one where it does not.
+    On a CPU tensor it returns the plain version's result.
     """
     if parity not in (0, 1):
         raise ValueError(f"parity must be 0 or 1, got {parity}")
@@ -182,7 +197,8 @@ def packed_metropolis_half(
         err = _library().mc_packed_metropolis_half(
             x.data_ptr(), out.data_ptr(), h, width, x.shape[1], parity, prng.as_u32(k0),
             prng.as_u32(k1), prng.counter_word(step, substream), int(origin),
-            prng.as_u32(thr3), prng.as_u32(thr4), _stream(x.device),
+            prng.as_u32(thr3), prng.as_u32(thr4), int(not narrow_launch(h, width, origin)),
+            _stream(x.device),
         )
     if err != 0:
         raise RuntimeError(f"mc_packed_metropolis_half launch failed: CUDA error {err}")
