@@ -17,7 +17,10 @@ Phases (any failure exits non-zero and prints no result line):
    of K5 (built with them, at 4 and 8 rows a warp) and for K2 and K4 it
    prints the registers and fails on spill stores or loads; it counts
    ``LOP3``, ``SHF``, ``SHFL``, ``LDS``, ``STS``, ``BAR`` and all
-   instructions in each K1, K3 and K5 instance's SASS and the shared-memory
+   instructions in each K1, K3 and K5 instance's SASS (and in each of K1's
+   batch mode: its strips and its segments), fails if the totals of K1's
+   ``<8, Conway>``, K3's ``<false, 8, Conway>`` and K5's ``<8>`` leave 496,
+   736 and 4392 (the tiles they share stay as they were), and the shared-memory
    loads, stores and asynchronous copies (``LDS``, ``STS``, ``LDGSTS``) in
    K2's and K4's (``cuobjdump -sass`` on the built libraries); and
    ``mc_threefry.cu`` (K6's narrow and wide instances and K7), whose
@@ -203,26 +206,31 @@ Phases (any failure exits non-zero and prints no result line):
    (16384^2) timed by CUDA events and the profiler's kernel records beside
    their bounds and their plain versions;
 16. the serving tier (``tpu_life_torch.serve``: K1's batch mode, built with
-   K1, its instances in phase 2's report and SASS counts) — (a) the batch
-   mode bit-identical to its plain version launch by launch over a chunk of
-   16 steps, on 8 slots with budgets 0, 1, k-1, k, k+1, 16, 3 and 100
-   (Conway 8x512^2 and 8x4096^2, ``highlife`` 8x1500x500, the R2 diamond
-   8x1000x333), the small boards' slots equal to ``run_np``; one launch
-   (every slot stepping, k = 8) timed at 8x512^2 and 8x4096^2 by CUDA
-   events and by a fresh child's profiler records, beside its bound, its
-   plain version and 8 single-board K1 launches on the same boards; (b) the
+   K1, its instances in phase 2's report and SASS counts: K1's strips on
+   wide rows, the segment kernel on rows of at most 32 words) — (a) the
+   batch mode bit-identical to its plain version launch by launch over
+   ``chunk_plan``'s chunks, on 8 slots with budgets 0, 1, k-1, k, k+1, the
+   chunk, 3 and 100: widths 1, 31, 32, 33, 255, 256, 257, 500, 511, 512,
+   513, 1023, 1024 and 1025 at 97 rows (Conway, ``highlife``, the R1 and R2
+   diamonds in turn, chunks of 16 and 32), Conway 8x512^2 and 8x4096^2,
+   ``highlife`` 8x1500x500, the R2 diamond 8x1000x333, the small boards'
+   slots equal to ``run_np``; one chunk of 16 steps (every slot stepping:
+   one launch at 512^2, two of k = 8 at 4096^2) timed by CUDA events and by
+   a fresh child's profiler records, beside its bound, its plain version and
+   8 single-board K1 runs on the same boards; (b) the
    JAX serve bench's mix (32 sessions of 512^2 Conway x 128 steps, 8
    distinct boards, capacity 8, chunk 16, half queued at once) through
    ``python -m tpu_life_torch serve`` on ``cuda``, ``torch``, ``sharded``
    and ``numpy`` under the pipelined and the synchronous pump, every result
    equal to the numpy oracle's bytes, with sessions/s, rounds/s, batch
-   occupancy, the device-idle share and K1 batch launches a chunk (2 on
-   ``cuda``, counted from 0 around each run; none elsewhere); the
-   governor's estimate beside ``torch.cuda.max_memory_allocated`` for one
-   ``cuda`` engine; (c) ``submit`` + ``serve`` of the reference workload at
-   the golden sha256; (d) a 16384^2 Conway session served on ``mesh:2x2`` of
-   the card (``--mesh-devices 4`` under a 1 GiB budget the batch
-   overflows), equal to the ``cuda`` backend's run; (e) a ``lenia:orbium``
+   occupancy, the device-idle share and K1 batch launches a chunk
+   (``chunk_plan``'s, 1 on ``cuda``, counted from 0 around each run; none
+   elsewhere); the governor's estimate beside
+   ``torch.cuda.max_memory_allocated`` for one ``cuda`` engine; (c)
+   ``submit`` + ``serve`` of the reference workload at the golden sha256,
+   ``chunk_plan``'s launches a chunk (7 in all); (d) a 16384^2 Conway
+   session served on ``mesh:2x2`` of the card (``--mesh-devices 4`` under a
+   1 GiB budget the batch overflows), equal to the ``cuda`` backend's run; (e) a ``lenia:orbium``
    batch of 4 x 512^2 on ``cuda`` (route ``ops``), allclose at
    ``FLOAT_ATOL`` to the numpy oracle.
 
@@ -429,14 +437,29 @@ STRIPE_INSTANCES = [
     *[(f"K1 batch packed_batch_kernel<{rad}, {n}, {r}Rule>",
        rf"packed_batch_kernelILi{rad}ELi{n}E\w*{r}Rule")
       for rad, r in ((0, "Conway"), (0, "Data"), (1, "Data"), (2, "Data")) for n in (4, 8)],
+    *[(f"K1 batch packed_batch_segment_kernel<{rad}, {n}, {r}Rule>",
+       rf"packed_batch_segment_kernelILi{rad}ELi{n}E\w*{r}Rule")
+      for rad, r in ((0, "Conway"), (0, "Data"), (1, "Data"), (2, "Data")) for n in (4, 8)],
 ]
 K1_BATCH = "K1 batch packed_batch_kernel<0, 8, ConwayRule>"
+# the instance the serve mix's chunks run (8 x 512^2, k = 16: segments of 16
+# lanes, 4 rows a segment)
+K1_SEGMENT = "K1 batch packed_batch_segment_kernel<0, 4, ConwayRule>"
+# the SASS totals of the main instances of K1, K3 and K5, which share the
+# tiles K1's batch mode changed around them (PERF.md: PRs 9 and 10)
+SHARED_TILE_SASS = {"K1 packed_stripe_kernel<8, ConwayRule>": 496,
+                    "K3 sharded_stripe_kernel<false, 8, ConwayRule>": 736,
+                    "K5 conway_int8_kernel<8>": 4392}
 # phase 16: K1's batch mode timed on 8 boards of these sides; the serve mix
 # (the JAX serve bench's: sessions of P16_SIDE^2 conway x P16_STEPS,
 # capacity 8, chunk P16_CHUNK), run P16_REPEATS times on each card backend
 # and pump; the K2 keys' sessions (brians_brain x P16_K2_STEPS); the
 # mega-board's steps
 P16_SIDES = (512, 4096)
+# phase 16 (a): every segment width of K1's batch mode and both sides of
+# each boundary, the rules taken in turn
+P16_WIDTHS = (1, 31, 32, 33, 255, 256, 257, 500, 511, 512, 513, 1023, 1024, 1025)
+P16_RULES = ("conway", "highlife", "R1,C0,S1..2,B1,NN", "R2,C2,S2..4,B2..3,NN")
 P16_SIDE, P16_STEPS, P16_SESSIONS, P16_CHUNK = 512, 128, 32, 16
 P16_REPEATS = 7
 P16_K2_STEPS = 32
@@ -561,6 +584,11 @@ def main() -> int:
     for label, inst in k1_instances.items():
         print(f"  {label}: {inst['registers']} registers; "
               + ", ".join(f"{op} {n}" for op, n in inst["sass"].items()), flush=True)
+    for label, total in SHARED_TILE_SASS.items():
+        if k1_instances[label]["sass"]["total"] != total:
+            fail(f"{label}: {k1_instances[label]['sass']['total']} SASS instructions, want {total}")
+    print("K1, K3 and K5's main instances keep their SASS totals: " + ", ".join(
+        f"{label} {total}" for label, total in SHARED_TILE_SASS.items()), flush=True)
     # K2 and K4 share int8_tile: registers, no spill, and the shared-memory
     # instructions of their SASS
     int8_report = {}
@@ -3183,8 +3211,9 @@ def phase15(ctx: dict) -> list[dict]:
 
 # phase 16's profile of K1's batch mode in a fresh process: argv = the
 # batch shapes' sides; each side's 8 random packed boards, every slot at a
-# full chunk's budget, one launch of depth 8; and 8 single-board K1
-# launches of depth 8 on the same boards (their total a rep)
+# full chunk's budget, one chunk of 16 steps (chunk_plan's launches, their
+# device times summed); and 8 single-board K1 runs of 16 steps, launches of
+# depth 8, on the same boards (their total a rep)
 P16_PROFILE = """
 import json, sys
 import torch
@@ -3206,14 +3235,18 @@ for side in map(int, sys.argv[1:]):
     g = torch.Generator(device=dev).manual_seed(side)
     x = torch.randint(-2**31, 2**31 - 1, (8, side, side // 32), generator=g, dtype=torch.int32,
                       device=dev)
-    y = torch.empty_like(x)
+    bufs = [torch.empty_like(x), torch.empty_like(x)]
     steps = torch.full((8,), 16, dtype=torch.int32, device=dev)
-    out[f"batch_{side}"] = device_ms(
-        lambda: kb.packed_batch_multi_step(x, steps, rule, (side, side), 8, out=y),
-        "packed_batch_kernel", 10)
+    plan = kb.chunk_plan(rule, (side, side), 16, 8, ps.sm_count(0))
+    def chunk():
+        src = x
+        for i, lc in enumerate(plan):
+            src = kb.packed_batch_multi_step(src, steps, rule, (side, side), lc.k, out=bufs[i % 2],
+                                             offset=lc.offset)
+    out[f"batch_{side}"] = device_ms(chunk, "packed_batch", 20)
     def singles():
         for s in range(8):
-            ps.packed_multi_step(x[s], rule, (side, side), 8, block_steps=8, scratch=y[s])
+            ps.packed_multi_step(x[s], rule, (side, side), 16, block_steps=8, scratch=bufs[0][s])
     out[f"single_{side}"] = device_ms(singles, "packed_stripe_kernel", 10)
 print("P16 " + json.dumps(out), flush=True)
 """
@@ -3269,68 +3302,88 @@ def phase16(ctx: dict) -> dict:
         return torch.from_numpy(np.stack([bitlife.pack_np(b).view(np.int32) for b in boards])).to(dev)
 
     # (a) K1's batch mode against its plain version, launch by launch over
-    # a chunk of 16 steps (launches of depth k at offsets 0, k, ...), with
-    # budgets 0, 1, k-1, k, k+1, a full chunk, 3 and past the chunk
-    cases = [("conway", (512, 512)), ("conway", (4096, 4096)), ("highlife", (1500, 500)),
-             ("R2,C2,S2..4,B2..3,NN", (1000, 333))]
+    # a chunk (chunk_plan's launches: one on narrow rows, launches of depth
+    # 8 on wide ones), with budgets 0, 1, k-1, k, k+1, the chunk, 3 and past
+    # it: every segment width and both sides of each boundary at 97 rows
+    # (the four rules in turn, chunks of 16 and 32), the serve mix's shape,
+    # a wide board, the reference workload's and an R2 diamond's
+    cases = [(P16_RULES[i % len(P16_RULES)], (97, w), chunk)
+             for i, w in enumerate(P16_WIDTHS) for chunk in (P16_CHUNK, 2 * P16_CHUNK)]
+    cases += [("conway", (512, 512), P16_CHUNK), ("conway", (4096, 4096), P16_CHUNK),
+              ("highlife", (1500, 500), P16_CHUNK), ("R2,C2,S2..4,B2..3,NN", (1000, 333), P16_CHUNK)]
     checked = batch_max_err = 0
-    for spec, (h, w) in cases:
+    layouts = set()
+    for spec, (h, w), chunk in cases:
         rule = get_rule(spec)
-        k = ps.clamp_block_steps(rule, BLOCK_STEPS)
-        budgets = [0, 1, k - 1, k, k + 1, P16_CHUNK, 3, 100]
+        plan = kb.chunk_plan(rule, (h, w), chunk, 8, ctx["n_sm"])
+        k = plan[0].k
+        budgets = [0, 1, k - 1, k, k + 1, chunk, 3, 100]
         boards = (rng.random((8, h, w)) < 0.35).astype(np.int8)
         boards[0, 0, :] = boards[1, :, 0] = boards[2, -1, :] = boards[3, :, -1] = 1  # edges live
         x = packed_batch_of(boards)
         steps = torch.tensor(budgets, dtype=torch.int32, device=dev)
         kern, plain = x, x
-        for offset in range(0, P16_CHUNK, k):
-            kern = kb.packed_batch_multi_step(kern, steps, rule, (h, w), k, out=torch.empty_like(x),
-                                              offset=offset)
-            plain = kb.packed_batch_multi_step_plain(plain, steps, rule, (h, w), k,
-                                                     out=torch.empty_like(x), offset=offset)
+        for launch in plan:
+            kern = kb.packed_batch_multi_step(kern, steps, rule, (h, w), launch.k,
+                                              out=torch.empty_like(x), offset=launch.offset)
+            plain = kb.packed_batch_multi_step_plain(plain, steps, rule, (h, w), launch.k,
+                                                     out=torch.empty_like(x), offset=launch.offset)
             err = int(bool((kern ^ plain).any()))  # max |cell difference|: 0 or 1
             batch_max_err = max(batch_max_err, err)
             if err:
                 fail(f"phase 16 (a): K1's batch mode differs from its plain version: {spec} "
-                     f"8x{h}x{w}, k {k}, offset {offset}, budgets {budgets}")
+                     f"8x{h}x{w}, launch {launch}, budgets {budgets}")
             checked += 1
+            layouts.add("segments" if launch.tiles.seg else "strips")
         for s, n in enumerate(budgets):  # and the slots to independent runs
-            want = run_np(boards[s], rule, min(n, P16_CHUNK)) if h * w <= 1 << 20 else None
+            want = run_np(boards[s], rule, min(n, chunk)) if h * w <= 1 << 20 else None
             if want is not None and not np.array_equal(bitlife.unpack_np(
                     kern[s].cpu().numpy().view(np.uint32), w), want):
                 fail(f"phase 16 (a): {spec} {h}x{w} slot {s} (budget {n}) differs from run_np")
+    if layouts != {"segments", "strips"}:
+        fail(f"phase 16 (a): the cases ran the layouts {sorted(layouts)}, want both")
     print(f"phase 16 (a): K1's batch mode bit-identical to its plain version in {checked} launches "
-          f"(conway 8x512^2 and 8x4096^2, highlife 8x1500x500, R2 NN 8x1000x333; budgets "
-          f"0, 1, k-1, k, k+1, {P16_CHUNK}, 3, 100; every slot of the small boards equal to run_np)",
-          flush=True)
+          f"(widths {', '.join(map(str, P16_WIDTHS))} at 97 rows, chunks of {P16_CHUNK} and "
+          f"{2 * P16_CHUNK}, rules {', '.join(P16_RULES)} in turn; conway 8x512^2 and 8x4096^2, "
+          f"highlife 8x1500x500, R2 NN 8x1000x333; budgets 0, 1, k-1, k, k+1, the chunk, 3, 100; "
+          f"every slot of the small boards equal to run_np)", flush=True)
 
-    # timed: every slot at a full chunk's budget, one launch of depth 8,
-    # by CUDA events; its plain version; 8 single-board K1 launches; the
-    # device times from the profiler in a fresh child
+    # timed: a chunk of 16 steps (chunk_plan's launches), every slot at a
+    # full chunk's budget, by CUDA events; its plain version; 8 single-board
+    # K1 runs of 16 steps; the device times from the profiler in a fresh
+    # child; the bound of a chunk
     rows = {}
     for side in P16_SIDES:
         g = torch.Generator(device=dev).manual_seed(side)
         x = torch.randint(-2**31, 2**31 - 1, (8, side, side // 32), generator=g, dtype=torch.int32,
                           device=dev)
-        y = torch.empty_like(x)
+        bufs = [torch.empty_like(x), torch.empty_like(x)]
         steps = torch.full((8,), P16_CHUNK, dtype=torch.int32, device=dev)
-        ms = events_ms(lambda: kb.packed_batch_multi_step(x, steps, conway, (side, side),
-                                                          BLOCK_STEPS, out=y), 20)
-        plain_ms = events_ms(lambda: kb.packed_batch_multi_step_plain(
-            x, steps, conway, (side, side), BLOCK_STEPS, out=y), 2)
+        plan = kb.chunk_plan(conway, (side, side), P16_CHUNK, 8, ctx["n_sm"])
+
+        def chunk(step):
+            src = x
+            for i, launch in enumerate(plan):
+                src = step(src, launch, bufs[i % 2])
+            return src
+
+        ms = events_ms(lambda: chunk(lambda src, lc, o: kb.packed_batch_multi_step(
+            src, steps, conway, (side, side), lc.k, out=o, offset=lc.offset)), 20)
+        plain_ms = events_ms(lambda: chunk(lambda src, lc, o: kb.packed_batch_multi_step_plain(
+            src, steps, conway, (side, side), lc.k, out=o, offset=lc.offset)), 2)
 
         def singles():
             for s in range(8):
-                ps.packed_multi_step(x[s], conway, (side, side), BLOCK_STEPS,
-                                     block_steps=BLOCK_STEPS, scratch=y[s])
+                ps.packed_multi_step(x[s], conway, (side, side), P16_CHUNK,
+                                     block_steps=BLOCK_STEPS, scratch=bufs[0][s])
         single_ms = events_ms(singles, 10)
         n_words = 8 * side * (side // 32)
         mem_ms = 2 * n_words * 4 / HBM_BYTES_PER_S * 1e3
-        ops_ms = ps.logic_ops_per_word_step(conway) * n_words * BLOCK_STEPS / int_ops_per_s * 1e3
+        ops_ms = ps.logic_ops_per_word_step(conway) * n_words * P16_CHUNK / int_ops_per_s * 1e3
         bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
         rows[side] = dict(ms=ms, plain_ms=plain_ms, single_ms=single_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, tiles=ps.launch_tile_shape(conway, BLOCK_STEPS,
-                                                                        8 * side, side // 32))
+                          bound_by=bound_by, launches=len(plan),
+                          tiles=[tuple(lc.tiles) for lc in plan], ks=[lc.k for lc in plan])
     proc = subprocess.run([sys.executable, "-c", P16_PROFILE, *map(str, P16_SIDES)], cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
@@ -3341,15 +3394,17 @@ def phase16(ctx: dict) -> dict:
         return "not measured (no kernel records)" if v is None else f"{v:.4f}"
 
     for side, r in rows.items():
-        r["device_ms"], _ = device[f"batch_{side}"]
+        r["device_ms"], n_rec = device[f"batch_{side}"]
         r["single_device_ms"], n_single = device[f"single_{side}"]
-        print(f"K1's batch mode, conway 8x{side}^2, k = {BLOCK_STEPS}, every slot stepping "
-              f"(tiles {r['tiles']}): {r['ms']:.4f} ms a launch by CUDA events, device "
-              f"{fmt_dev(r['device_ms'])}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+        print(f"K1's batch mode, conway 8x{side}^2, a chunk of {P16_CHUNK} steps, every slot "
+              f"stepping: {r['launches']} launch(es) of k = {r['ks']} (tiles, rows a warp or "
+              f"segment, segment lanes: {r['tiles']}); {r['ms']:.4f} ms a chunk by CUDA events, "
+              f"device {fmt_dev(r['device_ms'])} ({n_rec} kernel records a chunk); bound "
+              f"{r['bound_ms']:.5f} ms a chunk ({r['bound_by']}: "
               f"{ps.logic_ops_per_word_step(conway)} logic ops a word a step over every slot's "
               f"words, or each word read and written once); plain {r['plain_ms']:.3f} ms; 8 "
-              f"single-board K1 launches {r['single_ms']:.4f} ms by events, device "
-              f"{fmt_dev(r['single_device_ms'])} ({n_single} kernel records a rep) {card}",
+              f"single-board K1 runs of {P16_CHUNK} steps {r['single_ms']:.4f} ms by events, "
+              f"device {fmt_dev(r['single_device_ms'])} ({n_single} kernel records a rep) {card}",
               flush=True)
     torch.cuda.empty_cache()
 
@@ -3368,6 +3423,7 @@ def phase16(ctx: dict) -> dict:
     # are read as their median and range; the numpy oracle runs once
     mix = {}
     main_launches = None
+    per_chunk = len(kb.chunk_plan(conway, (P16_SIDE, P16_SIDE), P16_CHUNK, 8, ctx["n_sm"]))
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         oracle = []
@@ -3398,9 +3454,9 @@ def phase16(ctx: dict) -> dict:
                             fail(f"phase 16 (b) serve {backend} {pump}: session {i} differs from "
                                  f"the numpy oracle's bytes")
                     shutil.rmtree(out)
-                    if backend == "cuda" and not (chunks and launches == 2 * chunks):
+                    if backend == "cuda" and not (chunks and launches == per_chunk * chunks):
                         fail(f"phase 16 (b) serve cuda {pump}: {launches} K1 batch launches over "
-                             f"{chunks} chunks, want 2 a chunk")
+                             f"{chunks} chunks, want chunk_plan's {per_chunk} a chunk")
                     if backend != "cuda" and launches:
                         fail(f"phase 16 (b) serve {backend} {pump}: {launches} K1 batch launches")
                     if backend == "cuda" and pump == "pipelined" and rep == 0:
@@ -3513,16 +3569,18 @@ def phase16(ctx: dict) -> dict:
                         "--config-file", str(tmp / "grid_size_data.txt"),
                         "--output-file", str(tmp / "output.txt")]) != 0:
             fail("phase 16 (c): submit of the reference workload failed")
-        kb.packed_batch_multi_step.launches = 0
+        kb.packed_batch_multi_step.launches = BatchEngine.dispatched = 0
         rc = cli_main_rc(["serve", "--requests", spool, "--output-dir", str(tmp / "out")])
-        ref_launches = kb.packed_batch_multi_step.launches
+        ref_launches, ref_chunks = kb.packed_batch_multi_step.launches, BatchEngine.dispatched
         raw = (tmp / "output.txt").read_bytes() if (tmp / "output.txt").exists() else b""
+        ref_plan = len(kb.chunk_plan(conway, (1500, 500), P16_CHUNK, 8, ctx["n_sm"]))
         if rc != 0 or len(raw) != GOLDEN_BYTES or hashlib.sha256(raw).hexdigest() != GOLDEN_SHA \
-                or not ref_launches:
+                or not ref_launches or ref_launches != ref_plan * ref_chunks:
             fail(f"phase 16 (c): served reference workload rc {rc}, {len(raw)} bytes, "
-                 f"{ref_launches} K1 batch launches; want the golden sha256")
+                 f"{ref_launches} K1 batch launches over {ref_chunks} chunks (chunk_plan: "
+                 f"{ref_plan} a chunk); want the golden sha256")
     print(f"phase 16 (c): submit + serve of the reference workload: golden sha256, "
-          f"{ref_launches} K1 batch launches", flush=True)
+          f"{ref_launches} K1 batch launches over {ref_chunks} chunks", flush=True)
 
     # (d) a mega-board session of FULL^2 on mesh:2x2 of the card (a budget
     # the board's batch overflows), held to a one-card run's bytes
@@ -3574,8 +3632,7 @@ def phase16(ctx: dict) -> dict:
           f"abs error {err:.3e} against the numpy oracle (<= {lenia.FLOAT_ATOL}); phase 16 took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    big = rows[P16_SIDES[-1]]
-    small = rows[P16_SIDES[0]]
+    small, big = rows[P16_SIDES[0]], rows[P16_SIDES[-1]]
     return {
         "name": "packed_batch_multi_step",
         "route": "cuda",
@@ -3585,28 +3642,33 @@ def phase16(ctx: dict) -> dict:
         "max_abs_err": batch_max_err,
         "equal_to_plain": batch_max_err == 0,
         "rule": "conway",
-        "shape": [8, P16_SIDES[-1], P16_SIDES[-1]],
-        "steps_per_launch": BLOCK_STEPS,
-        "ms": big["ms"],
-        "kernel_ms": big["ms"],
-        "device_ms": big["device_ms"],
-        "plain_ms": big["plain_ms"],
-        "bound_ms": big["bound_ms"],
-        "bound_by": big["bound_by"],
+        "shape": [8, P16_SIDE, P16_SIDE],
+        "steps_per_chunk": P16_CHUNK,
+        "launches_per_chunk": small["launches"],
+        "ms": small["ms"],
+        "kernel_ms": small["ms"],
+        "device_ms": small["device_ms"],
+        "plain_ms": small["plain_ms"],
+        "bound_ms": small["bound_ms"],
+        "bound_by": small["bound_by"],
         "library_ms": None,
-        "single_board_ms": big["single_ms"],
-        "single_board_device_ms": big["single_device_ms"],
-        "ms_512": small["ms"],
-        "device_ms_512": small["device_ms"],
-        "bound_ms_512": small["bound_ms"],
-        "single_board_ms_512": small["single_ms"],
+        "tiles": small["tiles"],
+        "single_board_ms": small["single_ms"],
+        "single_board_device_ms": small["single_device_ms"],
+        "launches_per_chunk_4096": big["launches"],
+        "ms_4096": big["ms"],
+        "device_ms_4096": big["device_ms"],
+        "plain_ms_4096": big["plain_ms"],
+        "bound_ms_4096": big["bound_ms"],
+        "single_board_ms_4096": big["single_ms"],
         "chunks": mix[("cuda", "pipelined")][0]["chunks"],
         "reference_launches": ref_launches,
         "serve_mix": {f"{b} {p}": {k: [r[k] for r in runs] for k in (
             "sessions_per_s", "rounds_per_s", "occupancy", "idle")}
                       for (b, p), runs in mix.items()},
         "k2_serve_launches": k2_serve_launches,
-        **ctx["instances"][K1_BATCH],
+        **ctx["instances"][K1_SEGMENT],
+        "strip_instance": {"instance": K1_BATCH, **ctx["instances"][K1_BATCH]},
     }
 
 

@@ -25,7 +25,17 @@
 // n_s = min(k, max(budget[s] - offset, 0)) masked steps, the tiles of K1
 // with the slot from the grid's y axis (BatchIo).  The halo depth stays k
 // for every block; a block whose slot runs fewer substeps computes n_s of
-// them, and a slot of n_s = 0 is copied through.
+// them, and a slot of n_s = 0 is copied through.  On narrow rows (at most
+// 32 words: the serving tier's 512^2 boards, the reference workload's
+// 1500x500) K1's strips would leave half the lanes idle (16 words in 32
+// lanes, two of them halo lanes) and a serving chunk would be two launches
+// whose time is their ramp and critical path, not their work.  There the
+// batch mode runs packed_batch_segment_kernel instead: a row takes a
+// segment of 8, 16 or 32 lanes, so every lane up to the row's last word is
+// an output word and a warp's registers hold 32 / seg times the rows; the
+// clamped edge is selected dead at the segment's ends, so the sideways
+// reach no longer limits k and a chunk of 16 steps is one launch
+// (segment_run; the wrapper's chunk_plan picks the layout and the tiles).
 //
 // K1 and K3 compute `k` masked steps of a packed bitboard, each step equal to
 // bitlife.make_masked_packed_step on the whole board: 32 cells per 32-bit
@@ -194,24 +204,54 @@ struct DataRule {
   }
 };
 
+// The words beside a lane's, as a policy the substeps take.  K1's strips:
+// the whole warp is one row, and a shuffle past the warp's edge returns the
+// lane's own word, which the strip's edge lanes absorb.
+struct StripLanes {
+  __device__ __forceinline__ uint32_t left(uint32_t v) const { return __shfl_up_sync(kFull, v, 1); }
+  __device__ __forceinline__ uint32_t right(uint32_t v) const {
+    return __shfl_down_sync(kFull, v, 1);
+  }
+};
+
+// K1's batch mode on narrow rows: each segment of 8, 16 or 32 lanes is one
+// row, its word c on the segment's lane c.  The words beside the row's ends
+// are off the board, so dead: the segment's first lane (`first`) takes zero
+// from the left and its last lane (`last`) zero from the right, whatever
+// the whole-warp shuffle brings (a word of the next row, or the lane's own),
+// and lanes past the row's last word hold zeros, kept so by the column mask.
+// The shuffles stay those of a whole warp, immediate operands and all.
+struct SegmentLanes {
+  bool first, last;
+  __device__ __forceinline__ uint32_t left(uint32_t v) const {
+    const uint32_t u = __shfl_up_sync(kFull, v, 1);
+    return first ? 0u : u;
+  }
+  __device__ __forceinline__ uint32_t right(uint32_t v) const {
+    const uint32_t u = __shfl_down_sync(kFull, v, 1);
+    return last ? 0u : u;
+  }
+};
+
 // One substep over a warp's R rows: rows(x, out, ...) takes rows -r ..
 // R+r-1 of the board as it stands in x and writes the new rows 0 .. R-1 to
-// out, before the board mask; cell(...) makes one row.  The rows of a
-// substep are independent, so their instructions interleave.
+// out, before the board mask; cell(...) makes one row, its neighbour words
+// from the lanes policy.  The rows of a substep are independent, so their
+// instructions interleave.
 
 // The Moore neighbourhood: the 3x3 total, its planes b0..b3, and the rule.
 struct MooreSubstep {
   static constexpr int kReach = 1;
 
-  template <class Rule>
+  template <class Rule, class Lanes>
   static __device__ __forceinline__ uint32_t cell(uint32_t up, uint32_t mid, uint32_t down,
-                                                  const Rule& rule) {
+                                                  const Rule& rule, const Lanes& lanes) {
     uint32_t ones, twos;
     csa(up, mid, down, ones, twos);
-    const uint32_t ones_l = __shfl_up_sync(kFull, ones, 1);
-    const uint32_t twos_l = __shfl_up_sync(kFull, twos, 1);
-    const uint32_t ones_r = __shfl_down_sync(kFull, ones, 1);
-    const uint32_t twos_r = __shfl_down_sync(kFull, twos, 1);
+    const uint32_t ones_l = lanes.left(ones);
+    const uint32_t twos_l = lanes.left(twos);
+    const uint32_t ones_r = lanes.right(ones);
+    const uint32_t twos_r = lanes.right(twos);
     // L[c] = v[c-1]: (v << 1) | (left word >> 31); R[c] = v[c+1]
     const uint32_t o_l = __funnelshift_l(ones_l, ones, 1);
     const uint32_t o_r = __funnelshift_r(ones, ones_r, 1);
@@ -222,11 +262,12 @@ struct MooreSubstep {
     csa(t_l, twos, t_r, s1, c2);
     return rule(b0, c1 ^ s1, c2 ^ (c1 & s1), c2 & c1 & s1, mid);
   }
-  template <int R, class Rule>
+  template <int R, class Rule, class Lanes = StripLanes>
   static __device__ __forceinline__ void rows(const uint32_t (&x)[R + 2], uint32_t (&out)[R],
-                                              const Rule& rule, uint32_t) {
+                                              const Rule& rule, uint32_t,
+                                              const Lanes& lanes = Lanes{}) {
 #pragma unroll
-    for (int i = 0; i < R; ++i) out[i] = cell(x[i], x[i + 1], x[i + 2], rule);
+    for (int i = 0; i < R; ++i) out[i] = cell(x[i], x[i + 1], x[i + 2], rule, lanes);
   }
 };
 
@@ -234,11 +275,12 @@ struct MooreSubstep {
 struct Diamond1Substep {
   static constexpr int kReach = 1;
 
-  template <class Rule>
+  template <class Rule, class Lanes>
   static __device__ __forceinline__ uint32_t cell(uint32_t up, uint32_t mid, uint32_t down,
-                                                  const Rule& rule, uint32_t center) {
-    const uint32_t vl = __shfl_up_sync(kFull, mid, 1);
-    const uint32_t vr = __shfl_down_sync(kFull, mid, 1);
+                                                  const Rule& rule, uint32_t center,
+                                                  const Lanes& lanes) {
+    const uint32_t vl = lanes.left(mid);
+    const uint32_t vr = lanes.right(mid);
     const uint32_t l1 = __funnelshift_l(vl, mid, 1);
     const uint32_t r1 = __funnelshift_r(mid, vr, 1);
     uint32_t s0, c0, b0, c1;
@@ -246,11 +288,12 @@ struct Diamond1Substep {
     csa(s0, r1, mid & center, b0, c1);
     return rule(b0, c0 ^ c1, c0 & c1, 0u, mid);
   }
-  template <int R, class Rule>
+  template <int R, class Rule, class Lanes = StripLanes>
   static __device__ __forceinline__ void rows(const uint32_t (&x)[R + 2], uint32_t (&out)[R],
-                                              const Rule& rule, uint32_t center) {
+                                              const Rule& rule, uint32_t center,
+                                              const Lanes& lanes = Lanes{}) {
 #pragma unroll
-    for (int i = 0; i < R; ++i) out[i] = cell(x[i], x[i + 1], x[i + 2], rule, center);
+    for (int i = 0; i < R; ++i) out[i] = cell(x[i], x[i + 1], x[i + 2], rule, center, lanes);
   }
 };
 
@@ -260,20 +303,23 @@ struct Diamond2Substep {
   static constexpr int kReach = 2;
 
   // the 3-wide box L1 + v + R1 of a row, as a two-bit sum
-  static __device__ __forceinline__ void box(uint32_t v, uint32_t& s, uint32_t& cy) {
-    const uint32_t vl = __shfl_up_sync(kFull, v, 1);
-    const uint32_t vr = __shfl_down_sync(kFull, v, 1);
+  template <class Lanes>
+  static __device__ __forceinline__ void box(uint32_t v, uint32_t& s, uint32_t& cy,
+                                             const Lanes& lanes) {
+    const uint32_t vl = lanes.left(v);
+    const uint32_t vr = lanes.right(v);
     csa(__funnelshift_l(vl, v, 1), v, __funnelshift_r(v, vr, 1), s, cy);
   }
   // row c's new cells from rows a (c-2) and e (c+2) and the boxes of the
   // rows beside c
-  template <class Rule>
+  template <class Rule, class Lanes>
   static __device__ __forceinline__ uint32_t cell(uint32_t a, uint32_t c, uint32_t e,
                                                   uint32_t above_s, uint32_t above_c,
                                                   uint32_t below_s, uint32_t below_c,
-                                                  const Rule& rule, uint32_t center) {
-    const uint32_t cl = __shfl_up_sync(kFull, c, 1);
-    const uint32_t cr = __shfl_down_sync(kFull, c, 1);
+                                                  const Rule& rule, uint32_t center,
+                                                  const Lanes& lanes) {
+    const uint32_t cl = lanes.left(c);
+    const uint32_t cr = lanes.right(c);
     // L_d[c] = v[c-d]: (v << d) | (left word >> (32 - d)); R_d[c] = v[c+d]
     const uint32_t l1 = __funnelshift_l(cl, c, 1);
     const uint32_t r1 = __funnelshift_r(c, cr, 1);
@@ -293,19 +339,21 @@ struct Diamond2Substep {
     csa(d_a, d_b, t_a & t_b, b2, b3);
     return rule(b0, t_a ^ t_b, b2, b3, c);
   }
-  template <int R, class Rule>
+  template <int R, class Rule, class Lanes = StripLanes>
   static __device__ __forceinline__ void rows(const uint32_t (&x)[R + 4], uint32_t (&out)[R],
-                                              const Rule& rule, uint32_t center) {
+                                              const Rule& rule, uint32_t center,
+                                              const Lanes& lanes = Lanes{}) {
     // the boxes of rows i-1, i and i+1 as row i is made: three pairs live,
     // not all R + 2
     uint32_t above_s, above_c, here_s, here_c;
-    box(x[1], above_s, above_c);
-    box(x[2], here_s, here_c);
+    box(x[1], above_s, above_c, lanes);
+    box(x[2], here_s, here_c, lanes);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       uint32_t below_s, below_c;
-      box(x[i + 3], below_s, below_c);
-      out[i] = cell(x[i], x[i + 2], x[i + 4], above_s, above_c, below_s, below_c, rule, center);
+      box(x[i + 3], below_s, below_c, lanes);
+      out[i] = cell(x[i], x[i + 2], x[i + 4], above_s, above_c, below_s, below_c, rule, center,
+                    lanes);
       above_s = here_s;
       above_c = here_c;
       here_s = below_s;
@@ -613,6 +661,93 @@ __device__ __forceinline__ void tile_kernel_body(const Io& io, int rows, int nwo
   tile_run<R, Substep, Rule>(io, rows, nwords, rem_bits, k, n, tile_rows, center, sop);
 }
 
+// The rows the segments of a block share: each segment's first and last r
+// rows, by the thread of its word, in two buffers that the substeps take in
+// turns.
+template <int r>
+__device__ __forceinline__ auto segment_edges() -> uint32_t (*)[2 * r][kTileWarps * kLanes] {
+  __shared__ uint32_t edge[2][2 * r][kTileWarps * kLanes];
+  return edge;
+}
+
+// K1's batch mode on narrow rows (nwords <= seg): n <= k masked steps of the
+// tile of output rows [t0, t0 + tile_rows) of a slot.  A row takes a segment
+// of `seg` lanes (8, 16 or 32), word c on the segment's lane c, so a warp
+// register holds 32 / seg rows and every lane of a row's segment up to
+// nwords is an output word: the clamped edge is dead (SegmentLanes), so no
+// lane is a halo lane and the sideways reach sets no limit on k.  Segment g
+// of the block (threads [g * seg, (g + 1) * seg)) keeps R rows, board rows
+// t0 - r*k + g*R onwards, one register each; a substep computes them all, the
+// r rows beside them coming from segments g - 1 and g + 1 through shared
+// memory (threads t -+ seg; one barrier a substep).  The tile's first and
+// last r*k rows are its halo, as in tile_run.  (A thread block cluster a
+// slot, its blocks trading edge rows through distributed shared memory with
+// no halo, was 3.2-3.7x slower at 8 x 512^2: a cluster barrier a substep
+// costs more than the halo rows it saves; PERF.md.)
+template <int R, class Substep, class Rule, class Io>
+__device__ __forceinline__ void segment_run(const Io& io, int rows, int nwords, int rem_bits,
+                                            int seg, int k, int n, int tile_rows, uint32_t center,
+                                            const Sop& sop) {
+  constexpr int r = Substep::kReach;
+  auto edge = segment_edges<r>();
+  const int t = static_cast<int>(threadIdx.x);
+  const int c = t & (seg - 1);
+  const int g = t / seg;
+  const int segs = static_cast<int>(blockDim.x) / seg;
+  const int t0 = static_cast<int>(blockIdx.x) * tile_rows;
+  const int base = t0 - r * k + g * R;  // board row of v[0]
+  const Rule rule(sop);
+  const SegmentLanes lanes{c == 0, c == seg - 1};
+  const uint32_t cmask = io.substep_cols(c, nwords, rem_bits);
+  uint32_t v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) v[i] = io.load(base + i, c, nwords);
+#pragma unroll 1
+  for (int s = 0; s < n; ++s) {
+    const int b = s & 1;
+#pragma unroll
+    for (int j = 0; j < r; ++j) {
+      edge[b][j][t] = v[j];
+      edge[b][r + j][t] = v[R - r + j];
+    }
+    __syncthreads();
+    uint32_t x[R + 2 * r];
+#pragma unroll
+    for (int j = 0; j < r; ++j) {
+      x[j] = g > 0 ? edge[b][r + j][t - seg] : 0u;
+      x[r + R + j] = g + 1 < segs ? edge[b][j][t + seg] : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) x[r + i] = v[i];
+    Substep::template rows<R>(x, v, rule, center, lanes);
+#pragma unroll
+    for (int i = 0; i < R; ++i) v[i] &= io.live(base + i) ? cmask : 0u;
+  }
+  if (c < nwords) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = base + i;
+      if (row >= t0 && row < t0 + tile_rows && row < rows) io.store(row, c, nwords, rem_bits, v[i]);
+    }
+  }
+}
+
+// segment_run with tile_kernel_body's choice of rule loop
+template <int R, class Substep, class Rule, class Io>
+__device__ __forceinline__ void segment_kernel_body(const Io& io, int rows, int nwords,
+                                                    int rem_bits, int seg, int k, int n,
+                                                    int tile_rows, uint32_t center,
+                                                    const Sop& sop) {
+  if constexpr (std::is_same_v<Rule, DataRule<false>>) {
+    if (sop.n_terms > 2) {
+      segment_run<R, Substep, DataRule<true>>(io, rows, nwords, rem_bits, seg, k, n, tile_rows,
+                                              center, sop);
+      return;
+    }
+  }
+  segment_run<R, Substep, Rule>(io, rows, nwords, rem_bits, seg, k, n, tile_rows, center, sop);
+}
+
 // Each kernel comes in two instances, of R = 4 and 8 rows a warp.
 template <int R, class Rule>
 __global__ void __launch_bounds__(kLanes * kTileWarps, 1)
@@ -646,6 +781,20 @@ packed_batch_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst
   const int n = min(k, max(steps[blockIdx.y] - offset, 0));
   tile_kernel_body<R, Substep, Rule>(BatchIo(src, dst, height, nwords), height, nwords, rem_bits,
                                      k, n, tile_rows, center, sop);
+}
+
+// K1's batch mode on narrow rows: the same, in segments (segment_run).
+template <int Radius, int R, class Rule>
+__global__ void __launch_bounds__(kLanes * kTileWarps, 1)
+packed_batch_segment_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
+                            const int* __restrict__ steps, int offset, int height, int nwords,
+                            int rem_bits, int seg, int k, int tile_rows, uint32_t center,
+                            const Sop sop) {
+  using Substep = std::conditional_t<
+      Radius == 0, MooreSubstep, std::conditional_t<Radius == 1, Diamond1Substep, Diamond2Substep>>;
+  const int n = min(k, max(steps[blockIdx.y] - offset, 0));
+  segment_kernel_body<R, Substep, Rule>(BatchIo(src, dst, height, nwords), height, nwords,
+                                        rem_bits, seg, k, n, tile_rows, center, sop);
 }
 
 template <bool Torus, int R, class Rule>
@@ -706,6 +855,27 @@ int launch_slots(Kernel kernel, int slots, int rows, int nwords, int tile_rows, 
   if (warps > kTileWarps) return kInvalid;
   const long long strips = (nwords + kInterior - 1) / kInterior;
   const dim3 grid(static_cast<unsigned>(strips * ((rows + tile_rows - 1) / tile_rows)),
+                  static_cast<unsigned>(slots));
+  kernel<<<grid, kLanes * warps, 0, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch a segment kernel over `rows` x `nwords` words of each of `slots`
+// boards (grid y), one block a tile of tile_rows output rows and its halo of
+// reach * k rows at each end, in segments of `seg` lanes of R rows each.
+// kInvalid where seg is not 8, 16 or 32 or is below nwords, k is outside
+// [1, 32 / reach], the tile needs more than kTileWarps warps or slots is
+// outside [1, 65535]; else cudaGetLastError().
+template <int R, typename Kernel, typename... Args>
+int launch_segments(Kernel kernel, int slots, int rows, int nwords, int seg, int tile_rows,
+                    int reach, int k, void* stream, Args... args) {
+  if (rows < 1 || nwords < 1 || tile_rows < 1 || k < 1 || reach * k > 32) return kInvalid;
+  if (slots < 1 || slots > 65535) return kInvalid;
+  if ((seg != 8 && seg != 16 && seg != 32) || nwords > seg) return kInvalid;
+  const int segs = (tile_rows + 2 * reach * k + R - 1) / R;
+  const int warps = (segs * seg + kLanes - 1) / kLanes;
+  if (warps > kTileWarps) return kInvalid;
+  const dim3 grid(static_cast<unsigned>((rows + tile_rows - 1) / tile_rows),
                   static_cast<unsigned>(slots));
   kernel<<<grid, kLanes * warps, 0, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
@@ -774,15 +944,35 @@ int packed_diamond_multi_step(const void* src, void* dst, int height, int nwords
 // being a device int32[slots]; a slot of none is copied through.
 // diamond == 0: the life-like Moore step, compiled != 0 with Conway's rule
 // built in; else the von Neumann diamond of `radius` 1 or 2 with the centre
-// where `center` is not 0.  Tiles, stream and return value as above.
+// where `center` is not 0.  seg == 0: K1's strips and tiles, as above; seg
+// 8, 16 or 32 (at least nwords): rows in segments of seg lanes, warp_rows
+// (4 or 8) rows a segment (launch_segments).  Stream and return value as
+// above.
 int packed_batch_multi_step(const void* src, void* dst, const void* steps, int slots, int offset,
                             int height, int nwords, int rem_bits, int k, int tile_rows,
-                            int warp_rows, int diamond, int radius, int center, int compiled,
-                            const Sop* sop, void* stream) {
+                            int warp_rows, int seg, int diamond, int radius, int center,
+                            int compiled, const Sop* sop, void* stream) {
   const auto s = static_cast<const uint32_t*>(src);
   const auto d = static_cast<uint32_t*>(dst);
   const auto b = static_cast<const int*>(steps);
   const uint32_t c = center ? kFull : 0u;
+  if (seg != 0) {
+    return with_warp_rows(warp_rows, [&](auto rc) {
+      constexpr int R = decltype(rc)::value;
+      auto go = [&](auto kernel, int reach) {
+        return launch_segments<R>(kernel, slots, height, nwords, seg, tile_rows, reach, k, stream,
+                                  s, d, b, offset, height, nwords, rem_bits, seg, k, tile_rows, c,
+                                  *sop);
+      };
+      if (!diamond) {
+        return compiled ? go(packed_batch_segment_kernel<0, R, ConwayRule>, 1)
+                        : go(packed_batch_segment_kernel<0, R, DataRule<false>>, 1);
+      }
+      if (radius == 1) return go(packed_batch_segment_kernel<1, R, DataRule<false>>, 1);
+      if (radius == 2) return go(packed_batch_segment_kernel<2, R, DataRule<false>>, 2);
+      return kInvalid;
+    });
+  }
   return with_warp_rows(warp_rows, [&](auto rc) {
     constexpr int R = decltype(rc)::value;
     auto go = [&](auto kernel, int reach) {

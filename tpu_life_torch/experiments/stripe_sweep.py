@@ -1,4 +1,4 @@
-"""Kernels K1, K3, K5 and K6 alone: device time per launch across depths and boards.
+"""Kernels K1, K3, K5, K6 and K1's batch mode alone: device time per launch across depths and boards.
 
 Times one launch of ``k`` substeps through the public wrappers
 (``packed_stripe.packed_multi_step`` with ``block_steps=k``,
@@ -13,6 +13,7 @@ file runs against any tree of the port that has them::
     python -m tpu_life_torch.experiments.stripe_sweep k5_tiles   # K5 at every tile
     python -m tpu_life_torch.experiments.stripe_sweep ab         # three cases, three times
     python -m tpu_life_torch.experiments.stripe_sweep k6         # the stochastic tier's readings
+    python -m tpu_life_torch.experiments.stripe_sweep k1b        # K1's batch mode a chunk at a time
 
 Each case prints one JSON line ``{"kernel", "rule", "shape", "k", "ms"}``
 (``ms``: mean device time of one launch); a board that differs from the
@@ -31,7 +32,20 @@ decides and the bound they give; K7's on a 16384^2 block; and ``bench
 --mc`` at 4096^2 and 16384^2 (a child process each).  Run it as a file
 from the root of the tree to measure (``PYTHONPATH=. python
 <this file> k6``), so that a parent tree and a change are read by the same
-code.  Every mode runs on the card only.
+code.  ``k1b`` reads what a change to K1's batch mode must move or leave:
+the device time of one serving chunk (16 steps, every slot stepping, the
+sum of its launches' kernel records) on 8 random boards of 512^2 and of
+4096^2 Conway, through the tree's own chunk (``packed_batch.chunk_plan``
+where the tree has it, else launches of depth 8), held to the plain
+version first, beside the bound of a chunk; where the tree can force the
+tiles (``packed_batch.launch``), the same chunk at each tile tried at
+512^2 and one launch at depths 1 to 32; the serve mix of ``chip_smoke.py``
+phase 16 (b) (32 sessions of 512^2 Conway x 128 steps, capacity 8, chunk
+16) through ``serve --serve-backend cuda`` under each pump, seven times,
+each result equal to the numpy oracle's bytes (sessions/s, the
+device-idle share and K1 batch launches a chunk); then the controls of the
+``ab`` mode, three times in turn.  Run it as a file from each tree's root, like ``k6``.  Every mode
+runs on the card only.
 """
 
 from __future__ import annotations
@@ -93,6 +107,13 @@ MC_BENCHES = (["--mc-sizes", "64,128"],
 # a word; 64 integer-pipe results a clock an SM, 128 over both pipes
 ACCEPT_OPS, K6_WORD_OPS, INT_OPS_PER_CLOCK_PER_SM = 2, 18, 64
 K5_TILE_SIDES = (8192, 16384)
+# the k1b mode: 8 slots of these sides (the serve mix's and a wide board),
+# a chunk of 16 steps; Conway's 15 logic ops a word a step (the bound)
+K1B_SIDES, K1B_SLOTS, K1B_CHUNK = (512, 4096), 8, 16
+K1B_DEPTHS = (1, 2, 4, 8, 16, 32)
+K1B_SESSIONS, K1B_STEPS, K1B_REPEATS = 32, 128, 7
+# the 512^2 tiles tried at k = 16: (output rows a block, rows a segment)
+K1B_TILES = ((32, 4), (32, 8), (32, 2), (16, 2), (8, 2), (64, 4), (64, 2), (16, 4))
 K5_TILE_DEPTHS = (1, 2, 4, 8, 16, 32)
 
 
@@ -222,6 +243,163 @@ def decided_cells(x: torch.Tensor, side: int) -> int:
     return int((((s * nsum + 4) >> 1 >= 3) & on).sum())
 
 
+def _chunk_device_ms(launch, reps: int, names: tuple[str, ...]) -> tuple[float, int]:
+    """Device time of one call of ``launch`` (the sum of its kernel
+    records) and the records a call, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                launch()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events() if any(s in e.name for s in names)]
+        if us:
+            return sum(us) / reps / 1e3, len(us) // reps
+    raise RuntimeError(f"the profiler recorded no kernel named like {names}")
+
+
+def k1b_cases(device: torch.device, rng) -> list[dict]:
+    """The k1b mode's readings, one dict a JSON line."""
+    from tpu_life_torch.kernels import packed_batch as kb
+
+    rule = get_rule("conway")
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    planned = hasattr(kb, "chunk_plan")
+    out = []
+    for side in K1B_SIDES:
+        shape = (side, side)
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, (K1B_SLOTS, side, side // 32),
+                                          dtype=np.int64).astype(np.int32)).to(device)
+        steps = torch.full((K1B_SLOTS,), K1B_CHUNK, dtype=torch.int32, device=device)
+        bufs = [torch.empty_like(x), torch.empty_like(x)]
+        if planned:
+            depths = [(lc.k, lc.offset) for lc in kb.chunk_plan(rule, shape, K1B_CHUNK, K1B_SLOTS, sms)]
+        else:
+            k = ps.clamp_block_steps(rule, 8)
+            depths = [(min(k, K1B_CHUNK - o), o) for o in range(0, K1B_CHUNK, k)]
+
+        def chunk(step):
+            src = x
+            for i, (k, offset) in enumerate(depths):
+                src = step(src, bufs[i % 2], k, offset)
+            return src
+
+        plain = chunk(lambda s, o, k, off: kb.packed_batch_multi_step_plain(
+            s, steps, rule, shape, k, out=o.clone(), offset=off)).clone()
+        words = x.numel()
+        bound = ps.logic_ops_per_word_step(rule) * words * K1B_CHUNK / (
+            INT_OPS_PER_CLOCK_PER_SM * sms * clock) * 1e3
+        layouts = [("plan", None)]
+        if hasattr(kb, "launch") and side == K1B_SIDES[0]:
+            layouts += [(f"tiles of {rows} rows, {r} a segment", kb.Tiles(rows, r, 16))
+                        for rows, r in K1B_TILES]
+        for name, forced in layouts:
+            if forced is None:
+                def step(s, o, k, off):
+                    return kb.packed_batch_multi_step(s, steps, rule, shape, k, out=o, offset=off)
+            else:
+                def step(s, o, k, off, tiles=forced):
+                    kb.launch(s, steps, rule, shape, k, out=o, offset=off, tiles=tiles)
+                    return o
+            try:
+                got = chunk(step)
+            except RuntimeError as e:
+                out.append({"kernel": "K1 batch", "layout": name, "shape": [K1B_SLOTS, *shape],
+                            "refused": str(e)})
+                continue
+            if not torch.equal(got, plain):
+                print(f"K1 batch {name} 8x{side}^2: differs from the plain version", flush=True)
+                sys.exit(1)
+            ms, records = _chunk_device_ms(lambda: chunk(step), 50, ("packed_batch",))
+            out.append({"kernel": "K1 batch", "layout": name, "shape": [K1B_SLOTS, *shape],
+                        "chunk": K1B_CHUNK, "launches": records, "ms": round(ms, 5),
+                        "bound_ms": round(bound, 6), "of_bound": round(bound / ms, 4)})
+        if hasattr(kb, "launch") and side == K1B_SIDES[0]:
+            for k in K1B_DEPTHS:
+                tiles = kb.launch_tiles(rule, k, K1B_SLOTS, side, side // 32, sms)
+
+                def one(k=k, tiles=tiles):
+                    kb.launch(x, steps, rule, shape, k, out=bufs[0], offset=0, tiles=tiles)
+
+                ms, _ = _chunk_device_ms(one, 50, ("packed_batch",))
+                out.append({"kernel": "K1 batch", "layout": "plan's tiles, one launch",
+                            "shape": [K1B_SLOTS, *shape], "k": k, "tiles": list(tiles),
+                            "ms": round(ms, 5)})
+        del x, bufs
+        torch.cuda.empty_cache()
+    out += serve_mix_cases()
+    for _ in range(AB_ROUNDS):
+        for kernel, shape, case in (
+                ("K1", FULL, lambda: k1_case("conway", FULL, 8, rng, device)),
+                ("K3", FULL, lambda: k3_case("conway", FULL, 4, 8, rng, device)),
+                ("K5", (8192, 8192), lambda: k5_case(8192, 256, 8, rng, device))):
+            out.append({"kernel": kernel, "rule": "conway", "shape": list(shape), "k": 8,
+                        "ms": round(case(), 5)})
+    return out
+
+
+def serve_mix_cases() -> list[dict]:
+    """The serve mix under each pump, K1B_REPEATS runs: one dict a pump."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from tpu_life_torch import cli
+    from tpu_life_torch.io.codec import encode_board, write_board
+    from tpu_life_torch.kernels import packed_batch as kb
+    from tpu_life_torch.mc.prng import seeded_board
+    from tpu_life_torch.ops.reference import run_np
+    from tpu_life_torch.serve.engine import BatchEngine
+
+    side, rule = K1B_SIDES[0], get_rule("conway")
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        oracle = []
+        for i in range(8):
+            board = seeded_board(side, side, seed=100 + i)
+            write_board(tmp / f"b{i}.txt", board)
+            oracle.append(encode_board(run_np(board, rule, K1B_STEPS)))
+        spool = tmp / "mix.jsonl"
+        spool.write_text("".join(json.dumps({
+            "input_file": str(tmp / f"b{i % 8}.txt"), "height": side, "width": side,
+            "steps": K1B_STEPS, "rule": "conway", "seed": 0}) + "\n" for i in range(K1B_SESSIONS)))
+        for pump in ("pipelined", "sync"):
+            runs = []
+            for rep in range(K1B_REPEATS):
+                res = tmp / f"out_{pump}_{rep}"
+                kb.packed_batch_multi_step.launches = BatchEngine.dispatched = 0
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(["serve", "--requests", str(spool), "--output-dir", str(res),
+                                   "--serve-backend", "cuda", "--capacity", "8", "--chunk-steps",
+                                   "16", "--max-queue", str(K1B_SESSIONS // 2),
+                                   *(["--sync-pump"] if pump == "sync" else [])])
+                summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+                if rc != 0 or any((res / f"s{i:06d}.txt").read_bytes() != oracle[i % 8]
+                                  for i in range(K1B_SESSIONS)):
+                    print(f"serve mix {pump}: rc {rc} or a result differs from the numpy oracle",
+                          flush=True)
+                    sys.exit(1)
+                el = summary["elapsed_s"]
+                runs.append((summary["sessions_per_sec"], summary["device_idle_s"] / el,
+                             kb.packed_batch_multi_step.launches / BatchEngine.dispatched))
+            sps, idle, per = (sorted(v) for v in zip(*runs))
+            mid = K1B_REPEATS // 2
+            out.append({"serve_mix": pump, "runs": K1B_REPEATS,
+                        "sessions_per_s": [sps[mid], sps[0], sps[-1]],
+                        "device_idle_share": [idle[mid], idle[0], idle[-1]],
+                        "launches_per_chunk": per[mid]})
+    return out
+
+
 def k6_cases(device: torch.device) -> list[dict]:
     """The k6 mode's readings, one dict a JSON line."""
     from tpu_life_torch.backends.base import get_backend, make_runner
@@ -289,6 +467,10 @@ def main(argv: list[str]) -> None:
     rng = np.random.default_rng(0)
     if "k6" in argv:
         for rec in k6_cases(device):
+            print(json.dumps(rec), flush=True)
+        return
+    if "k1b" in argv:
+        for rec in k1b_cases(device, rng):
             print(json.dumps(rec), flush=True)
         return
     if "ab" in argv:

@@ -258,10 +258,10 @@ def _library() -> ctypes.CDLL:
     lib.conway_block_int8.argtypes = [*[ctypes.c_void_p] * 2, *[ctypes.c_int] * 4, ctypes.c_void_p]
     lib.conway_block_int8.restype = ctypes.c_int
     # K1's batch mode (kernels/packed_batch.py): src, dst, steps; slots,
-    # offset, height, nwords, rem_bits, k, tile_rows, warp_rows, diamond,
-    # radius, center, compiled; sop, stream
+    # offset, height, nwords, rem_bits, k, tile_rows, warp_rows, seg,
+    # diamond, radius, center, compiled; sop, stream
     lib.packed_batch_multi_step.argtypes = [
-        *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 12, ctypes.POINTER(_Sop), ctypes.c_void_p,
+        *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 13, ctypes.POINTER(_Sop), ctypes.c_void_p,
     ]
     lib.packed_batch_multi_step.restype = ctypes.c_int
     return lib

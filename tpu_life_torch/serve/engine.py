@@ -18,9 +18,12 @@ The executors behind one interface, and the JAX executor each stands for:
 - :class:`BatchEngine` — ``cuda``: the device batch, the counterpart of
   ``VmapEngine``.  Route ``k1_batch`` keeps the batch bit-packed and
   advances a chunk with K1's batch mode (``kernels.packed_batch``), every
-  slot in one launch of up to K1's block depth, the budgets read on the
-  device; route ``ops`` steps an int8 (or float32) batch with the plain
-  step over a slot axis under the freeze mask, the literal ``VmapEngine``.
+  slot in each launch of ``packed_batch.chunk_plan`` (a whole chunk of up
+  to ``32 // radius`` steps in one launch on boards of at most 1024
+  columns, launches of K1's depth of 8 on wider ones), the budgets read on
+  the device; route ``ops`` steps an int8 (or float32) batch with the
+  plain step over a slot axis under the freeze mask, the literal
+  ``VmapEngine``.
 - :class:`HostBatchEngine` — ``numpy``: the ground-truth executor.
 - :class:`SlotLoopEngine` — ``sharded``: one ``Runner`` per slot of the
   port's sharded backend (kernels K3 and K4 per shard); and ``cuda``'s
@@ -416,7 +419,6 @@ class BatchEngine(EngineBase):
                 self._stream = self._copy = None
             with self._compute():
                 if route == "k1_batch":
-                    from tpu_life_torch.backends.cuda_backend import DEFAULT_BLOCK_STEPS
                     from tpu_life_torch.ops import bitlife
 
                     self._nwords = bitlife.packed_width(w)
@@ -428,9 +430,10 @@ class BatchEngine(EngineBase):
                         for _ in range(3)
                     ]
                     self._boards = self._bufs[0]
-                    self._block_steps = packed_stripe.clamp_block_steps(
-                        key.rule, DEFAULT_BLOCK_STEPS
-                    )
+                    # the card's SMs size the plan's tiles (the CPU runs the
+                    # plain version, whatever its tiles)
+                    self._n_sm = (packed_stripe.sm_count(self.device.index) if cuda
+                                  else packed_batch.H100_SMS)
                 else:
                     dt = torch.float32 if self.dtype == np.float32 else torch.int8
                     self._boards = torch.zeros((capacity, h, w), dtype=dt, device=self.device)
@@ -482,18 +485,15 @@ class BatchEngine(EngineBase):
             self._step = make_step(self.key.rule, self.stencil or "roll", self.key.shape)
 
     def _chunk_k1_batch(self, src: torch.Tensor) -> torch.Tensor:
-        from tpu_life_torch.kernels.packed_batch import packed_batch_multi_step
+        from tpu_life_torch.kernels.packed_batch import chunk_plan, packed_batch_multi_step
 
         spare = [b for b in self._bufs if b is not src]
         out = src
-        offset = 0
-        while offset < self.chunk_steps:
-            k = min(self._block_steps, self.chunk_steps - offset)
+        for launch in chunk_plan(self.key.rule, self.key.shape, self.chunk_steps,
+                                 self.capacity, self._n_sm):
             dst = spare[0] if out is not spare[0] else spare[1]
-            out = packed_batch_multi_step(
-                out, self._rem_dev, self.key.rule, self.key.shape, k, out=dst, offset=offset
-            )
-            offset += k
+            out = packed_batch_multi_step(out, self._rem_dev, self.key.rule, self.key.shape,
+                                          launch.k, out=dst, offset=launch.offset)
         return out
 
     def _chunk_ops(self, boards: torch.Tensor) -> torch.Tensor:
