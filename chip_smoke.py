@@ -23,9 +23,10 @@ Phases (any failure exits non-zero and prints no result line):
    736 and 4392 (the tiles they share stay as they were), and the shared-memory
    loads, stores and asynchronous copies (``LDS``, ``STS``, ``LDGSTS``) in
    K2's and K4's (``cuobjdump -sass`` on the built libraries); and
-   ``mc_threefry.cu`` (K6's narrow and wide instances and K7), whose
-   registers it prints, failing on spills, with the ``IADD3``, ``IMAD``,
-   ``SHF``, ``LOP3``, ``ISETP`` and all instructions of each;
+   ``mc_threefry.cu`` (K6's narrow and wide instances, K7 and their batch
+   modes), whose registers it prints, failing on spills, with the
+   ``IADD3``, ``IMAD``, ``SHF``, ``LOP3``, ``ISETP`` and all instructions
+   of each;
 3. kernel vs plain — holds each kernel bit-identical (``torch.equal``) to
    its plain PyTorch version on the card (K3 and K4 below the list): K1
    over Conway (its compiled rule) and three life-like rules it runs as
@@ -112,7 +113,7 @@ Phases (any failure exits non-zero and prints no result line):
    domain refused; ``tpu_life_torch.experiments.block_bench`` at its
    defaults (n=8192, bh=256, k=8, outer=10) in process, with K5's launch
    count set to 0 just before and read just after (2 + 10), and as a
-   subprocess, each printing ``correct after 16 steps: True``; K5 timed at
+   subprocess at n=4096, each printing ``correct after 16 steps: True``; K5 timed at
    8192^2 and 16384^2 (k = 8) with CUDA events and the profiler's kernel
    records beside its bound, its plain version and K2's ``conway`` launch
    on the same board, with the tiles ``conway_block.tile_shape`` picks;
@@ -175,9 +176,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``--mesh-shape 2,2 --no-bitpack --stream-io`` (K4, 32 launches),
    byte-equal to its gathered run; (c) (a) without the flag, which streams
    (2^28 cells); (d) (a) with ``--snapshot-every 128``, then ``--resume``
-   from the step-128 snapshot (64 launches); (e) (a) as the one process of
-   a job (``JAX_NUM_PROCESSES=1``), which must join an NCCL group of one;
-   (c), (d) and (e) byte-equal to (a);
+   from the step-128 snapshot (64 launches), (e) that resume as the one
+   process of a job (``JAX_NUM_PROCESSES=1``), which must join an NCCL
+   group of one; (c) and (d) byte-equal to (a);
 15. the stochastic tier (kernels K6 and K7, and K2 for a noisy base; the
    K1, K3, K4 and K5 counts stay 0) — K7 bit-identical to its plain version
    (``torch.equal``) on the Threefry known-answer vectors (both words) and
@@ -232,7 +233,31 @@ Phases (any failure exits non-zero and prints no result line):
    session served on ``mesh:2x2`` of the card (``--mesh-devices 4`` under a
    1 GiB budget the batch overflows), equal to the ``cuda`` backend's run; (e) a ``lenia:orbium``
    batch of 4 x 512^2 on ``cuda`` (route ``ops``), allclose at
-   ``FLOAT_ATOL`` to the numpy oracle.
+   ``FLOAT_ATOL`` to the numpy oracle;
+17. the stochastic serving tier (K6's and K7's batch modes, built with K6
+   and K7 in ``mc_threefry.cu``, their instances in phase 2's report) —
+   (a) both batch modes bit-identical to their plain versions at
+   capacities 1, 3 and 8 with per-slot seeds, temperatures (T = 0 among
+   them), start counters past 2^31 (one wrapping within a chunk) and
+   budgets below, at and past the chunk (frozen slots among live ones):
+   K6's over sweeps 0-3, 6-8, 14 and 15 of a chunk of 16 (each side of
+   every budget's end) on 2x2 to 512^2 at origins 0,
+   across 2^32 and past it (both instances) and at 4096^2, K7's on 10x66,
+   1500x500 and 1024^2 in three substreams, with the launches counted;
+   (b) ``python -m tpu_life_torch sweep --size 4096 --steps 256 --temps
+   1.5:3.0:8 --seed 7`` as a child process: exit 0, ``compile_counts`` a
+   single 1, 512 launches of K6's batch mode and no other kernel's but the
+   staging's K7, every session equal to the single-board ``cuda`` Runner
+   (K6) on the same staged board, its ``elapsed_s``; K6's batch mode at 8 x
+   4096^2 by CUDA events and phase 16's fresh child's profiler records beside 8
+   single-board K6 launches, its plain version and its bound; K7's at 8 x
+   1024^2; (c) the sweep at 1024^2 x 32 packed and ``--no-bitpack`` (64 K7
+   batch launches), byte for byte; (d) 16 ``noisy:0.01/conway`` sessions
+   of 512^2 x 64 (distinct seeds, capacity 8, chunk 16) through ``serve``
+   under both pumps, and the reference workload as an ``ising`` session at
+   T = 2.27, each equal to the single-board ``cuda`` Runner's bytes, with
+   the batch modes' launches a chunk; (e) an ``ising`` session spilled
+   mid-run and resumed in a fresh service, equal to the uninterrupted one.
 
 Phases 2-4 cover K3 too: it is built with K1 (same source, its instances
 in the ptxas report and the SASS counts); phase 3 holds it bit-identical to its
@@ -398,9 +423,15 @@ MC_SASS_OPS = ("IADD3", "IMAD", "SHF", "LOP3", "ISETP")
 # mangled name)
 K6_NARROW, K6_WIDE = ("K6 packed_metropolis_half_kernel<false>",
                       "K6 packed_metropolis_half_kernel<true>")
+K6_BATCH = "K6 batch packed_metropolis_batch_kernel<false>"
+K7_BATCH = "K7 batch cell_uniforms_batch_kernel"
 MC_INSTANCES = [(K6_NARROW, r"packed_metropolis_half_kernelILb0E"),
                 (K6_WIDE, r"packed_metropolis_half_kernelILb1E"),
-                ("K7 cell_uniforms_kernel", r"cell_uniforms_kernel")]
+                ("K7 cell_uniforms_kernel", r"cell_uniforms_kernel"),
+                (K6_BATCH, r"packed_metropolis_batch_kernelILb0E"),
+                ("K6 batch packed_metropolis_batch_kernel<true>",
+                 r"packed_metropolis_batch_kernelILb1E"),
+                (K7_BATCH, r"cell_uniforms_batch_kernel")]
 # phase 15: K7's boards and origins (0, a block across 2^32, past it); K6's
 # shapes (W % 32 of 2 and 30, one word a row, 3 words a row so that a warp
 # spans rows) and boards against its plain version, at each temperature and
@@ -464,6 +495,22 @@ P16_SIDE, P16_STEPS, P16_SESSIONS, P16_CHUNK = 512, 128, 32, 16
 P16_REPEATS = 7
 P16_K2_STEPS = 32
 P16_MEGA_STEPS = 64
+# phase 17: K6's and K7's batch modes against their plain versions (the
+# capacities; K6's shapes, the wide instance's origins on the small ones;
+# K7's shapes); the sweep at full width and its roll twin; the noisy spool
+# (sessions of side^2 x steps, distinct seeds); the spilled session
+P17_CAPACITIES = (1, 3, 8)
+# K6's sweeps of a chunk checked on the small boards: each side of every
+# budget's last live sweep (budgets 1, 3, 7, 15, 16, 17 and past the chunk)
+P17_OFFSETS = (0, 1, 2, 3, 6, 7, 8, 14, 15)
+P17_K6_SHAPES = [(2, 2), (10, 66), (258, 1002), (512, 512), (4096, 4096)]
+P17_K6_ORIGINS = (0, 2**32 - 1000, 2**33 + 5)
+P17_K7_SHAPES = [(10, 66), (1500, 500), (1024, 1024)]
+P17_TEMPS, P17_SEED, P17_CHUNK = "1.5:3.0:8", 7, 16
+P17_SIDE, P17_STEPS = 4096, 256
+P17_ROLL_SIDE, P17_ROLL_STEPS = 1024, 32
+P17_NOISY, P17_NOISY_SIDE, P17_NOISY_STEPS, P17_NOISY_SESSIONS = "noisy:0.01/conway", 512, 64, 16
+P17_SPILL_SIDE, P17_SPILL_STEPS = 1024, 128
 
 
 def fail(msg: str) -> None:
@@ -622,7 +669,7 @@ def main() -> int:
         if spill_st or spill_ld:
             fail(f"{label} spills: {spill_st} bytes of stores, {spill_ld} bytes of loads")
         mc_instances[label] = dict(registers=regs, sass=mc_sass[names[0]])
-    print("K6's two instances and K7 (ptxas, cuobjdump -sass): " + "; ".join(
+    print("K6's two instances, K7 and their batch modes (ptxas, cuobjdump -sass): " + "; ".join(
         f"{label} {inst['registers']} registers, no spill, SASS "
         + ", ".join(f"{op} {n}" for op, n in inst["sass"].items())
         for label, inst in mc_instances.items()), flush=True)
@@ -1795,8 +1842,10 @@ def main() -> int:
           f"{len(K5_REFUSED)} shapes outside "
           f"the domain refused ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    # the experiment's path, in process with the launch count set to 0 just
-    # before and read just after, then as a subprocess, both at its defaults
+    # the experiment's path, in process at its defaults with the launch
+    # count set to 0 just before and read just after, then as a subprocess
+    # at n = 4096 (its numpy check of 2k steps costs a quarter of the
+    # default's)
     out = io.StringIO()
     k5.conway_block.launches = 0
     with contextlib.redirect_stdout(out):
@@ -1808,15 +1857,16 @@ def main() -> int:
     if k5_main_launches != 12:
         fail(f"block_bench at its defaults launched K5 {k5_main_launches} times, want 2 + 10")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "tpu_life_torch.experiments.block_bench"],
-                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    proc = subprocess.run([sys.executable, "-m", "tpu_life_torch.experiments.block_bench",
+                           "n=4096"], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
     bench_s = time.perf_counter() - t0
     sub_lines = proc.stdout.strip().splitlines()
     if proc.returncode != 0 or not sub_lines or sub_lines[0] != "correct after 16 steps: True":
         fail(f"python -m tpu_life_torch.experiments.block_bench exited {proc.returncode}: "
              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     print(f"main path K5: block_bench in process {bench_lines} ({k5_main_launches} K5 launches); "
-          f"as a subprocess {sub_lines}, {bench_s:.1f} s wall clock", flush=True)
+          f"as a subprocess (n=4096) {sub_lines}, {bench_s:.1f} s wall clock", flush=True)
 
     k5_ops_per_word = ps.logic_ops_per_word_step(conway)
 
@@ -2203,6 +2253,11 @@ def main() -> int:
     batch_row = phase16(dict(dev=dev, smi=smi, n_sm=n_sm, sm_clock_mhz=sm_clock_mhz,
                              instances=k1_instances))
 
+    # -- 17. the stochastic serving tier: K6's and K7's batch modes ----------
+    mc_batch_rows = phase17(dict(dev=dev, smi=smi, n_sm=n_sm, sm_clock_mhz=sm_clock_mhz,
+                                 instances=mc_instances,
+                                 device=batch_row.pop("mc_batch_device")))
+
     diamond = diamond_rows[DIAMOND]
     k4_row = k4_rows[("brians_brain", (2, 2))]
     print(json.dumps({"kernels": [{
@@ -2337,7 +2392,7 @@ def main() -> int:
         "full_device_ms": k5_rows[FULL]["device_ms"],
         "instance": K5_MAIN,
         **k1_instances[K5_MAIN],
-    }, *mc_rows, batch_row]}))
+    }, *mc_rows, batch_row, *mc_batch_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -2491,34 +2546,35 @@ def phase14(ctx: dict) -> dict:
         snaps = sorted(p.name for p in (tmp / "snaps").glob("*.txt"))
         if snaps != [f"board_{half:09d}.txt", f"board_{FULL_STEPS:09d}.txt"]:
             fail(f"phase 14 (d): snapshots {snaps}")
-        runs["d resume"] = child(tmp, "d2", [*files, *shards, "--stream-io", "--resume",
-                                             str(tmp / "snaps" / f"board_{half:09d}.txt")],
-                                 (0, 0, k3_run // 2, 0))
-        shutil.rmtree(tmp / "snaps")
-        # (e) one process of a job through init_distributed (NCCL, world 1)
+        # (e) the resume runs as the one process of a job through
+        # init_distributed (NCCL, world 1)
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
-        runs["e init_distributed"] = child(
-            tmp, "e", [*files, *shards, "--stream-io"], (0, 0, k3_run, 0),
+        runs["d+e resume, init_distributed"] = child(
+            tmp, "d2", [*files, *shards, "--stream-io", "--resume",
+                        str(tmp / "snaps" / f"board_{half:09d}.txt")], (0, 0, k3_run // 2, 0),
             extra_env={"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "JAX_NUM_PROCESSES": "1",
                        "JAX_PROCESS_ID": "0"})
-        if runs["e init_distributed"]["pg"] != ("nccl", 1):
-            fail(f"phase 14 (e): process group {runs['e init_distributed']['pg']}, want nccl of 1")
-        for name in ("c auto", "d snapshots", "d resume", "e init_distributed"):
+        shutil.rmtree(tmp / "snaps")
+        if runs["d+e resume, init_distributed"]["pg"] != ("nccl", 1):
+            fail(f"phase 14 (e): process group {runs['d+e resume, init_distributed']['pg']}, "
+                 f"want nccl of 1")
+        for name in ("c auto", "d snapshots", "d+e resume, init_distributed"):
             if runs[name]["sha"] != runs["a stream"]["sha"]:
                 fail(f"phase 14 {name}: output differs from (a)'s")
     print(f"phase 14, {FULL}^2 (card: {smi}; one child process a run, board gen --seed 5): "
           f"every output byte-equal within its group (a, c, d, e: conway x {FULL_STEPS} streamed "
-          f"on 4 row shards, gathered, auto-streamed, resumed from the step-{half} snapshot, "
+          f"on 4 row shards, gathered, auto-streamed, resumed from the step-{half} snapshot "
           f"through init_distributed, and K1 in this process ({k1_counts[0]} launches, sha256 "
           f"{k1_sha[:12]}); b: brians_brain x 64 on 2x2 streamed and gathered)", flush=True)
     for name, r in runs.items():
         print(f"  {show(name, r)}", flush=True)
     print(f"  peak RSS streamed vs gathered: (a) {mib(runs['a stream']['rss_mib'])} vs "
           f"{mib(runs['a gathered']['rss_mib'])}, (b) {mib(runs['b stream']['rss_mib'])} vs "
-          f"{mib(runs['b gathered']['rss_mib'])}; (e) joined a {runs['e init_distributed']['pg'][0]} "
-          f"group of {runs['e init_distributed']['pg'][1]}; phase 14 took "
+          f"{mib(runs['b gathered']['rss_mib'])}; (e) joined a "
+          f"{runs['d+e resume, init_distributed']['pg'][0]} group of "
+          f"{runs['d+e resume, init_distributed']['pg'][1]}; phase 14 took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"k3": runs["a stream"]["launches"][2], "k4": runs["b stream"]["launches"][3]}
 
@@ -3213,7 +3269,11 @@ def phase15(ctx: dict) -> list[dict]:
 # batch shapes' sides; each side's 8 random packed boards, every slot at a
 # full chunk's budget, one chunk of 16 steps (chunk_plan's launches, their
 # device times summed); and 8 single-board K1 runs of 16 steps, launches of
-# depth 8, on the same boards (their total a rep)
+# depth 8, on the same boards (their total a rep).  The same child times
+# phase 17's batch modes (one process start for both phases): K6's on 8
+# copies of the sweep's seeded board at the grid's temperatures (parity 0,
+# offset 0), 8 single-board K6 launches on the same boards, and K7's at
+# 8 x the roll side^2
 P16_PROFILE = """
 import json, sys
 import torch
@@ -3241,15 +3301,38 @@ for side in map(int, sys.argv[1:]):
     def chunk():
         src = x
         for i, lc in enumerate(plan):
-            src = kb.packed_batch_multi_step(src, steps, rule, (side, side), lc.k, out=bufs[i % 2],
+            src = kb.packed_batch_multi_step(src, steps, rule, (side, side), lc.k, out=bufs[i %% 2],
                                              offset=lc.offset)
     out[f"batch_{side}"] = device_ms(chunk, "packed_batch", 20)
     def singles():
         for s in range(8):
             ps.packed_multi_step(x[s], rule, (side, side), 16, block_steps=8, scratch=bufs[0][s])
     out[f"single_{side}"] = device_ms(singles, "packed_stripe_kernel", 10)
+import numpy as np
+from tpu_life_torch.kernels import mc_threefry as mct
+from tpu_life_torch.mc import ising, packed, prng
+side, seed, roll = %d, %d, %d
+temps = [1.5 + 1.5 * i / 7 for i in range(8)]
+thr = np.stack([ising.acceptance_thresholds(t) for t in temps])
+k0, k1 = prng.key_halves(seed)
+def i32(v):
+    return torch.tensor(v, dtype=torch.int32, device=dev)
+state = prng.SlotState(i32([k0] * 8), i32([k1] * 8), i32([0] * 8),
+                       torch.from_numpy(thr.view(np.int32).copy()).to(dev), i32([256] * 8))
+board = prng.seeded_board(side, side, seed=seed, device=dev).cpu().numpy()
+x = torch.from_numpy(np.stack([packed.pack_board(board).view(np.int32)] * 8)).to(dev)
+y = torch.empty_like(x)
+out["k6_batch"] = device_ms(lambda: mct.packed_metropolis_half_batch(x, 0, state, width=side, out=y),
+                            "packed_metropolis_batch_kernel", 20)[0]
+def k6_singles():
+    for s in range(8):
+        mct.packed_metropolis_half(x[s], 0, k0, k1, 0, int(thr[s, 3]), int(thr[s, 4]), width=side,
+                                   out=y[s])
+out["k6_singles"] = device_ms(k6_singles, "packed_metropolis_half_kernel", 10)[0]
+out["k7_batch"] = device_ms(lambda: mct.cell_uniforms_batch((roll, roll), state, 0),
+                            "cell_uniforms_batch_kernel", 20)[0]
 print("P16 " + json.dumps(out), flush=True)
-"""
+""" % (P17_SIDE, P17_SEED, P17_ROLL_SIDE)
 
 
 def phase16(ctx: dict) -> dict:
@@ -3261,7 +3344,8 @@ def phase16(ctx: dict) -> dict:
     reference workload as a served request, a mega-board session on
     ``mesh:2x2`` of the card, and a Lenia batch.  Returns K1's batch
     mode's row of the kernels record, with K2's serve launches under
-    ``k2_serve_launches`` for K2's row."""
+    ``k2_serve_launches`` for K2's row and its child's profile of phase
+    17's batch modes under ``mc_batch_device``."""
     import numpy as np
     import torch
 
@@ -3667,9 +3751,428 @@ def phase16(ctx: dict) -> dict:
             "sessions_per_s", "rounds_per_s", "occupancy", "idle")}
                       for (b, p), runs in mix.items()},
         "k2_serve_launches": k2_serve_launches,
+        "mc_batch_device": {k: device[k] for k in ("k6_batch", "k6_singles", "k7_batch")},
         **ctx["instances"][K1_SEGMENT],
         "strip_instance": {"instance": K1_BATCH, **ctx["instances"][K1_BATCH]},
     }
+
+
+# phase 17's children: ``python -m tpu_life_torch`` run as ``__main__``,
+# then printing the launch counts of K6 and K7 and of their batch modes
+P17_CHILD = """
+import json, runpy, sys
+from tpu_life_torch.kernels import mc_threefry as mct
+sys.argv = ["tpu_life_torch", *sys.argv[1:]]
+rc = 0
+try:
+    runpy.run_module("tpu_life_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code or 0
+print("P17 " + json.dumps({
+    "k6": mct.packed_metropolis_half.launches, "k7": mct.cell_uniforms.launches,
+    "k6_batch": mct.packed_metropolis_half_batch.launches,
+    "k7_batch": mct.cell_uniforms_batch.launches}), flush=True)
+sys.exit(rc)
+"""
+
+def phase17(ctx: dict) -> list[dict]:
+    """Phase 17: the stochastic serving tier on the card — K6's and K7's
+    batch modes held to their plain versions, the sweep at full width as a
+    child process (K6's batch mode only, every session equal to the
+    single-board Runner), its ``--no-bitpack`` twin through K7's batch mode,
+    a noisy spool and the reference workload as an ``ising`` session
+    through ``serve``, and a spilled session resumed in a fresh service.
+    Returns the batch modes' rows of the kernels record."""
+    import numpy as np
+    import torch
+
+    from tpu_life_torch import cli
+    from tpu_life_torch.backends.base import get_backend, make_runner
+    from tpu_life_torch.experiments import stripe_sweep
+    from tpu_life_torch.io.codec import encode_board, read_board
+    from tpu_life_torch.kernels import mc_threefry as mct
+    from tpu_life_torch.mc import ising, packed, prng
+    from tpu_life_torch.models.rules import get_rule
+    from tpu_life_torch.serve import ServeConfig, SimulationService
+    from tpu_life_torch.serve.engine import BatchEngine
+    from tpu_life_torch.serve.spill import read_spill_sessions
+
+    dev, smi = ctx["dev"], ctx["smi"]
+    card = f"({smi})"
+    clock = ctx["n_sm"] * ctx["sm_clock_mhz"] * 1e6  # SM clocks a second, all SMs
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    rng = np.random.default_rng(17)
+    ising_rule = get_rule("ising")
+
+    def counts() -> dict[str, int]:
+        return {"k6": mct.packed_metropolis_half.launches, "k7": mct.cell_uniforms.launches,
+                "k6_batch": mct.packed_metropolis_half_batch.launches,
+                "k7_batch": mct.cell_uniforms_batch.launches}
+
+    def zero() -> None:
+        mct.packed_metropolis_half.launches = mct.cell_uniforms.launches = 0
+        mct.packed_metropolis_half_batch.launches = mct.cell_uniforms_batch.launches = 0
+        BatchEngine.dispatched = 0
+
+    def i32(values) -> torch.Tensor:
+        return torch.tensor([prng.as_i32(v) for v in values], dtype=torch.int32, device=dev)
+
+    def slot_state(temps, seeds, counters, budgets) -> prng.SlotState:
+        keys = [prng.key_halves(int(v)) for v in seeds]
+        thr = np.stack([ising.acceptance_thresholds(t) for t in temps]).view(np.int32)
+        return prng.SlotState(i32([k[0] for k in keys]), i32([k[1] for k in keys]), i32(counters),
+                              torch.from_numpy(thr.copy()).to(dev), i32(budgets))
+
+    def events_ms(launch, reps: int) -> float:
+        launch()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bound(alu_ops: float, all_ops: float, n_bytes: float) -> tuple[float, str]:
+        """Phase 15's: the integer-pipe ops at 64 a clock an SM, all integer
+        ops over both pipes at 128, the bytes over the memory rate."""
+        ops_ms = max(alu_ops / (INT_OPS_PER_CLOCK_PER_SM * clock),
+                     all_ops / (2 * INT_OPS_PER_CLOCK_PER_SM * clock)) * 1e3
+        mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
+
+    # (a) the batch modes against their plain versions: capacities 1, 3 and
+    # 8; per-slot seeds, temperatures (T = 0 among them) and start counters
+    # (past 2^31, and 2^32 - 5, which wraps within a chunk); budgets below,
+    # at and past the chunk, frozen slots among live ones; K6 launch by
+    # launch over the sweeps of a chunk of 16 on each side of every budget's
+    # end (P17_OFFSETS; at 4096^2 the first two sweeps and the last), at
+    # origins 0, across 2^32 and past it on the small
+    # boards (the wide instance); K7 at offsets 0, 1 and 15 in three
+    # substreams
+    zero()
+    k6_cases = k7_cases = batch_err = 0
+    for n in P17_CAPACITIES:
+        temps = [(2.27, 0.0, 10.0, 1.5, 3.0, 2.0, 0.5, 2.6)[i] for i in range(n)]
+        seeds = [int(v) for v in rng.integers(-2**40, 2**40, n)]
+        counters = [(2**31 + 12345, 2**32 - 5, 3, 0, 2**31 - 1, 77, 2**31, 1)[i] for i in range(n)]
+        budgets = [(P17_CHUNK + 1, 0, 1, P17_CHUNK - 1, P17_CHUNK, 3, 100, 7)[i] for i in range(n)]
+        state = slot_state(temps, seeds, counters, budgets)
+        for h, w in P17_K6_SHAPES:
+            full = h * w >= P17_SIDE ** 2
+            x = torch.from_numpy(np.stack([packed.pack_board(
+                (rng.random((h, w)) < 0.5).astype(np.int8)).view(np.int32) for _ in range(n)])).to(dev)
+            offsets = (0, 1, P17_CHUNK - 1) if full else P17_OFFSETS
+            for origin in ((0,) if full or h * w > 2**20 else P17_K6_ORIGINS):
+                kern = plain = x
+                for t in offsets:
+                    for parity in (0, 1):
+                        kern = mct.packed_metropolis_half_batch(kern, parity, state, width=w,
+                                                                offset=t, origin=origin)
+                        plain = mct.packed_metropolis_half_batch_plain(plain, parity, state, width=w,
+                                                                       offset=t, origin=origin)
+                        err = int(not torch.equal(kern, plain))
+                        batch_err = max(batch_err, err)
+                        k6_cases += 1
+                        if err:
+                            fail(f"phase 17 (a): K6's batch mode differs from its plain version: "
+                                 f"{n} x {h}x{w}, origin {origin}, offset {t}, parity {parity}")
+            del x, kern, plain
+        for h, w in P17_K7_SHAPES:
+            for substream in (prng.SUB_EVEN, prng.SUB_ODD, prng.SUB_NOISE):
+                for t in (0, 1, P17_CHUNK - 1):
+                    got = mct.cell_uniforms_batch((h, w), state, substream, offset=t)
+                    want = mct.cell_uniforms_batch_plain((h, w), state, substream, offset=t)
+                    err = int(not torch.equal(got, want))
+                    batch_err = max(batch_err, err)
+                    k7_cases += 1
+                    if err:
+                        fail(f"phase 17 (a): K7's batch mode differs from its plain version: "
+                             f"{n} x {h}x{w}, substream {substream}, offset {t}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    got = counts()
+    if got["k6_batch"] != k6_cases or got["k7_batch"] != k7_cases:
+        fail(f"phase 17 (a): launch counts {got}, want {k6_cases} and {k7_cases}")
+    print(f"phase 17 (a): K6's batch mode bit-identical to its plain version in {k6_cases} "
+          f"launches (capacities {', '.join(map(str, P17_CAPACITIES))}; "
+          f"{', '.join(f'{h}x{w}' for h, w in P17_K6_SHAPES)}; origins 0, 2^32 - 1000, 2^33 + 5 on "
+          f"the boards up to 512^2: both instances; sweeps {P17_OFFSETS} of a chunk of {P17_CHUNK}; T 2.27, 0, 10, "
+          f"...; counters past 2^31 and wrapping; budgets {P17_CHUNK + 1}, 0, 1, {P17_CHUNK - 1}, "
+          f"{P17_CHUNK}, 3, 100, 7), K7's in {k7_cases} launches ("
+          f"{', '.join(f'{h}x{w}' for h, w in P17_K7_SHAPES)}; substreams 0, 1, 2; offsets 0, 1, "
+          f"{P17_CHUNK - 1}); launches counted {got}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (b) the sweep at full width, a child process: 8 sessions of
+        # 4096^2 x 256 at the grid's temperatures, one CompileKey built
+        # once, every sweep two launches of K6's batch mode (32 a chunk of
+        # 16, 16 chunks) and nothing else; each session equal to the
+        # single-board Runner on the same staged board (K6 alone)
+        sweep_args = ["sweep", "--size", str(P17_SIDE), "--steps", str(P17_STEPS), "--temps",
+                      P17_TEMPS, "--seed", str(P17_SEED), "--output-dir", str(tmp / "sweep")]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", P17_CHILD, *sweep_args], cwd=tmp, env=env,
+                              capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"phase 17 (b): the sweep exited {proc.returncode}: {proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        rec = json.loads([ln for ln in lines if ln.startswith('{"mode": "sweep"')][-1])
+        sweep_counts = json.loads([ln for ln in lines if ln.startswith("P17 ")][-1][4:])
+        want_k6 = 2 * P17_STEPS
+        if list(rec["compile_counts"].values()) != [1] or rec["done"] != 8 or sweep_counts != {
+                "k6": 0, "k7": 1, "k6_batch": want_k6, "k7_batch": 0}:
+            fail(f"phase 17 (b): compile_counts {rec['compile_counts']}, done {rec['done']}, "
+                 f"launches {sweep_counts}; want one key built once, 8 done, {want_k6} K6 batch "
+                 f"launches and the staging's one K7 launch")
+        board = prng.seeded_board(P17_SIDE, P17_SIDE, seed=P17_SEED, device=dev).cpu().numpy()
+        backend = get_backend("cuda")
+        for sess in rec["sessions"]:
+            runner = make_runner(backend, board, ising_rule, seed=P17_SEED,
+                                 temperature=sess["temperature"])
+            runner.advance(P17_STEPS)
+            want = runner.fetch()
+            got = read_board(tmp / "sweep" / f"{sess['session']}.txt", P17_SIDE, P17_SIDE)
+            if runner.route != "mc_packed" or not np.array_equal(got, want):
+                fail(f"phase 17 (b): session {sess['session']} (T = {sess['temperature']}) differs "
+                     f"from the single-board Runner's board (route {runner.route})")
+        del runner, want, got
+        print(f"phase 17 (b): sweep {' '.join(sweep_args[1:-2])} as a child: exit 0, compile_counts "
+              f"{list(rec['compile_counts'].values())}, {sweep_counts['k6_batch']} K6 batch launches "
+              f"({2 * P17_CHUNK} a chunk of {P17_CHUNK}) and no other kernel's but the staging's K7; "
+              f"elapsed_s {rec['elapsed_s']:.4f} ({rec['rounds']} rounds; the child {child_s:.1f} s); "
+              f"every session equal to the cuda Runner's board at its temperature (route mc_packed); "
+              f"magnetizations " + ", ".join(f"T {s['temperature']:.4f}: {s['magnetization']:.4f}"
+                                               for s in rec["sessions"]) + f" {card}", flush=True)
+
+        # timed: K6's batch mode at 8 x 4096^2 (the sweep's board in every
+        # slot, the grid's temperatures, parity 0) by CUDA events, beside its
+        # plain version, 8 single-board K6 launches and its bound; K7's
+        # batch mode at 8 x 1024^2; device times from the profiler records
+        # of phase 16's fresh child (P16_PROFILE)
+        device = ctx["device"]
+        temps = [float(s["temperature"]) for s in rec["sessions"]]
+        state = slot_state(temps, [P17_SEED] * 8, [0] * 8, [P17_STEPS] * 8)
+        k0, k1 = prng.key_halves(P17_SEED)
+        one = torch.from_numpy(packed.pack_board(board).view(np.int32).copy()).to(dev)
+        x = one.expand(8, *one.shape).contiguous()
+        y = torch.empty_like(x)
+        k6_ms = events_ms(lambda: mct.packed_metropolis_half_batch(x, 0, state, width=P17_SIDE,
+                                                                   out=y), 20)
+        k6_plain = events_ms(lambda: mct.packed_metropolis_half_batch_plain(x, 0, state,
+                                                                            width=P17_SIDE), 2)
+
+        def singles():
+            for s, t in enumerate(temps):
+                thr = ising.acceptance_thresholds(t)
+                mct.packed_metropolis_half(x[s], 0, k0, k1, 0, int(thr[3]), int(thr[4]),
+                                           width=P17_SIDE, out=y[s])
+        singles_ms = events_ms(singles, 10)
+        # the decided cells differ by temperature only in which ones accept:
+        # the same board in every slot, the same cells decided
+        decided = 8 * stripe_sweep.decided_cells(one, P17_SIDE)
+        n_words = x.numel()
+        draw_alu, draw_all, accept_ops = mct.ALU_OPS_PER_DRAW, mct.OPS_PER_DRAW, 2
+        k6_bound, k6_by = bound(decided * (draw_alu + accept_ops) + 18 * n_words,
+                                decided * (draw_all + accept_ops) + 18 * n_words, 2 * 4 * n_words)
+        del x, y, one
+        rstate = slot_state(temps, [P17_SEED] * 8, [0] * 8, [P17_ROLL_STEPS] * 8)
+        roll_shape = (P17_ROLL_SIDE, P17_ROLL_SIDE)
+        k7_ms = events_ms(lambda: mct.cell_uniforms_batch(roll_shape, rstate, 0), 20)
+        k7_plain = events_ms(lambda: mct.cell_uniforms_batch_plain(roll_shape, rstate, 0), 2)
+        n_draws = 8 * P17_ROLL_SIDE ** 2
+        k7_bound, k7_by = bound(n_draws * draw_alu, n_draws * draw_all, 4 * n_draws)
+        torch.cuda.empty_cache()
+
+        def fmt_dev(v) -> str:
+            return "not measured (no kernel records)" if v is None else f"{v:.4f}"
+
+        print(f"K6's batch mode, a half-sweep of 8 x {P17_SIDE}^2 (the sweep's seeded board in every "
+              f"slot, its 8 temperatures, parity 0), hashing {decided} decided cells: {k6_ms:.4f} ms "
+              f"by CUDA events, device {fmt_dev(device['k6_batch'])}; 8 single-board K6 launches "
+              f"{singles_ms:.4f} ms by events, device {fmt_dev(device['k6_singles'])}; plain "
+              f"{k6_plain:.3f} ms; bound {k6_bound:.4f} ms ({k6_by}: {draw_alu + accept_ops} "
+              f"integer-pipe ops a decided cell, 18 a word, at {INT_OPS_PER_CLOCK_PER_SM} a clock an "
+              f"SM), {k6_bound / k6_ms:.1%} of it"
+              + ("" if device["k6_batch"] is None else
+                 f" ({k6_bound / device['k6_batch']:.1%} by device time)") + f" {card}", flush=True)
+        print(f"K7's batch mode, word 0 of 8 x {P17_ROLL_SIDE}^2: {k7_ms:.4f} ms by CUDA events, device "
+              f"{fmt_dev(device['k7_batch'])}; plain {k7_plain:.3f} ms; bound {k7_bound:.4f} ms "
+              f"({k7_by}: {draw_alu} integer-pipe ops a draw), {k7_bound / k7_ms:.1%} of it {card}",
+              flush=True)
+
+        def cli_run(args: list[str], what: str) -> tuple[dict, dict]:
+            """One in-process CLI call with every count set to 0 just before
+            and read just after: (its summary record, the counts)."""
+            zero()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(args)
+            got = {**counts(), "chunks": BatchEngine.dispatched}
+            if rc != 0:
+                fail(f"phase 17 {what} exited {rc}")
+            return json.loads(buf.getvalue().strip().splitlines()[-1]), got
+
+        # (c) the roll path: the same sweep at 1024^2 x 32 packed (K6's batch
+        # mode) and with --no-bitpack (K7's, two launches a sweep), byte for
+        # byte
+        roll_args = ["sweep", "--size", str(P17_ROLL_SIDE), "--steps", str(P17_ROLL_STEPS),
+                     "--temps", P17_TEMPS, "--seed", str(P17_SEED)]
+        prec, pc = cli_run([*roll_args, "--output-dir", str(tmp / "packed")], "(c) packed sweep")
+        rrec, rc_ = cli_run([*roll_args, "--no-bitpack", "--output-dir", str(tmp / "roll")],
+                            "(c) --no-bitpack sweep")
+        if (pc["k6_batch"], pc["k7_batch"]) != (2 * P17_ROLL_STEPS, 0) or \
+                (rc_["k6_batch"], rc_["k7_batch"]) != (0, 2 * P17_ROLL_STEPS):
+            fail(f"phase 17 (c): launches packed {pc}, roll {rc_}")
+        for s in prec["sessions"]:
+            name = f"{s['session']}.txt"
+            if (tmp / "packed" / name).read_bytes() != (tmp / "roll" / name).read_bytes():
+                fail(f"phase 17 (c): the --no-bitpack session {name} differs from the packed one")
+        roll_launches = rc_["k7_batch"]
+        print(f"phase 17 (c): sweep at {P17_ROLL_SIDE}^2 x {P17_ROLL_STEPS}: packed {pc['k6_batch']} K6 "
+              f"batch launches, --no-bitpack {roll_launches} K7 batch launches, every session "
+              f"byte-equal; elapsed_s {prec['elapsed_s']:.4f} packed, {rrec['elapsed_s']:.4f} roll "
+              f"{card}", flush=True)
+
+        # (d) a noisy spool (16 seeded sessions, distinct seeds, capacity 8)
+        # through serve under both pumps, and the reference workload as an
+        # ising session at T = 2.27: each byte-equal to the single-board
+        # cuda Runner with the same seed
+        noisy = get_rule(P17_NOISY)
+        spool = tmp / "noisy.jsonl"
+        spool.write_text("".join(json.dumps({
+            "height": P17_NOISY_SIDE, "width": P17_NOISY_SIDE, "steps": P17_NOISY_STEPS,
+            "rule": P17_NOISY, "seed": 100 + i}) + "\n" for i in range(P17_NOISY_SESSIONS)))
+        oracle = []
+        for i in range(P17_NOISY_SESSIONS):
+            b = prng.seeded_board(P17_NOISY_SIDE, P17_NOISY_SIDE, seed=100 + i)
+            runner = make_runner(backend, b, noisy, seed=100 + i)
+            runner.advance(P17_NOISY_STEPS)
+            oracle.append(encode_board(runner.fetch()))
+        noisy_runs = {}
+        for pump in ("pipelined", "sync"):
+            out = tmp / f"noisy_{pump}"
+            summary, got = cli_run(["serve", "--requests", str(spool), "--output-dir", str(out),
+                                    "--capacity", "8", "--chunk-steps", str(P17_CHUNK),
+                                    *(["--sync-pump"] if pump == "sync" else [])],
+                                   f"(d) serve {P17_NOISY} {pump}")
+            if summary["done"] != P17_NOISY_SESSIONS or got["k6_batch"] or not got["chunks"] or \
+                    got["k7_batch"] != P17_CHUNK * got["chunks"]:
+                fail(f"phase 17 (d) serve {P17_NOISY} {pump}: {summary}, launches {got}")
+            for i in range(P17_NOISY_SESSIONS):
+                if (out / f"s{i:06d}.txt").read_bytes() != oracle[i]:
+                    fail(f"phase 17 (d) serve {P17_NOISY} {pump}: session {i} differs from the "
+                         f"cuda Runner's bytes")
+            noisy_runs[pump] = (summary, got)
+        ref = tmp / "ref"
+        ref.mkdir()
+        with gzip.open(FIXTURES / "reference_data.txt.gz", "rb") as f:
+            (ref / "data.txt").write_bytes(f.read())
+        shutil.copy(FIXTURES / "reference_grid_size_data.txt", ref / "grid_size_data.txt")
+        ref_spool = str(tmp / "ref.jsonl")
+        if cli_main_rc(["submit", "--requests", ref_spool, "--input-file", str(ref / "data.txt"),
+                        "--config-file", str(ref / "grid_size_data.txt"), "--rule", "ising",
+                        "--temperature", "2.27", "--output-file", str(ref / "output.txt")]) != 0:
+            fail("phase 17 (d): submit of the reference workload as an ising session failed")
+        summary, ref_got = cli_run(["serve", "--requests", ref_spool, "--output-dir",
+                                    str(tmp / "ref_out")], "(d) serve the reference workload")
+        h, w, steps = (int(v) for v in (ref / "grid_size_data.txt").read_text().split()[:3])
+        runner = make_runner(backend, read_board(ref / "data.txt", h, w), ising_rule, seed=0,
+                             temperature=2.27)
+        runner.advance(steps)
+        if (ref / "output.txt").read_bytes() != encode_board(runner.fetch()) or \
+                ref_got["k6_batch"] != 2 * P17_CHUNK * ref_got["chunks"]:
+            fail(f"phase 17 (d): the reference workload's ising session differs from the cuda "
+                 f"Runner's bytes, or launches {ref_got}")
+        ns, ng = noisy_runs["pipelined"]
+        print(f"phase 17 (d): {P17_NOISY_SESSIONS} x {P17_NOISY_SIDE}^2 {P17_NOISY} x "
+              f"{P17_NOISY_STEPS} (seeds 100-{99 + P17_NOISY_SESSIONS}, capacity 8, chunk "
+              f"{P17_CHUNK}) through serve, every result equal to the cuda Runner's bytes: "
+              + "; ".join(f"{pump} {g['k7_batch']} K7 batch launches over {g['chunks']} chunks, "
+                          f"{s['sessions_per_sec']:.2f} sessions/s, elapsed {s['elapsed_s']:.4f} s"
+                          for pump, (s, g) in noisy_runs.items())
+              + f"; the reference workload ({h}x{w} x {steps}) served as ising at T = 2.27: "
+              f"{ref_got['k6_batch']} K6 batch launches over {ref_got['chunks']} chunks, equal to "
+              f"the Runner's bytes {card}", flush=True)
+
+        # (e) spill and resume: an ising session spilled mid-run, resumed in
+        # a fresh service at the spilled step, equal to the uninterrupted
+        # session
+        board = prng.seeded_board(P17_SPILL_SIDE, P17_SPILL_SIDE, seed=9, device=dev).cpu().numpy()
+        session = dict(seed=9, temperature=2.27)
+        svc = SimulationService(ServeConfig(backend="cuda", capacity=2, chunk_steps=P17_CHUNK,
+                                            spill_dir=str(tmp / "spill"), spill_every=1))
+        try:
+            svc.submit(board, "ising", P17_SPILL_STEPS, **session)
+            for _ in range(3):
+                svc.pump()
+            (rec_s,), corrupt, _ = read_spill_sessions(tmp / "spill")
+        finally:
+            svc.close()
+        if corrupt or not 0 < rec_s.step < P17_SPILL_STEPS:
+            fail(f"phase 17 (e): spilled at step {rec_s.step}, corrupt {corrupt}")
+        results = []
+        for kwargs in (dict(board=rec_s.board, steps=rec_s.remaining, start_step=rec_s.step),
+                       dict(board=board, steps=P17_SPILL_STEPS, start_step=0)):
+            svc = SimulationService(ServeConfig(backend="cuda", capacity=2, chunk_steps=P17_CHUNK))
+            try:
+                sid = svc.submit(kwargs["board"], rec_s.rule, kwargs["steps"], seed=rec_s.seed,
+                                 temperature=rec_s.temperature, start_step=kwargs["start_step"])
+                svc.drain()
+                results.append(svc.result(sid))
+            finally:
+                svc.close()
+        if not np.array_equal(results[0], results[1]):
+            fail("phase 17 (e): the resumed session differs from the uninterrupted one")
+    print(f"phase 17 (e): an ising {P17_SPILL_SIDE}^2 x {P17_SPILL_STEPS} session (seed 9, T = 2.27) "
+          f"spilled at step {rec_s.step} and resumed in a fresh service, equal to the uninterrupted "
+          f"session; phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return [{
+        "name": "packed_metropolis_half_batch",
+        "route": "cuda",
+        "source": "tpu_life_torch/csrc/mc_threefry.cu",
+        "replaces": "tpu_life/mc/engine.py:620",
+        "launches": sweep_counts["k6_batch"],
+        "max_abs_err": batch_err,
+        "equal_to_plain": batch_err == 0,
+        "shape": [8, P17_SIDE, P17_SIDE],
+        "ms": k6_ms,
+        "kernel_ms": k6_ms,
+        "device_ms": device["k6_batch"],
+        "plain_ms": k6_plain,
+        "bound_ms": k6_bound,
+        "bound_by": k6_by,
+        "library_ms": None,
+        "decided_cells": decided,
+        "single_board_ms": singles_ms,
+        "single_board_device_ms": device["k6_singles"],
+        "reference_launches": ref_got["k6_batch"],
+        "sweep_elapsed_s": rec["elapsed_s"],
+        **ctx["instances"][K6_BATCH],
+    }, {
+        "name": "cell_uniforms_batch",
+        "route": "cuda",
+        "source": "tpu_life_torch/csrc/mc_threefry.cu",
+        "replaces": "tpu_life/mc/engine.py:446",
+        "launches": ng["k7_batch"],
+        "max_abs_err": batch_err,
+        "equal_to_plain": batch_err == 0,
+        "shape": [8, P17_ROLL_SIDE, P17_ROLL_SIDE],
+        "ms": k7_ms,
+        "kernel_ms": k7_ms,
+        "device_ms": device["k7_batch"],
+        "plain_ms": k7_plain,
+        "bound_ms": k7_bound,
+        "bound_by": k7_by,
+        "library_ms": None,
+        "roll_launches": roll_launches,
+        **ctx["instances"][K7_BATCH],
+    }]
 
 
 def cli_main_rc(args: list[str]) -> int:

@@ -5,8 +5,8 @@ spool must write the same result files as ``python -m tpu_life serve
 --serve-backend numpy`` (Lenia boards ``allclose`` at ``FLOAT_ATOL``), and
 print a summary line with the same keys and the same values apart from
 the timings and the backend's name.  Exit codes: 0 when every request is
-done, 1 when one failed, 2 for what this slice does not serve (a
-stochastic request, the queued backends).  Both CLIs run in process on
+done, 1 when one failed, 2 for what the port does not serve (a stochastic
+request on ``sharded``, the queued backends).  Both CLIs run in process on
 the CPU; boards come from ``np.random.default_rng``.
 """
 
@@ -104,13 +104,26 @@ def test_serve_exits_1_when_a_request_fails(spool, capsys):
 @pytest.mark.parametrize("extra", [["--rule", "ising", "--temperature", "2.0"],
                                    ["--rule", "noisy:0.01/conway"]])
 def test_serve_exits_2_on_a_stochastic_request(spool, capsys, extra):
+    # on sharded, which has no counter-based key schedule; cuda serves it
+    # (K6's or K7's batch mode's plain version on the CPU) and writes the
+    # JAX numpy serve's bytes
     cli.main(["submit", "--input-file", "a.txt"])
-    cli.main(["submit", "--input-file", "a.txt", *extra])
+    cli.main(["submit", "--size", "16", "--steps", "9", "--seed", "3", "--input-file",
+              "absent.txt", *extra])
     capsys.readouterr()
-    assert cli.main(["serve", "--device", "cpu"]) == 2
+    assert cli.main(["serve", "--serve-backend", "sharded", "--device", "cpu"]) == 2
     err = capsys.readouterr().err
-    assert "next slice of ROADMAP A9" in err
+    assert "key schedule" in err and "'sharded'" in err
     assert not (spool / "serve_out").exists()
+    common = ["--capacity", "2", "--chunk-steps", "4"]
+    assert jcli.main(["serve", "--serve-backend", "numpy", "--output-dir", "jax", *common]) == 0
+    want = summary(capsys)
+    assert cli.main(["serve", "--device", "cpu", "--output-dir", "port", *common]) == 0
+    got = summary(capsys)
+    assert {k: v for k, v in got.items() if k not in TIMED} == {
+        k: v for k, v in want.items() if k not in TIMED}
+    for name in ("s000000.txt", "s000001.txt"):
+        assert (spool / "port" / name).read_bytes() == (spool / "jax" / name).read_bytes()
 
 
 @pytest.mark.parametrize("backend,item", [("tuned", "A10"), ("stripes", "A11"), ("native", "A11")])

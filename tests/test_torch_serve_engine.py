@@ -341,9 +341,28 @@ def test_queued_backends_are_refused_by_name(backend):
 
 @pytest.mark.parametrize("spec", ["ising", "noisy:0.01/conway"])
 def test_stochastic_keys_are_refused(spec):
-    key, _ = _keys(spec, "cuda", "jax")
-    with pytest.raises(NotPortedError, match="next slice of ROADMAP A9"):
+    # stochastic keys are refused only by the executors without the
+    # counter-based key schedule (sharded, typed as the JAX package's);
+    # cuda and numpy build the MC engines, which step a seeded session as
+    # the JAX engines do
+    from tpu_life.mc import run_np as jmc_run_np
+    from tpu_life_torch import mc
+
+    shape = (12, 14)
+    board = _boards("conway", 1, seed=9, shape=shape)[0]
+    temperature = 2.3 if spec == "ising" else None
+    for backend, jbackend in (("cuda", "jax"), ("numpy", "numpy")):
+        key, jkey = _keys(spec, backend, jbackend, shape=shape)
+        port, jax = engine.make_engine(key, 2, 4, device="cpu"), jengine.make_engine(jkey, 2, 4)
+        assert (port.packed, port.lanes) == (jax.packed, jax.lanes)
+        for eng in (port, jax):
+            slot = eng.acquire()
+            eng.load(slot, board, 6, seed=17, temperature=temperature, start_step=3)
+            eng.advance_chunk()
+            eng.advance_chunk()
+        want = jmc_run_np(jget_rule(spec), board, 17, 6, temperature=temperature, start_step=3)
+        np.testing.assert_array_equal(port.fetch(0), np.asarray(jax.fetch(0)))
+        np.testing.assert_array_equal(port.fetch(0), want)
+    key, _ = _keys(spec, "sharded", "numpy", shape=shape)
+    with pytest.raises(mc.StochasticBackendError, match="key schedule"):
         engine.make_engine(key, 2, 4, device="cpu")
-    key, _ = _keys(spec, "numpy", "numpy")
-    with pytest.raises(NotPortedError):
-        engine.make_engine(key, 2, 4)

@@ -11,8 +11,9 @@ pumps, backpressure, deadlines under an injected clock, cancel and
 governor's ``InsufficientMemory`` verdicts under the backend mapping, the
 mesh tier's placement and result, the OOM ladder's first rung through the
 chaos seam ``engine.oom`` (a second OOM fails the key typed, where the JAX
-package demotes it to the host), and the refusal of what this slice does
-not serve yet.
+package demotes it to the host), the refusal of what this slice does not
+serve yet, and of stochastic keys on ``sharded`` (the stochastic tier's
+own cases are ``test_torch_mc_serve.py``'s).
 Boards come from ``np.random.default_rng``.
 """
 
@@ -322,13 +323,25 @@ def test_a_real_out_of_memory_error_walks_the_ladder():
 @pytest.mark.parametrize("spec,kw", [("ising", {"temperature": 2.0}),
                                      ("noisy:0.01/conway", {"seed": 3})])
 def test_stochastic_keys_are_refused_before_anything_is_stored(spec, kw):
-    port, _ = services("cuda", "jax")
-    with pytest.raises(NotPortedError, match="next slice of ROADMAP A9"):
-        port.submit(boards(1, shape=(8, 8))[0], spec, 4, **kw)
+    # on sharded (no counter-based key schedule) refused typed at submit
+    # and sweep, before anything is stored; on cuda served, equal to the
+    # JAX service's session
+    from tpu_life_torch import mc
+
+    board = boards(1, shape=(8, 8))[0]
+    port, _ = services("sharded", "numpy")
+    with pytest.raises(mc.StochasticBackendError, match="key schedule"):
+        port.submit(board, spec, 4, **kw)
     assert len(port.store) == 0 and not port.scheduler.engines
-    with pytest.raises(NotPortedError):
-        port.sweep(boards(1, shape=(8, 8))[0], "ising", 4, [1.0, 2.0])
+    with pytest.raises(mc.StochasticBackendError):
+        port.sweep(board, "ising", 4, [1.0, 2.0])
     assert len(port.store) == 0
+    port, jax = services("cuda", "jax")
+    sids = [svc.submit(board, spec, 4, **kw) for svc in (port, jax)]
+    for svc in (port, jax):
+        svc.drain()
+    np.testing.assert_array_equal(port.result(sids[0]), jax.result(sids[1]))
+    assert port.poll(sids[0]).state is serve.SessionState.DONE
 
 
 def test_what_waits_for_later_items_is_refused_at_construction():

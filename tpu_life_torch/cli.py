@@ -25,7 +25,10 @@ devices, backends and rules.  ``submit`` appends a request line to a
 spool and ``serve`` runs every request of a spool through the serving
 tier (``tpu_life_torch.serve``), printing one summary JSON line: the JAX
 ``submit``/``serve`` with ``--device`` for ``--platform`` and the port's
-serve backends (``cuda``, the default, ``numpy``, ``sharded``).
+serve backends (``cuda``, the default, ``numpy``, ``sharded``).  ``sweep``
+fans a temperature grid into one ising session each through the same
+tier and prints the JAX ``sweep``'s JSON record; its ``--serve-backend``
+is ``cuda`` (the default: kernels K6 and K7's batch modes) or ``numpy``.
 """
 
 from __future__ import annotations
@@ -320,6 +323,8 @@ def main(argv: list[str] | None = None) -> int:
         return _submit(args)
     if args.command == "serve":
         return _serve(args)
+    if args.command == "sweep":
+        return _sweep(parser, args)
     mesh_shape = _parse_mesh_shape(parser, args.mesh_shape)
     cfg = RunConfig(
         height=args.height if args.height is not None else args.size,
@@ -741,8 +746,9 @@ def _add_serve_parsers(sub) -> None:
                      help="run the host-synchronous scheduling round instead of the "
                      "default pipelined (double-buffered) pump")
     srv.add_argument("--no-bitpack", action="store_true",
-                     help="the stochastic tier's knob; its serving engines are not "
-                     "ported yet")
+                     help="serve ising on the int8 roll engine (K7's batch mode) "
+                     "instead of the default packed one (K6's batch mode): "
+                     "bit-identical, the packed path's oracle")
     srv.add_argument("--stencil", default="auto", choices=["auto", "roll", "matmul"],
                      help="neighbour-counting path of the plain-op engines: roll, "
                      "matmul, or auto (matmul for continuous rules; the numpy "
@@ -807,6 +813,61 @@ def _add_serve_parsers(sub) -> None:
                     "(default: <output-dir>/<session-id>.txt)")
     sm.add_argument("--timeout", type=float, default=None, metavar="SECONDS")
     sm.add_argument("--id", default=None, help="client request tag echoed in the summary")
+
+    sw = sub.add_parser(
+        "sweep",
+        help="temperature sweep: fan a temperature grid into one ising session "
+        "per temperature through the continuous-batching service — mixed "
+        "temperatures share ONE build of the batched chunk",
+    )
+    sw.add_argument("--size", type=int, default=None,
+                    help="square lattice edge (or --height/--width)")
+    sw.add_argument("--height", type=int, default=None)
+    sw.add_argument("--width", type=int, default=None)
+    sw.add_argument("--steps", type=int, required=True, help="Metropolis sweeps per session")
+    sw.add_argument("--rule", default="ising", help="stochastic rule to sweep (ising)")
+    sw.add_argument("--temps", default="1.5:3.0:8", metavar="SPEC",
+                    help="temperature grid: comma list 'T1,T2,...' or range 'lo:hi:n' "
+                    "(n points, endpoints included; default 1.5:3.0:8 brackets the "
+                    "Onsager critical point T~2.269)")
+    sw.add_argument("--seed", type=int, default=0,
+                    help="counter-based PRNG seed shared by every session (the "
+                    "temperature is the only thing that varies)")
+    sw.add_argument("--density", type=float, default=0.5, help="seeded initial-board density")
+    sw.add_argument("--serve-backend", default="cuda", choices=["cuda", "numpy"],
+                    help="engine executor: cuda = the card (K6's batch mode; K7's "
+                    "under --no-bitpack), numpy = the host oracle")
+    sw.add_argument("--capacity", type=int, default=None,
+                    help="batch slots (default: one per temperature, so the whole "
+                    "grid runs as one batch)")
+    sw.add_argument("--chunk-steps", type=int, default=16)
+    sw.add_argument("--sync-pump", action="store_true",
+                    help="host-synchronous rounds instead of the pipelined pump "
+                    "(same semantics as `serve --sync-pump`)")
+    sw.add_argument("--no-bitpack", action="store_true",
+                    help="sweep on the int8 roll engine instead of the default "
+                    "packed Metropolis path — bit-identical, the packed path's oracle")
+    sw.add_argument("--stencil", default="auto", choices=["auto", "roll", "matmul"],
+                    help="neighbour-counting path of the plain-op engines (stochastic "
+                    "keys take none)")
+    sw.add_argument("--memory-budget-bytes", type=int, default=None, metavar="BYTES",
+                    help="admission memory budget for estimated engine footprints "
+                    "(default: devices x per-kind default; 0 disables)")
+    sw.add_argument("--engine-max-restarts", type=int, default=3, metavar="N",
+                    help="in-place engine recoveries per compile key")
+    sw.add_argument("--settle-deadline", type=float, default=None, metavar="SECONDS",
+                    help="wedge watchdog of the pipelined settle window")
+    sw.add_argument("--mesh-devices", type=int, default=0, metavar="N",
+                    help="mega-board tier slice (stochastic sessions are never placed there)")
+    sw.add_argument("--output-dir", default=None, metavar="DIR",
+                    help="also write each final lattice to DIR/<session-id>.txt "
+                    "(contract board format)")
+    sw.add_argument("--metrics-file", default=None, metavar="JSONL",
+                    help="append per-round serve metrics as JSON lines")
+    sw.add_argument("--device", default=None,
+                    help="the device of the device engines (default: the card); "
+                    "'cpu' runs their plain PyTorch versions")
+    sw.add_argument("--verbose", "-v", action="store_true")
 
 
 def _submit(args) -> int:
@@ -902,12 +963,14 @@ def _stage_request(req: dict, rule, device):
 def _serve(args) -> int:
     """The serving loop: spool in, result boards + one summary JSON line
     out, with the JAX ``serve``'s keys.  Exit 0 when every session
-    completed, 1 when any failed, 2 for what is not ported yet (a
-    stochastic request, the tuned/stripes/native backends)."""
+    completed, 1 when any failed, 2 for what is not ported yet (the
+    tuned/stripes/native backends) and for a stochastic request on a
+    backend without the counter-based key schedule (``sharded``)."""
     import json
     from pathlib import Path
 
     from tpu_life_torch.io.codec import write_board
+    from tpu_life_torch import mc
     from tpu_life_torch.models.rules import NotPortedError, get_rule
     from tpu_life_torch.runtime.metrics import configure_logging
     from tpu_life_torch.serve import (
@@ -917,15 +980,17 @@ def _serve(args) -> int:
         SessionState,
         SimulationService,
     )
-    from tpu_life_torch.serve.engine import check_backend, refuse_stochastic
+    from tpu_life_torch.serve.engine import check_backend
 
     configure_logging(args.verbose)
     requests = _read_spool(args.requests)
     try:
         check_backend(args.serve_backend)
         for req in requests:
-            refuse_stochastic(get_rule(req.get("rule", "conway")))
-    except NotPortedError as e:
+            rule = get_rule(req.get("rule", "conway"))
+            if rule.stochastic:
+                mc.require_key_schedule(rule, args.serve_backend)
+    except (NotPortedError, mc.StochasticBackendError) as e:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 2
     svc = SimulationService(
@@ -1028,6 +1093,158 @@ def _serve(args) -> int:
             }
         )
     )
+    return 0 if not failures else 1
+
+
+def _parse_temps(parser, spec: str) -> list[float]:
+    """'T1,T2,...' or 'lo:hi:n' -> temperature grid, loudly on malformation."""
+    spec = spec.strip()
+    try:
+        if ":" in spec:
+            lo_s, hi_s, n_s = spec.split(":")
+            lo, hi, n = float(lo_s), float(hi_s), int(n_s)
+            if n < 1:
+                raise ValueError
+            if n == 1:
+                return [lo]
+            return [lo + (hi - lo) * i / (n - 1) for i in range(n)]
+        temps = [float(t) for t in spec.split(",") if t.strip()]
+        if not temps:
+            raise ValueError
+        return temps
+    except ValueError:
+        parser.error(
+            f"--temps must be 'T1,T2,...' or 'lo:hi:n', got {spec!r}"
+        )
+
+
+def _sweep(parser, args) -> int:
+    """The temperature-sweep front (the JAX ``sweep``): N ising sessions —
+    same seed, same board, one temperature each — through the
+    continuous-batching service, magnetization per temperature out as one
+    JSON line with the JAX record's keys.  The whole grid shares ONE
+    CompileKey (temperature rides per slot), which the summary's
+    ``compile_counts`` lets scripts assert.  Exit 0 when every session
+    completed, 1 when any failed, 2 for a bad grid or lattice or a grid
+    the memory budget cannot hold."""
+    import json
+    from pathlib import Path
+
+    from tpu_life_torch import mc
+    from tpu_life_torch.models.rules import get_rule, validate_rule_geometry
+    from tpu_life_torch.runtime.metrics import configure_logging
+    from tpu_life_torch.serve import (
+        InsufficientMemory,
+        QueueFull,
+        ServeConfig,
+        SessionState,
+        SimulationService,
+    )
+
+    configure_logging(args.verbose)
+    height = args.height if args.height is not None else args.size
+    width = args.width if args.width is not None else args.size
+    if height is None or width is None:
+        parser.error("sweep needs --size (or --height/--width)")
+    temps = _parse_temps(parser, args.temps)
+    rule = get_rule(args.rule)
+    try:
+        # the lattice contract before the board is staged: odd ising
+        # dimensions and the PRNG counter width's area cap exit 2 here (the
+        # service re-checks at submit with the same capability)
+        mc.validate_board_shape(
+            rule, (height, width),
+            wide_counter=mc.wide_counter_capable(rule, args.serve_backend,
+                                                 bitpack=not args.no_bitpack),
+        )
+        validate_rule_geometry(rule, (height, width))
+    except ValueError as e:
+        parser.error(str(e))
+    # the seeded board is drawn on the card when the engines run there
+    stage_on = None
+    if args.serve_backend != "numpy" and (args.device is None or args.device.startswith("cuda")):
+        stage_on = args.device or "cuda"
+    board = mc.seeded_board(height, width, args.density, states=rule.states, seed=args.seed,
+                            device=stage_on)
+    if stage_on is not None:
+        board = board.cpu().numpy()
+    capacity = args.capacity if args.capacity is not None else len(temps)
+    svc = SimulationService(
+        ServeConfig(
+            capacity=capacity,
+            chunk_steps=args.chunk_steps,
+            max_queue=max(64, len(temps)),
+            backend=args.serve_backend,
+            device=args.device,
+            pipeline=not args.sync_pump,
+            metrics=bool(args.metrics_file),
+            metrics_file=args.metrics_file,
+            mc_packed=not args.no_bitpack,
+            stencil=args.stencil,
+            memory_budget_bytes=args.memory_budget_bytes,
+            mesh_devices=args.mesh_devices,
+            engine_max_restarts=args.engine_max_restarts,
+            settle_deadline_s=args.settle_deadline,
+        )
+    )
+    try:
+        sids: list[str] = []
+        for t in temps:
+            while True:
+                try:
+                    sids.append(svc.submit(board, rule, args.steps, seed=args.seed,
+                                           temperature=t))
+                    break
+                except QueueFull:
+                    svc.pump()
+                except InsufficientMemory as e:
+                    # the whole grid shares one CompileKey: if it cannot fit
+                    # the budget, no session of this sweep ever can — a typed
+                    # refusal before any work runs (finally closes the service)
+                    print(f"sweep: {e}", file=sys.stderr)
+                    return 2
+        svc.drain()
+        # before close: close() releases idle engines, and compile_counts
+        # lives on them
+        stats = svc.stats()
+    finally:
+        svc.close()
+
+    out_dir = Path(args.output_dir) if args.output_dir else None
+    sessions = []
+    failures = 0
+    for sid, t in zip(sids, temps):
+        view = svc.poll(sid)
+        entry = {"session": sid, "temperature": t, "state": view.state.value,
+                 "steps": view.steps_done}
+        if view.state is SessionState.DONE:
+            entry["magnetization"] = mc.ising.magnetization(view.result)
+            if out_dir is not None:
+                from tpu_life_torch.io.codec import write_board
+
+                out_dir.mkdir(parents=True, exist_ok=True)
+                write_board(out_dir / f"{sid}.txt", view.result)
+        else:
+            entry["error"] = view.error
+            failures += 1
+        sessions.append(entry)
+    print(json.dumps({
+        "mode": "sweep",
+        "run_id": stats["run_id"],
+        "rule": rule.name,
+        "seed": args.seed,
+        "height": height,
+        "width": width,
+        "steps": args.steps,
+        "backend": args.serve_backend,
+        "capacity": capacity,
+        "sessions": sessions,
+        "done": stats["done"],
+        "failed": stats["failed"],
+        "rounds": stats["rounds"],
+        "elapsed_s": stats["elapsed_s"],
+        "compile_counts": stats["compile_counts"],
+    }))
     return 0 if not failures else 1
 
 

@@ -83,7 +83,32 @@
 // Lanes past the board's end take part in every shuffle with d = 0, so a
 // warp never leaves a _sync call short of lanes.
 //
-// Both launch on the caller's stream, allocate nothing and return
+// The batch modes serve the stochastic serving tier (the JAX package's
+// MCPackedVmapEngine and MCVmapEngine, tpu_life/mc/engine.py: a lax.scan
+// over a vmapped sweep whose freeze mask holds a slot once its budget is
+// spent, and whose per-slot step counter advances only while the slot is
+// live).  Each takes S boards of one shape, the slot on the grid's y axis,
+// and reads each slot's key halves k0 and k1, absolute sweep counter,
+// acceptance table (uint32[5]) and remaining budget from device arrays of
+// length S (BatchSlots), so a chunk needs nothing from the host; a launch
+// is one sweep of the chunk, at `offset` sweeps into it.  A slot whose
+// budget is at most offset is frozen; a live one draws at counter word
+// (counter + offset) * NSUB + substream.
+//
+// K6's batch mode, packed_metropolis_batch_kernel: K6's half-sweep of each
+// live slot, unchanged (the warp's list of decided cells, the narrow and
+// wide instances), with the Draws and the narrow instance's hoisted round
+// 1 formed from the slot's own key, counter and table once a block, on
+// the device; a frozen slot's words are copied through, so the two
+// buffers a chunk ping-pongs between never go stale.
+//
+// K7's batch mode, cell_uniforms_batch_kernel: word 0 of the hash for
+// every cell of each slot's [h, w] board (the narrow schedule: the roll
+// path's boards have at most 2^32 cells), one thread a cell; a frozen
+// slot's draws are zeros, which its consumer masks.  It draws the roll
+// path's half-sweeps and the noisy flips.
+//
+// All four launch on the caller's stream, allocate nothing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments outside what
 // they take).
 
@@ -96,6 +121,10 @@ namespace {
 
 constexpr uint32_t kWideKeyTag = 0xFFFFFFFFu;
 constexpr int kThreads = 256;
+// prng.NSUB, and the substreams of the half-sweeps' parities
+constexpr uint32_t kNsub = 4;
+constexpr uint32_t kSubEven = 0, kSubOdd = 1;
+constexpr int kMaxSlots = 65535;  // the grid's y extent
 
 // the rotation of round i (0..3) of group g (0..4)
 __device__ __forceinline__ int rotation(int g, int i) {
@@ -142,13 +171,28 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = word ? u.y : u.x;
 }
 
-// The uniforms of one K6 launch: the run's key, the counter word and the
-// acceptance table's entries 3 and 4 (a batch of boards would take one a
-// slot).
+// The uniforms of one K6 launch, or of one slot of its batch mode: the
+// run's key, the counter word and the acceptance table's entries 3 and 4.
 struct Draws {
   uint32_t k0, k1, c1;
   uint32_t thr3, thr4;
 };
+
+// The per-slot state of a batch: device arrays of length S (thr: S rows
+// of the uint32[5] table), which the serving engines keep.
+struct BatchSlots {
+  const uint32_t* k0;
+  const uint32_t* k1;
+  const uint32_t* counter;  // the absolute sweep counter of the chunk's start
+  const uint32_t* thr;
+  const int* rem;           // the budget left at the chunk's start
+};
+
+// slot s's counter word at `offset` sweeps into the chunk
+__device__ __forceinline__ uint32_t slot_counter_word(const BatchSlots& slots, int s, int offset,
+                                                      uint32_t substream) {
+  return (slots.counter[s] + static_cast<uint32_t>(offset)) * kNsub + substream;
+}
 
 // Word 0 of threefry2x32((k0, k1), (lo, c1)) with every term that does not
 // depend on lo folded into a constant of the launch: round 1's add and
@@ -164,7 +208,7 @@ struct NarrowHash {
   uint32_t one;
 };
 
-NarrowHash narrow_hash(uint32_t k0, uint32_t k1, uint32_t c1) {
+__host__ __device__ NarrowHash narrow_hash(uint32_t k0, uint32_t k1, uint32_t c1) {
   const uint32_t keys[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
   const uint32_t x1 = c1 + k1;
   NarrowHash n{};
@@ -232,11 +276,13 @@ __device__ __forceinline__ uint32_t cell_draw(const Draws& draws, const NarrowHa
   }
 }
 
+// One half-sweep of parity `parity` of the board x into y by the calling
+// block's kThreads words (blockIdx.x): the body of K6 and of its batch mode.
 template <bool Wide>
-__global__ void __launch_bounds__(kThreads)
-    packed_metropolis_half_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-                                  int h, int w, int wp, int parity, unsigned long long origin,
-                                  Draws draws, NarrowHash narrow) {
+__device__ __forceinline__ void half_sweep_words(const uint32_t* __restrict__ x,
+                                                 uint32_t* __restrict__ y, int h, int w, int wp,
+                                                 int parity, unsigned long long origin,
+                                                 const Draws& draws, const NarrowHash& narrow) {
   // a 32-bit word and cell index where the launch's cells lie below 2^32
   using Index = typename std::conditional<Wide, unsigned long long, uint32_t>::type;
   // each warp's list of entries owner << 7 | bit: first the cells held
@@ -332,6 +378,60 @@ __global__ void __launch_bounds__(kThreads)
   if (i < n) y[i] = c ^ ((active & ~(d3 | d4)) | accepted[warp][lane]);
 }
 
+template <bool Wide>
+__global__ void __launch_bounds__(kThreads)
+    packed_metropolis_half_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                                  int h, int w, int wp, int parity, unsigned long long origin,
+                                  Draws draws, NarrowHash narrow) {
+  half_sweep_words<Wide>(x, y, h, w, wp, parity, origin, draws, narrow);
+}
+
+// K6's batch mode: slot blockIdx.y's board of the batch x ([S, h, wp]
+// words) into y, at `offset` sweeps into the chunk.
+template <bool Wide>
+__global__ void __launch_bounds__(kThreads)
+    packed_metropolis_batch_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                                   int h, int w, int wp, int parity, unsigned long long origin,
+                                   BatchSlots slots, int offset) {
+  __shared__ Draws slot_draws;
+  __shared__ NarrowHash slot_narrow;
+  const int s = blockIdx.y;
+  const size_t plane = static_cast<size_t>(h) * static_cast<size_t>(wp);
+  x += s * plane;
+  y += s * plane;
+  if (slots.rem[s] <= offset) {  // frozen: the same branch for the whole block
+    const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+    if (i < plane) y[i] = x[i];
+    return;
+  }
+  if (threadIdx.x == 0) {
+    const uint32_t c1 = slot_counter_word(slots, s, offset, parity ? kSubOdd : kSubEven);
+    const uint32_t k0 = slots.k0[s], k1 = slots.k1[s];
+    slot_draws = Draws{k0, k1, c1, slots.thr[5 * s + 3], slots.thr[5 * s + 4]};
+    slot_narrow = narrow_hash(k0, k1, c1);
+  }
+  __syncthreads();
+  const Draws draws = slot_draws;
+  const NarrowHash narrow = slot_narrow;
+  half_sweep_words<Wide>(x, y, h, w, wp, parity, origin, draws, narrow);
+}
+
+// K7's batch mode: word 0 of the hash of each of the n cells of slot
+// blockIdx.y's board into out ([S, n]), zeros for a frozen slot.
+__global__ void __launch_bounds__(kThreads)
+    cell_uniforms_batch_kernel(uint32_t* __restrict__ out, long long n, BatchSlots slots,
+                               uint32_t substream, int offset) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int s = blockIdx.y;
+  uint32_t u = 0;
+  if (slots.rem[s] > offset) {
+    u = threefry2x32(slots.k0[s], slots.k1[s], static_cast<uint32_t>(i),
+                     slot_counter_word(slots, s, offset, substream)).x;
+  }
+  out[static_cast<long long>(s) * n + i] = u;
+}
+
 unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -381,6 +481,60 @@ int mc_packed_metropolis_half(const void* x, void* y, int h, int w, int wp, int 
   kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y), h, w, wp, parity, origin,
       draws, narrow);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6's batch mode: one half-sweep of parity `parity` of every slot of the
+// packed batch x (uint32[slots, h, wp] on the current device) into y (a
+// distinct buffer of the same shape), at `offset` sweeps into the chunk,
+// each slot's state read from the device arrays k0, k1, counter, rem (of
+// length slots) and thr (slots rows of 5), each board's cell (0, 0) at
+// flat index origin, on `stream`, by the wide instance where `wide` is 1
+// and the narrow one where it is 0 (whose cells must lie below 2^32).
+int mc_packed_metropolis_batch(const void* x, void* y, int slots, int h, int w, int wp,
+                               int parity, const void* k0, const void* k1, const void* counter,
+                               const void* thr, const void* rem, int offset,
+                               unsigned long long origin, int wide, void* stream) {
+  constexpr unsigned long long kBlock = 1ull << 32;
+  if (slots < 1 || slots > kMaxSlots || offset < 0 || h < 2 || w < 2 || (h & 1) || (w & 1) ||
+      wp != (w + 31) / 32 || (parity != 0 && parity != 1) || x == y ||
+      (wide != 0 && wide != 1) ||
+      (!wide && (origin > kBlock ||
+                 static_cast<unsigned long long>(h) * static_cast<unsigned long long>(w) >
+                     kBlock - origin))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const BatchSlots state{static_cast<const uint32_t*>(k0), static_cast<const uint32_t*>(k1),
+                         static_cast<const uint32_t*>(counter),
+                         static_cast<const uint32_t*>(thr), static_cast<const int*>(rem)};
+  const dim3 grid(blocks_for(static_cast<long long>(h) * wp), slots);
+  const auto kernel =
+      wide ? packed_metropolis_batch_kernel<true> : packed_metropolis_batch_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y), h, w, wp, parity, origin,
+      state, offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's batch mode: word 0 of the hash of each of the n cells of every
+// slot's board into out (uint32[slots, n] on the current device), the cell
+// at flat offset i having index i, under each slot's key at its counter
+// word at `offset` sweeps into the chunk in `substream` (zeros for a
+// frozen slot), each slot's state read from the device arrays k0, k1,
+// counter and rem, on `stream`.  n must be at most 2^32.
+int mc_cell_uniforms_batch(void* out, int slots, long long n, const void* k0, const void* k1,
+                           const void* counter, const void* rem, int substream, int offset,
+                           void* stream) {
+  if (slots < 1 || slots > kMaxSlots || n < 1 || n > (1ll << 32) || offset < 0 ||
+      substream < 0 || substream >= static_cast<int>(kNsub)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const BatchSlots state{static_cast<const uint32_t*>(k0), static_cast<const uint32_t*>(k1),
+                         static_cast<const uint32_t*>(counter), nullptr,
+                         static_cast<const int*>(rem)};
+  const dim3 grid(blocks_for(n), slots);
+  cell_uniforms_batch_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), n, state, static_cast<uint32_t>(substream), offset);
   return static_cast<int>(cudaGetLastError());
 }
 

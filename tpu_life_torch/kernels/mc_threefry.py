@@ -23,9 +23,25 @@ at first use (``kernels._build``) and called through ``ctypes``.
   one.  Its plain version is :func:`packed_metropolis_half_plain`
   (``mc.packed.half_sweep_torch``).
 
+Each has a batch mode for the serving tier's stochastic engines (the JAX
+package's ``MCPackedVmapEngine`` and ``MCVmapEngine``): every slot of a
+batch of boards in one launch, each slot's key halves, absolute sweep
+counter, acceptance table and remaining budget read from device tensors
+(``prng.SlotState``), a frozen slot (budget at most the launch's
+``offset`` into the chunk) passed over:
+
+- :func:`cell_uniforms_batch` (K7's batch mode): word 0 of the hash for
+  every cell of ``[S, h, w]``, zeros for a frozen slot; its plain version
+  is :func:`cell_uniforms_batch_plain` (``prng.cell_uniforms_batch_torch``).
+- :func:`packed_metropolis_half_batch` (K6's batch mode): a half-sweep of
+  every live slot, a frozen one copied through; its plain version is
+  :func:`packed_metropolis_half_batch_plain`
+  (``mc.packed.half_sweep_batch_torch``).
+
 Each launches its kernel for a CUDA tensor and runs its plain version for a
 CPU one; any other device raises, and nothing falls back.  Each counts its
-launches (``cell_uniforms.launches``, ``packed_metropolis_half.launches``).
+launches (``cell_uniforms.launches``, ``packed_metropolis_half.launches``,
+``cell_uniforms_batch.launches``, ``packed_metropolis_half_batch.launches``).
 Both are bound by integer operations on an H100: of the
 :data:`OPS_PER_DRAW` that word 0 of a draw needs, the
 :data:`ALU_OPS_PER_DRAW` rotates and xors issue only on the integer pipe
@@ -44,6 +60,7 @@ import torch
 
 from tpu_life_torch.kernels import _build
 from tpu_life_torch.mc import packed, prng
+from tpu_life_torch.mc.prng import SlotState
 
 SOURCE = _build.CSRC / "mc_threefry.cu"
 #: 32-bit integer operations a cell that word 0 of one Threefry-2x32/20
@@ -77,7 +94,17 @@ def _library() -> ctypes.CDLL:
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_ulonglong, ctypes.c_uint32,
         ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
     ]
-    for fn in (lib.mc_cell_uniforms, lib.mc_packed_metropolis_half):
+    lib.mc_packed_metropolis_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.mc_cell_uniforms_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    for fn in (lib.mc_cell_uniforms, lib.mc_packed_metropolis_half,
+               lib.mc_packed_metropolis_batch, lib.mc_cell_uniforms_batch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -207,3 +234,133 @@ def packed_metropolis_half(
 
 
 packed_metropolis_half.launches = 0
+
+
+# -- the batch modes -------------------------------------------------------------
+
+#: the most slots a batch launch takes (the grid's y extent)
+MAX_SLOTS = 65535
+
+
+def _check_state(state: SlotState, slots: int, device: torch.device) -> None:
+    if not 1 <= slots <= MAX_SLOTS:
+        raise ValueError(f"a batch holds 1..{MAX_SLOTS} slots, got {slots}")
+    for name, t in zip(SlotState._fields, state):
+        want = (slots, 5) if name == "thr" else (slots,)
+        if t.dtype != torch.int32 or tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor of shape {want}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} lies on {t.device}, the batch on {device}")
+
+
+#: The plain PyTorch version of K7's batch mode, on any device.
+cell_uniforms_batch_plain = prng.cell_uniforms_batch_torch
+
+
+def cell_uniforms_batch(
+    shape: tuple[int, int], state: SlotState, substream: int, *, offset: int = 0,
+) -> torch.Tensor:
+    """Word 0 of the hash for every cell of each slot's ``[h, w]`` board,
+    the draws of sweep ``offset`` of the chunk in ``substream``, under each
+    slot's key and counter in ``state``: an int32[S, h, w] tensor of the
+    uint32 draws' bit patterns on the state's device, zeros for a frozen
+    slot (``rem <= offset``).  Kernel K7's batch mode on a CUDA device, the
+    plain version on the CPU."""
+    h, w = (int(v) for v in shape)
+    device = state.rem.device
+    slots = state.rem.shape[0] if state.rem.dim() == 1 else 0
+    _check_state(state, slots, device)
+    if not 0 <= substream < prng.NSUB:
+        raise ValueError(f"substream must be in [0, {prng.NSUB}), got {substream}")
+    if offset < 0:
+        raise ValueError(f"offset must be >= 0, got {offset}")
+    prng.check_block(h * w, 0)
+    if device.type == "cpu":
+        return cell_uniforms_batch_plain((h, w), state, substream, offset=offset)
+    if device.type != "cuda":
+        raise ValueError(f"cell_uniforms_batch runs on cuda or cpu tensors, got {device}")
+    out = torch.empty((slots, h, w), dtype=torch.int32, device=device)
+    if h * w == 0:
+        return out
+    with torch.cuda.device(device):
+        err = _library().mc_cell_uniforms_batch(
+            out.data_ptr(), slots, h * w, state.k0.data_ptr(), state.k1.data_ptr(),
+            state.counter.data_ptr(), state.rem.data_ptr(), substream, offset, _stream(device),
+        )
+    if err != 0:
+        raise RuntimeError(f"mc_cell_uniforms_batch launch failed: CUDA error {err}")
+    cell_uniforms_batch.launches += 1
+    return out
+
+
+cell_uniforms_batch.launches = 0
+
+
+def packed_metropolis_half_batch_plain(
+    x: torch.Tensor, parity: int, state: SlotState, *, width: int, offset: int = 0,
+    origin: int = 0, out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of K6's batch mode on any device
+    (``mc.packed.half_sweep_batch_torch``).  It returns a new tensor and
+    ignores ``out``, which it takes so that it and
+    :func:`packed_metropolis_half_batch` are interchangeable."""
+    return packed.half_sweep_batch_torch(x, parity, state, width=width, offset=offset,
+                                         origin=origin)
+
+
+def packed_metropolis_half_batch(
+    x: torch.Tensor, parity: int, state: SlotState, *, width: int, offset: int = 0,
+    origin: int = 0, out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One checkerboard half-sweep of parity ``parity`` of every live slot of
+    the packed batch ``x`` (int32[S, H, ceil(W/32)] words, ``width`` = W, H
+    and W even), sweep ``offset`` of the chunk: slot ``s`` at counter
+    ``state.counter[s] + offset`` under its key and its table's entries 3
+    and 4 where ``offset < state.rem[s]``, and copied through where not;
+    each board's cell (0, 0) at flat index ``origin``.
+
+    On a CUDA tensor kernel K6's batch mode writes the result into ``out``
+    (a second buffer of ``x``'s shape on its device, allocated when None)
+    and returns it; ``x`` is left as it was.  The launch takes the narrow
+    instance where :func:`narrow_launch` holds for one board and the wide
+    one where it does not.  On a CPU tensor it returns the plain version's
+    result."""
+    if parity not in (0, 1):
+        raise ValueError(f"parity must be 0 or 1, got {parity}")
+    if x.dim() != 3:
+        raise TypeError(f"x must be int32 packed words [S, H, ceil(W/32)], got {tuple(x.shape)}")
+    slots, h = x.shape[0], x.shape[1]
+    if h % 2 or width % 2 or h < 2 or width < 2:
+        raise ValueError(f"the packed half-sweep needs even dimensions, got {h}x{width}")
+    if origin < 0 or offset < 0:
+        raise ValueError(f"origin and offset must be >= 0, got {origin} and {offset}")
+    _check_words(x[0], width, "x")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    _check_state(state, slots, x.device)
+    if x.device.type == "cpu":
+        return packed_metropolis_half_batch_plain(x, parity, state, width=width, offset=offset,
+                                                  origin=origin)
+    if x.device.type != "cuda":
+        raise ValueError(f"packed_metropolis_half_batch runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    if out is None:
+        out = torch.empty_like(x)
+    if (out.shape != x.shape or out.dtype != x.dtype or out.device != x.device
+            or not out.is_contiguous() or out.data_ptr() == x.data_ptr()):
+        raise ValueError("out must be a second buffer of x's shape on x's device")
+    with torch.cuda.device(x.device):
+        err = _library().mc_packed_metropolis_batch(
+            x.data_ptr(), out.data_ptr(), slots, h, width, x.shape[2], parity,
+            state.k0.data_ptr(), state.k1.data_ptr(), state.counter.data_ptr(),
+            state.thr.data_ptr(), state.rem.data_ptr(), offset, int(origin),
+            int(not narrow_launch(h, width, origin)), _stream(x.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"mc_packed_metropolis_batch launch failed: CUDA error {err}")
+    packed_metropolis_half_batch.launches += 1
+    return out
+
+
+packed_metropolis_half_batch.launches = 0

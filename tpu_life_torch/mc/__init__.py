@@ -14,19 +14,22 @@ executor or resume point:
 - :mod:`tpu_life_torch.mc.packed` — the bitplane-packed sweep, 32 spins a
   word (its torch half-sweep is the plain version of kernel K6);
 - :mod:`tpu_life_torch.mc.engine` — the Runners behind ``run --rule
-  ising`` and ``run --rule noisy:<p>/<base>``.
+  ising`` and ``run --rule noisy:<p>/<base>``, and the serving tier's
+  stochastic engines (``submit``, ``serve``, ``sweep``).
 
 The executors implementing the key schedule are ``numpy`` (the oracle),
 ``torch`` (plain ops, the counterpart of the JAX package's ``jax``
 backend) and ``cuda`` (kernels K6 and K7, and K2 for noisy bases it
 steps).  ``sharded`` stays a typed rejection, as in the JAX package.
-The dispatchers below (``step_np`` / ``run_np`` / ``make_step_fn``) are
-the seam the backends, runners and tests share.
+The dispatchers below (``step_np`` / ``run_np`` / ``make_step_fn`` /
+``make_batch_step_fn``) are the seam the backends, runners, engines and
+tests share.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tpu_life_torch.models.rules import IsingRule, NoisyRule, Rule
 from tpu_life_torch.mc import prng
@@ -171,6 +174,34 @@ def make_step_fn(xp, rule: Rule, *, uniforms=None, base=None):
     raise ValueError(f"rule {rule.name!r} is not stochastic")
 
 
+def make_batch_step_fn(rule: Rule, *, uniforms=None, base=None):
+    """One stochastic step of every live slot of a serving batch, as
+    ``fn(boards, state, offset)``: the port's form of the JAX package's
+    ``jax.vmap(make_step_fn(jnp, rule))`` under its chunk's freeze mask.
+
+    ``boards`` are int8 ``[S, h, w]`` on any device, ``state`` the slots'
+    ``prng.SlotState``; at sweep ``offset`` of the chunk a slot whose budget
+    exceeds ``offset`` steps at counter ``state.counter + offset`` under its
+    key and table, and any other keeps its board.  ``uniforms`` is the
+    batch draw ``fn(shape, state, substream, offset=)`` (K7's batch mode,
+    ``kernels.mc_threefry.cell_uniforms_batch``; its plain version when
+    None) and ``base`` a noisy rule's deterministic step over the batch
+    (``ops.stencil.make_step`` when None).
+    """
+    if isinstance(rule, IsingRule):
+        def stepped(boards, state, offset):
+            return ising.sweep_batch(boards, state, offset, uniforms=uniforms)
+    elif isinstance(rule, NoisyRule):
+        stepped = noisy.make_noisy_batch_step(rule, uniforms=uniforms, base=base)
+    else:
+        raise ValueError(f"rule {rule.name!r} is not stochastic")
+
+    def step(boards, state, offset):
+        return torch.where(state.live(offset), stepped(boards, state, offset), boards)
+
+    return step
+
+
 def step_np(
     rule: Rule,
     board: np.ndarray,
@@ -226,6 +257,7 @@ __all__ = [
     "wide_counter_capable",
     "ising",
     "key_halves",
+    "make_batch_step_fn",
     "make_step_fn",
     "noisy",
     "prng",

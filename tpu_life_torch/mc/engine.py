@@ -24,9 +24,30 @@ host sync.
   buffers in turn), the plain half-sweep when built by ``torch``.
 
 A kernel's wrapper runs its plain version on a CPU tensor, so the ``cuda``
-backend's Runners take the same dispatch on ``--device cpu``.  The batched
-serve engines of the JAX module (``MCVmapEngine``, ``MCHostEngine``,
-``MCPackedVmapEngine``, ``make_mc_engine``) go with serving (ROADMAP A9).
+backend's Runners take the same dispatch on ``--device cpu``.
+
+The serving tier's stochastic engines (``serve.engine.make_engine`` sends
+stochastic keys to :func:`make_mc_engine`) carry each slot's key halves,
+absolute step counter and acceptance table beside its board, as tensors of
+one entry a slot (``prng.SlotState``), so a temperature grid or an
+ensemble of seeds shares one CompileKey and one build of the chunk:
+
+- :class:`MCPackedBatchEngine` — ``cuda``, ising (the JAX package's
+  ``MCPackedVmapEngine``): packed words, a chunk ``2 x chunk_steps``
+  launches of K6's batch mode;
+- :class:`MCBatchEngine` — ``cuda``, ``noisy:`` rules and ``--no-bitpack``
+  ising (``MCVmapEngine``): int8 cells, the draws of every half-sweep or
+  flip from K7's batch mode, a noisy rule's base step in plain ops over
+  the batch;
+- :class:`MCHostEngine` — ``numpy``: the ground truth (a copy of the JAX
+  package's).
+
+Both device engines are :class:`~tpu_life_torch.serve.engine.BatchEngine`s
+(its device, streams, events and double buffer): a slot's counter advances
+on the device by the sweeps the slot was live in the chunk (the JAX
+chunk's ``s = s + live``), so a chunk needs nothing from the host, and a
+peek of the in-flight chunk's input pairs with the lag the session
+bookkeeping reports.
 """
 
 from __future__ import annotations
@@ -37,6 +58,7 @@ import torch
 from tpu_life_torch.backends.torch_backend import DeviceRunner, from_words, to_words
 from tpu_life_torch.mc import (
     ising,
+    make_batch_step_fn,
     make_step_fn,
     packed_supports,
     require_key_schedule,
@@ -44,10 +66,11 @@ from tpu_life_torch.mc import (
     validate_params,
 )
 from tpu_life_torch.mc import packed as packed_mod
-from tpu_life_torch.mc.prng import key_halves
+from tpu_life_torch.mc.prng import SlotState, as_i32, key_halves
 from tpu_life_torch.models.rules import IsingRule, NoisyRule, Rule
 from tpu_life_torch.ops import bitlife
 from tpu_life_torch.ops.stencil import live_count_cells
+from tpu_life_torch.serve.engine import BatchEngine, CompileKey, EngineBase
 
 
 def _thresholds_for(rule: Rule, temperature: float | None) -> np.ndarray:
@@ -321,3 +344,215 @@ def mc_runner_for(
     if packed:
         return MCPackedHostRunner(board, rule, **kwargs)
     return MCHostRunner(board, rule, **kwargs)
+
+
+# -- batched serve engines --------------------------------------------------------
+class MCBatchEngine(BatchEngine):
+    """The stochastic device batch on int8 cells, the JAX package's
+    ``MCVmapEngine``: route ``mc_roll`` (ising under ``--no-bitpack``) or
+    ``mc_noisy``.  Each sweep of a chunk steps the whole batch under the
+    freeze mask (``mc.make_batch_step_fn``), its draws from K7's batch mode
+    (the plain version on the CPU).  Temperature and seed are not in the
+    CompileKey, so the sessions of a sweep pack into one batch and one
+    build."""
+
+    ROUTES = ("mc_roll", "mc_noisy")
+    packed = False
+
+    def __init__(self, key: CompileKey, capacity: int, chunk_steps: int, *,
+                 device: torch.device):
+        self._staged = (0, None, 0)  # (seed, temperature, start_step) of the next load
+        super().__init__(key, capacity, chunk_steps, route=self._route_of(key.rule),
+                         device=device)
+
+    @staticmethod
+    def _route_of(rule: Rule) -> str:
+        return "mc_roll" if isinstance(rule, IsingRule) else "mc_noisy"
+
+    def _allocate(self, capacity: int, h: int, w: int) -> None:
+        self._allocate_boards(capacity, h, w)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+        self._k0, self._k1, self._counter = zeros(capacity), zeros(capacity), zeros(capacity)
+        self._thr = zeros(capacity, 5)
+
+    def _allocate_boards(self, capacity: int, h: int, w: int) -> None:
+        self._boards = torch.zeros((capacity, h, w), dtype=torch.int8, device=self.device)
+
+    def _state(self) -> SlotState:
+        return SlotState(self._k0, self._k1, self._counter, self._thr, self._rem_dev)
+
+    def load(self, slot, board, steps, *, seed=None, temperature=None, start_step=0):
+        validate_params(self.key.rule, temperature)
+        self._staged = (int(seed or 0), temperature, int(start_step))
+        super().load(slot, board, steps)
+
+    def _load_slot(self, slot: int, board: np.ndarray, steps: int) -> None:
+        seed, temperature, start_step = self._staged
+        k0, k1 = key_halves(seed)
+        thr = torch.from_numpy(_thresholds_for(self.key.rule, temperature).view(np.int32))
+        super()._load_slot(slot, board, steps)
+        with self._on(), self._compute():
+            self._k0[slot] = as_i32(k0)
+            self._k1[slot] = as_i32(k1)
+            self._counter[slot] = as_i32(start_step)
+            self._thr[slot].copy_(thr)
+
+    def _clear_slot(self, slot: int) -> None:
+        self._staged = (0, None, 0)
+        self._load_slot(slot, np.zeros(self.key.shape, np.int8), 0)
+
+    def _build_chunk(self) -> None:
+        from tpu_life_torch import obs
+
+        obs.instant(
+            "serve.compile",
+            rule=self.key.rule.name,
+            shape=f"{self.key.shape[0]}x{self.key.shape[1]}",
+            backend=self.key.backend,
+            packed=self.packed,
+        )
+        self.compile_count += 1
+        self._build_step()
+
+    def _build_step(self) -> None:
+        from tpu_life_torch.kernels import mc_threefry
+
+        self._step = make_batch_step_fn(self.key.rule, uniforms=mc_threefry.cell_uniforms_batch)
+
+    def _run_chunk(self, boards: torch.Tensor) -> torch.Tensor:
+        # new tensors each sweep: the chunk never writes its input (_prev)
+        state = self._state()
+        for t in range(self.chunk_steps):
+            boards = self._step(boards, state, t)
+        return boards
+
+    def _advance_budgets(self) -> None:
+        # a frozen slot's counter freezes with its board: the stream
+        # position is a function of trajectory progress, not of how many
+        # chunks the slot sat in the batch
+        self._counter.add_(self._rem_dev.clamp(max=self.chunk_steps))
+        super()._advance_budgets()
+
+
+class MCPackedBatchEngine(MCBatchEngine):
+    """The packed stochastic device batch, the JAX package's
+    ``MCPackedVmapEngine``: :class:`MCBatchEngine`'s per-slot state with the
+    boards as packed words (int32[S, H, ceil(W/32)], the ``pack_np``
+    layout), a sweep two launches of K6's batch mode (the plain version on
+    the CPU) that ping-pong between the two packed buffers that are not
+    the chunk's input.  Boards pack on load and unpack on peek, so every
+    caller above the engine still speaks int8."""
+
+    ROUTES = ("mc_packed",)
+    packed = True
+    lanes = packed_mod.LANES
+
+    @staticmethod
+    def _route_of(rule: Rule) -> str:
+        return "mc_packed"
+
+    def _allocate_boards(self, capacity: int, h: int, w: int) -> None:
+        self._bufs = self._packed_buffers(capacity, h, w)
+        self._boards = self._bufs[0]
+
+    def _encode(self, board: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(packed_mod.pack_board(board).view(np.int32))
+
+    def _decode(self, words: np.ndarray) -> np.ndarray:
+        return packed_mod.unpack_board(words.view(np.uint32), self.key.shape[1])
+
+    def _build_step(self) -> None:
+        pass  # the chunk is K6's batch mode's launches
+
+    def _run_chunk(self, src: torch.Tensor) -> torch.Tensor:
+        from tpu_life_torch.kernels.mc_threefry import packed_metropolis_half_batch
+
+        spare = [b for b in self._bufs if b is not src]
+        state = self._state()
+        out = src
+        for t in range(self.chunk_steps):
+            for parity in (0, 1):
+                dst = spare[0] if out is not spare[0] else spare[1]
+                out = packed_metropolis_half_batch(out, parity, state, width=self.key.shape[1],
+                                                   offset=t, out=dst)
+        return out
+
+
+class MCHostEngine(EngineBase):
+    """NumPy executor on the batch layout — the ground truth the device
+    engines' equivalence tests pin against (a copy of the JAX package's;
+    the same role as ``HostBatchEngine`` for deterministic rules)."""
+
+    packed = False
+
+    def __init__(self, key: CompileKey, capacity: int, chunk_steps: int):
+        super().__init__(key, capacity, chunk_steps)
+        h, w = key.shape
+        self._boards = np.zeros((capacity, h, w), dtype=np.int8)
+        self._keys = [(0, 0)] * capacity
+        self._steps_abs = np.zeros(capacity, dtype=np.int64)
+        self._thrs: list[np.ndarray] = [np.zeros(5, np.uint32) for _ in range(capacity)]
+        self._fn = make_step_fn(np, key.rule)
+        self._staged = (0, None, 0)
+
+    def load(self, slot, board, steps, *, seed=None, temperature=None, start_step=0):
+        validate_params(self.key.rule, temperature)
+        self._staged = (int(seed or 0), temperature, int(start_step))
+        super().load(slot, board, steps)
+
+    def _load_slot(self, slot: int, board: np.ndarray, steps: int) -> None:
+        seed, temperature, start_step = self._staged
+        self._boards[slot] = board
+        self._keys[slot] = key_halves(seed)
+        self._steps_abs[slot] = start_step
+        self._thrs[slot] = _thresholds_for(self.key.rule, temperature)
+
+    def _clear_slot(self, slot: int) -> None:
+        self._boards[slot] = 0
+        self._staged = (0, None, 0)
+
+    def _dispatch_impl(self) -> None:
+        pass  # deferred: the chunk runs at collect time (outside the lock)
+
+    def _collect_impl(self, advanced: dict[int, int]) -> None:
+        for slot, n in advanced.items():
+            k0, k1 = self._keys[slot]
+            b = self._boards[slot]
+            base = int(self._steps_abs[slot])
+            for i in range(n):
+                b = self._fn(b, k0, k1, np.uint32(base + i), self._thrs[slot])
+            self._boards[slot] = b
+            self._steps_abs[slot] = base + n
+
+    def _peek_board(self, slot: int) -> np.ndarray:
+        # deferred-compute executor: pre-chunk state until collect runs
+        return self._boards[slot].copy()
+
+
+def make_mc_engine(
+    key: CompileKey, capacity: int, chunk_steps: int, *, packed: bool | None = None,
+    device: str | torch.device | None = None,
+) -> EngineBase:
+    """Engine factory for stochastic CompileKeys (the JAX package's): a
+    typed rejection (``StochasticBackendError``) for executors without the
+    key schedule (``sharded``, ``mesh:RxC``), whose slot loops would run a
+    different, irreproducible trajectory.
+
+    ``packed=None`` (auto) runs ising batches on the packed device engine
+    (K6's batch mode), bit-identical to the roll engine; ``packed=False``
+    (``--no-bitpack``) pins the roll engine.  The numpy executor stays the
+    roll ground truth either way.  ``device`` is the card (None: the
+    current one) or the CPU, for the device engines.
+    """
+    require_key_schedule(key.rule, key.backend)
+    use_packed = (packed is None or packed) and packed_supports(key.rule)
+    validate_board_shape(key.rule, key.shape, wide_counter=use_packed and key.backend == "cuda")
+    if key.backend == "cuda":
+        from tpu_life_torch.backends.base import resolve_device
+
+        cls = MCPackedBatchEngine if use_packed else MCBatchEngine
+        return cls(key, capacity, chunk_steps, device=resolve_device(device))
+    return MCHostEngine(key, capacity, chunk_steps)

@@ -19,7 +19,8 @@ numpy and torch.
 :func:`sweep` runs on numpy (a copy of the JAX package's) or on torch
 (the int8 roll path: draws for the whole lattice each half, as the JAX
 roll path draws them, from ``prng.cell_uniforms_torch`` or from kernel
-K7).
+K7); :func:`sweep_batch` is its batched form over the slots of a serving
+batch, with draws from K7's batch mode or its plain version.
 """
 
 from __future__ import annotations
@@ -83,21 +84,25 @@ def _half_update_np(board, k0, k1, step, parity, substream, thresholds):
     return np.where(flip, (1 - board).astype(board.dtype), board)
 
 
-def _half_update_torch(board, k0, k1, step, parity, substream, thresholds, uniforms):
-    """The torch form on an int8 tensor: the table index as numpy computes
-    it, and entries 3 and 4 (the only ones read: i <= 2 force-accepts)
-    compared unsigned against the int32 bit patterns of the draws."""
-    h, w = board.shape
+def _half_update_torch(board, u, parity, thr3, thr4):
+    """The torch form on int8 boards (``[h, w]``, or a batch ``[S, h, w]``):
+    the table index as numpy computes it, and entries 3 and 4 (the only
+    ones read: i <= 2 force-accepts) compared unsigned against the int32
+    bit patterns of the draws ``u``.  ``thr3``/``thr4`` are int32 Python
+    ints, or int32 tensors of one a slot ([S, 1, 1])."""
+    h, w = board.shape[-2:]
     s = board.to(torch.int32) * 2 - 1
-    nsum = _neighbor_spin_sum(torch, s)
+    nsum = (torch.roll(s, 1, -2) + torch.roll(s, -1, -2)
+            + torch.roll(s, 1, -1) + torch.roll(s, -1, -1))
     idx = (s * nsum + 4) >> 1
-    u = uniforms((h, w), k0, k1, step, substream, device=board.device)
-    thr3, thr4 = prng.as_i32(thresholds[3]), prng.as_i32(thresholds[4])
     accept = (idx <= 2) | ((idx == 3) & prng.ult(u, thr3)) | ((idx == 4) & prng.ult(u, thr4))
     rows = torch.arange(h, dtype=torch.int32, device=board.device)[:, None]
     cols = torch.arange(w, dtype=torch.int32, device=board.device)[None, :]
     on_color = ((rows + cols) & 1) == parity
     return torch.where(accept & on_color, 1 - board, board)
+
+
+_PARITIES = ((0, prng.SUB_EVEN), (1, prng.SUB_ODD))
 
 
 def sweep(xp, board, k0, k1, step, thresholds, *, uniforms=None):
@@ -112,8 +117,26 @@ def sweep(xp, board, k0, k1, step, thresholds, *, uniforms=None):
         board = _half_update_np(board, k0, k1, step, 0, prng.SUB_EVEN, thresholds)
         return _half_update_np(board, k0, k1, step, 1, prng.SUB_ODD, thresholds)
     uniforms = uniforms or prng.cell_uniforms_torch
-    board = _half_update_torch(board, k0, k1, step, 0, prng.SUB_EVEN, thresholds, uniforms)
-    return _half_update_torch(board, k0, k1, step, 1, prng.SUB_ODD, thresholds, uniforms)
+    thr3, thr4 = prng.as_i32(thresholds[3]), prng.as_i32(thresholds[4])
+    for parity, substream in _PARITIES:
+        u = uniforms(tuple(board.shape), k0, k1, step, substream, device=board.device)
+        board = _half_update_torch(board, u, parity, thr3, thr4)
+    return board
+
+
+def sweep_batch(boards, state, offset: int, *, uniforms=None):
+    """Sweep ``offset`` of a chunk over a batch of int8 boards ``[S, h, w]``
+    on the roll path, each slot under its key, counter and table in
+    ``state`` (``prng.SlotState``), its draws from ``uniforms`` (the batch
+    form ``fn(shape, state, substream, offset=)``: K7's batch mode, or
+    ``prng.cell_uniforms_batch_torch`` when None).  Every slot is stepped;
+    the caller keeps a frozen slot's board (its draws may be zeros)."""
+    uniforms = uniforms or prng.cell_uniforms_batch_torch
+    thr3, thr4 = state.thr[:, 3].view(-1, 1, 1), state.thr[:, 4].view(-1, 1, 1)
+    for parity, substream in _PARITIES:
+        u = uniforms(tuple(boards.shape[-2:]), state, substream, offset=offset)
+        boards = _half_update_torch(boards, u, parity, thr3, thr4)
+    return boards
 
 
 def magnetization(board: np.ndarray) -> float:

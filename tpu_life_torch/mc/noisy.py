@@ -68,3 +68,32 @@ def make_noisy_step(xp, rule: NoisyRule, *, uniforms=None, base=None):
         return torch.where(prng.ult(u, thr), 1 - nxt, nxt)
 
     return step
+
+
+def make_noisy_batch_step(rule: NoisyRule, *, uniforms=None, base=None):
+    """``fn(boards, state, offset) -> boards``: sweep ``offset`` of a chunk
+    over a batch of int8 boards ``[S, h, w]``, every slot stepped (the
+    caller keeps a frozen slot's board), its flips drawn under each slot's
+    key and counter in ``state`` (``prng.SlotState``).  The base step runs
+    over the whole batch (``base``; ``ops.stencil.make_step`` when None),
+    and the draws come from ``uniforms`` (the batch form ``fn(shape, state,
+    substream, offset=)``: K7's batch mode, or
+    ``prng.cell_uniforms_batch_torch`` when None)."""
+    if base is None:
+        from tpu_life_torch.ops.stencil import make_step
+
+        base = make_step(rule)
+    p = float(rule.flip_p)
+    if p <= 0.0:
+        return lambda boards, state, offset: base(boards)
+    uniforms = uniforms or prng.cell_uniforms_batch_torch
+    thr = prng.as_i32(prng.threshold_u32(p))
+
+    def step(boards, state, offset):
+        nxt = base(boards)
+        if p >= 1.0:
+            return 1 - nxt
+        u = uniforms(tuple(nxt.shape[-2:]), state, prng.SUB_NOISE, offset=offset)
+        return torch.where(prng.ult(u, thr), 1 - nxt, nxt)
+
+    return step

@@ -30,7 +30,9 @@ places a board anywhere in the 64-bit index space.
 :func:`make_sweep` has a numpy form (a copy of the JAX package's, the
 oracle) and a torch form on int32 views of the words, whose half-sweep
 :func:`half_sweep_torch` is the plain version of kernel K6
-(``kernels.mc_threefry.packed_metropolis_half``).
+(``kernels.mc_threefry.packed_metropolis_half``) and whose batched
+half-sweep :func:`half_sweep_batch_torch` is the plain version of K6's
+batch mode (``packed_metropolis_half_batch``).
 """
 
 from __future__ import annotations
@@ -238,44 +240,40 @@ def _make_sweep_np(rule: Rule, shape: tuple[int, int], origin: int):
 
 # -- the packed half-sweep (torch): the plain version of kernel K6 -------------
 
-def half_sweep_torch(
-    x: torch.Tensor, parity: int, k0: int, k1: int, step: int, thr3: int, thr4: int, *,
-    width: int, origin: int = 0,
-) -> torch.Tensor:
-    """One checkerboard half-sweep of the packed board ``x`` (int32[H,
-    ceil(W/32)], the bit patterns of the uint32 words) on its device: the
-    numpy form's ``half`` in plain torch ops.  ``k0``/``k1`` are the run's
-    key halves, ``step`` the absolute sweep, ``thr3``/``thr4`` the
-    acceptance table's entries 3 and 4 (uint32 values or their int32 bit
-    patterns), ``origin`` the flat index of cell (0, 0).  Returns a new
-    tensor.
+def _half_sweep_words(x, parity, k0, k1, c1, thr3, thr4, width: int, origin: int):
+    """The numpy form's ``half`` in plain torch ops on the packed boards ``x``
+    (int32[..., H, ceil(W/32)], the bit patterns of the uint32 words), one
+    or a batch: ``k0``/``k1`` the key halves, ``c1`` the counter word,
+    ``thr3``/``thr4`` the table's entries 3 and 4, each an int32 Python
+    int or an int32 tensor broadcasting against ``x`` ([S, 1, 1]: one a
+    slot).  Returns a new tensor.
 
     The column shifts carry one bit across words: the word left of word 0
     is the row's last, whose column W-1 sits at bit ``top`` of the last
     word when W % 32 is not 0 — the seam is at W, not at 32 * ceil(W/32).
     """
-    h, wp = x.shape
+    *lead, h, wp = x.shape
     w = int(width)
     rem = w % WORD
     top = (rem or WORD) - 1  # bit index of column w-1 in the last word
     srl = prng._srl
-    up = torch.roll(x, -1, 0)
-    down = torch.roll(x, 1, 0)
+    up = torch.roll(x, -1, -2)
+    down = torch.roll(x, 1, -2)
     # L[c] = x[(c-1) mod w]: word j takes bit 31 of word j-1, word 0 the
     # row's column w-1
-    carry = srl(torch.roll(x, 1, 1), 31)
-    carry[:, 0] = (x[:, -1] >> top) & 1
+    carry = srl(torch.roll(x, 1, -1), 31)
+    carry[..., 0] = (x[..., -1] >> top) & 1
     left = (x << 1) | carry
     # R[c] = x[(c+1) mod w]: word j takes bit 0 of word j+1, the last word
     # (at bit ``top``) the row's column 0
-    right = srl(x, 1) | (torch.roll(x, -1, 1) << 31)
-    right[:, -1] = srl(x[:, -1], 1) | ((x[:, 0] & 1) << top)
+    right = srl(x, 1) | (torch.roll(x, -1, -1) << 31)
+    right[..., -1] = srl(x[..., -1], 1) | ((x[..., 0] & 1) << top)
     s1 = up ^ down ^ left
-    c1 = (up & down) | ((up ^ down) & left)
+    c1_ = (up & down) | ((up ^ down) & left)
     b0 = s1 ^ right
     c2 = s1 & right
-    b1 = c1 ^ c2
-    b2 = c1 & c2
+    b1 = c1_ ^ c2
+    b2 = c1_ & c2
     n3 = b0 & b1 & ~b2
     n1 = b0 & ~b1 & ~b2
     n0 = ~(b0 | b1 | b2)
@@ -290,24 +288,64 @@ def half_sweep_torch(
     k = torch.clamp(torch.arange(wp * half_words, dtype=torch.int64, device=dev), max=w // 2 - 1)
     idx = rows[:, None] * w + row_off[:, None] + 2 * k[None, :] + int(origin)
     lo, hi = prng.split_cell_index_torch(idx)
-    narrow = int(origin) + h * w <= prng.MAX_NARROW_CELLS
-    substream = prng.SUB_ODD if parity else prng.SUB_EVEN
-    u = prng.cell_uniforms_at_torch(lo, None if narrow else hi, k0, k1, step, substream)
+    if int(origin) + h * w > prng.MAX_NARROW_CELLS:
+        k0, k1 = prng.derive_wide_keys_torch(k0, k1, hi)
+    u = prng.threefry2x32_torch(k0, k1, lo, c1)[0]
     weights = torch.tensor([1 << (2 * t) for t in range(half_words)], dtype=torch.int32, device=dev)
     shift = row_off.to(torch.int32)[:, None]
 
     def spread(bits: torch.Tensor) -> torch.Tensor:
-        words = bits.reshape(h, wp, half_words).to(torch.int32) * weights
+        words = bits.reshape(*bits.shape[:-1], wp, half_words).to(torch.int32) * weights
         words = words.sum(-1, dtype=torch.int32)
         return words << shift
 
-    cmp3 = spread(prng.ult(u, prng.as_i32(thr3)))
-    cmp4 = spread(prng.ult(u, prng.as_i32(thr4)))
+    cmp3 = spread(prng.ult(u, thr3))
+    cmp4 = spread(prng.ult(u, thr4))
     accept = ~(needs3 | needs4) | (needs3 & cmp3) | (needs4 & cmp4)
     pmask = torch.where(row_off == 1, prng.as_i32(0xAAAAAAAA), prng.as_i32(0x55555555))
     cmask = torch.from_numpy(column_mask(w).view(np.int32)).to(dev)
     flip_mask = pmask.to(torch.int32)[:, None] & cmask[None, :]
     return x ^ (accept & flip_mask)
+
+
+def half_sweep_torch(
+    x: torch.Tensor, parity: int, k0: int, k1: int, step: int, thr3: int, thr4: int, *,
+    width: int, origin: int = 0,
+) -> torch.Tensor:
+    """One checkerboard half-sweep of the packed board ``x`` (int32[H,
+    ceil(W/32)], the bit patterns of the uint32 words) on its device: the
+    numpy form's ``half`` in plain torch ops.  ``k0``/``k1`` are the run's
+    key halves, ``step`` the absolute sweep, ``thr3``/``thr4`` the
+    acceptance table's entries 3 and 4 (uint32 values or their int32 bit
+    patterns), ``origin`` the flat index of cell (0, 0).  Returns a new
+    tensor."""
+    substream = prng.SUB_ODD if parity else prng.SUB_EVEN
+    return _half_sweep_words(x, parity, prng.as_i32(k0), prng.as_i32(k1),
+                             prng.as_i32(prng.counter_word(step, substream)), prng.as_i32(thr3),
+                             prng.as_i32(thr4), width, origin)
+
+
+def half_sweep_batch_torch(
+    x: torch.Tensor, parity: int, state: prng.SlotState, *, width: int, offset: int = 0,
+    origin: int = 0,
+) -> torch.Tensor:
+    """The plain version of K6's batch mode: :func:`half_sweep_torch` of each
+    live slot of the packed batch ``x`` (int32[S, H, ceil(W/32)]) at sweep
+    ``offset`` of the chunk — under the slot's key, at counter
+    ``state.counter + offset``, against its table's entries 3 and 4 — and a
+    frozen slot (``state.rem <= offset``) as it was, the port's form of the
+    JAX package's vmapped half-sweep under its freeze mask.  Returns a new
+    tensor."""
+    substream = prng.SUB_ODD if parity else prng.SUB_EVEN
+
+    def per_slot(t: torch.Tensor) -> torch.Tensor:
+        return t.view(-1, 1, 1)
+
+    stepped = _half_sweep_words(x, parity, per_slot(state.k0), per_slot(state.k1),
+                                state.counter_words(offset, substream),
+                                per_slot(state.thr[:, 3]), per_slot(state.thr[:, 4]), width,
+                                origin)
+    return torch.where(state.live(offset), stepped, x)
 
 
 def make_sweep(xp, rule: Rule, shape: tuple[int, int], *, origin: int = 0):

@@ -22,6 +22,8 @@ as the int32 of their bit pattern (:func:`as_i32`).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -267,6 +269,35 @@ def counter_word(step: int, substream: int) -> int:
     return (int(step) * NSUB + int(substream)) & 0xFFFFFFFF
 
 
+class SlotState(NamedTuple):
+    """The per-slot state of a batch of S boards of the stochastic serving
+    engines, int32 tensors of the uint32 values' bit patterns on the
+    boards' device: the key halves ``k0`` and ``k1`` [S], the absolute
+    sweep ``counter`` [S] at the chunk's start, the acceptance table ``thr``
+    [S, 5] (zeros for noisy rules) and the budget ``rem`` [S] left at the
+    chunk's start.  A slot is live for the sweeps ``offset < rem`` of the
+    chunk; sweep ``offset`` of a live slot draws at counter ``counter +
+    offset`` (the JAX package's counter, which advances only while its slot
+    is live)."""
+
+    k0: torch.Tensor
+    k1: torch.Tensor
+    counter: torch.Tensor
+    thr: torch.Tensor
+    rem: torch.Tensor
+
+    def live(self, offset: int) -> torch.Tensor:
+        """bool[S, 1, 1]: the slots that step at sweep ``offset`` of the
+        chunk."""
+        return (self.rem > offset).view(-1, 1, 1)
+
+    def counter_words(self, offset: int, substream: int) -> torch.Tensor:
+        """int32[S, 1, 1]: each slot's counter word at sweep ``offset``,
+        :func:`counter_word` of ``counter + offset`` (mod 2^32, as int32
+        arithmetic wraps)."""
+        return ((self.counter + offset) * NSUB + substream).view(-1, 1, 1)
+
+
 def cell_uniforms_at_torch(lo, hi, k0, k1, step: int, substream: int, word: int = 0):
     """:func:`cell_uniforms_at` on int32 tensors: output ``word`` of the
     hash (0, the draw; 1, as seeded staging reads it) at two-word cell
@@ -310,6 +341,23 @@ def cell_uniforms_torch(
     return cell_uniforms_at_torch(
         lo, None if origin + n <= MAX_NARROW_CELLS else hi, k0, k1, step, substream, word
     )
+
+
+def cell_uniforms_batch_torch(
+    shape: tuple[int, int], state: SlotState, substream: int, *, offset: int = 0,
+) -> torch.Tensor:
+    """The plain version of K7's batch mode, on the state's device: word 0
+    of the hash for every cell of each slot's ``[h, w]`` board (flat index
+    ``r*w + c``, the narrow schedule) at sweep ``offset`` of the chunk in
+    ``substream``, under each slot's key and counter — ``cell_uniforms``
+    of each live slot, zeros for a frozen one.  int32[S, h, w]."""
+    h, w = shape
+    check_block(h * w, 0)
+    idx = torch.arange(h * w, dtype=torch.int64, device=state.rem.device).reshape(h, w)
+    lo, _ = split_cell_index_torch(idx)
+    k0, k1 = state.k0.view(-1, 1, 1), state.k1.view(-1, 1, 1)
+    u = threefry2x32_torch(k0, k1, lo, state.counter_words(offset, substream))[0]
+    return torch.where(state.live(offset), u, torch.zeros_like(u))
 
 
 def _seeded_board_torch(

@@ -31,6 +31,12 @@ The executors behind one interface, and the JAX executor each stands for:
   the ``cuda`` backend (kernel K2), as the JAX package's ``pallas`` serve
   backend loops its Runners over slots.
 
+Stochastic keys (``ising``, ``noisy:``) go to the engines of
+``mc/engine.py``: on ``cuda`` the device batches ``MCPackedBatchEngine``
+(K6's batch mode) and ``MCBatchEngine`` (K7's batch mode), subclasses of
+:class:`BatchEngine`, and on ``numpy`` ``MCHostEngine``; ``sharded`` and
+``mesh:RxC`` refuse them typed (``mc.StochasticBackendError``).
+
 :func:`cuda_route` fixes a ``cuda`` key's executor when its engine is
 built, never on a failure: ``k1_batch`` for the rules K1 takes, ``k2_slots``
 for the rest of the clamped Moore int8 rules, and ``ops`` for the rules no
@@ -105,15 +111,6 @@ def require_float_path(rule: Rule, backend: str) -> None:
             f"continuous rule {rule.name!r} needs the cuda, numpy or sharded "
             f"serve backend (float32 boards; {backend!r} has no float path) — a "
             f"quantized fallback would not be the rule you asked for"
-        )
-
-
-def refuse_stochastic(rule: Rule) -> None:
-    """The stochastic serving engines are the next slice of ROADMAP A9."""
-    if getattr(rule, "stochastic", False):
-        raise NotPortedError(
-            f"rule {rule.name!r} is stochastic: its serving engines are the next "
-            f"slice of ROADMAP A9 (the port runs it through `run` and `bench --mc`)"
         )
 
 
@@ -401,7 +398,7 @@ class BatchEngine(EngineBase):
         super().__init__(key, capacity, chunk_steps)
         if route not in self.ROUTES:
             raise ValueError(f"route must be one of {self.ROUTES}, got {route!r}")
-        from tpu_life_torch.kernels import packed_batch, packed_stripe
+        from tpu_life_torch.kernels import packed_batch
 
         if route == "k1_batch" and not packed_batch.supports(key.rule):
             raise ValueError(f"route k1_batch does not take rule {key.rule.name!r}")
@@ -410,7 +407,6 @@ class BatchEngine(EngineBase):
         cuda = self.device.type == "cuda"
         if cuda and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        h, w = key.shape
         with self._on():
             if cuda:
                 self._stream = torch.cuda.Stream(self.device)
@@ -418,31 +414,36 @@ class BatchEngine(EngineBase):
             else:
                 self._stream = self._copy = None
             with self._compute():
-                if route == "k1_batch":
-                    from tpu_life_torch.ops import bitlife
-
-                    self._nwords = bitlife.packed_width(w)
-                    # three buffers: a chunk's launches ping-pong between
-                    # the two that are not its input (_prev)
-                    self._bufs = [
-                        torch.zeros((capacity, h, self._nwords), dtype=torch.int32,
-                                    device=self.device)
-                        for _ in range(3)
-                    ]
-                    self._boards = self._bufs[0]
-                    # the card's SMs size the plan's tiles (the CPU runs the
-                    # plain version, whatever its tiles)
-                    self._n_sm = (packed_stripe.sm_count(self.device.index) if cuda
-                                  else packed_batch.H100_SMS)
-                else:
-                    dt = torch.float32 if self.dtype == np.float32 else torch.int8
-                    self._boards = torch.zeros((capacity, h, w), dtype=dt, device=self.device)
+                self._allocate(capacity, *key.shape)
                 self._rem_dev = torch.zeros(capacity, dtype=torch.int32, device=self.device)
         self._prev: torch.Tensor | None = None  # the in-flight chunk's input batch
         self._prev_ready = None  # event: every chunk but the newest is done
         self._done = None  # event: the newest chunk is done
         self._step = None  # the batched step (route ops), built at the first chunk
         self.chunks = 0  # chunks this engine dispatched
+
+    def _allocate(self, capacity: int, h: int, w: int) -> None:
+        """The board batch on the device, on the compute stream."""
+        if self.route == "k1_batch":
+            from tpu_life_torch.kernels import packed_batch, packed_stripe
+
+            self._bufs = self._packed_buffers(capacity, h, w)
+            self._boards = self._bufs[0]
+            # the card's SMs size the plan's tiles (the CPU runs the plain
+            # version, whatever its tiles)
+            self._n_sm = (packed_stripe.sm_count(self.device.index) if self._stream is not None
+                          else packed_batch.H100_SMS)
+        else:
+            dt = torch.float32 if self.dtype == np.float32 else torch.int8
+            self._boards = torch.zeros((capacity, h, w), dtype=dt, device=self.device)
+
+    def _packed_buffers(self, capacity: int, h: int, w: int) -> list[torch.Tensor]:
+        """Three batches of packed words: a chunk's launches ping-pong
+        between the two that are not its input (``_prev``)."""
+        from tpu_life_torch.ops import bitlife
+
+        return [torch.zeros((capacity, h, bitlife.packed_width(w)), dtype=torch.int32,
+                            device=self.device) for _ in range(3)]
 
     # -- streams -------------------------------------------------------------
     def _on(self):
@@ -504,17 +505,25 @@ class BatchEngine(EngineBase):
             boards = torch.where(rem > t, self._step(boards), boards)
         return boards
 
+    def _run_chunk(self, boards: torch.Tensor) -> torch.Tensor:
+        """Launch one chunk from ``boards`` (never written) on the compute
+        stream and return the tensor it leaves the batch in."""
+        if self.route == "k1_batch":
+            return self._chunk_k1_batch(boards)
+        return self._chunk_ops(boards)
+
+    def _advance_budgets(self) -> None:
+        """The device state's advance over a chunk, after its launches."""
+        self._rem_dev.sub_(self.chunk_steps).clamp_(min=0)
+
     def _dispatch_impl(self) -> None:
         if self.compile_count == 0:
             self._build_chunk()
         with self._on(), self._compute():
             self._prev_ready = self._event()
             self._prev = self._boards
-            if self.route == "k1_batch":
-                self._boards = self._chunk_k1_batch(self._boards)
-            else:
-                self._boards = self._chunk_ops(self._boards)
-            self._rem_dev.sub_(self.chunk_steps).clamp_(min=0)
+            self._boards = self._run_chunk(self._boards)
+            self._advance_budgets()
             self._done = self._event()
         self.chunks += 1
         BatchEngine.dispatched += 1
@@ -534,13 +543,24 @@ class BatchEngine(EngineBase):
             self._prev_ready.synchronize()
 
     # -- slots ---------------------------------------------------------------
-    def _load_slot(self, slot: int, board: np.ndarray, steps: int) -> None:
+    def _encode(self, board: np.ndarray) -> torch.Tensor:
+        """A board as the batch holds it, on the host."""
         if self.route == "k1_batch":
             from tpu_life_torch.ops import bitlife
 
-            host = torch.from_numpy(bitlife.pack_np(board).view(np.int32))
-        else:
-            host = torch.from_numpy(np.ascontiguousarray(board))
+            return torch.from_numpy(bitlife.pack_np(board).view(np.int32))
+        return torch.from_numpy(np.ascontiguousarray(board))
+
+    def _decode(self, words: np.ndarray) -> np.ndarray:
+        """A slot of the batch, copied to the host, as a board."""
+        if self.route == "k1_batch":
+            from tpu_life_torch.ops import bitlife
+
+            return bitlife.unpack_np(words.view(np.uint32), self.key.shape[1])
+        return words
+
+    def _load_slot(self, slot: int, board: np.ndarray, steps: int) -> None:
+        host = self._encode(board)
         # on the compute stream, after any chunk that reads the batch
         with self._on(), self._compute():
             self._boards[slot].copy_(host)
@@ -573,11 +593,7 @@ class BatchEngine(EngineBase):
                     view = src[slot]
                     view.record_stream(self._copy)
                     words = view.to("cpu").numpy()
-        if self.route == "k1_batch":
-            from tpu_life_torch.ops import bitlife
-
-            return bitlife.unpack_np(words.view(np.uint32), self.key.shape[1])
-        return words
+        return self._decode(words)
 
 
 class HostBatchEngine(EngineBase):
@@ -690,8 +706,16 @@ def make_engine(
     """Engine factory, dispatched on the key's executor family (the JAX
     package's ``make_engine`` under the port's backend names).  ``device``
     is the card (None: the current one) or the CPU, for the device engines;
-    ``mc_packed`` is the stochastic tier's knob, whose keys are refused."""
-    refuse_stochastic(key.rule)
+    ``mc_packed`` is the stochastic tier's bitplane knob
+    (``ServeConfig.mc_packed`` / ``--no-bitpack``), which deterministic
+    keys ignore."""
+    if getattr(key.rule, "stochastic", False):
+        # stochastic keys go to the MC engines (per-slot seed, temperature
+        # and step counter); executors without the key schedule are a
+        # typed rejection there, never a silent fallback
+        from tpu_life_torch.mc.engine import make_mc_engine
+
+        return make_mc_engine(key, capacity, chunk_steps, packed=mc_packed, device=device)
     if str(key.backend).startswith("mesh:"):
         # mega-board tier (serve/mesh_engine.py): capacity pinned to 1
         from tpu_life_torch.serve.mesh_engine import MeshEngine

@@ -4,10 +4,12 @@
 What differs from the JAX package: the serve backends are the port's
 (``cuda``, the default, ``torch``, ``numpy``, ``sharded``, and the
 ``mesh:RxC`` tier; serve/engine.py maps them to engines),
-``ServeConfig.device`` names the card or the CPU, and what waits for later
-slices of ROADMAP A9 is refused typed with ``NotPortedError`` — stochastic
-keys and ``sweep`` at submit, before anything is stored, and the HTTP
-spill store (``spill_url``) at construction.
+``ServeConfig.device`` names the card or the CPU, and what waits for a
+later slice of ROADMAP A9, the HTTP spill store (``spill_url``), is
+refused typed with ``NotPortedError`` at construction.  Stochastic
+sessions (``ising``, ``noisy:``; ``sweep`` fans a temperature grid into
+them) run on ``cuda`` and ``numpy`` and are refused typed on ``sharded``
+and ``mesh:RxC`` at submit, as in the JAX package.
 
 :class:`SimulationService` is the in-process serving core — the piece of
 the repo whose shape is an inference stack rather than a batch job.  A
@@ -705,12 +707,15 @@ class SimulationService:
         if isinstance(rule, str):
             rule = get_rule(rule)
         from tpu_life_torch import mc
-        from tpu_life_torch.serve.engine import refuse_stochastic, require_float_path
+        from tpu_life_torch.serve.engine import require_float_path
 
-        # the stochastic serving engines are the next slice of ROADMAP A9:
-        # refused typed, before anything is stored
-        refuse_stochastic(rule)
         mc.validate_params(rule, temperature)
+        if rule.stochastic:
+            # serve backends are always explicit (no "auto"), so the hard
+            # gate applies directly — rejected before anything is stored
+            mc.require_key_schedule(rule, self.config.backend)
+            if seed is None:
+                seed = 0
         if seed is not None:
             seed = int(seed)
         if rule.continuous:
@@ -1084,14 +1089,25 @@ class SimulationService:
         seed: int = 0,
         timeout_s: float | None = None,
     ) -> list[str]:
-        """Fan a temperature grid into one ising session per temperature —
-        the JAX package's ``sweep``.  Its sessions are stochastic, whose
-        serving engines are the next slice of ROADMAP A9, so it raises
-        :class:`NotPortedError` before anything is stored."""
-        raise NotPortedError(
-            "sweep serves stochastic sessions, whose engines are the next slice "
-            "of ROADMAP A9"
-        )
+        """Fan a temperature grid into one session per temperature (the
+        JAX package's ``sweep``).
+
+        The continuous-batching shape of a Monte-Carlo parameter sweep:
+        every session shares the same board, seed and rule, so they all
+        land in ONE CompileKey and one build of the batched chunk — the
+        per-slot acceptance tables are the only thing that differs.
+        Returns the session ids in temperature order.  Admission semantics
+        are exactly N ``submit`` calls: a full queue raises
+        :class:`QueueFull` on the session that did not fit (earlier ones
+        stay admitted — pump and resubmit).
+        """
+        temps = [float(t) for t in temperatures]
+        if not temps:
+            raise ValueError("sweep needs at least one temperature")
+        return [
+            self.submit(board, rule, steps, timeout_s=timeout_s, seed=seed, temperature=t)
+            for t in temps
+        ]
 
     def poll(self, sid: str) -> SessionView:
         with self._lock:
