@@ -241,9 +241,11 @@ Phases (any failure exits non-zero and prints no result line):
    them), start counters past 2^31 (one wrapping within a chunk) and
    budgets below, at and past the chunk (frozen slots among live ones):
    K6's over sweeps 0-3, 6-8, 14 and 15 of a chunk of 16 (each side of
-   every budget's end) on 2x2 to 512^2 at origins 0,
-   across 2^32 and past it (both instances) and at 4096^2, K7's on 10x66,
-   1500x500 and 1024^2 in three substreams, with the launches counted;
+   every budget's end) on 2x2 to 512^2 (rows of 1, 3, 6, 32 and 16 words:
+   a thread takes 4 words of a row) at origins 0, across 2^32 and past it
+   (both instances) and at 4096^2, K7's on 3x7 and 33x31 (draws not 16-byte
+   aligned, tails of 5 and 7 of a thread's 8), 10x66 (a tail of 4), 1500x500
+   and 1024^2 in three substreams, with the launches counted;
    (b) ``python -m tpu_life_torch sweep --size 4096 --steps 256 --temps
    1.5:3.0:8 --seed 7`` as a child process: exit 0, ``compile_counts`` a
    single 1, 512 launches of K6's batch mode and no other kernel's but the
@@ -503,9 +505,13 @@ P17_CAPACITIES = (1, 3, 8)
 # K6's sweeps of a chunk checked on the small boards: each side of every
 # budget's last live sweep (budgets 1, 3, 7, 15, 16, 17 and past the chunk)
 P17_OFFSETS = (0, 1, 2, 3, 6, 7, 8, 14, 15)
-P17_K6_SHAPES = [(2, 2), (10, 66), (258, 1002), (512, 512), (4096, 4096)]
+# K6's shapes: rows of 1, 3, 6 (a group of 4 words and one of 2), 16 and 32
+# words (the batch mode takes 4 words of a row a thread)
+P17_K6_SHAPES = [(2, 2), (10, 66), (14, 190), (258, 1002), (512, 512), (4096, 4096)]
 P17_K6_ORIGINS = (0, 2**32 - 1000, 2**33 + 5)
-P17_K7_SHAPES = [(10, 66), (1500, 500), (1024, 1024)]
+# K7's: 8 draws a thread, so tails of 5, 4 (660 cells) and 7 draws, and
+# slots whose draws are not 16-byte aligned (21 and 1023 cells)
+P17_K7_SHAPES = [(3, 7), (33, 31), (10, 66), (1500, 500), (1024, 1024)]
 P17_TEMPS, P17_SEED, P17_CHUNK = "1.5:3.0:8", 7, 16
 P17_SIDE, P17_STEPS = 4096, 256
 P17_ROLL_SIDE, P17_ROLL_STEPS = 1024, 32

@@ -96,17 +96,22 @@
 // (counter + offset) * NSUB + substream.
 //
 // K6's batch mode, packed_metropolis_batch_kernel: K6's half-sweep of each
-// live slot, unchanged (the warp's list of decided cells, the narrow and
-// wide instances), with the Draws and the narrow instance's hoisted round
-// 1 formed from the slot's own key, counter and table once a block, on
-// the device; a frozen slot's words are copied through, so the two
-// buffers a chunk ping-pongs between never go stale.
+// live slot (the decided cells only, spread over the warp through a list in
+// shared memory; the narrow and wide instances), a frozen slot's words
+// copied through, so the two buffers a chunk ping-pongs between never go
+// stale.  Its bound is K6's; its design pays less than K6's body beside
+// the hash (the kernel's own note below): a thread takes four words of a
+// row, the list is built in work proportional to the decided cells, and
+// each thread forms its slot's uniforms from the slot's state, with no
+// barrier.
 //
 // K7's batch mode, cell_uniforms_batch_kernel: word 0 of the hash for
 // every cell of each slot's [h, w] board (the narrow schedule: the roll
-// path's boards have at most 2^32 cells), one thread a cell; a frozen
-// slot's draws are zeros, which its consumer masks.  It draws the roll
-// path's half-sweeps and the noisy flips.
+// path's boards have at most 2^32 cells), eight consecutive draws a thread
+// from the slot's narrow hash, stored 16 bytes at a time; a frozen slot's
+// draws are zeros, which its consumer masks.  It draws the roll path's
+// half-sweeps and the noisy flips.  Bound: K7's, 37 integer-pipe
+// operations a draw.
 //
 // All four launch on the caller's stream, allocate nothing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments outside what
@@ -277,7 +282,7 @@ __device__ __forceinline__ uint32_t cell_draw(const Draws& draws, const NarrowHa
 }
 
 // One half-sweep of parity `parity` of the board x into y by the calling
-// block's kThreads words (blockIdx.x): the body of K6 and of its batch mode.
+// block's kThreads words (blockIdx.x): K6's body.
 template <bool Wide>
 __device__ __forceinline__ void half_sweep_words(const uint32_t* __restrict__ x,
                                                  uint32_t* __restrict__ y, int h, int w, int wp,
@@ -386,54 +391,275 @@ __global__ void __launch_bounds__(kThreads)
   half_sweep_words<Wide>(x, y, h, w, wp, parity, origin, draws, narrow);
 }
 
+// -- the batch modes ------------------------------------------------------------
+
+// The uniforms of slot s at `offset` sweeps into the chunk, formed by each
+// thread from the slot's state (loads of one address a warp, some ten
+// integer operations): no block builds them in shared memory, and no
+// barrier waits on one thread.  `one` is the launch's constant 1
+// (NarrowHash::one), a parameter so that the hash's adds stay IMAD.
+struct SlotDraws {
+  Draws draws;
+  NarrowHash narrow;
+};
+
+__device__ __forceinline__ SlotDraws slot_draws(const BatchSlots& slots, int s, int offset,
+                                                uint32_t substream, uint32_t one) {
+  const uint32_t k0 = slots.k0[s], k1 = slots.k1[s];
+  const uint32_t c1 = slot_counter_word(slots, s, offset, substream);
+  SlotDraws d{Draws{k0, k1, c1, 0u, 0u}, narrow_hash(k0, k1, c1)};
+  d.narrow.one = one;
+  return d;
+}
+
+// The batch modes' blocks: 128 threads (1-4% faster than 256 on an H100).
+constexpr int kBatchThreads = 128;
+constexpr int kBatchWarps = kBatchThreads / 32;
+// K6's batch mode takes a group of kGroup consecutive words of one row a
+// thread: the row's last group may hold fewer, and no group spans rows.
+constexpr int kGroup = 4;
+constexpr int kPairs = kGroup / 2;
+constexpr int kGroupEntries = 32 * kGroup * 16;  // a warp's most decided cells
+
+// the position of the highest set bit of v (v != 0): one FLO
+__device__ __forceinline__ uint32_t top_bit(uint32_t v) {
+  uint32_t p;
+  asm("bfind.u32 %0, %1;" : "=r"(p) : "r"(v));
+  return p;
+}
+
+// Appends tag + p for each set bit p of y, the highest first, to a warp's
+// list at `at`: work in proportion to the set bits.
+__device__ __forceinline__ void append_bits(uint32_t y, uint32_t tag, uint16_t*& at) {
+  while (y) {
+    const uint32_t p = top_bit(y);
+    y ^= 1u << p;
+    *at++ = static_cast<uint16_t>(tag + p);
+  }
+}
+
+// Sets `bit` of the shared word at `word` where draw < thr: a predicated
+// reduction, with no branch around it
+__device__ __forceinline__ void or_if_below(uint32_t draw, uint32_t thr, uint32_t* word,
+                                            uint32_t bit) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.lo.u32 p, %0, %1;\n\t@p red.shared.or.b32 [%2], %3;\n\t}"
+      :
+      : "r"(draw), "r"(thr), "r"(static_cast<uint32_t>(__cvta_generic_to_shared(word))), "r"(bit)
+      : "memory");
+}
+
+// A pair of words 2p, 2p + 1 of a group: the index of its first active
+// cell (word 2p's column a) less 32 x the pair's place in the warp, and its
+// accepted cells, interleaved as in the decided masks (below).
+template <typename Index>
+struct PairCells {
+  Index base;
+  uint32_t accepted;
+};
+
 // K6's batch mode: slot blockIdx.y's board of the batch x ([S, h, wp]
-// words) into y, at `offset` sweeps into the chunk.
+// words) into y, at `offset` sweeps into the chunk.  K6's function; the
+// design differs from K6's body where a thread took one word:
+// - A thread takes kGroup consecutive words of a row, so the division that
+//   places it, the row addresses, the warp's scan and the slot's uniforms
+//   are paid once a group; a word's horizontal neighbours come from its
+//   group's registers (funnel shifts), only the group's two outer
+//   neighbours are loaded.
+// - A pair of words holds 32 active cells: the decided masks of words 2p
+//   and 2p + 1 interleave into one 32-bit mask y = (d_2p >> a) | (d_2p+1 >>
+//   a) << 1, word 2p's cells at the even bits.  The entry e = pair << 5 |
+//   q names the cell base + e + 31 * (e & 1) of its pair's PairCells, and
+//   bit q of its accepted cells.
+// - The warp's list is built in work proportional to the decided cells:
+//   each lane walks the set bits of its masks, y3 (held against the
+//   table's entry 3) of each pair, then y4, the highest bit first, and
+//   stores their entries at its slices of the two parts; entry 3's part
+//   first, then entry 4's, so one compare an entry still suffices, and a
+//   predicated shared-memory reduction records an accept.
+// - The slot's uniforms come from each thread's own loads (SlotDraws).
 template <bool Wide>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBatchThreads)
     packed_metropolis_batch_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                                    int h, int w, int wp, int parity, unsigned long long origin,
-                                   BatchSlots slots, int offset) {
-  __shared__ Draws slot_draws;
-  __shared__ NarrowHash slot_narrow;
+                                   BatchSlots slots, int offset, uint32_t one) {
+  using Index = typename std::conditional<Wide, unsigned long long, uint32_t>::type;
+  __shared__ uint16_t entries[kBatchWarps][kGroupEntries];
+  __shared__ PairCells<Index> pairs[kBatchWarps][32 * kPairs];
   const int s = blockIdx.y;
   const size_t plane = static_cast<size_t>(h) * static_cast<size_t>(wp);
   x += s * plane;
   y += s * plane;
-  if (slots.rem[s] <= offset) {  // frozen: the same branch for the whole block
-    const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-    if (i < plane) y[i] = x[i];
+  // the slot's state is read before its budget decides, so that the loads overlap
+  const bool frozen = slots.rem[s] <= offset;
+  SlotDraws slot = slot_draws(slots, s, offset, parity ? kSubOdd : kSubEven, one);
+  slot.draws.thr3 = slots.thr[5 * s + 3];
+  slot.draws.thr4 = slots.thr[5 * s + 4];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const Index per_row = static_cast<Index>((wp + kGroup - 1) / kGroup);  // groups a row
+  const Index gi = static_cast<Index>(blockIdx.x) * kBatchThreads + threadIdx.x;
+  const bool in = gi < static_cast<Index>(h) * per_row;
+  const int rem = w & 31;
+  const int top = (rem ? rem : 32) - 1;  // bit of column w-1 in the last word
+  Index r = 0;
+  int j0 = 0, nv = 0;  // the group's first word and its words
+  uint32_t c[kGroup] = {}, up[kGroup] = {}, down[kGroup] = {};
+  uint32_t before = 0, after = 0;
+  if (in) {
+    r = gi / per_row;
+    j0 = static_cast<int>(gi - r * per_row) * kGroup;
+    nv = min(kGroup, wp - j0);
+    const uint32_t* row = x + r * static_cast<Index>(wp);
+    const uint32_t* above = x + (r + 1 == static_cast<Index>(h) ? 0 : r + 1) * wp;
+    const uint32_t* below = x + (r == 0 ? static_cast<Index>(h) - 1 : r - 1) * wp;
+    // every load at once, none behind a branch: a word past the row's end
+    // repeats its last word, which nothing reads
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const int j = min(j0 + g, wp - 1);
+      c[g] = row[j];
+      up[g] = above[j];
+      down[g] = below[j];
+    }
+    // bit 31 of `before`: the cell left of the group; `after`: the bits the
+    // right neighbour of its last word takes (the next word's bit 0, or
+    // column 0 across the seam at column w - 1)
+    const uint32_t left_word = row[j0 > 0 ? j0 - 1 : wp - 1];
+    before = j0 > 0 ? left_word : left_word << (31 - top);
+    const uint32_t right_word = row[j0 + nv < wp ? j0 + nv : 0];
+    after = j0 + nv < wp ? right_word << 31 : (right_word & 1u) << top;
+  }
+  if (frozen) {  // the same branch for the whole block
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      if (g < nv) y[r * static_cast<Index>(wp) + j0 + g] = c[g];
+    }
     return;
   }
-  if (threadIdx.x == 0) {
-    const uint32_t c1 = slot_counter_word(slots, s, offset, parity ? kSubOdd : kSubEven);
-    const uint32_t k0 = slots.k0[s], k1 = slots.k1[s];
-    slot_draws = Draws{k0, k1, c1, slots.thr[5 * s + 3], slots.thr[5 * s + 4]};
-    slot_narrow = narrow_hash(k0, k1, c1);
+  const int a = static_cast<int>((r + parity) & 1);  // the active parity's bits are a + 2t
+  const uint32_t parity_mask = a ? 0xAAAAAAAAu : 0x55555555u;
+  const uint32_t last_mask = parity_mask & (rem ? (1u << rem) - 1u : 0xFFFFFFFFu);
+  const int last = in ? wp - 1 - j0 : -1;  // the group's word that ends the row, if any
+  uint32_t keep[kGroup];  // x ^ the undecided active cells (they force-accept)
+  uint32_t d3[kGroup], d4[kGroup];
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    const uint32_t left = __funnelshift_l(g ? c[g - 1] : before, c[g], 1);
+    const uint32_t right = (c[g] >> 1) | (g + 1 < nv ? c[(g + 1) % kGroup] << 31 : after);
+    const uint32_t s1 = up[g] ^ down[g] ^ left;
+    const uint32_t cs1 = (up[g] & down[g]) | ((up[g] ^ down[g]) & left);
+    const uint32_t b0 = s1 ^ right;
+    const uint32_t cs2 = s1 & right;
+    const uint32_t b1 = cs1 ^ cs2;
+    const uint32_t b2 = cs1 & cs2;
+    const uint32_t n3 = b0 & b1 & ~b2;
+    const uint32_t n1 = b0 & ~b1 & ~b2;
+    const uint32_t n0 = ~(b0 | b1 | b2);
+    const uint32_t active = g < last ? parity_mask : g == last ? last_mask : 0u;
+    d3[g] = ((c[g] & n3) | (~c[g] & n1)) & active;
+    d4[g] = ((c[g] & b2) | (~c[g] & n0)) & active;
+    keep[g] = c[g] ^ (active & ~(d3[g] | d4[g]));
   }
-  __syncthreads();
-  const Draws draws = slot_draws;
-  const NarrowHash narrow = slot_narrow;
-  half_sweep_words<Wide>(x, y, h, w, wp, parity, origin, draws, narrow);
+  uint32_t y3[kPairs], y4[kPairs];
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    y3[p] = (d3[2 * p] >> a) | (d3[2 * p + 1] >> a) << 1;
+    y4[p] = (d4[2 * p] >> a) | (d4[2 * p + 1] >> a) << 1;
+    // less 32 x the pair's place, so that an entry's cell is base + entry + 31 * (entry & 1)
+    const int pair = lane * kPairs + p;
+    pairs[warp][pair].base = static_cast<Index>(origin) + r * static_cast<Index>(w) +
+                             32 * static_cast<Index>(j0 + 2 * p) + a - 32 * pair;
+    pairs[warp][pair].accepted = 0;
+  }
+  // the warp's exclusive prefix sums of its lanes' decided cells, entry 3's
+  // in the low half-word and entry 4's in the high one
+  int count = 0;
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) count += __popc(y3[p]) | __popc(y4[p]) << 16;
+  int sum = count;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xFFFFFFFFu, sum, o);
+    if (lane >= o) sum += v;
+  }
+  const int sums = __shfl_sync(0xFFFFFFFFu, sum, 31);
+  sum -= count;
+  const int total3 = sums & 0xFFFF;
+  const int total = total3 + (sums >> 16);
+  uint16_t* at3 = entries[warp] + (sum & 0xFFFF);
+  uint16_t* at4 = entries[warp] + total3 + (sum >> 16);
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) append_bits(y3[p], (lane * kPairs + p) << 5, at3);
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) append_bits(y4[p], (lane * kPairs + p) << 5, at4);
+  __syncwarp();
+  // lane l hashes entries l, l + 32, ...: one compare each, against the
+  // threshold of the part of the list the entry lies in
+  [[maybe_unused]] uint32_t key_hi = 0;
+  [[maybe_unused]] uint2 key = make_uint2(slot.draws.k0, slot.draws.k1);
+  const uint16_t* e = entries[warp] + lane;
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    const uint32_t thr = part ? slot.draws.thr4 : slot.draws.thr3;
+    for (const uint16_t* end = entries[warp] + (part ? total : total3); e < end; e += 32) {
+      const uint32_t entry = *e;
+      PairCells<Index>& cells = pairs[warp][entry >> 5];
+      const Index idx = cells.base + entry + 31 * (entry & 1u);
+      or_if_below(cell_draw<Wide>(slot.draws, slot.narrow, idx, key_hi, key), thr,
+                  &cells.accepted, 1u << (entry & 31u));
+    }
+  }
+  __syncwarp();
+  if (in) {
+    uint32_t* out = y + r * static_cast<Index>(wp) + j0;
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const uint32_t acc = pairs[warp][lane * kPairs + g / 2].accepted >> (g & 1);
+      if (g < nv) out[g] = keep[g] ^ ((acc & 0x55555555u) << a);
+    }
+  }
 }
+
+// K7's batch mode takes kDraws consecutive draws a thread, stored 16 bytes
+// at a time where the slot's row of draws is 16-byte aligned.
+constexpr int kDraws = 8;
 
 // K7's batch mode: word 0 of the hash of each of the n cells of slot
-// blockIdx.y's board into out ([S, n]), zeros for a frozen slot.
-__global__ void __launch_bounds__(kThreads)
+// blockIdx.y's board into out ([S, n]), zeros for a frozen slot; the
+// narrow schedule (n <= 2^32) from the slot's uniforms (SlotDraws).
+__global__ void __launch_bounds__(kBatchThreads)
     cell_uniforms_batch_kernel(uint32_t* __restrict__ out, long long n, BatchSlots slots,
-                               uint32_t substream, int offset) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
+                               uint32_t substream, int offset, uint32_t one) {
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * kBatchThreads + threadIdx.x) * kDraws;
+  if (i0 >= n) return;
   const int s = blockIdx.y;
-  uint32_t u = 0;
-  if (slots.rem[s] > offset) {
-    u = threefry2x32(slots.k0[s], slots.k1[s], static_cast<uint32_t>(i),
-                     slot_counter_word(slots, s, offset, substream)).x;
+  const bool live = slots.rem[s] > offset;
+  const NarrowHash narrow = slot_draws(slots, s, offset, substream, one).narrow;
+  uint32_t u[kDraws] = {};
+  if (live) {
+#pragma unroll
+    for (int d = 0; d < kDraws; ++d) {
+      u[d] = threefry2x32_word0_narrow(narrow, static_cast<uint32_t>(i0) + d);
+    }
   }
-  out[static_cast<long long>(s) * n + i] = u;
+  uint32_t* dst = out + static_cast<long long>(s) * n + i0;
+  if (n % 4 == 0 && i0 + kDraws <= n) {
+#pragma unroll
+    for (int d = 0; d < kDraws; d += 4) {
+      *reinterpret_cast<uint4*>(dst + d) = make_uint4(u[d], u[d + 1], u[d + 2], u[d + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < kDraws; ++d) {
+      if (i0 + d < n) dst[d] = u[d];
+    }
+  }
 }
 
-unsigned int blocks_for(long long n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+unsigned int blocks_for(long long n, int threads = kThreads) {
+  return static_cast<unsigned int>((n + threads - 1) / threads);
 }
 
 }  // namespace
@@ -507,12 +733,13 @@ int mc_packed_metropolis_batch(const void* x, void* y, int slots, int h, int w, 
   const BatchSlots state{static_cast<const uint32_t*>(k0), static_cast<const uint32_t*>(k1),
                          static_cast<const uint32_t*>(counter),
                          static_cast<const uint32_t*>(thr), static_cast<const int*>(rem)};
-  const dim3 grid(blocks_for(static_cast<long long>(h) * wp), slots);
+  const long long groups = static_cast<long long>(h) * ((wp + kGroup - 1) / kGroup);
+  const dim3 grid(blocks_for(groups, kBatchThreads), slots);
   const auto kernel =
       wide ? packed_metropolis_batch_kernel<true> : packed_metropolis_batch_kernel<false>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kBatchThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y), h, w, wp, parity, origin,
-      state, offset);
+      state, offset, 1u);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -532,9 +759,9 @@ int mc_cell_uniforms_batch(void* out, int slots, long long n, const void* k0, co
   const BatchSlots state{static_cast<const uint32_t*>(k0), static_cast<const uint32_t*>(k1),
                          static_cast<const uint32_t*>(counter), nullptr,
                          static_cast<const int*>(rem)};
-  const dim3 grid(blocks_for(n), slots);
-  cell_uniforms_batch_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(out), n, state, static_cast<uint32_t>(substream), offset);
+  const dim3 grid(blocks_for((n + kDraws - 1) / kDraws, kBatchThreads), slots);
+  cell_uniforms_batch_kernel<<<grid, kBatchThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), n, state, static_cast<uint32_t>(substream), offset, 1u);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,4 @@
-"""Kernels K1, K3, K5, K6 and K1's batch mode alone: device time per launch across depths and boards.
+"""Kernels K1, K3, K5, K6, K7 and their batch modes alone: device time per launch across depths and boards.
 
 Times one launch of ``k`` substeps through the public wrappers
 (``packed_stripe.packed_multi_step`` with ``block_steps=k``,
@@ -14,6 +14,7 @@ file runs against any tree of the port that has them::
     python -m tpu_life_torch.experiments.stripe_sweep ab         # three cases, three times
     python -m tpu_life_torch.experiments.stripe_sweep k6         # the stochastic tier's readings
     python -m tpu_life_torch.experiments.stripe_sweep k1b        # K1's batch mode a chunk at a time
+    python -m tpu_life_torch.experiments.stripe_sweep mcb        # the batch modes of K6 and K7
 
 Each case prints one JSON line ``{"kernel", "rule", "shape", "k", "ms"}``
 (``ms``: mean device time of one launch); a board that differs from the
@@ -44,8 +45,16 @@ phase 16 (b) (32 sessions of 512^2 Conway x 128 steps, capacity 8, chunk
 16) through ``serve --serve-backend cuda`` under each pump, seven times,
 each result equal to the numpy oracle's bytes (sessions/s, the
 device-idle share and K1 batch launches a chunk); then the controls of the
-``ab`` mode, three times in turn.  Run it as a file from each tree's root, like ``k6``.  Every mode
-runs on the card only.
+``ab`` mode, three times in turn.  Run it as a file from each tree's root, like ``k6``.  ``mcb``
+reads what a change to the batch modes of K6 and K7 must move or leave: K6's batch mode on a
+half-sweep of 8 x 4096^2 (the seeded board of ``sweep --seed 7`` in every slot, the sweep's 8
+temperatures, parity 0) and K7's on 8 x 1024^2 draws, each held to its plain version first,
+with its device time, the cells a draw decides (K6), the bound and the share of it; 8
+single-board launches of K6 and of K7 on the same boards and counters; K6 alone at 16384^2
+(after 256 sweeps) and on the seeded 4096^2 board, K7 alone at 16384^2, the controls a change
+that leaves K6 and K7 as they are must leave within 2%; and ``sweep --size 4096 --steps 256
+--temps 1.5:3.0:8 --seed 7`` in process, its ``elapsed_s`` and the launches of each kernel it
+took.  Run it as a file from each tree's root, like ``k6``.  Every mode runs on the card only.
 """
 
 from __future__ import annotations
@@ -107,6 +116,10 @@ MC_BENCHES = (["--mc-sizes", "64,128"],
 # a word; 64 integer-pipe results a clock an SM, 128 over both pipes
 ACCEPT_OPS, K6_WORD_OPS, INT_OPS_PER_CLOCK_PER_SM = 2, 18, 64
 K5_TILE_SIDES = (8192, 16384)
+# the mcb mode: the sweep's batch (8 slots of MCB_SIDE^2, seed 7, the grid
+# 1.5:3.0:8, 256 sweeps), K7's batch mode at MCB_ROLL_SIDE^2 (the --no-bitpack sweep's)
+MCB_SLOTS, MCB_SIDE, MCB_ROLL_SIDE, MCB_SEED, MCB_STEPS = 8, 4096, 1024, 7, 256
+MCB_TEMPS = "1.5:3.0:8"
 # the k1b mode: 8 slots of these sides (the serve mix's and a wide board),
 # a chunk of 16 steps; Conway's 15 logic ops a word a step (the bound)
 K1B_SIDES, K1B_SLOTS, K1B_CHUNK = (512, 4096), 8, 16
@@ -400,17 +413,63 @@ def serve_mix_cases() -> list[dict]:
     return out
 
 
+def _clock_and_sms(device: torch.device) -> tuple[float, int]:
+    """The card's max SM clock (Hz, ``nvidia-smi``) and its SMs."""
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.split()[0]) * 1e6
+    return clock, torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def k6_bound_ms(decided: int, words: int, clock: float, sms: int) -> float:
+    """K6's bound (chip_smoke.py phase 15): each decided cell's draw and
+    accept on the integer pipe, 18 logic ops a word, at 64 a clock an SM
+    (its adds at 128 over both pipes bind less)."""
+    from tpu_life_torch.kernels import mc_threefry as mct
+
+    alu_ops = decided * (mct.ALU_OPS_PER_DRAW + ACCEPT_OPS) + words * K6_WORD_OPS
+    all_ops = decided * (mct.OPS_PER_DRAW + ACCEPT_OPS) + words * K6_WORD_OPS
+    return max(alu_ops / INT_OPS_PER_CLOCK_PER_SM,
+               all_ops / (2 * INT_OPS_PER_CLOCK_PER_SM)) / (sms * clock) * 1e3
+
+
+def k7_bound_ms(draws: int, clock: float, sms: int) -> float:
+    """K7's bound: word 0's integer-pipe ops a draw at 64 a clock an SM (the
+    4 bytes a draw writes bind less)."""
+    from tpu_life_torch.kernels import mc_threefry as mct
+
+    return draws * mct.ALU_OPS_PER_DRAW / INT_OPS_PER_CLOCK_PER_SM / (sms * clock) * 1e3
+
+
+def k6_single(x: torch.Tensor, side: int, board: str, clock: float, sms: int) -> dict:
+    """K6 alone on the packed board ``x`` (parity 0, sweep 256, T = 2.27),
+    held to its plain version first: device ms, decided cells, bound."""
+    from tpu_life_torch.kernels import mc_threefry as mct
+    from tpu_life_torch.mc import ising
+
+    thr = ising.acceptance_thresholds(K6_TEMP)
+    args = (0, 1, 0, K6_SWEEPS, int(thr[3]), int(thr[4]))
+    y = torch.empty_like(x)
+    if not torch.equal(mct.packed_metropolis_half(x, *args, width=side, out=y),
+                       mct.packed_metropolis_half_plain(x, *args, width=side)):
+        print(f"K6 {side}^2: differs from the plain version", flush=True)
+        sys.exit(1)
+    ms = _device_ms(lambda: mct.packed_metropolis_half(x, *args, width=side, out=y),
+                    20 if side > 4096 else 200, ("packed_metropolis_half_kernel",))
+    decided = decided_cells(x, side)
+    bound_ms = k6_bound_ms(decided, x.numel(), clock, sms)
+    return {"kernel": "K6", "shape": [side, side], "board": board, "ms": ms, "decided": decided,
+            "active": side * side // 2, "bound_ms": bound_ms, "of_bound": bound_ms / ms}
+
+
 def k6_cases(device: torch.device) -> list[dict]:
     """The k6 mode's readings, one dict a JSON line."""
     from tpu_life_torch.backends.base import get_backend, make_runner
     from tpu_life_torch.kernels import mc_threefry as mct
-    from tpu_life_torch.mc import ising, packed, prng
+    from tpu_life_torch.mc import packed, prng
     from tpu_life_torch.models.rules import get_rule
 
-    clock = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"], capture_output=True,
-        text=True, check=True).stdout.split()[0]) * 1e6
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock, sms = _clock_and_sms(device)
     full = K6_SIDES[-1]
     board = prng.seeded_board(full, full, seed=1, device=device).cpu().numpy()
     runner = make_runner(get_backend("cuda", device=device), board, get_rule("ising"), seed=1,
@@ -422,29 +481,13 @@ def k6_cases(device: torch.device) -> list[dict]:
     secs = time.perf_counter() - t0
     out = [{"runner": "mc_packed", "shape": [full, full], "sweeps": K6_SWEEPS, "seconds": secs,
             "spin_updates_per_sec": full * full * K6_SWEEPS / secs}]
-    thr = ising.acceptance_thresholds(K6_TEMP)
-    args = (0, 1, 0, K6_SWEEPS, int(thr[3]), int(thr[4]))
     for side in K6_SIDES:
         x = (runner.x if side == full else torch.from_numpy(packed.pack_board(
             prng.seeded_board(side, side, seed=1, device=device).cpu().numpy()).view(np.int32).copy())
             .to(device))
-        y = torch.empty_like(x)
-        if not torch.equal(mct.packed_metropolis_half(x, *args, width=side, out=y),
-                           mct.packed_metropolis_half_plain(x, *args, width=side)):
-            print(f"K6 {side}^2: differs from the plain version", flush=True)
-            sys.exit(1)
-        ms = _device_ms(lambda: mct.packed_metropolis_half(x, *args, width=side, out=y),
-                        20 if side == full else 200, ("packed_metropolis_half_kernel",))
-        decided, words = decided_cells(x, side), x.numel()
-        alu_ops = decided * (mct.ALU_OPS_PER_DRAW + ACCEPT_OPS) + words * K6_WORD_OPS
-        all_ops = decided * (mct.OPS_PER_DRAW + ACCEPT_OPS) + words * K6_WORD_OPS
-        bound_ms = max(alu_ops / INT_OPS_PER_CLOCK_PER_SM,
-                       all_ops / (2 * INT_OPS_PER_CLOCK_PER_SM)) / (sms * clock) * 1e3
-        out.append({"kernel": "K6", "shape": [side, side], "board": (
-            f"after {K6_SWEEPS} sweeps" if side == full else "seeded, seed 1"), "ms": ms,
-            "decided": decided, "active": side * side // 2, "bound_ms": bound_ms,
-            "of_bound": bound_ms / ms})
-    del runner, x, y
+        out.append(k6_single(x, side, f"after {K6_SWEEPS} sweeps" if side == full else
+                             "seeded, seed 1", clock, sms))
+    del runner, x
     torch.cuda.empty_cache()
     ms = _device_ms(lambda: mct.cell_uniforms((full, full), 1, 0, 3, prng.SUB_EVEN, device=device),
                     10, ("cell_uniforms_kernel",))
@@ -459,6 +502,114 @@ def k6_cases(device: torch.device) -> list[dict]:
     return out
 
 
+def mcb_cases(device: torch.device) -> list[dict]:
+    """The mcb mode's readings, one dict a JSON line."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_life_torch import cli
+    from tpu_life_torch.backends.base import get_backend, make_runner
+    from tpu_life_torch.kernels import mc_threefry as mct
+    from tpu_life_torch.mc import ising, packed, prng
+    from tpu_life_torch.models.rules import get_rule
+
+    clock, sms = _clock_and_sms(device)
+    side, n = MCB_SIDE, MCB_SLOTS
+    lo, hi, count = (float(v) for v in MCB_TEMPS.split(":"))
+    temps = [lo + (hi - lo) * i / (count - 1) for i in range(int(count))]
+    thr = np.stack([ising.acceptance_thresholds(t) for t in temps])
+    k0, k1 = prng.key_halves(MCB_SEED)
+
+    def i32(values) -> torch.Tensor:
+        return torch.tensor([prng.as_i32(v) for v in values], dtype=torch.int32, device=device)
+
+    def state(budget: int) -> prng.SlotState:
+        return prng.SlotState(i32([k0] * n), i32([k1] * n), i32([0] * n),
+                              torch.from_numpy(thr.view(np.int32).copy()).to(device),
+                              i32([budget] * n))
+
+    board = prng.seeded_board(side, side, seed=MCB_SEED, device=device).cpu().numpy()
+    one = torch.from_numpy(packed.pack_board(board).view(np.int32).copy()).to(device)
+    x = one.expand(n, *one.shape).contiguous()
+    y = torch.empty_like(x)
+    st = state(MCB_STEPS)
+    for parity in (0, 1):
+        if not torch.equal(mct.packed_metropolis_half_batch(x, parity, st, width=side, out=y),
+                           mct.packed_metropolis_half_batch_plain(x, parity, st, width=side)):
+            print(f"K6's batch mode {n} x {side}^2: differs from the plain version", flush=True)
+            sys.exit(1)
+    batch_ms = _device_ms(lambda: mct.packed_metropolis_half_batch(x, 0, st, width=side, out=y),
+                          20, ("packed_metropolis_batch_kernel",))
+
+    def k6_singles():
+        for s in range(n):
+            mct.packed_metropolis_half(x[s], 0, k0, k1, 0, int(thr[s, 3]), int(thr[s, 4]),
+                                       width=side, out=y[s])
+    singles_ms, _ = _chunk_device_ms(k6_singles, 10, ("packed_metropolis_half_kernel",))
+    decided = n * decided_cells(one, side)
+    bound_ms = k6_bound_ms(decided, x.numel(), clock, sms)
+    out = [{"kernel": "K6 batch", "shape": [n, side, side], "ms": batch_ms, "decided": decided,
+            "bound_ms": bound_ms, "of_bound": bound_ms / batch_ms, "singles_ms": singles_ms}]
+    del x, y
+    roll = (MCB_ROLL_SIDE, MCB_ROLL_SIDE)
+    rst = state(32)
+    for substream in (prng.SUB_EVEN, prng.SUB_ODD):
+        if not torch.equal(mct.cell_uniforms_batch(roll, rst, substream),
+                           mct.cell_uniforms_batch_plain(roll, rst, substream)):
+            print(f"K7's batch mode {n} x {roll}: differs from the plain version", flush=True)
+            sys.exit(1)
+    batch_ms = _device_ms(lambda: mct.cell_uniforms_batch(roll, rst, prng.SUB_EVEN), 20,
+                          ("cell_uniforms_batch_kernel",))
+
+    def k7_singles():
+        for _ in range(n):
+            mct.cell_uniforms(roll, k0, k1, 0, prng.SUB_EVEN, device=device)
+    singles_ms, _ = _chunk_device_ms(k7_singles, 10, ("cell_uniforms_kernel",))
+    bound_ms = k7_bound_ms(n * roll[0] * roll[1], clock, sms)
+    out.append({"kernel": "K7 batch", "shape": [n, *roll], "ms": batch_ms, "bound_ms": bound_ms,
+                "of_bound": bound_ms / batch_ms, "singles_ms": singles_ms})
+    torch.cuda.empty_cache()
+    # the controls: K6 and K7 alone
+    full = K6_SIDES[-1]
+    big = prng.seeded_board(full, full, seed=1, device=device).cpu().numpy()
+    runner = make_runner(get_backend("cuda", device=device), big, get_rule("ising"), seed=1,
+                         temperature=K6_TEMP)
+    runner.advance(K6_SWEEPS)
+    runner.sync()
+    out.append(k6_single(runner.x, full, f"after {K6_SWEEPS} sweeps", clock, sms))
+    del runner
+    small = K6_SIDES[0]
+    seeded = torch.from_numpy(packed.pack_board(prng.seeded_board(
+        small, small, seed=1, device=device).cpu().numpy()).view(np.int32).copy()).to(device)
+    out.append(k6_single(seeded, small, "seeded, seed 1", clock, sms))
+    torch.cuda.empty_cache()
+    ms = _device_ms(lambda: mct.cell_uniforms((full, full), 1, 0, 3, prng.SUB_EVEN, device=device),
+                    10, ("cell_uniforms_kernel",))
+    out.append({"kernel": "K7", "shape": [full, full], "ms": ms,
+                "of_bound": k7_bound_ms(full * full, clock, sms) / ms})
+    torch.cuda.empty_cache()
+    # the sweep in process: its elapsed_s and the launches it took
+    counters = (mct.packed_metropolis_half_batch, mct.cell_uniforms_batch,
+                mct.packed_metropolis_half, mct.cell_uniforms)
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in counters:
+            fn.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["sweep", "--size", str(side), "--steps", str(MCB_STEPS), "--temps",
+                           MCB_TEMPS, "--seed", str(MCB_SEED), "--output-dir", tmp,
+                           "--device", str(device)])
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or rec["done"] != n:
+        print(f"sweep: exit {rc}, {rec.get('done')} sessions done", flush=True)
+        sys.exit(1)
+    out.append({"sweep": f"--size {side} --steps {MCB_STEPS} --temps {MCB_TEMPS}",
+                "elapsed_s": rec["elapsed_s"], "rounds": rec["rounds"],
+                "launches": {fn.__name__: fn.launches for fn in counters}})
+    return out
+
+
 def main(argv: list[str]) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("stripe_sweep times the CUDA kernels: no CUDA device")
@@ -467,6 +618,10 @@ def main(argv: list[str]) -> None:
     rng = np.random.default_rng(0)
     if "k6" in argv:
         for rec in k6_cases(device):
+            print(json.dumps(rec), flush=True)
+        return
+    if "mcb" in argv:
+        for rec in mcb_cases(device):
             print(json.dumps(rec), flush=True)
         return
     if "k1b" in argv:
