@@ -259,7 +259,22 @@ Phases (any failure exits non-zero and prints no result line):
    under both pumps, and the reference workload as an ``ising`` session at
    T = 2.27, each equal to the single-board ``cuda`` Runner's bytes, with
    the batch modes' launches a chunk; (e) an ``ising`` session spilled
-   mid-run and resumed in a fresh service, equal to the uninterrupted one.
+   mid-run and resumed in a fresh service, equal to the uninterrupted one;
+18. the native board codec and the autotuner on the card — (a) the codec
+   built with g++ from ``tpu_life_torch/csrc/codec.cpp`` decodes and encodes
+   phase 14's 16384^2 board (``gen --seed 5``) byte-equal to the numpy
+   codec, host ms of both, median of 3; (b) ``tune --size 16384 --rule
+   conway`` measured into a temporary cache file (K1 and K3 launched, every
+   ``cuda`` and ``sharded --local-kernel cuda`` candidate feasible), its
+   table, the winner, the cost model's pick and the pick's measured s/step
+   over the best's; (c) ``run --backend tuned`` of that board x 256 as a
+   child process, natively and under ``TPU_LIFE_NATIVE=0``: resolved from
+   the cache (the trace's ``autotune-pick`` event), the pick's kernel
+   launched, the output byte-equal to phase 14 (a)'s, with ``stage``,
+   ``gather``, ``output-write`` and ``Total time`` of both; (d) the
+   reference workload served through ``--serve-backend tuned`` at the
+   golden sha256 with no trial measured; (e) ``bench --backend tuned
+   --size 16384`` resolving from the cache (``tuned_source: "cache"``).
 
 Phases 2-4 cover K3 too: it is built with K1 (same source, its instances
 in the ptxas report and the SASS counts); phase 3 holds it bit-identical to its
@@ -2264,6 +2279,12 @@ def main() -> int:
                                  instances=mc_instances,
                                  device=batch_row.pop("mc_batch_device")))
 
+    # -- 18. the native codec and the autotuner on the card ------------------
+    tuned = phase18(dict(smi=smi, counted=counted, spans_ms=spans_ms, a_sha=streamed["sha"],
+                         golden=golden))
+
+    batch_row.update(tuned_serve_launches=tuned["served_batch"],
+                     tuned_serve_pick=tuned["served_pick"])
     diamond = diamond_rows[DIAMOND]
     k4_row = k4_rows[("brians_brain", (2, 2))]
     print(json.dumps({"kernels": [{
@@ -2285,6 +2306,9 @@ def main() -> int:
         "device_ms": full_dev_ms,
         "instance": K1_MAIN,
         **k1_instances[K1_MAIN],
+        "tune_launches": tuned["k1"],
+        "tuned_run_launches": tuned["run_k1"],
+        "tuned_pick": tuned["pick"],
         "ref_device_ms": ref_dev_ms,
         "ref_instance": {"instance": K1_SMALL, **k1_instances[K1_SMALL]},
         "data_rule": {"rule": DATA_RULE, "ms": data_ms, "device_ms": data_dev_ms,
@@ -2350,6 +2374,9 @@ def main() -> int:
         "bound_by": k3_row["bound_by"],
         "library_ms": None,
         "streamed_launches": streamed["k3"],
+        "tune_launches": tuned["k3"],
+        "tuned_run_launches": tuned["run_k3"],
+        "tuned_pick": tuned["pick"],
         "torus_device_ms": t_dev_ms,
         "instance": K3_MAIN,
         **k1_instances[K3_MAIN],
@@ -2582,7 +2609,8 @@ def phase14(ctx: dict) -> dict:
           f"{runs['d+e resume, init_distributed']['pg'][0]} group of "
           f"{runs['d+e resume, init_distributed']['pg'][1]}; phase 14 took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"k3": runs["a stream"]["launches"][2], "k4": runs["b stream"]["launches"][3]}
+    return {"k3": runs["a stream"]["launches"][2], "k4": runs["b stream"]["launches"][3],
+            "sha": runs["a stream"]["sha"]}
 
 
 def phase13(ctx: dict) -> None:
@@ -4179,6 +4207,227 @@ def phase17(ctx: dict) -> list[dict]:
         "roll_launches": roll_launches,
         **ctx["instances"][K7_BATCH],
     }]
+
+
+def phase18(ctx: dict) -> dict:
+    """Phase 18: the native board codec and the autotuner on the card.
+    (a) the codec built from ``csrc/codec.cpp`` decodes and encodes phase
+    14's 16384^2 board (``gen --seed 5``) byte-equal to the numpy codec,
+    host ms median of 3; (b) ``tune --size 16384 --rule conway`` measured
+    into a temporary cache, every ``cuda`` and ``sharded --local-kernel
+    cuda`` candidate feasible, with K1 and K3 launched; (c) ``run --backend
+    tuned`` of that board x 256 as a child, natively and under
+    ``TPU_LIFE_NATIVE=0``: resolved from the cache, the pick's kernel
+    launched, the output phase 14 (a)'s bytes; (d) the reference workload
+    served through ``--serve-backend tuned`` at the golden sha256 with no
+    trial measured; (e) ``bench --backend tuned`` at 16384^2 resolving from
+    the cache.  Returns the K1 and K3 launches of (b) and of (c)'s native
+    run, and (c)'s pick; (d)'s K1 batch-mode launches and pick."""
+    import statistics
+
+    import numpy as np
+
+    from tpu_life_torch import autotune
+    from tpu_life_torch.autotune import cost_model
+    from tpu_life_torch.io import codec, native
+    from tpu_life_torch.kernels import packed_batch as kb
+    from tpu_life_torch.models.rules import get_rule
+
+    counted, spans_ms, smi = ctx["counted"], ctx["spans_ms"], ctx["smi"]
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    for var in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                "JAX_PROCESS_ID", "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                "TPU_LIFE_NATIVE"):
+        env.pop(var, None)
+    saved = {v: os.environ.get(v) for v in ("TPU_LIFE_NATIVE", autotune.cache.ENV_VAR)}
+
+    def set_env(var: str, value: str | None) -> None:
+        if value is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = value
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cache_file = tmp / "autotune.json"
+        env[autotune.cache.ENV_VAR] = str(cache_file)
+        try:
+            set_env("TPU_LIFE_NATIVE", None)
+            set_env(autotune.cache.ENV_VAR, str(cache_file))
+            files = ["--config-file", str(tmp / "grid_size_data.txt"), "--input-file",
+                     str(tmp / "data.txt")]
+            # (a) the codec: a fresh g++ build into the temporary directory
+            # timed (the run's own library was built at its first use), then
+            # both paths on the same bytes
+            from tpu_life_torch.kernels import _build
+
+            native.build()
+            root, _build.BUILD_ROOT = _build.BUILD_ROOT, tmp / "codec_build"
+            try:
+                t0 = time.perf_counter()
+                native.nativelib.build(native.SOURCE)
+                build_s = time.perf_counter() - t0
+            finally:
+                _build.BUILD_ROOT = root
+            counted(["gen", "--height", str(FULL), "--width", str(FULL), "--steps",
+                     str(FULL_STEPS), "--seed", "5", *files], f"gen {FULL}^2")
+            raw = (tmp / "data.txt").read_bytes()
+            timing, boards = {}, {}
+            for path, switch in (("native", None), ("numpy", "0")):
+                set_env("TPU_LIFE_NATIVE", switch)
+                dec, enc = [], []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    board = codec.decode_board(raw, FULL, FULL)
+                    t1 = time.perf_counter()
+                    again = codec.encode_board(board)
+                    t2 = time.perf_counter()
+                    if again != raw:
+                        fail(f"phase 18 (a): the {path} codec's encode differs from the file")
+                    dec.append((t1 - t0) * 1e3)
+                    enc.append((t2 - t1) * 1e3)
+                timing[path] = (statistics.median(dec), statistics.median(enc))
+                boards[path] = board
+            set_env("TPU_LIFE_NATIVE", None)
+            if not np.array_equal(boards["native"], boards["numpy"]):
+                fail("phase 18 (a): native and numpy decodes differ")
+            del board, again, boards
+            print(f"phase 18 (a), the native codec (card: {smi}; host {os.cpu_count()} CPUs, "
+                  f"{native.nativelib.default_threads()} threads): a fresh g++ build {build_s:.2f} s from "
+                  f"{native.SOURCE.relative_to(ROOT)}; {FULL}^2 board (gen --seed 5) decoded and "
+                  f"encoded byte-equal to the numpy codec; host ms, median of 3: decode native "
+                  f"{timing['native'][0]:.1f}, numpy {timing['numpy'][0]:.1f}; encode native "
+                  f"{timing['native'][1]:.1f}, numpy {timing['numpy'][1]:.1f}", flush=True)
+
+            # (b) the tuner, measured into the temporary cache
+            t0 = time.perf_counter()
+            lines, got, _ = counted(["tune", "--size", str(FULL), "--rule", "conway"],
+                                    f"tune --size {FULL}")
+            tune_s = time.perf_counter() - t0
+            summary = json.loads(lines[-1])
+            table = {}
+            for ln in lines:
+                m = re.match(r"\s+\[\d+/\d+\] (.+? stencil=\S+)\s+(\S+)", ln)
+                if m:
+                    sps = None if m.group(2) == "infeasible:" else float(m.group(2))
+                    table[m.group(1).strip()] = (sps, ln)
+            kernel_cands = [d for d in table if d.startswith("cuda ") or "local_kernel=cuda" in d]
+            bad = [table[d][1].strip() for d in kernel_cands if table[d][0] is None]
+            if len(kernel_cands) != 10 or bad:
+                fail(f"phase 18 (b): {len(kernel_cands)} cuda and K3 candidates, infeasible: {bad}")
+            if summary["source"] != "measured" or summary["cache_file"] != str(cache_file):
+                fail(f"phase 18 (b): tune summary {summary}")
+            if got[0] <= 0 or got[2] <= 0:
+                fail(f"phase 18 (b): (K1, K2, K3, K4) launches {got}: K1 and K3 must launch")
+            rule = get_rule("conway")
+            key = autotune.tune_key_for(rule, (FULL, FULL))
+            cands = autotune.enumerate_candidates(key, shape=(FULL, FULL))
+            pick = cost_model.choose(key, cands)
+            best = autotune.TunedConfig.from_dict(summary["best"])
+            ok = sorted((v[0], d) for d, v in table.items() if v[0] is not None)
+            print(f"phase 18 (b), tune --size {FULL} --rule conway ({tune_s:.1f} s; "
+                  f"{summary['candidates']} candidates, {summary['infeasible']} infeasible; "
+                  f"launches (K1, K2, K3, K4) {got}); the table, s/step:", flush=True)
+            for ln in lines[:-1]:
+                print(f"  {ln.strip()}", flush=True)
+            pick_sps = table[pick.describe()][0]
+            print(f"  winner {best.describe()} at {summary['seconds_per_step']:.4e} s/step; "
+                  f"runner-up {ok[1][1]} at {ok[1][0]:.4e} ({ok[1][0] / ok[0][0]:.3f}x); "
+                  f"the cost model's pick {pick.describe()} at {pick_sps:.4e} s/step, "
+                  f"{pick_sps / ok[0][0]:.3f}x the best", flush=True)
+            tune_launches = got
+
+            # (c) run --backend tuned as a child, native and numpy codec
+            want_kernel = {"cuda": 0, "sharded": 2}.get(best.backend)
+            runs = {}
+            for path, extra in (("native", {}), ("numpy", {"TPU_LIFE_NATIVE": "0"})):
+                out, trace = tmp / f"{path}.txt", tmp / f"{path}.json"
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, "-c", P14_CHILD, "run", *files, "--backend", "tuned",
+                     "--trace-events", str(trace), "--output-file", str(out)],
+                    cwd=tmp, env=dict(env, **extra), capture_output=True, text=True, timeout=600)
+                wall = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    fail(f"phase 18 (c) {path}: exited {proc.returncode}: {proc.stderr[-3000:]}")
+                rec = json.loads([ln for ln in proc.stdout.splitlines()
+                                  if ln.startswith("P14 ")][-1][4:])
+                total = [ln for ln in proc.stdout.splitlines() if ln.startswith("Total time = ")]
+                picks = [e["args"] for e in json.loads(trace.read_text())["traceEvents"]
+                         if e.get("name") == "autotune-pick"]
+                spans = spans_ms(trace)
+                sha = hashlib.sha256(out.read_bytes()).hexdigest()
+                out.unlink()
+                if len(picks) != 1 or picks[0]["source"] != "cache" or \
+                        picks[0]["pick"] != best.describe():
+                    fail(f"phase 18 (c) {path}: autotune-pick {picks}, want {best.describe()} "
+                         f"from the cache")
+                if "autotune-resolve" not in spans or len(total) != 1:
+                    fail(f"phase 18 (c) {path}: spans {sorted(spans)}, {len(total)} Total lines")
+                if want_kernel is None or rec["launches"][want_kernel] <= 0:
+                    fail(f"phase 18 (c) {path}: pick {best.describe()}, (K1, K2, K3, K4) "
+                         f"launches {rec['launches']}")
+                if sha != ctx["a_sha"]:
+                    fail(f"phase 18 (c) {path}: output differs from phase 14 (a)'s")
+                runs[path] = dict(spans=spans, total=total[0].split("=")[1].strip(), wall=wall,
+                                  launches=rec["launches"])
+            print(f"phase 18 (c), run --backend tuned {FULL}^2 x {FULL_STEPS} from the file (a "
+                  f"child each; pick {best.describe()} from the cache; output byte-equal to phase "
+                  f"14 (a), sha256 {ctx['a_sha'][:12]}):", flush=True)
+            for path, r in runs.items():
+                sp = r["spans"]
+                print(f"  {path} codec: Total time {r['total']} s, wall {r['wall']:.2f} s, "
+                      f"launches (K1, K2, K3, K4) {tuple(r['launches'])}, spans ms: "
+                      + ", ".join(f"{n} {sp[n]:.1f}" for n in
+                                  ("autotune-resolve", "backend-build", "stage", "drive",
+                                   "gather", "output-write") if n in sp), flush=True)
+
+            # (d) serving through tuned: the reference workload, no trial
+            with gzip.open(FIXTURES / "reference_data.txt.gz", "rb") as f:
+                (tmp / "ref.txt").write_bytes(f.read())
+            shutil.copy(FIXTURES / "reference_grid_size_data.txt", tmp / "ref_grid.txt")
+            spool = tmp / "spool.jsonl"
+            autotune.reset_trial_count()
+            counted(["submit", "--input-file", str(tmp / "ref.txt"), "--config-file",
+                     str(tmp / "ref_grid.txt"), "--requests", str(spool),
+                     "--output-file", str(tmp / "served.txt")], "submit the reference workload")
+            kb.packed_batch_multi_step.launches = 0
+            lines, served_counts, _ = counted(
+                ["serve", "--serve-backend", "tuned", "--requests", str(spool), "--output-dir",
+                 str(tmp / "serve_out")], "serve --serve-backend tuned")
+            served_batch = kb.packed_batch_multi_step.launches
+            ctx["golden"](tmp / "served.txt", "phase 18 (d) served through tuned")
+            if autotune.trial_count() != 0:
+                fail(f"phase 18 (d): serving measured {autotune.trial_count()} trials")
+            ref_key = autotune.tune_key_for(rule, (1500, 500))
+            ref_pick, ref_source = autotune.resolve(ref_key, shape=(1500, 500))
+            if sum(served_counts) + served_batch == 0:
+                fail(f"phase 18 (d): pick {ref_pick.describe()} served with no kernel launched")
+            print(f"phase 18 (d), the reference workload served through --serve-backend tuned: "
+                  f"golden sha256, key {ref_key.id()} -> {ref_pick.describe()} ({ref_source}), "
+                  f"launches (K1, K2, K3, K4) {served_counts}, K1's batch mode {served_batch}, "
+                  f"0 trials measured", flush=True)
+
+            # (e) bench through the cache
+            lines, bench_counts, _ = counted(["bench", "--backend", "tuned", "--size", str(FULL)],
+                                             f"bench --backend tuned --size {FULL}")
+            rec = json.loads(lines[-1])
+            print(lines[-1], flush=True)
+            if rec["tuned_source"] != "cache" or rec["backend"] != best.backend or \
+                    not rec["value"] > 0:
+                fail(f"phase 18 (e): bench record {rec}")
+        finally:
+            for var, value in saved.items():
+                set_env(var, value)
+    print(f"phase 18 (e), bench --backend tuned --size {FULL}: tuned_source cache, backend "
+          f"{rec['backend']}, {rec['value']:.4e} cells/s, launches (K1, K2, K3, K4) "
+          f"{bench_counts}; phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    run = runs["native"]["launches"]
+    return {"k1": tune_launches[0], "k3": tune_launches[2], "run_k1": run[0], "run_k3": run[2],
+            "pick": best.describe(), "served_batch": served_batch,
+            "served_pick": ref_pick.describe()}
 
 
 def cli_main_rc(args: list[str]) -> int:

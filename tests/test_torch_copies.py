@@ -544,7 +544,7 @@ def _without_native(fn) -> str:
     func.body = [
         n for n in body
         if not (isinstance(n, (ast.Assign, ast.If)) and native(n))
-        and not (isinstance(n, ast.ImportFrom) and n.module == "tpu_life.io")
+        and not (isinstance(n, ast.ImportFrom) and n.module in ("tpu_life.io", "tpu_life_torch.io"))
     ]
     return ast.dump(tree)
 
@@ -555,6 +555,29 @@ def test_io_sharded_is_a_copy_without_the_native_paths(name):
     from tpu_life_torch.io import sharded
 
     assert _without_native(getattr(sharded, name)) == _without_native(getattr(jsharded, name))
+
+
+@pytest.mark.parametrize("name", IO_SHARDED)
+def test_io_sharded_native_paths_are_the_jax_modules(name):
+    # with the native codec ported, the whole function is the JAX one: its
+    # native branches included, the package's name aside
+    import ast
+    import textwrap
+
+    from tpu_life.io import sharded as jsharded
+    from tpu_life_torch.io import sharded
+
+    def dump(fn) -> str:
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        func = tree.body[0]
+        if isinstance(func.body[0], ast.Expr):
+            func.body = func.body[1:]
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.module == "tpu_life_torch.io":
+                node.module = "tpu_life.io"
+        return ast.dump(tree)
+
+    assert dump(getattr(sharded, name)) == dump(getattr(jsharded, name))
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -821,3 +844,12 @@ def test_governor_estimates_equal_under_the_backend_mapping(spec, shape, backend
     if backend.startswith("mesh"):
         assert governor.estimate_mesh_shard_bytes(key, (2, 2)) == jgov.estimate_mesh_shard_bytes(
             jkey, (2, 2))
+
+
+def test_the_native_codec_source_is_a_byte_copy():
+    # the port builds its own codec from its own copy; native/ is never read
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    port = root / "tpu_life_torch" / "csrc" / "codec.cpp"
+    assert port.read_bytes() == (root / "native" / "codec.cpp").read_bytes()

@@ -207,3 +207,36 @@ def test_scan_covers_the_serving_tier():
     } <= set(MODULES)
     for path in (*sorted((PKG / "serve").glob("*.py")), PKG / "chaos" / "__init__.py"):
         assert path in SOURCES
+
+
+def test_scan_covers_the_codec_and_autotune_slice():
+    # the native codec's loader and binding, the autotuner and the device
+    # probe are among the modules both checks read
+    assert {
+        "tpu_life_torch.utils.nativelib",
+        "tpu_life_torch.io.native",
+        "tpu_life_torch.utils.platform",
+        "tpu_life_torch.autotune",
+        "tpu_life_torch.autotune.space",
+        "tpu_life_torch.autotune.cost_model",
+        "tpu_life_torch.autotune.cache",
+        "tpu_life_torch.autotune.runner",
+        "tpu_life_torch.experiments.tune_fit",
+    } <= set(MODULES)
+    for path in sorted((PKG / "autotune").glob("*.py")):
+        assert path in SOURCES
+
+
+def test_the_codec_builds_only_from_the_ports_source():
+    # nothing of native/ is loaded: the library is built from csrc/codec.cpp
+    # into the package's own build directory
+    from tpu_life_torch.io import native
+    from tpu_life_torch.kernels import _build
+    from tpu_life_torch.utils import nativelib
+
+    assert native.SOURCE == PKG / "csrc" / "codec.cpp"
+    assert _build.BUILD_ROOT == PKG / "_build"
+    for path in (PKG / "utils" / "nativelib.py", PKG / "io" / "native.py"):
+        text = path.read_text()
+        assert "NATIVE_DIR" not in text and '"native"' not in text and "make" not in text
+    assert nativelib.CXX_FLAGS == ("-O3", "-fPIC", "-shared", "-pthread", "-std=c++17")

@@ -29,6 +29,13 @@ serve backends (``cuda``, the default, ``numpy``, ``sharded``).  ``sweep``
 fans a temperature grid into one ising session each through the same
 tier and prints the JAX ``sweep``'s JSON record; its ``--serve-backend``
 is ``cuda`` (the default: kernels K6 and K7's batch modes) or ``numpy``.
+``tune`` measures the candidate configurations of a (device, rule, board
+shape) key and persists the winner to the port's autotune cache; ``run
+--backend tuned`` (with ``--tune-mode``), ``bench --backend tuned`` and
+``serve --serve-backend tuned`` resolve through it.  On the card, ``run``,
+``bench``, ``tune``, ``serve`` and ``sweep`` first probe it under a
+watchdog (``utils.platform.devices_with_watchdog``) and exit 2 when the
+query hangs.
 """
 
 from __future__ import annotations
@@ -78,8 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="replicate the reference binary's effective (buggy) B/S2 rule",
     )
     r.add_argument(
-        "--backend", default="auto", choices=["auto", "cuda", "torch", "numpy", "sharded"],
-        help="auto = cuda: the hand-written kernels for clamped Moore rules "
+        "--backend", default="auto", choices=["auto", "tuned", "cuda", "torch", "numpy", "sharded"],
+        help="tuned = the backend and knobs the autotune cache holds for this "
+        "device, rule and board shape (see `tune` and --tune-mode; a cache miss "
+        "takes the cost model's pick); auto = cuda: the hand-written kernels "
+        "for clamped Moore rules "
         "(life-like, Generations, Larger-than-Life) and clamped 2-state von "
         "Neumann rules of radius <= 2, plain PyTorch ops on the card for the "
         "other von Neumann rules and the torus (':T') rules, kernels K6 and K7 "
@@ -153,6 +163,12 @@ def build_parser() -> argparse.ArgumentParser:
         "instead: kernel K2 for clamped Moore rules, the int8 stencil ops "
         "for the rest; bit-identical",
     )
+    r.add_argument(
+        "--tune-mode", default="cache", choices=["off", "cache", "measure"],
+        help="autotune resolution for --backend tuned: off = analytic cost "
+        "model only; cache = cache hit else cost model (never measures); "
+        "measure = cache hit else run the measured search now and persist it",
+    )
     r.add_argument("--sync-every", type=int, default=0,
                    help="steps per host sync chunk (0 = one run)")
     r.add_argument("--snapshot-every", type=int, default=0)
@@ -216,6 +232,39 @@ def build_parser() -> argparse.ArgumentParser:
         help="append each metrics record as a JSON line (implies --metrics)",
     )
     r.add_argument("--verbose", "-v", action="store_true")
+
+    t = sub.add_parser(
+        "tune",
+        help="measured autotuning: search the (backend, block_steps, "
+        "local_kernel, bitpack) space for this device + rule + board "
+        "shape and persist the winner to the autotune cache",
+    )
+    t.add_argument("--size", type=int, default=4096,
+                   help="square board edge for the trial workload")
+    t.add_argument("--height", type=int, default=None,
+                   help="trial board height (overrides --size)")
+    t.add_argument("--width", type=int, default=None,
+                   help="trial board width (overrides --size)")
+    t.add_argument("--rule", default="conway")
+    t.add_argument("--backend-set", default=None, metavar="B1,B2",
+                   help="comma list of backends to search (default: "
+                   "torch,sharded,cuda on the card; torch,sharded on the CPU)")
+    t.add_argument("--trials", type=int, default=3,
+                   help="timed repetitions per candidate (median wins)")
+    t.add_argument("--steps", type=int, default=None,
+                   help="steps per timed trial (default: by device kind)")
+    t.add_argument("--warmup-steps", type=int, default=None,
+                   help="untimed steps absorbing kernel builds per candidate")
+    t.add_argument("--dry-run", action="store_true",
+                   help="enumerate candidates and rank by the analytic "
+                   "cost model only — no measurement, nothing persisted")
+    t.add_argument("--cache-file", default=None, metavar="JSON",
+                   help="autotune cache location (default "
+                   "~/.cache/tpu_life_torch/autotune.json or "
+                   "$TPU_LIFE_TORCH_AUTOTUNE_CACHE)")
+    t.add_argument("--device", default=None,
+                   help="the device to tune for (default: the card); 'cpu' "
+                   "tunes the CPU's candidates")
 
     b = sub.add_parser(
         "bench",
@@ -317,10 +366,22 @@ def main(argv: list[str] | None = None) -> int:
         return _pattern(parser, args)
     if args.command == "gen":
         return _gen(args)
-    if args.command == "bench":
-        return _bench(parser, args)
     if args.command == "submit":
         return _submit(args)
+    if _on_card(args):
+        # prime the card's first query under a watchdog, so a wedged driver
+        # ends in a message and exit 2 instead of a hang; never a fallback
+        from tpu_life_torch.utils.platform import devices_with_watchdog
+
+        try:
+            devices_with_watchdog()
+        except TimeoutError as e:
+            print(f"{PROG}: {e}", file=sys.stderr)
+            return 2
+    if args.command == "tune":
+        return _tune(args)
+    if args.command == "bench":
+        return _bench(parser, args)
     if args.command == "serve":
         return _serve(args)
     if args.command == "sweep":
@@ -344,6 +405,7 @@ def main(argv: list[str] | None = None) -> int:
         local_kernel=args.local_kernel,
         partition_mode=args.partition_mode,
         block_steps=args.block_steps,
+        tune_mode=args.tune_mode,
         bitpack=args.bitpack,
         stencil=args.stencil,
         sync_every=args.sync_every,
@@ -375,6 +437,18 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
+def _on_card(args) -> bool:
+    """Whether a ``run``, ``bench``, ``tune``, ``serve`` or ``sweep`` will
+    touch the card: not when it asks for the CPU or runs the numpy oracle."""
+    import torch
+
+    device = getattr(args, "device", None)
+    if device is not None and torch.device(device).type == "cpu":
+        return False
+    backend = getattr(args, "serve_backend", None) or getattr(args, "backend", None)
+    return backend != "numpy"
+
+
 def _parse_mesh_shape(parser, spec: str | None) -> tuple[int, int] | None:
     if spec is None:
         return None
@@ -400,10 +474,6 @@ def _bench(parser, args) -> int:
     from tpu_life_torch.backends.base import get_backend, measure_throughput
     from tpu_life_torch.models.rules import get_rule
 
-    if args.backend == "tuned":
-        print(f"{PROG}: error: --backend tuned is not yet ported (ROADMAP A10: "
-              "autotune); name a backend", file=sys.stderr)
-        return 2
     if args.mc:
         return _bench_mc(parser, args)
     # the divisor of the JAX record's vs_baseline (BASELINE.json's
@@ -429,9 +499,20 @@ def _bench(parser, args) -> int:
         kwargs["local_kernel"] = args.local_kernel
     placement = {"device": args.device, "num_devices": args.num_devices,
                  "mesh_shape": _parse_mesh_shape(parser, args.mesh_shape)}
+    backend_name = args.backend
+    tuned_source = "flags"
+    if backend_name == "tuned":
+        # read-path resolution (cache hit or cost model — never measures);
+        # knobs already pinned in kwargs by explicit flags win over the
+        # cached ones (the shared merge rule, autotune.resolve_backend_kwargs)
+        from tpu_life_torch import autotune
+
+        backend_name, _, tuned_source = autotune.resolve_backend_kwargs(
+            rule, (n, n), kwargs, device=args.device
+        )
     # the rule hint sends `auto` to the float path for continuous rules,
     # whose runner casts this 0/1 board to float32
-    backend = get_backend(args.backend, rule=rule, **kwargs, **placement)
+    backend = get_backend(backend_name, rule=rule, **kwargs, **placement)
     per_chip, n_chips = measure_throughput(
         backend, board, rule, args.steps, args.base_steps, args.repeats
     )
@@ -452,7 +533,79 @@ def _bench(parser, args) -> int:
                 "steps": args.steps,
                 "n_chips": n_chips,
                 "tuned": tuned_record(backend.name, kwargs),
-                "tuned_source": "flags",
+                "tuned_source": tuned_source,
+            }
+        )
+    )
+    return 0
+
+
+def _tune(args) -> int:
+    """The offline tuning search (the JAX ``tune``): a table of trials, one
+    JSON summary line last (machine-parseable like ``bench``), the winner
+    persisted to the port's autotune cache.
+
+    ``--dry-run`` ranks by the analytic cost model only — candidate
+    enumeration and ordering are exercised, no device measurement happens
+    and nothing is written.
+    """
+    import json
+
+    from tpu_life_torch import autotune
+    from tpu_life_torch.models.rules import get_rule
+
+    rule = get_rule(args.rule)
+    h = args.height if args.height is not None else args.size
+    w = args.width if args.width is not None else args.size
+    key = autotune.tune_key_for(rule, (h, w), device=args.device)
+    backend_set = (
+        tuple(s for s in args.backend_set.split(",") if s) if args.backend_set else None
+    )
+
+    unit = "cost" if args.dry_run else "s/step"
+    print(f"# tune {key.id()}  trials={args.trials} ({unit})")
+
+    def on_trial(i, total, res):
+        if res.ok:
+            cells = h * w / res.seconds_per_step
+            val = f"{res.seconds_per_step:.3e}  ({cells:.3e} cells/s)"
+        else:
+            val = f"infeasible: {res.error}"
+        print(f"  [{i + 1}/{total}] {res.config.describe():<55s} {val}", flush=True)
+
+    result = autotune.tune(
+        key,
+        rule,
+        shape=(h, w),
+        backend_set=backend_set,
+        trials=args.trials,
+        steps=args.steps,
+        warmup_steps=args.warmup_steps,
+        dry_run=args.dry_run,
+        cache_file=args.cache_file,
+        on_trial=on_trial,
+    )
+    if args.dry_run:
+        for i, res in enumerate(result.results):
+            print(
+                f"  [{i + 1}/{len(result.results)}] "
+                f"{res.config.describe():<55s} cost={res.seconds_per_step:.3f}"
+            )
+    best = autotune.runner.best_result(result.results)
+    print(
+        json.dumps(
+            {
+                "mode": "tune",
+                "key": key.id(),
+                "best": result.best.to_dict(),
+                "source": result.source,
+                "candidates": len(result.results),
+                "infeasible": sum(1 for r in result.results if not r.ok),
+                "seconds_per_step": best.seconds_per_step
+                if best is not None and not args.dry_run
+                else None,
+                "trials": args.trials,
+                "cache_file": result.cache_file,
             }
         )
     )
@@ -591,6 +744,14 @@ def _info() -> int:
     else:
         print("mesh devices (sharded backend): none; --device cpu --num-devices N "
               "puts N shards on the CPU")
+    from tpu_life_torch.io import native as native_io
+    from tpu_life_torch.utils.nativelib import NativeBuildError
+
+    try:
+        codec_state = "ok" if native_io.build() else "numpy (TPU_LIFE_NATIVE=0)"
+    except NativeBuildError as e:
+        codec_state = f"build failed ({str(e).splitlines()[0]})"
+    print("native io codec:", codec_state)
     print("rules:", ", ".join(sorted(RULE_REGISTRY)))
     print(
         "cuda, torch and numpy run every deterministic rule: cuda through "
@@ -739,8 +900,10 @@ def _add_serve_parsers(sub) -> None:
         help="engine executor: cuda = the card: K1's batch mode for the rules "
         "kernel K1 takes, one K2 Runner per slot for the other clamped Moore "
         "rules, and the device batch in plain ops for the rest; numpy = the "
-        "host oracle; sharded = one sharded Runner per slot (K3/K4); tuned, "
-        "stripes and native are not ported yet",
+        "host oracle; sharded = one sharded Runner per slot (K3/K4); tuned = "
+        "per compile key, the backend the autotune cache holds (read path "
+        "only: an untuned key takes the cost-model pick, never a "
+        "measurement); stripes and native are not ported yet",
     )
     srv.add_argument("--sync-pump", action="store_true",
                      help="run the host-synchronous scheduling round instead of the "
@@ -964,8 +1127,8 @@ def _serve(args) -> int:
     """The serving loop: spool in, result boards + one summary JSON line
     out, with the JAX ``serve``'s keys.  Exit 0 when every session
     completed, 1 when any failed, 2 for what is not ported yet (the
-    tuned/stripes/native backends) and for a stochastic request on a
-    backend without the counter-based key schedule (``sharded``)."""
+    stripes/native backends) and for a stochastic request on a backend
+    without the counter-based key schedule (``sharded``, ``tuned``)."""
     import json
     from pathlib import Path
 

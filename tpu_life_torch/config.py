@@ -31,7 +31,7 @@ class RunConfig:
     temperature: float | None = None  # Metropolis temperature of the ising rule
 
     # execution
-    backend: str = "auto"  # auto | cuda | torch | numpy | sharded
+    backend: str = "auto"  # auto | tuned | cuda | torch | numpy | sharded
     device: str | None = None  # None = the card; "cpu" runs the plain version
     num_devices: int | None = None  # sharded: shards (None = one per card)
     mesh_shape: tuple[int, int] | None = None  # sharded: rows x cols of shards
@@ -40,6 +40,10 @@ class RunConfig:
     # (backends.sharded_backend.GSPMD_FINDING)
     partition_mode: str = "shard_map"
     block_steps: int | None = None  # kernel substeps per launch; None = backend default
+    # autotune resolution for backend="tuned": "off" = the cost model only,
+    # "cache" = a cache hit else the cost model (never measures),
+    # "measure" = a cache hit else the measured search now, persisted
+    tune_mode: str = "cache"
     bitpack: bool = True  # False: life-like rules run the int8 path (kernel K2)
     # neighbour-counting path of the torch, numpy and sharded backends:
     # auto | roll | matmul (ops.conv.resolve_stencil); the cuda backend's

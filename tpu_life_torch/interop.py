@@ -184,3 +184,33 @@ def mc_state_from_reference(
         "keys": key_halves(seed),
         "thresholds": torch.from_numpy(table.view(np.int32).copy()),
     }
+
+
+#: the JAX package's autotune names -> the port's (device kind, backend,
+#: local kernel); names absent here are the same in both packages
+DEVICE_KIND_FROM_JAX = {"tpu": "cuda"}
+BACKEND_FROM_JAX = {"jax": "torch", "pallas": "cuda"}
+LOCAL_KERNEL_FROM_JAX = {"xla": "torch", "pallas": "cuda"}
+
+
+def tune_dict_from_jax(d: dict, *, stochastic: bool = False) -> dict:
+    """A JAX ``TuneKey.to_dict()`` or ``TunedConfig.to_dict()`` (or a cache
+    entry's ``"key"`` / ``"config"``) under the port's names: device kind
+    ``tpu`` -> ``cuda``; backend ``jax`` -> ``torch``, ``pallas`` ->
+    ``cuda``; local kernel ``xla`` -> ``torch``, ``pallas`` -> ``cuda``.
+    A config of a stochastic key (``stochastic=True``) maps ``jax`` to
+    ``cuda``, the port's executor of the key schedule (kernels K6 and K7).
+    Every other field crosses unchanged, so ``TuneKey(**out)`` (with the
+    shape bucket as a tuple) or ``TunedConfig.from_dict(out)`` rebuilds
+    the port's value."""
+    out = dict(d)
+    if "device_kind" in out:
+        out["device_kind"] = DEVICE_KIND_FROM_JAX.get(out["device_kind"], out["device_kind"])
+    if "backend" in out:
+        if stochastic and out["backend"] == "jax":
+            out["backend"] = "cuda"
+        else:
+            out["backend"] = BACKEND_FROM_JAX.get(out["backend"], out["backend"])
+    if "local_kernel" in out:
+        out["local_kernel"] = LOCAL_KERNEL_FROM_JAX.get(out["local_kernel"], out["local_kernel"])
+    return out

@@ -1,7 +1,7 @@
-"""Byte-exact board / config codec — the I/O contract, numpy path only.
+"""Byte-exact board / config codec — the I/O contract.
 
-A copy of ``tpu_life/io/codec.py`` without the native C++ codec, so files
-move between the two packages unchanged:
+A copy of ``tpu_life/io/codec.py``, so files move between the two packages
+unchanged:
 
 - Board file (``data.txt`` / ``output.txt``): ``h`` rows of ``w`` ASCII digit
   cells followed by ``'\\n'``; row stride is ``w + 1`` bytes; Unix EOL only.
@@ -11,6 +11,13 @@ move between the two packages unchanged:
   ``height width epochs``.
 
 Cells are ASCII ``'0'..'9'`` on disk and ``int8`` states 0..9 in memory.
+
+Digit boards of at least ``_NATIVE_THRESHOLD`` cells go through the
+threaded C++ codec (``io/native.py`` over ``csrc/codec.cpp``, built at
+first use) under the JAX function's conditions; smaller boards, float
+boards and ``TPU_LIFE_NATIVE=0`` take the numpy path.  Both paths give the
+same bytes; a malformed buffer raises ``ValueError`` on either side of the
+threshold, with the JAX package's message on that side.
 """
 
 from __future__ import annotations
@@ -28,6 +35,18 @@ def row_stride(width: int) -> int:
     return width + 1
 
 
+_NATIVE_THRESHOLD = 1 << 20  # cells; below this numpy wins on call overhead
+
+
+def _native():
+    """The native codec module, or None when ``TPU_LIFE_NATIVE=0``.  A
+    library that does not build raises at its first call."""
+    from tpu_life_torch.io import native
+    from tpu_life_torch.utils import nativelib
+
+    return None if nativelib.disabled() else native
+
+
 def float_board_bytes(height: int, width: int) -> int:
     """On-disk byte length of a float32 (continuous-tier) board."""
     return height * width * 4
@@ -43,6 +62,10 @@ def decode_board(buf: bytes | bytearray | memoryview, height: int, width: int) -
         if not np.isfinite(a).all():
             raise ValueError("float board contains NaN or Inf")
         return a.astype(np.float32)
+    if height * width >= _NATIVE_THRESHOLD:
+        nat = _native()
+        if nat is not None and len(buf) == height * row_stride(width):
+            return nat.decode_board(buf, height, width)
     stride = row_stride(width)
     expected = height * stride
     if len(buf) != expected:
@@ -63,16 +86,26 @@ def decode_board(buf: bytes | bytearray | memoryview, height: int, width: int) -
 def encode_board(board: np.ndarray) -> bytes:
     """Serialize an ``int8`` state array to the on-disk byte format, or a
     ``float32`` (continuous-tier) board to its raw little-endian bytes."""
+    return _encoded(board).tobytes()
+
+
+def _encoded(board: np.ndarray) -> np.ndarray:
+    """The on-disk bytes of ``board`` as a C-contiguous array, which
+    :func:`write_board` writes without copying it to ``bytes``."""
     board = np.asarray(board)
     if board.ndim != 2:
         raise ValueError(f"board must be 2-D, got shape {board.shape}")
     if np.issubdtype(board.dtype, np.floating):
-        return np.ascontiguousarray(board, dtype="<f4").tobytes()
+        return np.ascontiguousarray(board, dtype="<f4")
     h, w = board.shape
+    if h * w >= _NATIVE_THRESHOLD:
+        nat = _native()
+        if nat is not None:
+            return nat.encode_array(board)
     out = np.empty((h, w + 1), dtype=np.uint8)
     out[:, :w] = board.astype(np.uint8) + ASCII_ZERO
     out[:, w] = NEWLINE
-    return out.tobytes()
+    return out
 
 
 def read_board(path: str | os.PathLike, height: int, width: int) -> np.ndarray:
@@ -81,8 +114,9 @@ def read_board(path: str | os.PathLike, height: int, width: int) -> np.ndarray:
 
 
 def write_board(path: str | os.PathLike, board: np.ndarray) -> None:
+    buf = _encoded(board)
     with open(path, "wb") as f:
-        f.write(encode_board(board))
+        f.write(memoryview(buf).cast("B"))
 
 
 def read_config(path: str | os.PathLike) -> tuple[int, int, int]:

@@ -14,11 +14,13 @@ of different blocks may write in any order, and the shard that owns the
 last column writes each row's ``'\\n'``.  Blocks are halo-free: halos come
 from the exchange between shards, never from the file.
 
-The JAX module also has threaded C fast paths (``codec._native()``) for
-large blocks; they are not ported (ROADMAP A11, the native codec), so
-every read and write here is the pure-Python ``pread``/``pwrite`` path,
-with the same bytes and the same errors.  Only the digit codec is
-streamed: a continuous rule's float32 board has no per-row layout here.
+Blocks of at least ``codec._NATIVE_THRESHOLD`` cells go through the
+threaded C++ codec (``codec._native()``: ``tl_read_stripe``,
+``tl_read_block``, ``tl_write_block``, ``tl_write_stripe``) as the JAX
+module's do; smaller ones, and every block under ``TPU_LIFE_NATIVE=0``,
+take the ``pread``/``pwrite`` path, with the same bytes.  Only the digit
+codec is streamed: a continuous rule's float32 board has no per-row
+layout here.
 """
 
 from __future__ import annotations
@@ -62,6 +64,11 @@ def read_stripe(
     path: str | os.PathLike, row_start: int, num_rows: int, width: int
 ) -> np.ndarray:
     """Read rows ``[row_start, row_start + num_rows)`` of a board file."""
+    from tpu_life_torch.io import codec
+
+    nat = codec._native()
+    if nat is not None and num_rows * width >= codec._NATIVE_THRESHOLD:
+        return nat.read_stripe(path, row_start, num_rows, width)
     stride = row_stride(width)
     with open(path, "rb") as f:
         f.seek(row_start * stride)
@@ -84,7 +91,7 @@ def read_block(
     (Parallel_Life_MPI.cpp:85), generalized to blocks: one ``pread`` per row
     of exactly the segment's bytes, so a column shard never touches (or
     re-reads) the rest of the row.  Full-width requests delegate to
-    :func:`read_stripe`.
+    :func:`read_stripe` (native fast path).
     """
     if col_start == 0 and num_cols == width:
         return read_stripe(path, row_start, num_rows, width)
@@ -93,6 +100,13 @@ def read_block(
             f"column range [{col_start}, {col_start + num_cols}) outside "
             f"board width {width}"
         )
+    from tpu_life_torch.io import codec
+
+    nat = codec._native()
+    if nat is not None and num_rows * num_cols >= codec._NATIVE_THRESHOLD:
+        # threaded C path: the per-row-segment pread fan-out runs as
+        # parallel C instead of a Python syscall loop
+        return nat.read_block(path, row_start, num_rows, col_start, num_cols, width)
     stride = row_stride(width)
     out = np.empty((num_rows, num_cols), dtype=np.uint8)
     fd = os.open(os.fspath(path), os.O_RDONLY)
@@ -135,7 +149,8 @@ def write_block(
     h, w = block.shape
     if row_start < 0 or row_start + h > total_rows:
         # before ANY path (including the full-width write_stripe delegation):
-        # a silent pwrite past the pre-sized file would corrupt the contract
+        # a silent pwrite past the pre-sized file would corrupt the contract,
+        # and the native rc=-2 check must not be stricter than Python's
         raise ValueError(
             f"row range [{row_start}, {row_start + h}) outside board "
             f"height {total_rows}"
@@ -148,6 +163,14 @@ def write_block(
             f"column range [{col_start}, {col_start + w}) outside board "
             f"width {total_cols}"
         )
+    from tpu_life_torch.io import codec
+
+    nat = codec._native()
+    if nat is not None and h * w >= codec._NATIVE_THRESHOLD:
+        nat.write_block(
+            path, row_start, col_start, block, total_rows=total_rows, total_cols=total_cols
+        )
+        return
     stride = row_stride(total_cols)
     last_col = col_start + w == total_cols
     seg = np.empty((h, w + (1 if last_col else 0)), dtype=np.uint8)
@@ -180,6 +203,8 @@ def write_stripe(
     their stripes in any order — the collective-write analogue of
     ``MPI_File_write_at_all`` (Parallel_Life_MPI.cpp:175).
     """
+    from tpu_life_torch.io import codec
+
     stripe = np.asarray(stripe)
     h, w = stripe.shape
     if row_start < 0 or row_start + h > total_rows:
@@ -187,6 +212,10 @@ def write_stripe(
             f"row range [{row_start}, {row_start + h}) outside board "
             f"height {total_rows}"
         )
+    nat = codec._native()
+    if nat is not None and h * w >= codec._NATIVE_THRESHOLD:
+        nat.write_stripe(path, row_start, stripe, total_rows=total_rows)
+        return
     stride = row_stride(w)
     total = total_rows * stride
     # O_CREAT without truncation so concurrent stripe writers don't clobber

@@ -55,7 +55,14 @@ process writes its own shards of a streamed output or snapshot.  Elastic
 recovery is process-local, so it is off in such a job: relaunch the whole
 job with ``--resume``.
 
-Not ported yet (ROADMAP.md): the tuned backend.
+``backend="tuned"`` resolves the backend and its knobs through the
+autotuner (``tpu_life_torch.autotune``) in an ``autotune-resolve`` span
+(an ``autotune-pick`` event in it names the pick and its source), before
+the mesh-shape check: a cache hit, else the cost model, or under
+``tune_mode="measure"`` the measured search, whose winner is persisted.
+Explicit ``block_steps``, ``local_kernel``, ``bitpack=False`` and
+``stencil`` beat the cache, and the tuned ``sync_every`` applies when no
+chunk is set.
 """
 
 from __future__ import annotations
@@ -169,21 +176,62 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
 
     timer = Timer()  # spans I/O too, like the reference's Wtime bracket
 
-    backend_kwargs = {"device": cfg.device, "bitpack": cfg.bitpack, "stencil": cfg.stencil}
+    backend_name = cfg.backend
+    tuned = None  # TunedConfig once "tuned" resolves, else None
+    if backend_name == "tuned":
+        # autotune resolution: cache hit -> tuned knobs; miss -> the cost
+        # model, or (tune_mode="measure") the measured search, which
+        # persists its winner so the next run is a cache hit.  Resolved
+        # BEFORE the mesh-shape check, so a tuned pick of the sharded
+        # backend composes with an explicit --mesh-shape.
+        from tpu_life_torch import autotune
+
+        with obs.span("autotune-resolve"):
+            key = autotune.tune_key_for(rule, (height, width), device=cfg.device)
+            tuned, source = autotune.resolve(key, mode=cfg.tune_mode, shape=(height, width))
+            if source != "cache" and cfg.tune_mode == "measure":
+                result = autotune.tune(key, rule, shape=(height, width))
+                tuned, source = result.best, "measured"
+            # the pick and where it came from, for a trace's reader
+            obs.instant("autotune-pick", key=key.id(), pick=tuned.describe(), source=source)
+        log.info("autotune: %s -> %s (%s)", key.id(), tuned.describe(), source)
+        backend_name = tuned.backend
+        if cfg.mesh_shape is not None and backend_name != "sharded":
+            # the JAX driver's mesh-shape check, after resolution: a mesh
+            # shape only means something to a sharded pick
+            raise ValueError(f"--mesh-shape requires the sharded backend, got {backend_name!r}")
+    elif cfg.tune_mode not in ("off", "cache", "measure"):
+        raise ValueError(f"tune_mode must be off|cache|measure, got {cfg.tune_mode!r}")
+
+    # the knobs an explicit flag pinned (--block-steps, --local-kernel,
+    # --no-bitpack, --stencil); tuned knobs fill in the rest through the
+    # autotuner's one merge rule, so a flag always wins over the cache
+    backend_kwargs: dict = {"device": cfg.device}
     if cfg.block_steps is not None:
         backend_kwargs["block_steps"] = cfg.block_steps
-    if cfg.backend == "sharded":
+    if cfg.local_kernel != "auto":
+        backend_kwargs["local_kernel"] = cfg.local_kernel
+    if not cfg.bitpack:
+        backend_kwargs["bitpack"] = False
+    if cfg.stencil != "auto":
+        backend_kwargs["stencil"] = cfg.stencil
+    if tuned is not None:
+        autotune.merge_knobs(tuned, backend_kwargs)
+    backend_kwargs.setdefault("bitpack", True)
+    backend_kwargs.setdefault("stencil", "auto")
+    local_kernel = backend_kwargs.pop("local_kernel", "auto")
+    if backend_name == "sharded":
         backend_kwargs.update(num_devices=cfg.num_devices, mesh_shape=cfg.mesh_shape,
-                              local_kernel=cfg.local_kernel, partition_mode=cfg.partition_mode)
+                              local_kernel=local_kernel, partition_mode=cfg.partition_mode)
     registry = obs.MetricsRegistry()
     builds = registry.counter(
         "run_backend_builds_total",
         "backend (re)builds: the first and one a restart",
         labels=("backend",),
     )
-    with obs.span("backend-build", backend=cfg.backend):
+    with obs.span("backend-build", backend=backend_name):
         # the rule hint sends `auto` to the float path for continuous rules
-        backend = get_backend(cfg.backend, rule=rule, **backend_kwargs)
+        backend = get_backend(backend_name, rule=rule, **backend_kwargs)
     builds.labels(backend=backend.name).inc()
 
     # Board source: a contract-format file (+ completed steps when resuming),
@@ -226,7 +274,7 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
             f"never gathers it: pass --stream-io (the sharded backend)"
         )
     if stream and not can_stream:
-        raise ValueError(f"--stream-io needs the sharded backend (got backend {cfg.backend!r})")
+        raise ValueError(f"--stream-io needs the sharded backend (got backend {backend_name!r})")
     if stream and input_path is None:
         raise ValueError(
             f"stream_io needs an input file to stream from; {cfg.input_file!r} does not exist"
@@ -301,6 +349,8 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
     )
 
     chunk = cfg.sync_every
+    if chunk <= 0 and tuned is not None and tuned.sync_every > 0:
+        chunk = tuned.sync_every
     if cfg.snapshot_every > 0:
         chunk = cfg.snapshot_every if chunk <= 0 else min(chunk, cfg.snapshot_every)
 
@@ -429,7 +479,7 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
                         with rewind_span:
                             if not first_build:
                                 # a failure poisoned the old backend: start fresh
-                                backend = get_backend(cfg.backend, rule=rule, **backend_kwargs)
+                                backend = get_backend(backend_name, rule=rule, **backend_kwargs)
                                 builds.labels(backend=backend.name).inc()
                             first_build = False
                             state["start"] = resume_step

@@ -31,6 +31,13 @@ The executors behind one interface, and the JAX executor each stands for:
   the ``cuda`` backend (kernel K2), as the JAX package's ``pallas`` serve
   backend loops its Runners over slots.
 
+``tuned`` resolves each CompileKey through the autotune cache's read
+path (``autotune.resolve_backend_kwargs``: a cache hit, else the cost
+model; never a measurement) and serves the pick as ``--serve-backend <pick>`` would; a
+``torch`` pick, which has no serve backend of its own, is a
+:class:`SlotLoopEngine` over the ``torch`` backend (the JAX generic
+branch).
+
 Stochastic keys (``ising``, ``noisy:``) go to the engines of
 ``mc/engine.py``: on ``cuda`` the device batches ``MCPackedBatchEngine``
 (K6's batch mode) and ``MCBatchEngine`` (K7's batch mode), subclasses of
@@ -78,11 +85,11 @@ from tpu_life_torch.runtime.metrics import log
 #: serve backends whose engines live on the card (``BatchEngine`` and the
 #: K2 slot loop): the executors of the JAX package's ``jax`` and ``pallas``
 DEVICE_BATCH_BACKENDS = ("cuda",)
-#: serve backends this slice runs, besides ``mesh:RxC``
-SERVE_BACKENDS = ("cuda", "numpy", "sharded")
+#: serve backends this slice runs, besides ``mesh:RxC``; ``tuned``
+#: resolves per CompileKey to one of the others (or ``torch``)
+SERVE_BACKENDS = ("cuda", "numpy", "sharded", "tuned")
 #: the JAX package's other serve backends, each still queued
 QUEUED_BACKENDS = {
-    "tuned": "ROADMAP A10 (the autotuner)",
     "stripes": "ROADMAP A11 (the native host backends)",
     "native": "ROADMAP A11 (the native host backends)",
 }
@@ -722,24 +729,44 @@ def make_engine(
 
         return MeshEngine(key, chunk_steps, device=device)
     check_backend(key.backend)
+    backend_name = key.backend
+    backend_kwargs: dict = {}
+    if backend_name == "tuned":
+        # read path only (cache hit or the cost model): serving never pays
+        # a measurement; a pick is served as --serve-backend <pick> is
+        from tpu_life_torch import autotune
+
+        backend_name, tuned, source = autotune.resolve_backend_kwargs(
+            key.rule, key.shape, backend_kwargs, mode="cache", device=device)
+        log.info("serve: autotune %s -> %s (%s)", key.rule.name, tuned.describe(), source)
+    if backend_name == "torch":
+        # a torch pick has no serve backend of its own: the JAX generic
+        # branch, one torch Runner a slot (float boards included)
+        from tpu_life_torch.backends.base import get_backend
+
+        return SlotLoopEngine(
+            key, capacity, chunk_steps,
+            get_backend("torch", rule=key.rule, device=device, **backend_kwargs),
+        )
     if getattr(key.rule, "continuous", False):
         # continuous keys need a float executor: the device batch (route
         # ops) or the numpy oracle, which also serves them on 'sharded'
         # as the JAX package's does — a slot-loop backend would cast float
         # boards to int8
-        require_float_path(key.rule, key.backend)
-        if key.backend not in DEVICE_BATCH_BACKENDS:
+        require_float_path(key.rule, backend_name)
+        if backend_name not in DEVICE_BATCH_BACKENDS:
             return HostBatchEngine(key, capacity, chunk_steps)
-    if key.backend == "numpy":
+    if backend_name == "numpy":
         return HostBatchEngine(key, capacity, chunk_steps)
     from tpu_life_torch.backends.base import get_backend, resolve_device
 
-    if key.backend == "cuda":
+    if backend_name == "cuda":
         route = cuda_route(key.rule)
         if route != "k2_slots":
             return BatchEngine(key, capacity, chunk_steps, route=route,
                                device=resolve_device(device))
 
     return SlotLoopEngine(
-        key, capacity, chunk_steps, get_backend(key.backend, rule=key.rule, device=device)
+        key, capacity, chunk_steps,
+        get_backend(backend_name, rule=key.rule, device=device, **backend_kwargs),
     )

@@ -2,8 +2,9 @@
 ``tpu_life/serve/service.py``).
 
 What differs from the JAX package: the serve backends are the port's
-(``cuda``, the default, ``torch``, ``numpy``, ``sharded``, and the
-``mesh:RxC`` tier; serve/engine.py maps them to engines),
+(``cuda``, the default, ``numpy``, ``sharded``, ``tuned`` (resolved per
+CompileKey through the autotune cache) and the ``mesh:RxC`` tier;
+serve/engine.py maps them to engines),
 ``ServeConfig.device`` names the card or the CPU, and what waits for a
 later slice of ROADMAP A9, the HTTP spill store (``spill_url``), is
 refused typed with ``NotPortedError`` at construction.  Stochastic
