@@ -275,6 +275,24 @@ Phases (any failure exits non-zero and prints no result line):
    reference workload served through ``--serve-backend tuned`` at the
    golden sha256 with no trial measured; (e) ``bench --backend tuned
    --size 16384`` resolving from the cache (``tuned_source: "cache"``).
+19. the network front door on the card — (a) an in-process ``Gateway``
+   over a ``cuda`` ``SimulationService``: the reference workload over HTTP
+   at the golden sha256 (its round trip timed), 16 staggered Conway
+   sessions of 512^2 x 64, each equal to the single-board ``cuda`` Runner,
+   with K1's batch mode launched behind the gateway (sessions/s), and one
+   ``ising`` session at T = 2.27 through K6's batch mode, equal to the
+   Runner on the same seeded board; (b) as child processes, ``spill-store
+   --port 0`` and ``gateway --serve-backend cuda --spill-url`` (its startup
+   line naming the card's kind): ``client submit`` of the reference
+   workload at the golden sha256, a Conway 1024^2 x 16384 session killed
+   with SIGKILL after its first published spill, read back with
+   ``read_remote_sessions`` and resumed in a fresh ``cuda`` service equal to
+   the uninterrupted Runner, and a second gateway's SIGTERM exit 0 with its
+   summary line; (c) ``stats --json`` on the killed gateway's sink; (d)
+   ``run --backend native`` and ``--backend stripes --num-devices 4`` on the
+   reference workload and ``serve --serve-backend native`` at the golden
+   sha256, and ``run --backend native`` at 4096^2 x 16 (its ``Total time``,
+   the host's CPUs, equal to the ``cuda`` run's bytes).
 
 Phases 2-4 cover K3 too: it is built with K1 (same source, its instances
 in the ptxas report and the SASS counts); phase 3 holds it bit-identical to its
@@ -532,6 +550,13 @@ P17_SIDE, P17_STEPS = 4096, 256
 P17_ROLL_SIDE, P17_ROLL_STEPS = 1024, 32
 P17_NOISY, P17_NOISY_SIDE, P17_NOISY_STEPS, P17_NOISY_SESSIONS = "noisy:0.01/conway", 512, 64, 16
 P17_SPILL_SIDE, P17_SPILL_STEPS = 1024, 128
+# phase 19: the staggered Conway sessions behind the in-process gateway; the
+# ising session; the Conway session killed with SIGKILL mid-run (its steps
+# outlast the kill by seconds); the host backends' timed run
+P19_SIDE, P19_STEPS, P19_SESSIONS = 512, 64, 16
+P19_ISING_SIDE, P19_ISING_STEPS, P19_ISING_SEED = 512, 64, 23
+P19_KILL_SIDE, P19_KILL_STEPS, P19_KILL_SEED = 1024, 16384, 29
+P19_NATIVE_SIDE, P19_NATIVE_STEPS = 4096, 16
 
 
 def fail(msg: str) -> None:
@@ -2283,8 +2308,13 @@ def main() -> int:
     tuned = phase18(dict(smi=smi, counted=counted, spans_ms=spans_ms, a_sha=streamed["sha"],
                          golden=golden))
 
+    # -- 19. the network front door: gateway, client, spill store, stats ----
+    front = phase19(dict(smi=smi, counted=counted, golden=golden))
+
     batch_row.update(tuned_serve_launches=tuned["served_batch"],
-                     tuned_serve_pick=tuned["served_pick"])
+                     tuned_serve_pick=tuned["served_pick"],
+                     gateway_launches=front["k1_batch"])
+    mc_batch_rows[0]["gateway_launches"] = front["k6_batch"]
     diamond = diamond_rows[DIAMOND]
     k4_row = k4_rows[("brians_brain", (2, 2))]
     print(json.dumps({"kernels": [{
@@ -4428,6 +4458,279 @@ def phase18(ctx: dict) -> dict:
     return {"k1": tune_launches[0], "k3": tune_launches[2], "run_k1": run[0], "run_k3": run[2],
             "pick": best.describe(), "served_batch": served_batch,
             "served_pick": ref_pick.describe()}
+
+
+def phase19(ctx: dict) -> dict:
+    """Phase 19: the network front door on the card (see the module
+    docstring).  Returns the launches of K1's and K6's batch modes behind
+    the in-process gateway, each counted from 0 just before its sessions
+    and read just after they finished."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from tpu_life_torch.backends.base import get_backend, make_runner
+    from tpu_life_torch.gateway import Gateway, GatewayConfig, protocol
+    from tpu_life_torch.gateway.client import GatewayClient
+    from tpu_life_torch.io.codec import encode_board, read_board, read_config
+    from tpu_life_torch.kernels import mc_threefry as mct
+    from tpu_life_torch.kernels import packed_batch as kb
+    from tpu_life_torch.models.rules import get_rule
+    from tpu_life_torch.serve import ServeConfig, SimulationService
+    from tpu_life_torch.serve.spill_http import read_remote_sessions
+
+    smi, counted, golden = ctx["smi"], ctx["counted"], ctx["golden"]
+    t_phase = time.perf_counter()
+    conway, ising = get_rule("conway"), get_rule("ising")
+    cuda = get_backend("cuda")
+
+    def runner_bytes(board, rule, steps, **kw) -> bytes:
+        r = make_runner(cuda, board, rule, **kw)
+        r.advance(steps)
+        r.sync()
+        return np.asarray(r.fetch()).tobytes()
+
+    def golden_bytes(board, what: str) -> None:
+        raw = encode_board(board)
+        if len(raw) != GOLDEN_BYTES or hashlib.sha256(raw).hexdigest() != GOLDEN_SHA:
+            fail(f"{what}: not the golden {GOLDEN_BYTES} bytes, sha256 {GOLDEN_SHA}")
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with gzip.open(FIXTURES / "reference_data.txt.gz", "rb") as f:
+            (tmp / "data.txt").write_bytes(f.read())
+        shutil.copy(FIXTURES / "reference_grid_size_data.txt", tmp / "grid_size_data.txt")
+        h, w, ref_steps = read_config(tmp / "grid_size_data.txt")
+        ref_board = read_board(tmp / "data.txt", h, w)
+
+        # (a) an in-process gateway over the cuda service
+        svc = SimulationService(ServeConfig(backend="cuda"))
+        gw = Gateway(svc, GatewayConfig(port=0))
+        gw.start()
+        try:
+            client = GatewayClient(f"http://127.0.0.1:{gw.port}", retries=8)
+            if gw.device_info(wait_s=60.0) != (torch.cuda.device_count(), "cuda"):
+                fail(f"phase 19 (a): the gateway reports {gw.device_info()}")
+            round_trip_ms = []
+            for _ in range(3):  # the first builds the kernels; the others are warm
+                t0 = time.perf_counter()
+                sid = client.submit(board=ref_board, rule="conway", steps=ref_steps)
+                view = client.wait(sid, interval=0.002, timeout=300)
+                ref_out = client.result_board(sid)
+                round_trip_ms.append((time.perf_counter() - t0) * 1e3)
+                if view["state"] != "done":
+                    fail(f"phase 19 (a): the reference session ended {view}")
+                golden_bytes(ref_out, "phase 19 (a) the reference workload over HTTP")
+
+            rng = np.random.default_rng(19)
+            boards = [(rng.random((P19_SIDE, P19_SIDE)) < 0.35).astype(np.int8)
+                      for _ in range(P19_SESSIONS)]
+            want = [runner_bytes(b, conway, P19_STEPS) for b in boards]
+            kb.packed_batch_multi_step.launches = 0
+            t0 = time.perf_counter()
+            sids = []
+            for b in boards:  # staggered: each submit races the pump
+                sids.append(client.submit(board=b, rule="conway", steps=P19_STEPS))
+                time.sleep(0.002)
+            views = [client.wait(s, interval=0.005, timeout=300) for s in sids]
+            elapsed = time.perf_counter() - t0
+            k1_batch = kb.packed_batch_multi_step.launches
+            if any(v["state"] != "done" for v in views):
+                fail(f"phase 19 (a): sessions ended {[v['state'] for v in views]}")
+            bad = [i for i, s in enumerate(sids) if client.result_board(s).tobytes() != want[i]]
+            if bad or k1_batch <= 0:
+                fail(f"phase 19 (a): sessions {bad} differ from the cuda Runner; K1's batch "
+                     f"mode launched {k1_batch} times")
+
+            spec = protocol.parse_submit({"size": P19_ISING_SIDE, "steps": P19_ISING_STEPS,
+                                          "rule": "ising", "seed": P19_ISING_SEED,
+                                          "temperature": 2.27})
+            want_i = runner_bytes(spec.board, ising, P19_ISING_STEPS, seed=P19_ISING_SEED,
+                                  temperature=2.27)
+            mct.packed_metropolis_half_batch.launches = 0
+            isid = client.submit(size=P19_ISING_SIDE, rule="ising", steps=P19_ISING_STEPS,
+                                 seed=P19_ISING_SEED, temperature=2.27)
+            iview = client.wait(isid, interval=0.005, timeout=300)
+            k6_batch = mct.packed_metropolis_half_batch.launches
+            if iview["state"] != "done" or not iview.get("packed") or k6_batch <= 0:
+                fail(f"phase 19 (a): ising session {iview}, K6's batch mode launched "
+                     f"{k6_batch} times")
+            if client.result_board(isid).tobytes() != want_i:
+                fail("phase 19 (a): the ising session differs from the cuda Runner")
+        finally:
+            gw.begin_drain()
+            if not gw.wait(timeout=300):
+                fail("phase 19 (a): the gateway did not drain")
+            gw.close()
+        print(f"phase 19 (a), an in-process gateway over the cuda service (card: {smi}): the "
+              f"reference workload over HTTP at the golden sha256 three times, round trip ms "
+              f"(submit to result, host clock) {round_trip_ms[0]:.1f} with the kernels' build, "
+              f"then {round_trip_ms[1]:.1f} and {round_trip_ms[2]:.1f}; {P19_SESSIONS} staggered conway "
+              f"{P19_SIDE}^2 x {P19_STEPS} sessions equal to the cuda Runner, "
+              f"{P19_SESSIONS / elapsed:.2f} sessions/s ({elapsed:.3f} s), K1's batch mode "
+              f"launched {k1_batch} times; ising {P19_ISING_SIDE}^2 x {P19_ISING_STEPS} at T = "
+              f"2.27 (packed, {iview.get('lanes')} lanes) equal to the cuda Runner, K6's batch "
+              f"mode launched {k6_batch} times", flush=True)
+
+        # (b) spill-store and gateway as child processes
+        procs = []
+
+        def start(args: list[str], name: str):
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "tpu_life_torch", *args], cwd=tmp, env=env,
+                stdout=open(tmp / f"{name}.out", "w"), stderr=open(tmp / f"{name}.err", "w"))
+            procs.append(proc)
+            return proc
+
+        def first_line(proc, name: str, timeout: float = 300.0) -> dict:
+            deadline = time.monotonic() + timeout
+            while time.monotonic() < deadline:
+                text = (tmp / f"{name}.out").read_text()
+                if "\n" in text:
+                    return json.loads(text.splitlines()[0])
+                if proc.poll() is not None:
+                    fail(f"phase 19 (b): {name} exited {proc.returncode}: "
+                         f"{(tmp / f'{name}.err').read_text()[-3000:]}")
+                time.sleep(0.05)
+            fail(f"phase 19 (b): no startup line from {name}")
+
+        def stop(proc, name: str) -> tuple[int, dict]:
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+            return rc, json.loads((tmp / f"{name}.out").read_text().strip().splitlines()[-1])
+
+        try:
+            store = start(["spill-store", "--root", str(tmp / "store"), "--port", "0"], "store")
+            surl = first_line(store, "store")["url"]
+            t0 = time.perf_counter()
+            gw_a = start(["gateway", "--port", "0", "--serve-backend", "cuda", "--spill-url",
+                          surl, "--metrics-file", str(tmp / "m.jsonl")], "gw_a")
+            a = first_line(gw_a, "gw_a")
+            startup_s = time.perf_counter() - t0
+            if a.get("device_kind") != "cuda" or a.get("backend") != "cuda":
+                fail(f"phase 19 (b): the gateway's startup line {a}")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "tpu_life_torch", "client", "submit", "--url", a["url"],
+                 "--input-file", "data.txt", "--steps", str(ref_steps), "--wait",
+                 "--output-file", str(tmp / "via_client.txt")],
+                cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+            client_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"phase 19 (b): client submit exited {proc.returncode}: {proc.stderr[-2000:]}")
+            golden(tmp / "via_client.txt", "phase 19 (b) client submit through the gateway")
+
+            kill_board = protocol.parse_submit({"size": P19_KILL_SIDE, "steps": P19_KILL_STEPS,
+                                                "seed": P19_KILL_SEED}).board
+            ca = GatewayClient(a["url"], retries=4)
+            ksid = ca.submit(size=P19_KILL_SIDE, steps=P19_KILL_STEPS, seed=P19_KILL_SEED)
+            deadline, records = time.monotonic() + 300, []
+            while time.monotonic() < deadline:
+                v = ca.poll(ksid)
+                if v["finished"]:
+                    fail(f"phase 19 (b): the session finished before the kill: {v}")
+                if v["steps_done"] > 0:
+                    records = read_remote_sessions(surl, a["run_id"])[0]
+                    if records:
+                        break
+                time.sleep(0.02)
+            gw_a.kill()  # SIGKILL: no drain, no flush
+            gw_a.wait(timeout=60)
+            killed_at = v["steps_done"]
+            records, corrupt, disabled = read_remote_sessions(surl, a["run_id"])
+            rec = {r.sid: r for r in records}.get(ksid)
+            if rec is None or corrupt or disabled or not 0 < rec.step < P19_KILL_STEPS:
+                fail(f"phase 19 (b): the rescue read {records}, corrupt {corrupt}, "
+                     f"disabled {disabled}")
+            fresh = SimulationService(ServeConfig(backend="cuda"))
+            try:
+                t0 = time.perf_counter()
+                rsid = fresh.submit(rec.board, rec.rule, rec.steps_total - rec.step,
+                                    start_step=rec.step)
+                fresh.drain()
+                resume_s = time.perf_counter() - t0
+                resumed = fresh.result(rsid)
+            finally:
+                fresh.close()
+            if resumed.tobytes() != runner_bytes(kill_board, conway, P19_KILL_STEPS):
+                fail("phase 19 (b): the resumed session differs from the uninterrupted Runner")
+
+            gw_b = start(["gateway", "--port", "0", "--serve-backend", "cuda"], "gw_b")
+            b = first_line(gw_b, "gw_b")
+            cb = GatewayClient(b["url"], retries=4)
+            bsid = cb.submit(size=64, steps=32, seed=3)
+            if cb.wait(bsid, timeout=300)["state"] != "done":
+                fail("phase 19 (b): the second gateway's session did not finish")
+            rc, summary = stop(gw_b, "gw_b")
+            if rc != 0 or summary.get("mode") != "gateway" or summary.get("done") != 1 or \
+                    summary.get("pump_error") is not None:
+                fail(f"phase 19 (b): the second gateway's SIGTERM: exit {rc}, {summary}")
+            print(f"phase 19 (b), child processes: spill-store and gateway --serve-backend cuda "
+                  f"--spill-url (startup line in {startup_s:.1f} s, device_kind "
+                  f"{a['device_kind']}, devices {a.get('devices')}); client submit of the "
+                  f"reference workload at the golden sha256 ({client_s:.2f} s, a child); conway "
+                  f"{P19_KILL_SIDE}^2 x {P19_KILL_STEPS} killed with SIGKILL at step {killed_at}, "
+                  f"rescued at step {rec.step} from the HTTP store and resumed in a fresh cuda "
+                  f"service ({resume_s:.2f} s), equal to the uninterrupted Runner; a second "
+                  f"gateway exited 0 on SIGTERM ({summary['done']} done, pump {summary['pump']})",
+                  flush=True)
+
+            # (c) stats on the killed gateway's sink, torch-free
+            proc = subprocess.run(
+                [sys.executable, "-m", "tpu_life_torch", "stats", "--json", str(tmp / "m.jsonl")],
+                cwd=tmp, env=env, capture_output=True, text=True, timeout=120)
+            if proc.returncode != 0:
+                fail(f"phase 19 (c): stats exited {proc.returncode}: {proc.stderr[-2000:]}")
+            serve = json.loads(proc.stdout).get("serve", {})
+            need = {"rounds", "sessions_done", "sessions_per_sec", "batch_occupancy_mean",
+                    "pump", "device_idle_fraction", "steps_advanced"}
+            if not need <= set(serve) or serve["sessions_done"] < 1:
+                fail(f"phase 19 (c): stats --json has serve {serve}")
+            rc, _ = stop(store, "store")
+            if rc != 0:
+                fail(f"phase 19 (b): the spill store exited {rc} on SIGTERM")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+        print(f"phase 19 (c), stats --json on the killed gateway's sink: {serve['rounds']} "
+              f"rounds, {serve['sessions_done']} sessions done, pump {serve['pump']}, device "
+              f"idle fraction {serve['device_idle_fraction']}", flush=True)
+
+        # (d) the host backends
+        files = ["--config-file", str(tmp / "grid_size_data.txt"), "--input-file",
+                 str(tmp / "data.txt")]
+        for args in (["--backend", "native"], ["--backend", "stripes", "--num-devices", "4"]):
+            out = tmp / "host.txt"
+            counted(["run", *args, *files, "--output-file", str(out)], f"run {' '.join(args)}")
+            golden(out, f"phase 19 (d) run {' '.join(args)}")
+        spool = tmp / "spool.jsonl"
+        counted(["submit", *files, "--requests", str(spool), "--output-file",
+                 str(tmp / "served.txt")], "submit the reference workload")
+        counted(["serve", "--serve-backend", "native", "--requests", str(spool), "--output-dir",
+                 str(tmp / "serve_out")], "serve --serve-backend native")
+        golden(tmp / "served.txt", "phase 19 (d) serve --serve-backend native")
+        big = ["--config-file", str(tmp / "big_grid.txt"), "--input-file", str(tmp / "big.txt")]
+        counted(["gen", "--height", str(P19_NATIVE_SIDE), "--width", str(P19_NATIVE_SIDE),
+                 "--steps", str(P19_NATIVE_STEPS), "--seed", "7", *big], "gen")
+        lines, _, _ = counted(["run", "--backend", "native", *big, "--output-file",
+                               str(tmp / "native.txt")], "run --backend native 4096^2")
+        total = [ln.split("=")[1].strip() for ln in lines if ln.startswith("Total time = ")]
+        counted(["run", "--backend", "cuda", *big, "--output-file", str(tmp / "cuda.txt")],
+                "run --backend cuda 4096^2")
+        if len(total) != 1 or (tmp / "native.txt").read_bytes() != (tmp / "cuda.txt").read_bytes():
+            fail(f"phase 19 (d): run --backend native at {P19_NATIVE_SIDE}^2: Total lines "
+                 f"{total}, or its output differs from the cuda run's")
+    print(f"phase 19 (d), the host backends: run --backend native and --backend stripes "
+          f"--num-devices 4 and serve --serve-backend native at the golden sha256; run --backend "
+          f"native {P19_NATIVE_SIDE}^2 x {P19_NATIVE_STEPS}: Total time = {total[0]} s on the "
+          f"card machine's host CPUs ({os.cpu_count()} CPUs; the card idle), equal to the cuda "
+          f"run's bytes; phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"k1_batch": k1_batch, "k6_batch": k6_batch}
 
 
 def cli_main_rc(args: list[str]) -> int:

@@ -268,6 +268,7 @@ def test_geometry_error_exits_2(tmp_path, capsys):
 def test_info_lists_backends_and_rules(capsys):
     assert cli.main(["info"]) == 0
     out = capsys.readouterr().out
-    assert "backends: cuda, numpy, sharded, torch" in out
+    # the host backends are listed too, whatever was imported before
+    assert "backends: cuda, mpi, native, numpy, sharded, stripes, torch" in out
     assert "conway" in out and "torch " in out
     assert "route k4 (K4 per shard)" in out and "--mesh-shape R,C" in out

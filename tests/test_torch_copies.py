@@ -853,3 +853,129 @@ def test_the_native_codec_source_is_a_byte_copy():
     root = Path(__file__).resolve().parent.parent
     port = root / "tpu_life_torch" / "csrc" / "codec.cpp"
     assert port.read_bytes() == (root / "native" / "codec.cpp").read_bytes()
+
+
+# -- the front door: stats, version, the gateway, the HTTP spill store and
+# the host backends ------------------------------------------------------------
+FRONT_DOOR_COPIES = ["tpu_life.obs.stats", "tpu_life.gateway.errors", "tpu_life.gateway.limits",
+                     "tpu_life.serve.spill_http", "tpu_life.version"]
+
+
+@pytest.mark.parametrize("name", FRONT_DOOR_COPIES)
+def test_front_door_modules_are_verbatim_copies(name):
+    # the copies drop the JAX comments' tags naming the original's work
+    # items ("(XXXXX n)"), the one edit
+    import importlib
+    import re
+
+    jmod = importlib.import_module(name)
+    port = importlib.import_module(name.replace("tpu_life", "tpu_life_torch", 1))
+    assert _as_jax(_source(port)) == re.sub(r" \([A-Z]{5} \d+\)", "", _source(jmod))
+
+
+def test_version_copy():
+    from tpu_life import version as jversion
+    from tpu_life_torch import version
+
+    assert version.__version__ == jversion.__version__
+
+
+def test_the_native_stepper_source_is_a_byte_copy():
+    # the port builds its own stepper from its own copy; native/ is never read
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    port = root / "tpu_life_torch" / "csrc" / "life.cpp"
+    assert port.read_bytes() == (root / "native" / "life.cpp").read_bytes()
+
+
+def test_the_gateway_client_is_a_copy_but_its_docstring():
+    from tpu_life.gateway import client as jclient
+    from tpu_life_torch.gateway import client
+
+    assert _as_jax(_body(client)) == _body(jclient)
+
+
+#: protocol's functions are verbatim; its module imports load the rule
+#: registry, the stochastic checks and the seeded board lazily
+PROTOCOL_NAMES = ["SubmitSpec", "_require_int", "parse_trace_id", "_check_rule_geometry",
+                  "parse_board", "parse_resume_board", "_parse_edit_log_field", "parse_submit",
+                  "render_view", "render_result", "decode_result"]
+
+
+@pytest.mark.parametrize("name", PROTOCOL_NAMES)
+def test_gateway_protocol_functions_are_verbatim_copies(name):
+    from tpu_life.gateway import protocol as jprotocol
+    from tpu_life_torch.gateway import protocol
+
+    assert _as_jax(_source(getattr(protocol, name))) == _source(getattr(jprotocol, name))
+    assert (protocol.MAX_CELLS, protocol.MAX_BODY) == (jprotocol.MAX_CELLS, jprotocol.MAX_BODY)
+
+
+#: the server's classes and methods are verbatim but the device probe,
+#: which asks for the service's own device
+SERVER_NAMES = ["GatewayConfig", "_GatewayHTTPServer", "JsonHandler", "_Handler", "_monotonic"]
+GATEWAY_METHODS = ["__init__", "start", "begin_drain", "wait", "close",
+                   "install_signal_handlers", "_pump_loop", "device_info", "wake", "drained"]
+
+
+@pytest.mark.parametrize("name", SERVER_NAMES)
+def test_gateway_server_is_a_verbatim_copy(name):
+    from tpu_life.gateway import server as jserver
+    from tpu_life_torch.gateway import server
+
+    assert _as_jax(_source(getattr(server, name))) == _source(getattr(jserver, name))
+
+
+@pytest.mark.parametrize("name", GATEWAY_METHODS)
+def test_gateway_methods_are_verbatim_copies(name):
+    from tpu_life.gateway import server as jserver
+    from tpu_life_torch.gateway import server
+
+    def get(cls):
+        obj = cls.__dict__[name]
+        return obj.fget if isinstance(obj, property) else obj
+
+    assert _as_jax(_source(get(server.Gateway))) == _source(get(jserver.Gateway))
+
+
+def test_gateway_exports_copy():
+    from tpu_life import gateway as jgateway
+    from tpu_life_torch import gateway
+
+    assert gateway.__all__ == jgateway.__all__
+    from tpu_life.gateway import server as jserver
+    from tpu_life_torch.gateway import server
+
+    for name in ("ROUTE_SESSIONS", "ROUTE_SESSION", "ROUTE_RESULT", "ROUTE_STREAM",
+                 "ROUTE_CELLS", "ROUTE_TRACE", "ROUTE_SERIES"):
+        assert getattr(server, name) == getattr(jserver, name)
+
+
+@pytest.mark.parametrize("name", ["_exchange_halos", "_update_stripe", "StripesBackend.__init__",
+                                  "MpiBackend.__init__"])
+def test_stripes_backend_is_a_copy(name):
+    # StripesBackend.run adds one refusal (a torus shallower than the
+    # radius, which the JAX loop trims to an empty board) and MpiBackend.run
+    # differs in one comment; tests/test_torch_host_backends.py holds both
+    # runs to the JAX package's on the same boards
+    from tpu_life.backends import stripes_backend as jstripes
+    from tpu_life_torch.backends import stripes_backend as stripes
+
+    def get(mod):
+        obj = mod
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    assert _as_jax(_source(get(stripes))) == _source(get(jstripes))
+
+
+def test_native_backend_run_and_step_wrap_cols_are_copies():
+    from tpu_life.backends import native_backend as jnative
+    from tpu_life.ops import reference as jref
+    from tpu_life_torch.backends import native_backend
+    from tpu_life_torch.ops import reference as ref
+
+    assert _source(native_backend.NativeBackend.run) == _source(jnative.NativeBackend.run)
+    assert _source(ref.step_np_wrap_cols) == _source(jref.step_np_wrap_cols)

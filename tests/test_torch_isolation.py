@@ -240,3 +240,122 @@ def test_the_codec_builds_only_from_the_ports_source():
         text = path.read_text()
         assert "NATIVE_DIR" not in text and '"native"' not in text and "make" not in text
     assert nativelib.CXX_FLAGS == ("-O3", "-fPIC", "-shared", "-pthread", "-std=c++17")
+
+
+def test_scan_covers_the_front_door_slice():
+    # stats, the gateway, the HTTP spill store, the host backends and their
+    # binding are among the modules both checks read
+    assert {
+        "tpu_life_torch.obs.stats",
+        "tpu_life_torch.version",
+        "tpu_life_torch.gateway",
+        "tpu_life_torch.gateway.errors",
+        "tpu_life_torch.gateway.limits",
+        "tpu_life_torch.gateway.protocol",
+        "tpu_life_torch.gateway.server",
+        "tpu_life_torch.gateway.client",
+        "tpu_life_torch.serve.spill_http",
+        "tpu_life_torch.backends.native_backend",
+        "tpu_life_torch.backends.stripes_backend",
+        "tpu_life_torch.ops.native_step",
+        "tpu_life_torch.utils.threefry",
+    } <= set(MODULES)
+    for path in sorted((PKG / "gateway").glob("*.py")):
+        assert path in SOURCES
+
+
+def _dead_url() -> str:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return f"http://127.0.0.1:{port}"
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["client", "health", "--url", "DEAD", "--retries", "0"], 1),
+    (["spill-store", "--help"], 0),
+    (["stats", str(ROOT / "tests" / "fixtures" / "metrics_run.jsonl"), "--json"], 0),
+    (["stats", str(ROOT / "tests" / "fixtures" / "metrics_run.jsonl")], 0),
+])
+def test_client_spill_store_and_stats_run_without_torch(argv, rc, tmp_path):
+    # they run beside a wedged card: the CLI entry point of each loads no
+    # torch (the check runs the real `python -m tpu_life_torch` entry in a
+    # fresh process and reads its sys.modules at exit)
+    argv = [_dead_url() if a == "DEAD" else a for a in argv]
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['tpu_life_torch', *{argv!r}]\n"
+        "try:\n"
+        "    runpy.run_module('tpu_life_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code or 0\n"
+        "print('TORCH_LOADED', 'torch' in sys.modules, 'RC', rc)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=tmp_path, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == f"TORCH_LOADED False RC {rc}"
+
+
+def test_the_spill_store_serves_without_torch(tmp_path):
+    # the store's whole import chain (chaos, the spill contract, the JSON
+    # envelope of gateway.server) is torch-free
+    code = (
+        "import sys\n"
+        "from tpu_life_torch.serve.spill_http import SpillHTTPServer, HttpSpillBackend\n"
+        "from tpu_life_torch.gateway.client import GatewayClient\n"
+        "import numpy as np\n"
+        f"srv = SpillHTTPServer({str(tmp_path / 'store')!r}); srv.start()\n"
+        "be = HttpSpillBackend(srv.url, 'ns')\n"
+        "be.save('s1', np.ones((3, 4), np.int8), 2, rule='conway', steps_total=5, seed=None,"
+        " temperature=None, timeout_s=None)\n"
+        "srv.close()\n"
+        "print('TORCH_LOADED', 'torch' in sys.modules)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=tmp_path, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "TORCH_LOADED False"
+
+
+def test_the_stepper_builds_only_from_the_ports_source():
+    from tpu_life_torch.ops import native_step
+
+    assert native_step.SOURCE == PKG / "csrc" / "life.cpp"
+    for path in (PKG / "ops" / "native_step.py", PKG / "backends" / "native_backend.py"):
+        text = path.read_text()
+        assert "NATIVE_DIR" not in text and '"native"' not in text.replace(
+            '@register_backend("native")', "").replace('name = "native"', "")
+
+
+@pytest.mark.parametrize("argv", [
+    ["gateway", "--port", "0"],
+    ["gateway", "--port", "0", "--serve-backend", "numpy"],
+])
+def test_the_gateway_refuses_to_run_on_the_cpu_unasked(argv, monkeypatch, capsys):
+    # the numpy serve backend needs no card; every other one does, unless
+    # --device cpu asks for the plain versions
+    from tpu_life_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if "numpy" in argv:
+        from tpu_life_torch.gateway.server import Gateway
+
+        start = Gateway.start
+
+        def start_then_drain(self):
+            start(self)
+            self.begin_drain()  # what SIGTERM does: the run ends at once
+
+        monkeypatch.setattr(Gateway, "start", start_then_drain)
+        monkeypatch.setattr(Gateway, "install_signal_handlers", lambda self: None)
+        assert cli.main([*argv, "--series-every", "0"]) == 0
+        capsys.readouterr()
+        return
+    with pytest.raises(CudaUnavailableError, match="--device cpu"):
+        cli.main(argv)

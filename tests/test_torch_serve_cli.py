@@ -128,17 +128,18 @@ def test_serve_exits_2_on_a_stochastic_request(spool, capsys, extra):
 
 @pytest.mark.parametrize("backend,item", [("tuned", "A10"), ("stripes", "A11"), ("native", "A11")])
 def test_serve_exits_2_on_a_queued_backend(spool, capsys, backend, item, tmp_path, monkeypatch):
+    # every one of these is ported now (the autotuner, A10; the host
+    # backends, A11): each serves the spool with the numpy oracle's bytes
     cli.main(["submit", "--input-file", "a.txt"])
     capsys.readouterr()
-    if item == "A10":
-        # the autotuner (A10) is ported: tuned serves from the cache's read
-        # path, here a cold cache and the cost model's pick, and exits 0
-        monkeypatch.setenv("TPU_LIFE_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
-        assert cli.main(["serve", "--serve-backend", backend, "--device", "cpu"]) == 0
-        assert "ROADMAP" not in capsys.readouterr().err
-        return
-    assert cli.main(["serve", "--serve-backend", backend, "--device", "cpu"]) == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+    monkeypatch.setenv("TPU_LIFE_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    assert jcli.main(["serve", "--serve-backend", "numpy", "--output-dir", "jax"]) == 0
+    capsys.readouterr()
+    assert cli.main(["serve", "--serve-backend", backend, "--device", "cpu",
+                     "--output-dir", "port"]) == 0
+    assert "ROADMAP" not in capsys.readouterr().err
+    assert (spool / "port" / "s000000.txt").read_bytes() == (
+        spool / "jax" / "s000000.txt").read_bytes()
 
 
 def test_serve_without_a_spool_is_a_tidy_error(spool, capsys, monkeypatch):

@@ -26,7 +26,7 @@ from tpu_life.serve import engine as jengine
 from tpu_life.serve import mesh_engine as jmesh
 from tpu_life_torch.kernels import packed_batch
 from tpu_life_torch.models import lenia
-from tpu_life_torch.models.rules import NotPortedError, get_rule
+from tpu_life_torch.models.rules import get_rule
 from tpu_life_torch.ops import bitlife
 from tpu_life_torch.serve import engine, mesh_engine
 
@@ -334,14 +334,14 @@ def test_batch_engine_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["tuned", "stripes", "native"])
 def test_queued_backends_are_refused_by_name(backend, tmp_path, monkeypatch):
+    # all three are ported: a key resolves to an engine, never a refusal;
+    # the host backends loop one host Runner a slot, as the JAX package's do
     key, _ = _keys("conway", backend, "numpy")
-    if backend == "tuned":
-        # ported with the autotuner: a key resolves to an engine, never a refusal
-        monkeypatch.setenv("TPU_LIFE_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
-        assert engine.make_engine(key, 2, 4, device="cpu").capacity == 2
-        return
-    with pytest.raises(NotPortedError, match="ROADMAP A11"):
-        engine.make_engine(key, 2, 4, device="cpu")
+    monkeypatch.setenv("TPU_LIFE_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    eng = engine.make_engine(key, 2, 4, device="cpu")
+    assert eng.capacity == 2
+    if backend != "tuned":
+        assert type(eng) is engine.SlotLoopEngine and eng._backend.name == backend
 
 
 @pytest.mark.parametrize("spec", ["ising", "noisy:0.01/conway"])

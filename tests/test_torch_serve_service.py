@@ -27,7 +27,7 @@ from tpu_life import serve as jserve
 from tpu_life.models.rules import get_rule as jget_rule
 from tpu_life.ops.reference import run_np as jrun_np
 from tpu_life_torch import chaos, serve
-from tpu_life_torch.models.rules import NotPortedError, get_rule
+from tpu_life_torch.models.rules import get_rule
 from tpu_life_torch.serve import engine
 
 #: the port's serve backend beside the JAX package's, under the mapping
@@ -345,12 +345,14 @@ def test_stochastic_keys_are_refused_before_anything_is_stored(spec, kw):
 
 
 def test_what_waits_for_later_items_is_refused_at_construction():
-    with pytest.raises(NotPortedError, match="gateway slice"):
-        serve.SimulationService(serve.ServeConfig(backend="numpy", spill_url="http://localhost:1"))
+    # the HTTP spill store and the host backends are ported: each constructs
+    # (the host backends on a machine without a card too), as tuned does
+    from tpu_life_torch.serve.spill_http import HttpSpillBackend
+
+    svc = serve.SimulationService(serve.ServeConfig(backend="numpy", spill_url="http://localhost:1"))
+    assert isinstance(svc._spill, HttpSpillBackend) and svc._spill.namespace == svc.run_id
     for name in ("stripes", "native"):
-        with pytest.raises(NotPortedError, match="ROADMAP A11"):
-            serve.SimulationService(serve.ServeConfig(backend=name))
-    # the autotuner is ported: tuned constructs like the other serve backends
+        assert serve.SimulationService(serve.ServeConfig(backend=name)).config.backend == name
     assert serve.SimulationService(serve.ServeConfig(backend="tuned", device="cpu"))
     with pytest.raises(ValueError, match="unknown serve backend"):
         serve.SimulationService(serve.ServeConfig(backend="jax"))

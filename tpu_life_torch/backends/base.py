@@ -14,6 +14,13 @@ on the same (board, rule, steps) and differ only in where the work runs:
 - ``sharded`` the board in row stripes over a mesh of devices, a halo
              exchange and one step of every shard per block (kernel K3
              per shard for packed rules)
+- ``native`` the threaded C++ stepper of ``csrc/life.cpp`` on the host
+             (clamped Moore rules), built with g++ at first use
+- ``stripes`` the reference's rank structure on the host: numpy stripes
+             and their halo rows (``mpi``: one stripe a rank over mpi4py)
+
+The host backends (``numpy``, ``native``, ``stripes``, ``mpi``) need no
+card; ``auto`` and ``tuned`` never pick the last three.
 
 Continuous rules (``models.lenia``) run on ``torch``, ``numpy`` and
 ``sharded`` only, on float32 boards; ``auto`` sends them to ``torch``.
@@ -295,8 +302,20 @@ def get_backend(name: str, *, rule: Rule | None = None, **kwargs) -> Backend:
     if name == "auto":
         name = "torch" if getattr(rule, "continuous", False) else "cuda"
     if name not in BACKENDS:
+        # the host backends register on first use, as the JAX package's do
+        try:
+            if name in ("stripes", "mpi"):
+                from tpu_life_torch.backends import stripes_backend  # noqa: F401
+            elif name == "native":
+                from tpu_life_torch.backends import native_backend  # noqa: F401
+        except ImportError as e:
+            raise ValueError(f"backend {name!r} is unavailable: {e}") from e
+    if name not in BACKENDS:
         raise ValueError(f"unknown backend {name!r}; available: {sorted(BACKENDS)}")
-    return BACKENDS[name](**kwargs)
+    try:
+        return BACKENDS[name](**kwargs)
+    except ImportError as e:
+        raise ValueError(f"backend {name!r} is unavailable: {e}") from e
 
 
 def chunk_sizes(steps: int, chunk_steps: int) -> list[int]:

@@ -48,7 +48,7 @@ from dataclasses import dataclass
 
 import numpy as _np
 
-from tpu_life_torch.mc.prng import key_halves, threefry2x32, threshold_u32
+from tpu_life_torch.utils.threefry import key_halves, threefry2x32, threshold_u32
 from tpu_life_torch.obs import flight as _flight
 from tpu_life_torch.obs import trace as _trace
 

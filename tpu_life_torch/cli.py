@@ -32,8 +32,13 @@ is ``cuda`` (the default: kernels K6 and K7's batch modes) or ``numpy``.
 ``tune`` measures the candidate configurations of a (device, rule, board
 shape) key and persists the winner to the port's autotune cache; ``run
 --backend tuned`` (with ``--tune-mode``), ``bench --backend tuned`` and
-``serve --serve-backend tuned`` resolve through it.  On the card, ``run``,
-``bench``, ``tune``, ``serve`` and ``sweep`` first probe it under a
+``serve --serve-backend tuned`` resolve through it.  ``run --backend
+native|stripes|mpi`` and ``serve --serve-backend native|stripes`` step on
+the host.  ``gateway`` puts the serving tier behind the JAX package's HTTP
+API, ``client`` talks to a gateway, ``spill-store`` hosts the HTTP spill
+store and ``stats`` summarizes metrics sinks; the last three import no
+torch, so they run beside a wedged card.  On the card, ``run``, ``bench``,
+``tune``, ``serve``, ``sweep`` and ``gateway`` first probe it under a
 watchdog (``utils.platform.devices_with_watchdog``) and exit 2 when the
 query hangs.
 """
@@ -85,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="replicate the reference binary's effective (buggy) B/S2 rule",
     )
     r.add_argument(
-        "--backend", default="auto", choices=["auto", "tuned", "cuda", "torch", "numpy", "sharded"],
+        "--backend", default="auto",
+        choices=["auto", "tuned", "cuda", "torch", "numpy", "sharded", "native", "stripes", "mpi"],
         help="tuned = the backend and knobs the autotune cache holds for this "
         "device, rule and board shape (see `tune` and --tune-mode; a cache miss "
         "takes the cost model's pick); auto = cuda: the hand-written kernels "
@@ -98,7 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
         "board in row stripes (--num-devices) or blocks (--mesh-shape) over a "
         "mesh of devices, kernel K3 per stripe for life-like and 2-state von "
         "Neumann (r <= 2) rules and kernel K4 per shard for the other clamped "
-        "Moore rules",
+        "Moore rules; native = the threaded C++ stepper of csrc/life.cpp on "
+        "the host (clamped Moore rules; built with g++ at first use); stripes "
+        "= the reference's rank structure in numpy on the host (--num-devices "
+        "stripes, default 4); mpi = one stripe a rank over mpi4py",
     )
     r.add_argument(
         "--device", default=None,
@@ -341,6 +350,7 @@ def build_parser() -> argparse.ArgumentParser:
                      "(record what the board was actually evolved under)")
 
     _add_serve_parsers(sub)
+    _add_front_door_parsers(sub)
 
     g = sub.add_parser("gen", help="generate a random board + config")
     g.add_argument("--height", type=int, required=True)
@@ -360,6 +370,13 @@ def main(argv: list[str] | None = None) -> int:
     if not argv or argv[0].startswith("-"):
         argv = ["run", *argv]  # default command
     args = parser.parse_args(argv)
+    # the torch-free commands first: they run beside a wedged card
+    if args.command == "stats":
+        return _stats(args)
+    if args.command == "client":
+        return _client(parser, args)
+    if args.command == "spill-store":
+        return _spill_store(args)
     if args.command == "info":
         return _info()
     if args.command == "pattern":
@@ -368,6 +385,9 @@ def main(argv: list[str] | None = None) -> int:
         return _gen(args)
     if args.command == "submit":
         return _submit(args)
+    if args.command == "gateway" and (args.register is not None or args.standby):
+        print(f"gateway: {_UNPORTED_REGISTRAR}", file=sys.stderr)
+        return 2
     if _on_card(args):
         # prime the card's first query under a watchdog, so a wedged driver
         # ends in a message and exit 2 instead of a hang; never a fallback
@@ -386,6 +406,8 @@ def main(argv: list[str] | None = None) -> int:
         return _serve(args)
     if args.command == "sweep":
         return _sweep(parser, args)
+    if args.command == "gateway":
+        return _gateway(args)
     mesh_shape = _parse_mesh_shape(parser, args.mesh_shape)
     cfg = RunConfig(
         height=args.height if args.height is not None else args.size,
@@ -446,7 +468,7 @@ def _on_card(args) -> bool:
     if device is not None and torch.device(device).type == "cpu":
         return False
     backend = getattr(args, "serve_backend", None) or getattr(args, "backend", None)
-    return backend != "numpy"
+    return backend not in ("numpy", "native", "stripes", "mpi")
 
 
 def _parse_mesh_shape(parser, spec: str | None) -> tuple[int, int] | None:
@@ -731,13 +753,16 @@ def _info() -> int:
     from tpu_life_torch.backends.base import BACKENDS, get_backend
     from tpu_life_torch.models.rules import RULE_REGISTRY
 
-    get_backend("numpy")  # registers every backend
+    get_backend("numpy")  # registers the card and numpy backends
+    from tpu_life_torch.backends import native_backend, stripes_backend  # noqa: F401  (the host ones)
+
     print(f"torch {torch.__version__} (cuda {torch.version.cuda})")
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     print(f"cuda devices: {n}")
     for i in range(n):
         print(f"  device {i}: {torch.cuda.get_device_name(i)}")
-    print("backends:", ", ".join(sorted(BACKENDS)), "(auto = cuda; torch for lenia)")
+    print("backends:", ", ".join(sorted(BACKENDS)),
+          "(auto = cuda; torch for lenia; native, stripes and mpi step on the host)")
     if n:
         mesh = ", ".join(f"cuda:{i}" for i in range(n))
         print(f"mesh devices (sharded backend, one shard each): {mesh}")
@@ -903,7 +928,8 @@ def _add_serve_parsers(sub) -> None:
         "host oracle; sharded = one sharded Runner per slot (K3/K4); tuned = "
         "per compile key, the backend the autotune cache holds (read path "
         "only: an untuned key takes the cost-model pick, never a "
-        "measurement); stripes and native are not ported yet",
+        "measurement); stripes and native = one host Runner a slot of those "
+        "backends (no card needed)",
     )
     srv.add_argument("--sync-pump", action="store_true",
                      help="run the host-synchronous scheduling round instead of the "
@@ -1126,9 +1152,9 @@ def _stage_request(req: dict, rule, device):
 def _serve(args) -> int:
     """The serving loop: spool in, result boards + one summary JSON line
     out, with the JAX ``serve``'s keys.  Exit 0 when every session
-    completed, 1 when any failed, 2 for what is not ported yet (the
-    stripes/native backends) and for a stochastic request on a backend
-    without the counter-based key schedule (``sharded``, ``tuned``)."""
+    completed, 1 when any failed, 2 for a stochastic request on a backend
+    without the counter-based key schedule (``sharded``, ``tuned``,
+    ``stripes``, ``native``)."""
     import json
     from pathlib import Path
 
@@ -1182,7 +1208,8 @@ def _serve(args) -> int:
     )
     # seeded boards are drawn on the card when the engines run there
     stage_on = None
-    if args.serve_backend != "numpy" and (args.device is None or args.device.startswith("cuda")):
+    if args.serve_backend not in ("numpy", "stripes", "native") and (
+            args.device is None or args.device.startswith("cuda")):
         stage_on = args.device or "cuda"
     submitted: list[tuple[str, dict]] = []
     rejected: list[dict] = []
@@ -1409,6 +1436,463 @@ def _sweep(parser, args) -> int:
         "compile_counts": stats["compile_counts"],
     }))
     return 0 if not failures else 1
+
+
+#: what ``gateway --register`` / ``--standby`` and ``stats --watch`` wait for
+_UNPORTED_REGISTRAR = (
+    "--register and --standby need the fleet control plane "
+    "(fleet/membership.Registrar), which is not ported yet: ROADMAP A9.2.3"
+)
+_UNPORTED_WATCH = (
+    "--watch needs the console's refresh loop (obs/console.refresh_loop), "
+    "which is not ported yet: ROADMAP A9.2.3"
+)
+
+
+def _add_front_door_parsers(sub) -> None:
+    """``gateway``, ``spill-store``, ``client`` and ``stats`` with the JAX
+    package's flags, defaults, JSON lines and exit codes; the gateway's
+    ``--device`` takes the place of ``--platform`` and its
+    ``--serve-backend`` takes the port's names (default ``cuda``)."""
+    gw = sub.add_parser(
+        "gateway",
+        help="HTTP front door over the batched simulation service: JSON "
+        "API with rate limiting, load shedding and graceful drain",
+    )
+    gw.add_argument("--host", default="127.0.0.1")
+    gw.add_argument("--port", type=int, default=8000,
+                    help="listen port (0 = ephemeral; the bound port is "
+                    "printed in the startup JSON line)")
+    gw.add_argument("--capacity", type=int, default=8, help="batch slots per compile key")
+    gw.add_argument("--chunk-steps", type=int, default=16,
+                    help="device steps per scheduling round")
+    gw.add_argument("--max-queue", type=int, default=64,
+                    help="bounded admission queue (backpressure threshold)")
+    gw.add_argument("--serve-backend", default="cuda", choices=SERVE_BACKEND_CHOICES,
+                    help="engine executor (same semantics as `serve --serve-backend`)")
+    gw.add_argument("--sync-pump", action="store_true",
+                    help="host-synchronous rounds instead of the pipelined "
+                    "pump (same semantics as `serve --sync-pump`)")
+    gw.add_argument("--no-bitpack", action="store_true",
+                    help="pin stochastic (ising) batches to the int8 roll "
+                    "engines (same semantics as `serve --no-bitpack`)")
+    gw.add_argument("--stencil", default="auto", choices=["auto", "roll", "matmul"],
+                    help="neighbour-counting path of the plain-op engines")
+    gw.add_argument("--timeout", type=float, default=None, metavar="SECONDS",
+                    help="default per-request deadline")
+    gw.add_argument("--spill-dir", default=None, metavar="DIR",
+                    help="durable sessions: spill live sessions here so they "
+                    "can be resumed after a kill")
+    gw.add_argument("--spill-every", type=int, default=4, metavar="K",
+                    help="rounds between spill passes")
+    gw.add_argument("--spill-url", default=None, metavar="URL",
+                    help="remote spill store: spill through this `spill-store` "
+                    "HTTP store instead of a local directory, so a migrator "
+                    "on another machine can read the rescue; mutually "
+                    "exclusive with --spill-dir")
+    gw.add_argument("--spill-namespace", default=None, metavar="NAME",
+                    help="this worker incarnation's namespace in the remote "
+                    "store (default: the run_id)")
+    gw.add_argument("--register", default=None, metavar="URL",
+                    help="wire registration with a fleet control plane "
+                    "(not ported yet: exits 2)")
+    gw.add_argument("--standby", action="store_true",
+                    help="with --register: park in the control plane's "
+                    "standby pool (not ported yet: exits 2)")
+    gw.add_argument("--qos", default=None, metavar="FILE",
+                    help="tenant QoS policy: a JSON or TOML file of per-tenant "
+                    "quotas, weights and tiers (X-API-Key names the tenant)")
+    gw.add_argument("--spill-replicas", type=int, default=1, metavar="N",
+                    help="replicated spill: fan every --spill-dir write "
+                    "through N replica stores (local-directory spill only)")
+    gw.add_argument("--memory-budget-bytes", type=int, default=None, metavar="BYTES",
+                    help="admission memory budget for estimated engine footprints "
+                    "(default: devices x per-kind default; 0 disables)")
+    gw.add_argument("--engine-max-restarts", type=int, default=3, metavar="N",
+                    help="in-place engine recoveries per compile key")
+    gw.add_argument("--settle-deadline", type=float, default=None, metavar="SECONDS",
+                    help="wedge watchdog: a pipelined settle window still blocked "
+                    "after this many seconds makes /readyz answer 500")
+    gw.add_argument("--mesh-devices", type=int, default=0, metavar="N",
+                    help="mega-board tier slice (0 = tier off; needs >= 2)")
+    gw.add_argument("--api-rate", type=float, default=0.0, metavar="TOKENS/S",
+                    help="per-API-key token-bucket refill rate; 0 disables "
+                    "rate limiting (the X-API-Key header names the key)")
+    gw.add_argument("--api-burst", type=float, default=10.0,
+                    help="token-bucket capacity (max burst per key)")
+    gw.add_argument("--shed-high-water", type=float, default=None, metavar="DEPTH",
+                    help="queue-depth load-shedding threshold (default: "
+                    "80%% of --max-queue; 0 disables)")
+    gw.add_argument("--max-body", type=int, default=None, metavar="BYTES",
+                    help="request-body size bound (413 past it)")
+    gw.add_argument("--metrics-file", default=None, metavar="JSONL",
+                    help="append per-round serve metrics as JSON lines")
+    gw.add_argument("--prom-file", default=None, metavar="FILE",
+                    help="atomically rewrite a Prometheus text snapshot "
+                    "every scheduling round")
+    gw.add_argument("--trace-events", default=None, metavar="FILE",
+                    help="write Chrome trace-event JSON for the serve rounds")
+    gw.add_argument("--series-every", type=float, default=1.0, metavar="SECONDS",
+                    help="metric time-series sampling cadence (GET "
+                    "/v1/debug/series?cursor=); 0 disables the ring")
+    gw.add_argument("--device", default=None,
+                    help="the device of the device engines (default: the card); "
+                    "'cpu' runs their plain PyTorch versions")
+    gw.add_argument("--verbose", "-v", action="store_true")
+
+    ss = sub.add_parser(
+        "spill-store",
+        help="host a remote spill store: a CRC-checked, atomically-published "
+        "HTTP object store workers spill through and migrators read "
+        "rescues from (torch-free)",
+    )
+    ss.add_argument("--root", required=True, metavar="DIR",
+                    help="directory the store publishes namespaces under")
+    ss.add_argument("--host", default="127.0.0.1")
+    ss.add_argument("--port", type=int, default=0,
+                    help="listen port (0 = ephemeral; the bound port is "
+                    "printed in the startup JSON line)")
+    ss.add_argument("--verbose", "-v", action="store_true")
+
+    cl = sub.add_parser(
+        "client",
+        help="talk to a running gateway: submit boards, poll, fetch "
+        "results, cancel (torch-free; retries 429/503 with backoff)",
+    )
+    cl.add_argument("action", choices=["submit", "poll", "result", "cancel", "health"])
+    cl.add_argument("--url", default="http://127.0.0.1:8000", help="gateway base URL")
+    cl.add_argument("--api-key", default=None,
+                    help="sent as X-API-Key (the rate-limiting identity)")
+    cl.add_argument("--session", default=None, metavar="SID",
+                    help="session id for poll/result/cancel")
+    cl.add_argument("--input-file", default=None, metavar="BOARD",
+                    help="contract-format board to submit inline (geometry "
+                    "from --height/--width or --config-file)")
+    cl.add_argument("--config-file", default="grid_size_data.txt",
+                    help="geometry fallback when --input-file is used "
+                    "without explicit --height/--width/--steps")
+    cl.add_argument("--size", type=int, default=None,
+                    help="square seeded board: submit with no input file "
+                    "at all (the server seeds it)")
+    cl.add_argument("--height", type=int, default=None)
+    cl.add_argument("--width", type=int, default=None)
+    cl.add_argument("--steps", type=int, default=None)
+    cl.add_argument("--rule", default="conway")
+    cl.add_argument("--seed", type=int, default=None, help="seed for a server-seeded board")
+    cl.add_argument("--density", type=float, default=None)
+    cl.add_argument("--temperature", type=float, default=None, metavar="T",
+                    help="Metropolis temperature for --rule ising")
+    cl.add_argument("--timeout", type=float, default=None, metavar="SECONDS",
+                    help="per-request deadline submitted with the session")
+    cl.add_argument("--wait", action="store_true",
+                    help="submit: block (polling) until the session is "
+                    "terminal; with --output-file also fetch the result")
+    cl.add_argument("--output-file", default=None,
+                    help="result: write the board in contract format "
+                    "(default: RLE to stdout)")
+    cl.add_argument("--format", default="rle", choices=["rle", "raw"],
+                    help="result payload encoding when printing")
+    cl.add_argument("--retries", type=int, default=4,
+                    help="retry budget for 429/503/unreachable responses")
+
+    st = sub.add_parser(
+        "stats",
+        help="summarize a metrics JSONL file (run or serve): throughput "
+        "aggregates, histogram quantiles, occupancy, rejection rate (torch-free)",
+    )
+    st.add_argument("metrics_file", metavar="JSONL", nargs="+",
+                    help="sink(s) written by `run --metrics-file`, `serve "
+                    "--metrics-file` or `gateway --metrics-file`; several "
+                    "files merge keyed by run_id into one report")
+    st.add_argument("--json", action="store_true",
+                    help="emit the summary as one JSON object instead of the human table")
+    st.add_argument("--watch", type=float, default=None, metavar="SECONDS",
+                    help="re-read and re-render every N seconds (not ported yet: exits 2)")
+
+
+def _stats(args) -> int:
+    """The read-back half of the telemetry loop: ingest metrics JSONL
+    sinks — run chunks, serve rounds, registry snapshot records in any
+    mix — and report the aggregates, as the JAX ``stats`` does."""
+    import json
+
+    from tpu_life_torch.obs import stats as obs_stats
+
+    if args.watch is not None:
+        print(f"stats: {_UNPORTED_WATCH}", file=sys.stderr)
+        return 2
+    records = []
+    for i, path in enumerate(args.metrics_file):
+        for rec in obs_stats.load_records(path):
+            # sink provenance: one file = one worker across ALL its
+            # restarts (each a fresh run_id)
+            rec.setdefault("_sink", i)
+            records.append(rec)
+    summary = obs_stats.summarize(records)
+    print(json.dumps(summary) if args.json else obs_stats.render(summary))
+    return 0
+
+
+def _spill_store(args) -> int:
+    """Host the remote spill store until SIGTERM/SIGINT: one JSON line at
+    startup (the bound URL), one at shutdown."""
+    import json
+    import signal
+    import threading
+
+    from tpu_life_torch.runtime.metrics import configure_logging
+    from tpu_life_torch.serve.spill_http import SpillHTTPServer
+
+    configure_logging(args.verbose)
+    server = SpillHTTPServer(args.root, host=args.host, port=args.port)
+    server.start()
+    print(json.dumps({"mode": "spill-store", "url": server.url, "root": str(server.root)}),
+          flush=True)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda signum, frame: stop.set())
+    stop.wait()
+    server.close()
+    print(json.dumps({"mode": "spill-store", "stopped": True}), flush=True)
+    return 0
+
+
+def _client(parser, args) -> int:
+    """The CLI face of ``tpu_life_torch.gateway.client``: one JSON line per
+    action, boards in contract format or RLE."""
+    import json
+    from pathlib import Path
+
+    from tpu_life_torch.gateway.client import GatewayClient, GatewayError
+
+    client = GatewayClient(args.url, api_key=args.api_key, retries=args.retries)
+
+    def need_session() -> str:
+        if args.session is None:
+            parser.error(f"client {args.action} needs --session SID")
+        return args.session
+
+    try:
+        if args.action == "health":
+            print(json.dumps({"health": client.healthz(), "ready": _ready(client)}))
+            return 0
+        if args.action == "poll":
+            print(json.dumps(client.poll(need_session())))
+            return 0
+        if args.action == "cancel":
+            sid = need_session()
+            print(json.dumps({"session": sid, "cancelled": client.cancel(sid)}))
+            return 0
+        if args.action == "result":
+            return _client_result(args, client, need_session())
+        if args.steps is None:
+            parser.error("client submit needs --steps")
+        kwargs: dict = dict(rule=args.rule, steps=args.steps, timeout_s=args.timeout)
+        if args.temperature is not None:
+            kwargs["temperature"] = args.temperature
+        if args.seed is not None:
+            # a stochastic rule's trajectory is named by (board, seed,
+            # temperature), inline boards too
+            kwargs["seed"] = args.seed
+        if args.input_file is not None:
+            from tpu_life_torch.io.codec import read_board
+
+            height, width, _ = RunConfig(
+                height=args.height if args.height is not None else args.size,
+                width=args.width if args.width is not None else args.size,
+                steps=args.steps,
+                config_file=args.config_file,
+            ).resolved_geometry()
+            kwargs["board"] = read_board(args.input_file, height, width)
+        else:
+            if args.size is None and (args.height is None or args.width is None):
+                parser.error(
+                    "client submit needs --input-file, or --size (or "
+                    "--height/--width) for a server-seeded board"
+                )
+            kwargs.update(size=args.size, height=args.height, width=args.width,
+                          seed=args.seed, density=args.density)
+        sid = client.submit(**kwargs)
+        if not args.wait:
+            print(json.dumps(client.poll(sid)))
+            return 0
+        view = client.wait(sid)
+        print(json.dumps(view))
+        if view["state"] != "done":
+            return 1
+        if args.output_file is not None:
+            from tpu_life_torch.io.codec import write_board
+
+            out = Path(args.output_file)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            write_board(out, client.result_board(sid))
+        return 0
+    except GatewayError as e:
+        print(json.dumps({"error": {"code": e.code, "message": e.message}, "status": e.status}))
+        return 1
+
+
+def _ready(client) -> bool:
+    from tpu_life_torch.gateway.client import GatewayClient, GatewayError
+
+    # readiness is a yes/no — probe with a zero-retry client so a draining
+    # gateway answers False immediately instead of after the retry budget
+    probe = GatewayClient(client.base_url, api_key=client.api_key, retries=0)
+    try:
+        probe.readyz()
+        return True
+    except GatewayError:
+        return False
+
+
+def _client_result(args, client, sid: str) -> int:
+    import json
+    from pathlib import Path
+
+    from tpu_life_torch.io.codec import write_board
+
+    if args.output_file is not None:
+        board = client.result_board(sid)
+        out = Path(args.output_file)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        write_board(out, board)
+        h, w = board.shape
+        print(f"wrote {out} ({h}x{w})")
+        return 0
+    payload = client.result(sid, fmt=args.format)
+    if args.format == "rle":
+        print(payload["rle"], end="")
+    else:
+        print(json.dumps(payload))
+    return 0
+
+
+def _gateway(args) -> int:
+    """The network front door: serve the HTTP API until SIGTERM/SIGINT,
+    then drain gracefully — stop admitting, finish in-flight sessions,
+    flush telemetry — and exit 0 (1 after a pump crash, 2 on a bad
+    config).  One JSON line at startup (bound URL, run_id, the service's
+    devices and their kind), one summary line after the drain: the JAX
+    ``gateway``'s lines."""
+    import json
+
+    from tpu_life_torch import chaos
+    from tpu_life_torch.gateway import Gateway, GatewayConfig
+    from tpu_life_torch.gateway.protocol import MAX_BODY
+    from tpu_life_torch.runtime.metrics import configure_logging
+    from tpu_life_torch.serve import ServeConfig, SimulationService
+
+    configure_logging(args.verbose)
+    qos = None
+    if args.qos is not None:
+        from tpu_life_torch.serve.qos import QosPolicy
+
+        try:
+            qos = QosPolicy.load(args.qos)
+        except (OSError, ValueError) as e:
+            # typed, before any socket or engine exists
+            print(f"gateway: bad --qos: {e}", file=sys.stderr)
+            return 2
+    try:
+        svc = SimulationService(
+            ServeConfig(
+                capacity=args.capacity,
+                chunk_steps=args.chunk_steps,
+                max_queue=args.max_queue,
+                backend=args.serve_backend,
+                device=args.device,
+                pipeline=not args.sync_pump,
+                default_timeout_s=args.timeout,
+                metrics=True,
+                metrics_file=args.metrics_file,
+                trace_events=args.trace_events,
+                prom_file=args.prom_file,
+                spill_dir=args.spill_dir,
+                spill_every=args.spill_every,
+                spill_url=args.spill_url,
+                spill_namespace=args.spill_namespace,
+                spill_replicas=args.spill_replicas,
+                qos=qos,
+                mc_packed=not args.no_bitpack,
+                stencil=args.stencil,
+                memory_budget_bytes=args.memory_budget_bytes,
+                mesh_devices=args.mesh_devices,
+                engine_max_restarts=args.engine_max_restarts,
+                settle_deadline_s=args.settle_deadline,
+                series_every_s=args.series_every,
+            )
+        )
+    except ValueError as e:
+        # e.g. --spill-dir with --spill-url: typed, before any socket
+        print(f"gateway: {e}", file=sys.stderr)
+        return 2
+    gw = Gateway(
+        svc,
+        GatewayConfig(
+            host=args.host,
+            port=args.port,
+            api_rate=args.api_rate,
+            api_burst=args.api_burst,
+            shed_high_water=args.shed_high_water,
+            max_body=args.max_body if args.max_body is not None else MAX_BODY,
+            qos=qos,
+        ),
+    )
+    gw.install_signal_handlers()
+    gw.start()
+    # chaos seam: a worker that is slow out of the gate delays its
+    # startup line
+    delay = chaos.delay("worker.start_delay")
+    if delay > 0:
+        import time
+
+        time.sleep(delay)
+    startup = {
+        "mode": "gateway",
+        "url": f"http://{gw.host}:{gw.port}",
+        "run_id": svc.run_id,
+        "backend": args.serve_backend,
+        "capacity": args.capacity,
+        "max_queue": args.max_queue,
+        "api_rate": args.api_rate,
+    }
+    # the device probe runs on a background thread; wait a bounded beat
+    # for it, so a slow card never holds the startup line back
+    info = gw.device_info(wait_s=10.0)
+    if info is not None:
+        startup["devices"], startup["device_kind"] = info
+    print(json.dumps(startup), flush=True)
+    try:
+        gw.wait()
+    finally:
+        gw.close()
+    stats = svc.stats()
+    print(
+        json.dumps(
+            {
+                "mode": "gateway",
+                "run_id": stats["run_id"],
+                "pump": stats["pump"],
+                "device_idle_s": stats["device_idle_seconds"],
+                # a pump crash is a failed serve even though the drain
+                # shut everything down tidily — exit 1 below
+                "pump_error": str(gw.pump_error) if gw.pump_error else None,
+                "sessions": stats["sessions"],
+                "done": stats["done"],
+                "failed": stats["failed"],
+                "cancelled": stats["cancelled"],
+                "rejections": stats["rejections"],
+                "rounds": stats["rounds"],
+                "elapsed_s": stats["elapsed_s"],
+                "sessions_per_sec": stats["sessions_per_sec"],
+                "batch_occupancy_mean": stats["batch_occupancy_mean"],
+                "queue_wait_p50": stats["queue_wait_p50"],
+                "completion_p50": stats["completion_p50"],
+            }
+        ),
+        flush=True,
+    )
+    return 1 if gw.pump_error else 0
 
 
 def console_main() -> int:

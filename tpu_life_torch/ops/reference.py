@@ -66,6 +66,23 @@ def _counts_np(
     return counts
 
 
+def step_np_wrap_cols(ext: np.ndarray, rule: Rule) -> np.ndarray:
+    """One substep on a halo-extended stripe of a torus board: columns
+    wrap in place (each stripe holds full board rows), rows see zero
+    padding — the real vertical neighbors are the stacked halo rows, and
+    the corrupted fringe is trimmed by the caller.  The NumPy twin of the
+    sharded backend's ``make_wrap_cols_step``."""
+    counts = _counts_np(
+        (ext == 1).astype(np.int32),
+        rule.radius,
+        rule.include_center,
+        rule.neighborhood,
+        row_wrap=False,
+        col_wrap=True,
+    )
+    return rule.transition_table[ext.astype(np.int64), counts]
+
+
 def step_np(board: np.ndarray, rule: Rule, stencil: str = "roll") -> np.ndarray:
     """One synchronous CA step via the rule's full transition LUT.
 

@@ -223,6 +223,9 @@ def _run(cfg: RunConfig, run_id: str) -> RunResult:
     if backend_name == "sharded":
         backend_kwargs.update(num_devices=cfg.num_devices, mesh_shape=cfg.mesh_shape,
                               local_kernel=local_kernel, partition_mode=cfg.partition_mode)
+    elif backend_name == "stripes":
+        # the stripe count, as the JAX driver passes it
+        backend_kwargs["num_devices"] = cfg.num_devices
     registry = obs.MetricsRegistry()
     builds = registry.counter(
         "run_backend_builds_total",

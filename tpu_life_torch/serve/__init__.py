@@ -19,39 +19,42 @@ Quick start::
     final = svc.result(sid)
 
 ``python -m tpu_life_torch submit`` / ``serve`` are the CLI front-end.
+
+The names below load on first use (PEP 562), so a process that imports
+only a torch-free submodule (``serve.spill``, ``serve.spill_http``,
+``serve.errors``) does not load torch with the service: the HTTP spill
+store and the gateway client run beside a wedged card.
 """
 
-from tpu_life_torch.serve.engine import CompileKey, compile_key_for, make_engine
-from tpu_life_torch.serve.errors import (
-    Draining,
-    InsufficientMemory,
-    QueueFull,
-    ServeError,
-    SessionFailed,
-    SessionTimeout,
-    UnknownSession,
-)
-from tpu_life_torch.serve.scheduler import RoundStats, Scheduler
-from tpu_life_torch.serve.service import ServeConfig, SimulationService
-from tpu_life_torch.serve.sessions import Session, SessionState, SessionStore, SessionView
+import importlib
 
-__all__ = [
-    "CompileKey",
-    "Draining",
-    "InsufficientMemory",
-    "QueueFull",
-    "RoundStats",
-    "Scheduler",
-    "ServeConfig",
-    "ServeError",
-    "Session",
-    "SessionFailed",
-    "SessionState",
-    "SessionStore",
-    "SessionTimeout",
-    "SessionView",
-    "SimulationService",
-    "UnknownSession",
-    "compile_key_for",
-    "make_engine",
-]
+_HOMES = {
+    "CompileKey": "engine",
+    "compile_key_for": "engine",
+    "make_engine": "engine",
+    "Draining": "errors",
+    "InsufficientMemory": "errors",
+    "QueueFull": "errors",
+    "ServeError": "errors",
+    "SessionFailed": "errors",
+    "SessionTimeout": "errors",
+    "UnknownSession": "errors",
+    "RoundStats": "scheduler",
+    "Scheduler": "scheduler",
+    "ServeConfig": "service",
+    "SimulationService": "service",
+    "Session": "sessions",
+    "SessionState": "sessions",
+    "SessionStore": "sessions",
+    "SessionView": "sessions",
+}
+
+__all__ = sorted(_HOMES)
+
+
+def __getattr__(name: str):
+    if name not in _HOMES:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_HOMES[name]}"), name)
+    globals()[name] = value
+    return value

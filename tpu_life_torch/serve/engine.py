@@ -26,10 +26,11 @@ The executors behind one interface, and the JAX executor each stands for:
   ``VmapEngine``.
 - :class:`HostBatchEngine` — ``numpy``: the ground-truth executor.
 - :class:`SlotLoopEngine` — ``sharded``: one ``Runner`` per slot of the
-  port's sharded backend (kernels K3 and K4 per shard); and ``cuda``'s
+  port's sharded backend (kernels K3 and K4 per shard); ``cuda``'s
   clamped Moore int8 rules that K1 does not take: one Runner per slot of
   the ``cuda`` backend (kernel K2), as the JAX package's ``pallas`` serve
-  backend loops its Runners over slots.
+  backend loops its Runners over slots; and the host backends ``stripes``
+  and ``native``, one host Runner a slot, as in the JAX package.
 
 ``tuned`` resolves each CompileKey through the autotune cache's read
 path (``autotune.resolve_backend_kwargs``: a cache hit, else the cost
@@ -79,30 +80,24 @@ import numpy as np
 import torch
 
 from tpu_life_torch import chaos
-from tpu_life_torch.models.rules import NotPortedError, Rule
+from tpu_life_torch.models.rules import Rule
 from tpu_life_torch.runtime.metrics import log
 
 #: serve backends whose engines live on the card (``BatchEngine`` and the
 #: K2 slot loop): the executors of the JAX package's ``jax`` and ``pallas``
 DEVICE_BATCH_BACKENDS = ("cuda",)
-#: serve backends this slice runs, besides ``mesh:RxC``; ``tuned``
-#: resolves per CompileKey to one of the others (or ``torch``)
-SERVE_BACKENDS = ("cuda", "numpy", "sharded", "tuned")
-#: the JAX package's other serve backends, each still queued
-QUEUED_BACKENDS = {
-    "stripes": "ROADMAP A11 (the native host backends)",
-    "native": "ROADMAP A11 (the native host backends)",
-}
+#: serve backends with a float path for the continuous tier, besides
+#: ``mesh:RxC``; ``tuned`` resolves per CompileKey to one of the others
+#: (or ``torch``)
+FLOAT_SERVE_BACKENDS = ("cuda", "numpy", "sharded", "tuned")
+#: every serve backend the port runs, besides ``mesh:RxC``
+SERVE_BACKENDS = (*FLOAT_SERVE_BACKENDS, "stripes", "native")
+#: serve backends that step on the host and need no card
+HOST_BACKENDS = ("numpy", "stripes", "native")
 
 
 def check_backend(name: str) -> None:
-    """Refuse a serve backend this port does not run: the queued ones with
-    :class:`NotPortedError` naming their ROADMAP item, others with
-    ValueError."""
-    if name in QUEUED_BACKENDS:
-        raise NotPortedError(
-            f"serve backend {name!r} is not ported yet: {QUEUED_BACKENDS[name]}"
-        )
+    """Refuse a serve backend this port does not run (ValueError)."""
     if name not in SERVE_BACKENDS and not str(name).startswith("mesh:"):
         raise ValueError(
             f"unknown serve backend {name!r}; choose from {', '.join(SERVE_BACKENDS)}"
@@ -113,7 +108,7 @@ def require_float_path(rule: Rule, backend: str) -> None:
     """The serving tier's float gate: continuous rules run on the device
     batch (``cuda``), the numpy oracle and ``sharded`` (served by the
     oracle, as the JAX package serves them on ``sharded``)."""
-    if backend not in SERVE_BACKENDS and not str(backend).startswith("mesh:"):
+    if backend not in FLOAT_SERVE_BACKENDS and not str(backend).startswith("mesh:"):
         raise ValueError(
             f"continuous rule {rule.name!r} needs the cuda, numpy or sharded "
             f"serve backend (float32 boards; {backend!r} has no float path) — a "

@@ -3,11 +3,11 @@
 
 What differs from the JAX package: the serve backends are the port's
 (``cuda``, the default, ``numpy``, ``sharded``, ``tuned`` (resolved per
-CompileKey through the autotune cache) and the ``mesh:RxC`` tier;
-serve/engine.py maps them to engines),
-``ServeConfig.device`` names the card or the CPU, and what waits for a
-later slice of ROADMAP A9, the HTTP spill store (``spill_url``), is
-refused typed with ``NotPortedError`` at construction.  Stochastic
+CompileKey through the autotune cache), the host backends ``stripes`` and
+``native`` and the ``mesh:RxC`` tier; serve/engine.py maps them to
+engines), and ``ServeConfig.device`` names the card or the CPU (the host
+backends need neither).  ``spill_url`` spills through the HTTP spill
+store (``serve/spill_http.py``), as in the JAX package.  Stochastic
 sessions (``ising``, ``noisy:``; ``sweep`` fans a temperature grid into
 them) run on ``cuda`` and ``numpy`` and are refused typed on ``sharded``
 and ``mesh:RxC`` at submit, as in the JAX package.
@@ -78,7 +78,7 @@ from pathlib import Path
 import numpy as np
 
 from tpu_life_torch import chaos, obs
-from tpu_life_torch.models.rules import NotPortedError, Rule, get_rule
+from tpu_life_torch.models.rules import Rule, get_rule
 from tpu_life_torch.runtime import recovery
 from tpu_life_torch.runtime.checkpoint import atomic_publish as ckpt_atomic_publish
 from tpu_life_torch.runtime.metrics import MetricsRecorder, log
@@ -257,21 +257,16 @@ class SimulationService:
                 f"got {self.config.mesh_devices}"
             )
         from tpu_life_torch.ops.conv import validate_stencil
-        from tpu_life_torch.serve.engine import check_backend
+        from tpu_life_torch.serve.engine import HOST_BACKENDS, check_backend
 
         validate_stencil(self.config.stencil)
         check_backend(self.config.backend)
-        if self.config.backend != "numpy" or self.config.mesh_devices:
+        if self.config.backend not in HOST_BACKENDS or self.config.mesh_devices:
             from tpu_life_torch.backends.base import resolve_device
 
             # no card: the tidy error `run` gives, before anything is queued
             # (``device="cpu"`` asks for the plain versions on the host)
             resolve_device(self.config.device)
-        if self.config.spill_url is not None:
-            raise NotPortedError(
-                "the HTTP spill store (spill_url) is not ported yet: it waits for "
-                "the gateway slice of ROADMAP A9; spill_dir is ported"
-            )
         self.clock = clock
         self.run_id = self.config.run_id or obs.new_run_id()
         self.store = SessionStore()

@@ -1,7 +1,7 @@
 """The serve-tier spill store: crash-durable session state on disk (the
 port of ``tpu_life/serve/spill.py``: the local store and its replicas,
-whose files are byte-equal to the JAX package's; the remote HTTP store,
-``serve/spill_http.py``, waits for the gateway slice of ROADMAP A9).
+whose files are byte-equal to the JAX package's; the remote HTTP store is
+``serve/spill_http.py``).
 
 Durable sessions (docs/SERVING.md "durability", docs/FLEET.md
 "failover") rest on the runtime's crash-consistent snapshot contract
@@ -72,9 +72,13 @@ class SpillBackend:
     """The pluggable durability seam (docs/FLEET.md "Cross-host
     topology"): where a worker's spilled sessions live.
 
-    The port ships :class:`SpillStore` (a local directory) and its
-    replicated form; the JAX package's remote HTTP store is still queued.
-    Each speaks the contract the service's spill pass relies on:
+    Two implementations ship: :class:`SpillStore` (a local directory —
+    the default, and the only choice when the rescuing migrator shares a
+    filesystem with the victim) and
+    :class:`tpu_life_torch.serve.spill_http.HttpSpillBackend` (a remote HTTP
+    object store any worker or supervisor can host, so migration works
+    when the survivor is on another machine).  Both speak the same
+    contract the service's spill pass relies on:
 
     - ``save`` publishes atomically with a CRC32 witness and returns
       False for a no-op rewrite of the newest spilled step;
@@ -171,12 +175,14 @@ def make_spill_backend(
     if replicas < 1:
         raise ValueError(f"spill replicas must be >= 1, got {replicas}")
     if spill_url is not None:
-        from tpu_life_torch.models.rules import NotPortedError
+        if replicas > 1:
+            raise ValueError(
+                "spill replication is a local-directory feature; the "
+                "remote HTTP store owns its own durability"
+            )
+        from tpu_life_torch.serve.spill_http import HttpSpillBackend
 
-        raise NotPortedError(
-            "the HTTP spill store (spill_url) is not ported yet: it waits for "
-            "the gateway slice of ROADMAP A9; spill_dir is ported"
-        )
+        return HttpSpillBackend(spill_url, namespace or "default")
     if replicas > 1:
         return ReplicatedSpillBackend(spill_dir, replicas)
     return SpillStore(spill_dir)
