@@ -293,6 +293,30 @@ Phases (any failure exits non-zero and prints no result line):
    reference workload and ``serve --serve-backend native`` at the golden
    sha256, and ``run --backend native`` at 4096^2 x 16 (its ``Total time``,
    the host's CPUs, equal to the ``cuda`` run's bytes).
+20. the fleet on the card — (a) ``python -m tpu_life_torch fleet --workers
+   2 --port 0 --spill-dir … --trace-dir …`` as a child (its defaults:
+   ``--serve-backend cuda``, workers on the card), its startup line and
+   ``/readyz``; each worker holds the card (its pid among ``nvidia-smi
+   --query-compute-apps``, or, where the card's process list shows none of
+   this machine's pids, ``/dev/nvidia*`` open in the worker); through
+   ``GatewayClient`` at the router 16 staggered Conway sessions of 512^2 x
+   64, each equal to the single-board ``cuda`` Runner, and 2 ``ising``
+   sessions of 512^2 x 64 at T = 2.27, each equal to ``MCHostRunner``
+   (sessions/s); in the router's merged ``/metrics`` every worker built the
+   ``cuda`` engine of the Conway key (K1's batch mode) and stepped it, and
+   ``serve_packed_steps_total`` (K6's batch mode) is > 0 on every worker
+   that held an ``ising`` session; (b) a Conway 1024^2 x 16384 session
+   whose worker is SIGKILLed after its first spill: the supervisor respawns
+   the worker (a new generation), the migrator resumes the session on the
+   survivor (kill-to-resume seconds), and the result equals the
+   uninterrupted Runner; (c) ``top --once --json`` on the router names both
+   workers; SIGTERM drains the fleet to exit 0 with its summary line;
+   ``trace merge`` on the capture, ``doctor --sid <the killed session>
+   --json`` (the kill and the resume), ``doctor --slo`` and ``doctor
+   --scale`` exit 0; (d) ``python -m tpu_life_torch chaos --seed 7 --workers
+   2 --sessions 4 --ising-sessions 1`` (``cuda`` workers): ``ok``, every
+   invariant, every session delivered, the plan digest of ``ChaosPlan(7,
+   DEFAULT_POINTS)``.
 
 Phases 2-4 cover K3 too: it is built with K1 (same source, its instances
 in the ptxas report and the SASS counts); phase 3 holds it bit-identical to its
@@ -557,6 +581,10 @@ P19_SIDE, P19_STEPS, P19_SESSIONS = 512, 64, 16
 P19_ISING_SIDE, P19_ISING_STEPS, P19_ISING_SEED = 512, 64, 23
 P19_KILL_SIDE, P19_KILL_STEPS, P19_KILL_SEED = 1024, 16384, 29
 P19_NATIVE_SIDE, P19_NATIVE_STEPS = 4096, 16
+# phase 20: the fleet's staggered Conway and ising sessions (as phase 19's);
+# the session whose worker is SIGKILLed
+P20_SIDE, P20_STEPS, P20_SESSIONS, P20_ISING = 512, 64, 16, 2
+P20_KILL_SIDE, P20_KILL_STEPS, P20_KILL_SEED = 1024, 32768, 31
 
 
 def fail(msg: str) -> None:
@@ -2311,10 +2339,15 @@ def main() -> int:
     # -- 19. the network front door: gateway, client, spill store, stats ----
     front = phase19(dict(smi=smi, counted=counted, golden=golden))
 
+    # -- 20. the fleet: router, supervisor and migrator over cuda workers ----
+    fleet = phase20(dict(smi=smi))
+
     batch_row.update(tuned_serve_launches=tuned["served_batch"],
                      tuned_serve_pick=tuned["served_pick"],
-                     gateway_launches=front["k1_batch"])
+                     gateway_launches=front["k1_batch"],
+                     fleet_workers_built=fleet["k1_batch_workers"])
     mc_batch_rows[0]["gateway_launches"] = front["k6_batch"]
+    mc_batch_rows[0]["fleet_packed_steps"] = fleet["k6_packed_steps"]
     diamond = diamond_rows[DIAMOND]
     k4_row = k4_rows[("brians_brain", (2, 2))]
     print(json.dumps({"kernels": [{
@@ -4732,6 +4765,319 @@ def phase19(ctx: dict) -> dict:
           f"run's bytes; phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"k1_batch": k1_batch, "k6_batch": k6_batch}
 
+
+def _worker_pids(spill_root: Path) -> dict[str, tuple[int, int]]:
+    """``{worker: (generation, pid)}`` of the live gateway workers of the
+    fleet whose spill root is ``spill_root``: each worker's argv names its
+    per-incarnation spill directory ``<root>/<name>g<generation>``."""
+    found = {}
+    for pid_dir in Path("/proc").iterdir():
+        if not pid_dir.name.isdigit():
+            continue
+        try:
+            argv = (pid_dir / "cmdline").read_bytes().split(b"\0")
+        except OSError:
+            continue
+        if b"gateway" not in argv or b"--spill-dir" not in argv:
+            continue
+        m = re.fullmatch(re.escape(str(spill_root)) + r"/(w\d+)g(\d+)",
+                         argv[argv.index(b"--spill-dir") + 1].decode())
+        if m:
+            gen = int(m.group(2))
+            if found.get(m.group(1), (-1, 0))[0] < gen:
+                found[m.group(1)] = (gen, int(pid_dir.name))
+    return found
+
+
+def _holds_the_card(pid: int) -> bool:
+    """Whether process ``pid`` has a ``/dev/nvidia*`` device open."""
+    try:
+        return any(os.readlink(fd).startswith("/dev/nvidia")
+                   for fd in Path(f"/proc/{pid}/fd").iterdir())
+    except OSError:
+        return False
+
+
+def _prom_by_worker(text: str, name: str, **labels) -> dict[str, float]:
+    """``{worker: value}`` of one family's samples in the router's merged
+    exposition, optionally filtered by other labels."""
+    out = {}
+    for line in text.splitlines():
+        if not line.startswith(name + "{"):
+            continue
+        head, _, value = line.rpartition(" ")
+        got = dict(re.findall(r'(\w+)="([^"]*)"', head))
+        if "worker" in got and all(got.get(k) == v for k, v in labels.items()):
+            out[got["worker"]] = out.get(got["worker"], 0.0) + float(value)
+    return out
+
+
+def phase20(ctx: dict) -> dict:
+    """Phase 20: the fleet on the card (see the module docstring).  Returns
+    the workers that built the cuda Conway engine (K1's batch mode) and the
+    packed steps (K6's batch mode) each worker ran, read from the router's
+    merged /metrics: the kernels ran in the workers' processes, so their
+    launch counters are not this process's."""
+    import signal
+    import urllib.request
+
+    import numpy as np
+
+    from tpu_life_torch import chaos
+    from tpu_life_torch.backends.base import get_backend, make_runner
+    from tpu_life_torch.chaos.drill import DEFAULT_POINTS
+    from tpu_life_torch.gateway import protocol
+    from tpu_life_torch.gateway.client import GatewayClient, GatewayError
+    from tpu_life_torch.mc.engine import MCHostRunner
+    from tpu_life_torch.models.rules import get_rule
+
+    smi = ctx["smi"]
+    t_phase = time.perf_counter()
+    conway, ising = get_rule("conway"), get_rule("ising")
+    cuda = get_backend("cuda")
+
+    def runner_bytes(board, steps) -> bytes:
+        r = make_runner(cuda, board, conway)
+        r.advance(steps)
+        r.sync()
+        return np.asarray(r.fetch()).tobytes()
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        spill, trace = tmp / "spill", tmp / "trace"
+
+        def child(args: list[str], name: str):
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "tpu_life_torch", *args], cwd=tmp, env=env,
+                stdout=open(tmp / f"{name}.out", "w"), stderr=open(tmp / f"{name}.err", "w"))
+            procs.append(proc)
+            return proc
+
+        def tool(args: list[str], what: str, rc: int = 0) -> str:
+            proc = subprocess.run([sys.executable, "-m", "tpu_life_torch", *args], cwd=tmp,
+                                  env=env, capture_output=True, text=True, timeout=300)
+            if proc.returncode != rc:
+                fail(f"phase 20: {what} exited {proc.returncode}: {proc.stderr[-2000:]}")
+            return proc.stdout
+
+        try:
+            # (a) the fleet with its defaults: workers on the card
+            t0 = time.perf_counter()
+            fleet = child(["fleet", "--workers", "2", "--port", "0", "--spill-dir", str(spill),
+                           "--trace-dir", str(trace), "--log-dir", str(tmp / "logs")], "fleet")
+            deadline = time.monotonic() + 300
+            while "\n" not in (tmp / "fleet.out").read_text():
+                if fleet.poll() is not None or time.monotonic() > deadline:
+                    fail(f"phase 20 (a): no startup line from the fleet: "
+                         f"{(tmp / 'fleet.err').read_text()[-3000:]}")
+                time.sleep(0.05)
+            start = json.loads((tmp / "fleet.out").read_text().splitlines()[0])
+            url = start["url"]
+            if start.get("backend") != "cuda" or start.get("workers") != 2:
+                fail(f"phase 20 (a): the fleet's startup line {start}")
+            while True:
+                try:
+                    with urllib.request.urlopen(url + "/readyz", timeout=2) as r:
+                        if json.load(r).get("workers_ready") == 2:
+                            break
+                except OSError:
+                    pass
+                if fleet.poll() is not None or time.monotonic() > deadline:
+                    fail(f"phase 20 (a): the fleet never had 2 ready workers: "
+                         f"{(tmp / 'fleet.err').read_text()[-3000:]}")
+                time.sleep(0.1)
+            ready_s = time.perf_counter() - t0
+            pids = _worker_pids(spill)
+            if sorted(pids) != ["w0", "w1"]:
+                fail(f"phase 20 (a): the workers' processes {pids}")
+            listed = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=60).stdout.split()
+            listed = {int(p) for p in listed if p.strip().isdigit()}
+            ours = {pid for _, pid in pids.values()}
+            if ours <= listed:
+                held = "each worker's pid among nvidia-smi --query-compute-apps"
+            elif listed & ours or not all(_holds_the_card(pid) for pid in ours):
+                fail(f"phase 20 (a): workers {pids}, nvidia-smi compute apps {sorted(listed)}")
+            else:
+                held = (f"nvidia-smi lists pids {sorted(listed)} of another pid namespace; "
+                        f"each worker has /dev/nvidia* open")
+            client = GatewayClient(url, retries=8)
+            boards = [protocol.parse_submit({"size": P20_SIDE, "steps": P20_STEPS, "seed": 500 + i})
+                      .board for i in range(P20_SESSIONS)]
+            spins = [protocol.parse_submit({"size": P20_SIDE, "steps": P20_STEPS, "rule": "ising",
+                                            "seed": 600 + i, "temperature": 2.27}).board
+                     for i in range(P20_ISING)]
+            conway_want = [runner_bytes(b, P20_STEPS) for b in boards]
+            ising_want = []
+            for j, b in enumerate(spins):
+                oracle = MCHostRunner(b, ising, seed=600 + j, temperature=2.27)
+                oracle.advance(P20_STEPS)
+                ising_want.append(oracle.board.tobytes())
+            rates = []
+            for _ in range(2):  # a first wave meets fresh worker processes
+                t0 = time.perf_counter()
+                sids = []
+                for i, board in enumerate(boards):
+                    sids.append(client.submit(board=board, rule="conway", steps=P20_STEPS))
+                    if i == P20_SESSIONS // 2:
+                        isids = [client.submit(board=b, rule="ising", steps=P20_STEPS,
+                                               seed=600 + j, temperature=2.27)
+                                 for j, b in enumerate(spins)]
+                    time.sleep(0.01)  # staggered arrivals
+                views = [client.wait(s, timeout=300) for s in [*sids, *isids]]
+                rates.append((P20_SESSIONS + P20_ISING) / (time.perf_counter() - t0))
+                if any(v["state"] != "done" for v in views):
+                    fail(f"phase 20 (a): sessions ended {[v['state'] for v in views]}")
+                bad = [s for s, want in zip([*sids, *isids], [*conway_want, *ising_want])
+                       if client.result_board(s).tobytes() != want]
+                if bad:
+                    fail(f"phase 20 (a): sessions {bad} differ from their oracles")
+            per_worker = {w: sum(1 for s in sids if s.startswith(w + "g")) for w in ("w0", "w1")}
+            ising_workers = {s.split("g")[0] for s in isids}
+            metrics = client.metrics()
+            built = _prom_by_worker(metrics, "serve_engine_compile_count",
+                                    compile_key=f"B3/S23:{P20_SIDE}x{P20_SIDE}:cuda")
+            steps = _prom_by_worker(metrics, "serve_steps_total")
+            packed = _prom_by_worker(metrics, "serve_packed_steps_total")
+            if min(per_worker.values()) < 1 or sorted(built) != ["w0", "w1"] or \
+                    min(steps.values()) <= 0 or any(packed.get(w, 0) <= 0 for w in ising_workers):
+                fail(f"phase 20 (a): sessions a worker {per_worker}, the cuda Conway engine built "
+                     f"{built}, steps {steps}, packed steps {packed} (ising on {ising_workers})")
+            print(f"phase 20 (a), fleet --workers 2 (card: {smi}): both workers ready "
+                  f"{ready_s:.1f} s after the fleet's start, {held}; "
+                  f"{P20_SESSIONS} staggered conway {P20_SIDE}^2 x {P20_STEPS} sessions "
+                  f"({per_worker} a worker) equal to the cuda Runner and {P20_ISING} ising at "
+                  f"T = 2.27 (on {sorted(ising_workers)}) equal to MCHostRunner, "
+                  f"{rates[0]:.2f} sessions/s through the router, a second wave "
+                  f"{rates[1]:.2f}; the cuda Conway engine (K1's "
+                  f"batch mode) built on {sorted(built)}, steps {steps}, packed steps "
+                  f"(K6's batch mode) {packed}", flush=True)
+
+            # (b) failover: SIGKILL the worker holding a long session
+            kill_board = protocol.parse_submit({"size": P20_KILL_SIDE, "steps": P20_KILL_STEPS,
+                                                "seed": P20_KILL_SEED}).board
+            ksid = client.submit(size=P20_KILL_SIDE, steps=P20_KILL_STEPS, seed=P20_KILL_SEED)
+            victim = client.poll(ksid)["worker"]
+            gen0, vpid = pids[victim]
+            spilled = spill / f"{victim}g{gen0}" / ksid.split("-", 1)[1]
+            deadline = time.monotonic() + 120
+            while not any(spilled.glob("board_*")):
+                v = client.poll(ksid)
+                if v["finished"] or time.monotonic() > deadline:
+                    fail(f"phase 20 (b): no spill of {ksid} before the kill: {v}")
+                time.sleep(0.02)
+            # three monitor ticks: the supervisor's scrape has the victim's
+            # spans in the capture before the kill
+            time.sleep(0.75)
+            v = client.poll(ksid)
+            if v["finished"]:
+                fail(f"phase 20 (b): {ksid} finished before the kill: {v}")
+            killed_at = v["steps_done"]
+            t_kill = time.perf_counter()
+            os.kill(vpid, signal.SIGKILL)
+            resumed_s = None
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                try:
+                    v = client.poll(ksid)
+                except GatewayError as e:
+                    # a poll cut by the kill (502) or answered while the
+                    # rescue runs (409 migrating): the client's recourse
+                    # is to poll again
+                    if e.status not in (409, 502, 503):
+                        raise
+                    time.sleep(0.02)
+                    continue
+                if v.get("worker") not in (None, victim) and v["state"] in ("running", "done"):
+                    resumed_s = time.perf_counter() - t_kill
+                    break
+                time.sleep(0.02)
+            if resumed_s is None:
+                fail(f"phase 20 (b): {ksid} was not resumed on the survivor: {v}")
+            survivor = v["worker"]
+            deadline = time.monotonic() + 120
+            while True:
+                respawned = _worker_pids(spill).get(victim, (gen0, vpid))
+                if respawned[0] > gen0:
+                    break
+                if time.monotonic() > deadline:
+                    fail(f"phase 20 (b): {victim} was not respawned")
+                time.sleep(0.1)
+            while True:
+                with urllib.request.urlopen(url + "/readyz", timeout=5) as r:
+                    if json.load(r).get("workers_ready") == 2:
+                        break
+                if time.monotonic() > deadline:
+                    fail(f"phase 20 (b): the respawned {victim} never became ready")
+                time.sleep(0.1)
+            rejoined_s = time.perf_counter() - t_kill
+            view = client.wait(ksid, timeout=300)
+            if view["state"] != "done" or \
+                    client.result_board(ksid).tobytes() != runner_bytes(kill_board, P20_KILL_STEPS):
+                fail(f"phase 20 (b): the migrated session {view} differs from the "
+                     f"uninterrupted Runner")
+            print(f"phase 20 (b), failover: conway {P20_KILL_SIDE}^2 x {P20_KILL_STEPS} on "
+                  f"{victim} SIGKILLed at step {killed_at}, resumed on {survivor} "
+                  f"{resumed_s:.2f} s after the kill, equal to the uninterrupted Runner; "
+                  f"{victim} respawned as generation {respawned[0]} and ready "
+                  f"{rejoined_s:.1f} s after the kill", flush=True)
+
+            # (c) the console, the drain and the offline tools
+            top = json.loads(tool(["top", "--once", "--json", "--url", url, "--interval", "0.5"],
+                                  "top --once --json"))
+            if not {"w0", "w1"} <= set(top["workers"]):
+                fail(f"phase 20 (c): top names the workers {sorted(top['workers'])}")
+            fleet.send_signal(signal.SIGTERM)
+            rc = fleet.wait(timeout=300)
+            summary = json.loads((tmp / "fleet.out").read_text().strip().splitlines()[-1])
+            if rc != 0 or summary.get("failed_workers") != [] or \
+                    summary.get("migrations", {}).get("migrated", 0) < 1:
+                fail(f"phase 20 (c): the fleet's SIGTERM: exit {rc}, {summary}")
+            merged = json.loads(tool(["trace", "merge", str(trace)], "trace merge"))
+            report = json.loads(tool(["doctor", str(trace), "--sid", ksid, "--json"],
+                                     f"doctor --sid {ksid}"))
+            kinds = {f["kind"] for f in report["findings"]}
+            if not {"worker_exit", "migration"} <= kinds or report["outcome"] != "done":
+                fail(f"phase 20 (c): doctor --sid {ksid}: {report}")
+            tool(["doctor", str(trace), "--slo"], "doctor --slo")
+            tool(["doctor", str(trace), "--scale"], "doctor --scale")
+            print(f"phase 20 (c), top --once --json named {sorted(top['workers'])}; SIGTERM "
+                  f"drained the fleet to exit 0 (generations {summary['generations']}, "
+                  f"migrations {summary['migrations']}); trace merge: {merged['events']} events "
+                  f"of {merged['incarnations']} incarnations; doctor --sid {ksid}: "
+                  f"{sorted(kinds)}, outcome {report['outcome']}; doctor --slo and --scale "
+                  f"exit 0", flush=True)
+
+            # (d) the chaos drill on cuda workers
+            t0 = time.perf_counter()
+            out = tool(["chaos", "--seed", "7", "--workers", "2", "--sessions", "4",
+                        "--ising-sessions", "1", "--workdir", str(tmp / "drill")], "chaos")
+            drill_s = time.perf_counter() - t0
+            drill = json.loads(out.strip().splitlines()[-1])
+            bad = [k for k, v in drill["invariants"].items() if not v["ok"]]
+            if not drill["ok"] or bad or drill["delivered"] != drill["sessions"] or \
+                    drill["plan_digest"] != chaos.ChaosPlan(7, DEFAULT_POINTS).digest():
+                fail(f"phase 20 (d): the drill: ok {drill['ok']}, broken {bad}, delivered "
+                     f"{drill['delivered']} of {drill['sessions']}, digest "
+                     f"{drill['plan_digest']}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+            for _, pid in _worker_pids(spill).values():
+                with contextlib.suppress(OSError):
+                    os.kill(pid, signal.SIGKILL)
+    print(f"phase 20 (d), chaos --seed 7 on cuda workers: ok, {len(drill['invariants'])} "
+          f"invariants, {drill['delivered']} of {drill['sessions']} sessions delivered, "
+          f"kills {drill['kills']}, injections {drill['injections']}, digest "
+          f"{drill['plan_digest']} ({drill_s:.1f} s); phase 20 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"k1_batch_workers": sorted(built), "k6_packed_steps": packed}
 
 def cli_main_rc(args: list[str]) -> int:
     """The exit code of one in-process CLI call, its output discarded."""

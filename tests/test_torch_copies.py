@@ -979,3 +979,118 @@ def test_native_backend_run_and_step_wrap_cols_are_copies():
 
     assert _source(native_backend.NativeBackend.run) == _source(jnative.NativeBackend.run)
     assert _source(ref.step_np_wrap_cols) == _source(jref.step_np_wrap_cols)
+
+
+# -- the fleet, the chaos drills and the console tools ---------------------------
+def _jax_text(src: str) -> str:
+    """A JAX source as the port copies it: without the tags naming the
+    original's work items ("PR n ", "(XXXXX n)")."""
+    import re
+
+    return re.sub(r" \([A-Z]{5} \d+\)", "", re.sub(r"PR \d+ ", "", src))
+
+
+#: whole modules copied verbatim (imports renamed, tags dropped)
+FLEET_COPIES = ["fleet.errors", "fleet.registry", "fleet.balancer", "fleet.fanout",
+                "fleet.membership", "fleet.autoscaler", "fleet.router", "fleet.migrate",
+                "fleet", "obs.journey", "obs.slo", "obs.console"]
+
+
+@pytest.mark.parametrize("name", FLEET_COPIES)
+def test_fleet_and_obs_tools_are_verbatim_copies(name):
+    import importlib
+
+    jmod = importlib.import_module(f"tpu_life.{name}")
+    port = importlib.import_module(f"tpu_life_torch.{name}")
+    assert _as_jax(_source(port)) == _jax_text(_source(jmod))
+
+
+def _members(mod) -> dict[str, str]:
+    """Every function and class a module defines, and every method of its
+    classes, by qualified name -> source."""
+    out = {}
+    for name, obj in vars(mod).items():
+        if getattr(obj, "__module__", None) != mod.__name__:
+            continue
+        if inspect.isfunction(obj):
+            out[name] = _source(obj)
+        elif inspect.isclass(obj):
+            out[name] = _source(obj)
+            for attr, member in vars(obj).items():
+                fn = member.fget if isinstance(member, property) else member
+                fn = getattr(fn, "__func__", fn)
+                # dataclass-made methods have no source of their own
+                if inspect.isfunction(fn) and fn.__code__.co_filename == mod.__file__:
+                    out[f"{name}.{attr}"] = _source(fn)
+    return out
+
+
+#: the modules with recorded departures, and exactly the members that
+#: depart (each pinned by a test of its own in test_torch_fleet_unit.py,
+#: test_torch_chaos_drill.py or test_torch_fleet_http.py); every other
+#: member is a verbatim copy
+DEPARTURES = {
+    # overlays: CUDA_VISIBLE_DEVICES and --device, no JAX_PLATFORMS/XLA flag
+    "fleet.placement": {"Placement", "plan_placements", "apply_env_overlay"},
+    # the placement's gateway flags ride every spawn's argv
+    "fleet.supervisor": {"FleetConfig", "Worker", "Supervisor", "Supervisor.__init__",
+                         "Supervisor.worker_argv"},
+    # the card by default (backend cuda, a device field); numpy-only Threefry
+    "chaos.drill": {"DrillConfig", "run_drill", "_Driller", "_Driller._draw"},
+    "chaos.crosshost": {"CrossHostConfig", "run_cross_host_drill", "_shim"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEPARTURES))
+def test_fleet_copies_depart_only_where_recorded(name):
+    import importlib
+
+    jm = _members(importlib.import_module(f"tpu_life.{name}"))
+    pm = _members(importlib.import_module(f"tpu_life_torch.{name}"))
+    assert set(pm) == set(jm)
+    differ = {n for n in pm if _as_jax(pm[n]) != _jax_text(jm[n])}
+    assert differ == DEPARTURES[name]
+
+
+def test_the_fleet_worker_argv_starts_the_ports_gateway(tmp_path):
+    import sys
+
+    from tpu_life_torch import obs
+    from tpu_life_torch.fleet.supervisor import FleetConfig, Supervisor
+
+    s = Supervisor(FleetConfig(workers=1, log_dir=str(tmp_path), worker_args=("--capacity", "2"),
+                               spill_dir=str(tmp_path / "sp"), trace_dir=str(tmp_path / "tr")),
+                   obs.MetricsRegistry(), spawn=lambda w: None, probe=lambda w: "ready")
+    argv = s.worker_argv(s.workers[0])
+    assert argv[:8] == [sys.executable, "-m", "tpu_life_torch", "gateway", "--host",
+                        "127.0.0.1", "--port", "0"]
+    assert argv[8:10] == ["--capacity", "2"]
+    assert argv[argv.index("--spill-dir") + 1] == str(tmp_path / "sp" / "w0g0")
+    assert argv[-1] == str(tmp_path / "tr" / "w0g0.trace.json")
+
+
+def test_the_default_spawn_puts_the_ports_checkout_first(tmp_path, monkeypatch):
+    import subprocess
+    from pathlib import Path
+
+    from tpu_life_torch import obs
+    from tpu_life_torch.fleet import supervisor as sup
+
+    seen = {}
+
+    def popen(argv, **kw):
+        seen.update(argv=argv, env=kw["env"], new_session=kw["start_new_session"])
+        return type("Proc", (), {"pid": 4242})()
+
+    monkeypatch.setattr(subprocess, "Popen", popen)
+    monkeypatch.setenv("PYTHONPATH", "/elsewhere")
+    s = sup.Supervisor(sup.FleetConfig(workers=1, log_dir=str(tmp_path), placement="auto",
+                                       placement_platform="cuda", total_devices=1),
+                       obs.MetricsRegistry(), probe=lambda w: "ready")
+    s._default_spawn(s.workers[0])
+    root = Path(seen["env"]["PYTHONPATH"].split(":")[0])
+    assert (root / "tpu_life_torch" / "fleet" / "supervisor.py").is_file()
+    assert seen["env"]["PYTHONPATH"].endswith(":/elsewhere")
+    assert seen["env"]["CUDA_VISIBLE_DEVICES"] == "0"
+    assert seen["argv"][2:4] == ["tpu_life_torch", "gateway"]
+    assert seen["argv"][-2:] == ["--device", "cuda"] and seen["new_session"]

@@ -440,11 +440,65 @@ def test_gateway_cli_lines_match_the_jax_gateway(tmp_path):
         jsum["sessions"], jsum["done"], jsum["failed"], jsum["pump_error"]) == (1, 1, 0, None)
 
 
-@pytest.mark.parametrize("argv", [["--register", "http://127.0.0.1:1"],
-                                  ["--register", "http://127.0.0.1:1", "--standby"],
+@pytest.mark.parametrize("argv", [["--register", "FLEET"], ["--register", "FLEET", "--standby"],
                                   ["--standby"]])
-def test_gateway_register_and_standby_exit_2_naming_the_queue_item(argv, capsys):
+def test_gateway_register_and_standby_join_a_port_fleet(argv, tmp_path, capsys):
+    # a wire-registered worker joins a port control plane, keeps its lease
+    # through heartbeats past the TTL and serves the fleet's sessions; a
+    # --standby registration parks until recruited; --standby alone is
+    # refused as the JAX gateway refuses it
     from tpu_life_torch import cli
+    from tpu_life_torch.fleet import Fleet, FleetConfig, WorkerState
+    from tpu_life_torch.models.rules import get_rule
+    from tpu_life_torch.ops.reference import run_np
 
-    assert cli.main(["gateway", "--port", "0", "--device", "cpu", *argv]) == 2
-    assert "ROADMAP A9.2.3" in capsys.readouterr().err
+    if "FLEET" not in argv:
+        assert cli.main(["gateway", "--port", "0", "--device", "cpu", *argv]) == 2
+        assert "--standby needs --register" in capsys.readouterr().err
+        return
+    ttl = 1.5
+    fleet = Fleet(FleetConfig(workers=0, port=0, lease_ttl_s=ttl, probe_interval_s=0.1,
+                              log_dir=str(tmp_path / "logs")))
+    fleet.start()
+    url = f"http://127.0.0.1:{fleet.port}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_life_torch", "gateway", "--port", "0", "--device", "cpu",
+         *[url if a == "FLEET" else a for a in argv]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        startup = json.loads(proc.stdout.readline())
+        parked = "--standby" in argv
+        want = WorkerState.STANDBY if parked else WorkerState.READY
+        sup = fleet.supervisor
+        t_end = time.monotonic() + 30
+        while not sup.workers or sup.workers[0].state is not want:
+            assert time.monotonic() < t_end, sup.states()
+            time.sleep(0.05)
+        time.sleep(3 * ttl)  # three TTLs: only the heartbeats keep the lease
+        w = sup.get("w0")
+        assert w.state is want and w.remote and w.url == startup["url"]
+        assert sup._c_lease_expired.value == 0
+        if parked:
+            assert sup.recruit() == "w0"
+            while w.state is not WorkerState.READY:
+                assert time.monotonic() < t_end + 3 * ttl, sup.states()
+                time.sleep(0.05)
+        client = GatewayClient(url, retries=6)
+        board = random_board(16, 16, density=0.4, seed=12)
+        sid = client.submit(board=board, rule="conway", steps=9)
+        assert client.wait(sid, timeout=60)["state"] == "done" and sid.startswith("w0g1-")
+        assert client.result_board(sid).tobytes() == run_np(board, get_rule("conway"), 9).tobytes()
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        fleet.begin_drain()
+        fleet.wait(timeout=10)
+        fleet.close()
+    assert proc.returncode == 0, err
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert summary["registrar"] == {"registrations": 1, "fenced": 0, "worker": "w0",
+                                    "generation": 1}

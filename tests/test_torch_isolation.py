@@ -359,3 +359,87 @@ def test_the_gateway_refuses_to_run_on_the_cpu_unasked(argv, monkeypatch, capsys
         return
     with pytest.raises(CudaUnavailableError, match="--device cpu"):
         cli.main(argv)
+
+
+def test_scan_covers_the_fleet_slice():
+    # the fleet, the drills and the console tools are among the modules
+    # both checks read
+    assert {
+        "tpu_life_torch.fleet",
+        "tpu_life_torch.fleet.errors",
+        "tpu_life_torch.fleet.registry",
+        "tpu_life_torch.fleet.placement",
+        "tpu_life_torch.fleet.balancer",
+        "tpu_life_torch.fleet.fanout",
+        "tpu_life_torch.fleet.membership",
+        "tpu_life_torch.fleet.autoscaler",
+        "tpu_life_torch.fleet.supervisor",
+        "tpu_life_torch.fleet.router",
+        "tpu_life_torch.fleet.migrate",
+        "tpu_life_torch.obs.journey",
+        "tpu_life_torch.obs.slo",
+        "tpu_life_torch.obs.console",
+        "tpu_life_torch.chaos.drill",
+        "tpu_life_torch.chaos.crosshost",
+    } <= set(MODULES)
+
+
+def test_the_fleet_front_and_top_run_without_torch(tmp_path):
+    # the router process pays for no torch: a Fleet built (not started)
+    # and top --once's view of a live router, in a fresh process
+    code = (
+        "import json, sys\n"
+        "from tpu_life_torch.fleet import Fleet, FleetConfig\n"
+        "from tpu_life_torch.obs import console\n"
+        f"fleet = Fleet(FleetConfig(workers=2, port=0, log_dir={str(tmp_path / 'logs')!r}))\n"
+        "fleet.router.start()\n"
+        "url = f'http://127.0.0.1:{fleet.port}'\n"
+        "client = console.TopClient(url)\n"
+        "client.view()\n"
+        "view = client.view()\n"
+        "print(console.render_view(view, color=False))\n"
+        "fleet.close()\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules, 'jax': 'jax' in sys.modules,\n"
+        "                  'rows': sorted(view['workers']), 'states': view['states']}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=tmp_path, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (got["torch"], got["jax"]) == (False, False)
+    assert got["states"] == {"w0": "down", "w1": "down"}
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["trace", "merge", "CAPTURE"], 0),
+    (["doctor", "CAPTURE", "--sid", "w0g1-s000000"], 1),
+    (["doctor", "CAPTURE", "--slo", "--json"], 0),
+    (["doctor", "CAPTURE", "--scale"], 0),
+    (["top", "--url", "DEAD", "--once", "--json"], 2),
+    (["fleet", "--help"], 0),
+])
+def test_trace_doctor_top_and_fleet_run_without_torch(argv, rc, tmp_path):
+    capture = tmp_path / "capture"
+    capture.mkdir()
+    (capture / "control.jsonl").write_text(json.dumps(
+        {"worker": "control", "generation": 0, "pid": 1, "run_id": None, "wall_t0": None,
+         "offset_s": 0.0, "dropped": 0, "events": [], "flight": [
+             {"t": 1.0, "kind": "route.submit", "sid": "w0g1-s000000",
+              "worker_sid": "s000000", "trace_id": "0123456789abcdef", "worker": "w0",
+              "generation": 1}]}) + "\n")
+    argv = [str(capture) if a == "CAPTURE" else _dead_url() if a == "DEAD" else a for a in argv]
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['tpu_life_torch', *{argv!r}]\n"
+        "try:\n"
+        "    runpy.run_module('tpu_life_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code or 0\n"
+        "print('TORCH_LOADED', 'torch' in sys.modules, 'RC', rc)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=tmp_path, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == f"TORCH_LOADED False RC {rc}"

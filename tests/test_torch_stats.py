@@ -144,6 +144,31 @@ def test_stats_json_prints_what_the_jax_stats_prints(tmp_path):
         assert port.stdout.strip()
 
 
-def test_stats_watch_exits_2_naming_the_queue_item(capsys):
-    assert main(["stats", str(FIXTURE), "--watch", "0.5"]) == 2
-    assert "ROADMAP A9.2.3" in capsys.readouterr().err
+def test_stats_watch_renders_twice_under_an_injected_clock(tmp_path, monkeypatch, capsys):
+    # --watch re-reads the append-only sink on top's refresh loop: two
+    # frames, each the single-shot output of the sink as it stood; the
+    # injected sleep grows the sink between them, then ends the loop as
+    # ^C does
+    from tpu_life_torch.obs import console
+
+    sink = tmp_path / "m.jsonl"
+    rows = FIXTURE.read_text().splitlines(keepends=True)
+    sink.write_text("".join(rows[: len(rows) // 2]))
+    assert main(["stats", str(sink), "--json"]) == 0
+    first = capsys.readouterr().out
+    sleeps = []
+
+    def sleep(seconds):
+        sleeps.append(seconds)
+        if len(sleeps) == 2:
+            raise KeyboardInterrupt
+        sink.write_text("".join(rows))
+
+    monkeypatch.setattr(console.time, "sleep", sleep)
+    assert main(["stats", str(sink), "--json", "--watch", "5"]) == 0
+    watched = capsys.readouterr().out
+    monkeypatch.undo()
+    assert main(["stats", str(sink), "--json"]) == 0
+    second = capsys.readouterr().out
+    assert first != second and sleeps == [5.0, 5.0]
+    assert watched == console._ANSI_CLEAR + first + console._ANSI_CLEAR + second

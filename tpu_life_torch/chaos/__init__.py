@@ -8,9 +8,10 @@ Every decision is a **pure function of (seed, point, nth call at that
 point)** — the same Threefry-2x32 counter discipline as
 ``tpu_life_torch.mc.prng`` — so a chaos run's fault schedule replays
 exactly from its seed.  Disarmed (the default), every seam is a no-op:
-one module-global ``None`` check, no draws, no counting.  The JAX
-package's drill runner and cross-host drills wait for the port of its
-chaos entry point.
+one module-global ``None`` check, no draws, no counting.  The drills
+that arm a plan against a real fleet are :mod:`tpu_life_torch.chaos.drill`
+and :mod:`tpu_life_torch.chaos.crosshost` (``python -m tpu_life_torch
+chaos``).
 
 Arming: programmatic (``chaos.arm(plan)`` / the :func:`armed_plan`
 context manager) or via ``TPU_LIFE_CHAOS`` — a JSON plan spec in the

@@ -36,8 +36,13 @@ shape) key and persists the winner to the port's autotune cache; ``run
 native|stripes|mpi`` and ``serve --serve-backend native|stripes`` step on
 the host.  ``gateway`` puts the serving tier behind the JAX package's HTTP
 API, ``client`` talks to a gateway, ``spill-store`` hosts the HTTP spill
-store and ``stats`` summarizes metrics sinks; the last three import no
-torch, so they run beside a wedged card.  On the card, ``run``, ``bench``,
+store and ``stats`` summarizes metrics sinks.  ``fleet`` supervises N
+gateway workers (on the card unless ``--device cpu``) behind a router with
+failover and migration; ``chaos`` drives such a fleet through a seeded
+fault drill; ``top`` is the fleet's live console, ``trace merge`` and
+``doctor`` read its trace captures back.  ``client``, ``spill-store``,
+``stats``, ``fleet``, ``top``, ``trace`` and ``doctor`` import no torch,
+so they run beside a wedged card.  On the card, ``run``, ``bench``,
 ``tune``, ``serve``, ``sweep`` and ``gateway`` first probe it under a
 watchdog (``utils.platform.devices_with_watchdog``) and exit 2 when the
 query hangs.
@@ -351,6 +356,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     _add_serve_parsers(sub)
     _add_front_door_parsers(sub)
+    _add_fleet_parsers(sub)
 
     g = sub.add_parser("gen", help="generate a random board + config")
     g.add_argument("--height", type=int, required=True)
@@ -370,6 +376,16 @@ def main(argv: list[str] | None = None) -> int:
     if not argv or argv[0].startswith("-"):
         argv = ["run", *argv]  # default command
     args = parser.parse_args(argv)
+    # deterministic fault injection: arm once, at entry, from
+    # TPU_LIFE_CHAOS when present — how a chaos drill arms the gateway
+    # workers a fleet spawns (they inherit the exported spec)
+    from tpu_life_torch import chaos
+
+    try:
+        chaos.maybe_arm_from_env()
+    except chaos.ChaosError as e:
+        print(f"{PROG}: bad {chaos.ENV_VAR}: {e}", file=sys.stderr)
+        return 2
     # the torch-free commands first: they run beside a wedged card
     if args.command == "stats":
         return _stats(args)
@@ -377,6 +393,19 @@ def main(argv: list[str] | None = None) -> int:
         return _client(parser, args)
     if args.command == "spill-store":
         return _spill_store(args)
+    if args.command == "trace":
+        return _trace_merge(args)
+    if args.command == "doctor":
+        return _doctor(args)
+    if args.command == "top":
+        return _top(args)
+    if args.command == "fleet":
+        # the front tier is stdlib plumbing: only the worker processes
+        # load torch and touch the card
+        return _fleet(args)
+    if args.command == "chaos":
+        # the drill process holds the oracles; its workers own the card
+        return _chaos_drill(args)
     if args.command == "info":
         return _info()
     if args.command == "pattern":
@@ -385,9 +414,6 @@ def main(argv: list[str] | None = None) -> int:
         return _gen(args)
     if args.command == "submit":
         return _submit(args)
-    if args.command == "gateway" and (args.register is not None or args.standby):
-        print(f"gateway: {_UNPORTED_REGISTRAR}", file=sys.stderr)
-        return 2
     if _on_card(args):
         # prime the card's first query under a watchdog, so a wedged driver
         # ends in a message and exit 2 instead of a hang; never a fallback
@@ -1438,17 +1464,6 @@ def _sweep(parser, args) -> int:
     return 0 if not failures else 1
 
 
-#: what ``gateway --register`` / ``--standby`` and ``stats --watch`` wait for
-_UNPORTED_REGISTRAR = (
-    "--register and --standby need the fleet control plane "
-    "(fleet/membership.Registrar), which is not ported yet: ROADMAP A9.2.3"
-)
-_UNPORTED_WATCH = (
-    "--watch needs the console's refresh loop (obs/console.refresh_loop), "
-    "which is not ported yet: ROADMAP A9.2.3"
-)
-
-
 def _add_front_door_parsers(sub) -> None:
     """``gateway``, ``spill-store``, ``client`` and ``stats`` with the JAX
     package's flags, defaults, JSON lines and exit codes; the gateway's
@@ -1494,11 +1509,12 @@ def _add_front_door_parsers(sub) -> None:
                     help="this worker incarnation's namespace in the remote "
                     "store (default: the run_id)")
     gw.add_argument("--register", default=None, metavar="URL",
-                    help="wire registration with a fleet control plane "
-                    "(not ported yet: exits 2)")
+                    help="wire registration with a fleet control plane: POST "
+                    "the startup line to URL, keep a heartbeat-renewed lease, "
+                    "spill under the namespace each grant names")
     gw.add_argument("--standby", action="store_true",
                     help="with --register: park in the control plane's "
-                    "standby pool (not ported yet: exits 2)")
+                    "standby pool until its autoscaler recruits this worker")
     gw.add_argument("--qos", default=None, metavar="FILE",
                     help="tenant QoS policy: a JSON or TOML file of per-tenant "
                     "quotas, weights and tiers (X-API-Key names the tenant)")
@@ -1607,30 +1623,38 @@ def _add_front_door_parsers(sub) -> None:
     st.add_argument("--json", action="store_true",
                     help="emit the summary as one JSON object instead of the human table")
     st.add_argument("--watch", type=float, default=None, metavar="SECONDS",
-                    help="re-read and re-render every N seconds (not ported yet: exits 2)")
+                    help="re-read and re-render every N seconds (the `top` "
+                    "refresh loop) until ^C")
 
 
 def _stats(args) -> int:
     """The read-back half of the telemetry loop: ingest metrics JSONL
     sinks — run chunks, serve rounds, registry snapshot records in any
-    mix — and report the aggregates, as the JAX ``stats`` does."""
+    mix — and report the aggregates, as the JAX ``stats`` does.  With
+    ``--watch`` the same pass re-runs every N seconds on ``top``'s
+    refresh loop (the sinks are append-only, so a re-read is the live
+    view)."""
     import json
 
     from tpu_life_torch.obs import stats as obs_stats
 
-    if args.watch is not None:
-        print(f"stats: {_UNPORTED_WATCH}", file=sys.stderr)
-        return 2
-    records = []
-    for i, path in enumerate(args.metrics_file):
-        for rec in obs_stats.load_records(path):
-            # sink provenance: one file = one worker across ALL its
-            # restarts (each a fresh run_id)
-            rec.setdefault("_sink", i)
-            records.append(rec)
-    summary = obs_stats.summarize(records)
-    print(json.dumps(summary) if args.json else obs_stats.render(summary))
-    return 0
+    def summarize_once():
+        records = []
+        for i, path in enumerate(args.metrics_file):
+            for rec in obs_stats.load_records(path):
+                # sink provenance: one file = one worker across ALL its
+                # restarts (each a fresh run_id)
+                rec.setdefault("_sink", i)
+                records.append(rec)
+        summary = obs_stats.summarize(records)
+        return json.dumps(summary) if args.json else obs_stats.render(summary)
+
+    if args.watch is None:
+        print(summarize_once())
+        return 0
+    from tpu_life_torch.obs import console
+
+    return console.refresh_loop(summarize_once, args.watch)
 
 
 def _spill_store(args) -> int:
@@ -1779,10 +1803,17 @@ def _gateway(args) -> int:
     from tpu_life_torch import chaos
     from tpu_life_torch.gateway import Gateway, GatewayConfig
     from tpu_life_torch.gateway.protocol import MAX_BODY
-    from tpu_life_torch.runtime.metrics import configure_logging
+    from tpu_life_torch.runtime.metrics import configure_logging, log
     from tpu_life_torch.serve import ServeConfig, SimulationService
 
     configure_logging(args.verbose)
+    if args.standby and args.register is None:
+        print(
+            "gateway: --standby needs --register (the standby pool is a "
+            "control-plane concept)",
+            file=sys.stderr,
+        )
+        return 2
     qos = None
     if args.qos is not None:
         from tpu_life_torch.serve.qos import QosPolicy
@@ -1862,9 +1893,38 @@ def _gateway(args) -> int:
     if info is not None:
         startup["devices"], startup["device_kind"] = info
     print(json.dumps(startup), flush=True)
+    registrar = None
+    if args.register is not None:
+        # wire registration: the startup line above is the registration
+        # body; the registrar keeps the lease renewed, rebinds the spill
+        # namespace to each grant, and on a lease_expired fence drops the
+        # local copies of re-homed sessions (finishing them would
+        # double-execute) before re-registering for a fresh generation
+        from tpu_life_torch.fleet.membership import Registrar
+
+        def _on_grant(grant: dict) -> None:
+            sp = grant.get("spill")
+            if isinstance(sp, dict) and sp.get("namespace"):
+                try:
+                    svc.rebind_spill(str(sp["namespace"]))
+                except ValueError as e:
+                    log.warning("gateway: cannot rebind spill: %s", e)
+
+        registrar = Registrar(
+            args.register,
+            self_url=startup["url"],
+            run_id=svc.run_id,
+            device_info=lambda: gw.device_info(wait_s=0.0),
+            on_grant=_on_grant,
+            on_fenced=lambda reason: svc.cancel_live(reason),
+            standby=args.standby,
+        )
+        registrar.start()
     try:
         gw.wait()
     finally:
+        if registrar is not None:
+            registrar.stop()
         gw.close()
     stats = svc.stats()
     print(
@@ -1888,11 +1948,748 @@ def _gateway(args) -> int:
                 "batch_occupancy_mean": stats["batch_occupancy_mean"],
                 "queue_wait_p50": stats["queue_wait_p50"],
                 "completion_p50": stats["completion_p50"],
+                # wire membership evidence: how often this worker
+                # registered and how often it was fenced
+                **(
+                    {
+                        "registrar": {
+                            "registrations": registrar.registrations,
+                            "fenced": registrar.fenced_count,
+                            "worker": registrar.worker,
+                            "generation": registrar.generation,
+                        }
+                    }
+                    if registrar is not None
+                    else {}
+                ),
             }
         ),
         flush=True,
     )
     return 1 if gw.pump_error else 0
+
+
+def _device_is_cpu(device: str | None) -> bool:
+    """Whether a ``--device`` value names the CPU, read without torch (the
+    fleet front stays torch-free)."""
+    return device is not None and device.split(":")[0] == "cpu"
+
+
+def _add_fleet_parsers(sub) -> None:
+    """``fleet``, ``chaos``, ``top``, ``trace merge`` and ``doctor`` with the
+    JAX package's flags, defaults, JSON lines and exit codes.  ``fleet``'s
+    ``--device`` takes the place of ``--platform`` and its
+    ``--serve-backend`` takes the port's names (default ``cuda``, workers
+    on the card); ``chaos`` defaults to ``--backend cuda`` (JAX: numpy)
+    and takes ``--device``."""
+    fl = sub.add_parser(
+        "fleet",
+        help="multi-worker front tier: supervise N gateway worker "
+        "subprocesses and route session traffic across them by least "
+        "queue depth, with health-checked failover (torch-free)",
+    )
+    fl.add_argument("--workers", type=int, default=2,
+                    help="gateway worker subprocesses to supervise")
+    fl.add_argument("--host", default="127.0.0.1")
+    fl.add_argument("--port", type=int, default=8000,
+                    help="router listen port (0 = ephemeral; the bound port is "
+                    "printed in the startup JSON line; workers always bind "
+                    "port 0 and are read back)")
+    fl.add_argument("--capacity", type=int, default=8,
+                    help="batch slots per compile key, per worker")
+    fl.add_argument("--chunk-steps", type=int, default=16)
+    fl.add_argument("--max-queue", type=int, default=64,
+                    help="bounded admission queue per worker")
+    fl.add_argument("--serve-backend", default="cuda", choices=SERVE_BACKEND_CHOICES,
+                    help="engine executor for every worker (same semantics as "
+                    "`gateway --serve-backend`)")
+    fl.add_argument("--sync-pump", action="store_true",
+                    help="workers run host-synchronous rounds instead of the "
+                    "pipelined pump")
+    fl.add_argument("--stencil", default="auto", choices=["auto", "roll", "matmul"],
+                    help="neighbour-counting path of the workers' plain-op engines")
+    fl.add_argument("--spill-dir", default=None, metavar="DIR",
+                    help="durable sessions: workers spill live sessions under "
+                    "per-generation subdirs here; on worker death the fleet "
+                    "resumes the intact spills on a survivor under the same "
+                    "session id")
+    fl.add_argument("--spill-every", type=int, default=4, metavar="K",
+                    help="rounds between worker spill passes")
+    fl.add_argument("--spill-url", default=None, metavar="URL",
+                    help="remote spill store: workers spill through this "
+                    "`spill-store` under per-incarnation namespaces; mutually "
+                    "exclusive with --spill-dir")
+    fl.add_argument("--site", default="", metavar="PREFIX",
+                    help="this control plane's namespace prefix in a shared "
+                    "spill store (e.g. 'a-')")
+    fl.add_argument("--peer", action="append", default=None, metavar="URL",
+                    dest="peers",
+                    help="peer control-plane router URL (repeatable): a rescue "
+                    "every local survivor refuses is re-homed on a peer")
+    fl.add_argument("--lease-ttl", type=float, default=15.0, metavar="SECONDS",
+                    help="lease TTL for wire-registered workers (gateway --register)")
+    fl.add_argument("--standby", type=int, default=0, metavar="N",
+                    help="standby pool: N extra worker slots that stay parked "
+                    "until the autoscaler (or a `gateway --standby`) fills them")
+    fl.add_argument("--autoscale", action="store_true",
+                    help="demand-driven autoscaling over the standby pool, every "
+                    "decision a scale.* flight event `doctor --scale` replays")
+    fl.add_argument("--scale-min", type=int, default=1, metavar="N",
+                    help="autoscale floor of deployed workers")
+    fl.add_argument("--scale-max", type=int, default=None, metavar="N",
+                    help="autoscale ceiling (default: bounded by the pool)")
+    fl.add_argument("--scale-up-depth", type=float, default=4.0, metavar="DEPTH",
+                    help="mean queue depth per ready worker that scales up")
+    fl.add_argument("--scale-down-depth", type=float, default=0.5, metavar="DEPTH",
+                    help="mean queue depth per ready worker at or below which "
+                    "the fleet counts as idle")
+    fl.add_argument("--scale-idle-grace", type=float, default=10.0, metavar="SECONDS",
+                    help="idle this long before any scale-down")
+    fl.add_argument("--scale-cooldown-up", type=float, default=5.0, metavar="SECONDS",
+                    help="minimum seconds between consecutive scale-ups")
+    fl.add_argument("--scale-cooldown-down", type=float, default=30.0, metavar="SECONDS",
+                    help="minimum seconds between a scale move and the next "
+                    "scale-down")
+    fl.add_argument("--qos", default=None, metavar="FILE",
+                    help="tenant QoS policy file forwarded to every worker")
+    fl.add_argument("--spill-replicas", type=int, default=1, metavar="N",
+                    help="replicated spill for every worker; requires --spill-dir")
+    fl.add_argument("--memory-budget-bytes", type=int, default=None, metavar="BYTES",
+                    help="each worker's admission memory budget")
+    fl.add_argument("--engine-max-restarts", type=int, default=3, metavar="N",
+                    help="in-place engine recoveries per compile key, per worker")
+    fl.add_argument("--settle-deadline", type=float, default=None, metavar="SECONDS",
+                    help="each worker's wedge watchdog deadline")
+    fl.add_argument("--mesh-devices", type=int, default=0, metavar="N",
+                    help="each worker's mega-board tier slice (0 = off)")
+    fl.add_argument("--timeout", type=float, default=None, metavar="SECONDS",
+                    help="default per-request deadline (per worker)")
+    fl.add_argument("--api-rate", type=float, default=0.0, metavar="TOKENS/S",
+                    help="per-API-key token bucket, enforced per worker")
+    fl.add_argument("--api-burst", type=float, default=10.0)
+    fl.add_argument("--metrics-dir", default=None, metavar="DIR",
+                    help="per-worker JSONL sinks at DIR/wN.jsonl")
+    fl.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="fleet trace collection: per-worker capture files here; "
+                    "fuse them with `trace merge DIR`, read a session's journey "
+                    "with `doctor DIR --sid SID`")
+    fl.add_argument("--series-every", type=float, default=1.0, metavar="SECONDS",
+                    help="fleet series collection cadence (0 disables)")
+    fl.add_argument("--slo", default=None, metavar="FILE", dest="slo_file",
+                    help="declarative SLO specs (JSON or TOML; default: the "
+                    "built-in specs)")
+    fl.add_argument("--log-dir", default=None, metavar="DIR",
+                    help="per-worker stdout+stderr logs at DIR/wN.log "
+                    "(default: a fresh temp dir)")
+    fl.add_argument("--restart-backoff", type=float, default=0.5, metavar="SECONDS",
+                    help="base of the exponential restart backoff")
+    fl.add_argument("--max-restarts", type=int, default=5, metavar="N",
+                    help="restart a crash-looping worker at most this many times "
+                    "(then its circuit breaker opens; 0 = fail fast)")
+    fl.add_argument("--probe-interval", type=float, default=0.25, metavar="SECONDS",
+                    help="health-check cadence (liveness + /readyz)")
+    fl.add_argument("--device", default=None,
+                    help="every worker's device (default: the card); 'cpu' runs "
+                    "the plain PyTorch versions of the kernels")
+    fl.add_argument("--placement", default="none", choices=["auto", "none"],
+                    help="per-worker device placement: auto gives each worker a "
+                    "disjoint slice of the cards (CUDA_VISIBLE_DEVICES and "
+                    "--device); none keeps the shared spawning env")
+    fl.add_argument("--devices-per-worker", default=None, metavar="K[,K...]",
+                    help="devices per worker for --placement auto: one count, or "
+                    "one count per worker")
+    fl.add_argument("--total-devices", type=int, default=None, metavar="N",
+                    help="how many cards the host has (cuda placement only: the "
+                    "torch-free front cannot count them)")
+    fl.add_argument("--verbose", "-v", action="store_true")
+
+    ch = sub.add_parser(
+        "chaos",
+        help="seeded chaos drill: drive a real N-worker fleet under a "
+        "deterministic fault schedule and machine-verify the "
+        "failure-masking invariants",
+    )
+    ch.add_argument("--seed", type=int, default=0,
+                    help="the chaos seed: the fault and kill schedules are a "
+                    "pure function of it")
+    ch.add_argument("--workers", type=int, default=2)
+    ch.add_argument("--sessions", type=int, default=6,
+                    help="deterministic (conway) sessions in the mix")
+    ch.add_argument("--ising-sessions", type=int, default=2,
+                    help="stochastic (ising) sessions in the mix")
+    ch.add_argument("--size", type=int, default=20,
+                    help="deterministic board edge (ising runs 16x16)")
+    ch.add_argument("--steps", type=int, default=900,
+                    help="base step budget; staggered downward per session")
+    ch.add_argument("--kills", type=int, default=1,
+                    help="drill-driven SIGKILLs of session-owning workers "
+                    "(must be 1 with --cross-host)")
+    ch.add_argument("--plan", default=None, metavar="JSON",
+                    help="chaos point spec as JSON (default: the drill mix)")
+    ch.add_argument("--backend", default="cuda", choices=["cuda", "numpy"],
+                    help="worker engine executor: cuda = the card's kernels "
+                    "(the default; JAX's drill defaults to numpy), numpy = "
+                    "the host oracle")
+    ch.add_argument("--device", default=None,
+                    help="the workers' device (default: the card); 'cpu' runs "
+                    "the plain PyTorch versions of the kernels")
+    ch.add_argument("--capacity", type=int, default=4)
+    ch.add_argument("--chunk-steps", type=int, default=2)
+    ch.add_argument("--spill-every", type=int, default=1)
+    ch.add_argument("--recovery-bound", type=float, default=60.0, metavar="SECONDS",
+                    help="per-kill bound on fleet recovery to full ready strength")
+    ch.add_argument("--wait-timeout", type=float, default=180.0, metavar="SECONDS",
+                    help="per-session bound on reaching a terminal state")
+    ch.add_argument("--workdir", default=None, metavar="DIR",
+                    help="where spill/ and logs/ land (default: a fresh temp dir)")
+    ch.add_argument("--governor", action="store_true",
+                    help="the resource-governor drill: engine.oom + engine.wedge "
+                    "armed, workers under the wedge watchdog")
+    ch.add_argument("--settle-deadline", type=float, default=1.0, metavar="SECONDS",
+                    help="worker wedge-watchdog deadline for --governor")
+    ch.add_argument("--surge", action="store_true",
+                    help="the autoscaling + tenant-QoS drill: a standby pool and "
+                    "an autoscaler ride an admission burst")
+    ch.add_argument("--surge-factor", type=int, default=10, metavar="N",
+                    help="--surge only: burst size as a multiple of --sessions")
+    ch.add_argument("--surge-standby", type=int, default=2, metavar="N",
+                    help="--surge only: parked standby slots")
+    ch.add_argument("--qos-p99-bound", type=float, default=5.0, metavar="SECONDS",
+                    help="--surge only: bound on the guaranteed tenant's "
+                    "admission-latency p99")
+    ch.add_argument("--stream", action="store_true",
+                    help="the live-session stream drill: mid-run edits and live "
+                    "watchers through the SIGKILL")
+    ch.add_argument("--lenia-sessions", type=int, default=1,
+                    help="--stream only: continuous-tier (lenia) sessions")
+    ch.add_argument("--watchers", type=int, default=2,
+                    help="--stream only: live watchers per session")
+    ch.add_argument("--cross-host", action="store_true",
+                    help="the two-control-plane drill: two supervisors sharing "
+                    "one remote spill store, a wire-registered worker")
+    ch.add_argument("--lease-ttl", type=float, default=8.0, metavar="SECONDS",
+                    help="cross-host drill: the registered worker's lease TTL")
+    ch.add_argument("--summary-file", default=None, metavar="JSONL",
+                    help="append the drill summary as one JSON line")
+    ch.add_argument("--verbose", "-v", action="store_true")
+
+    tp = sub.add_parser(
+        "top",
+        help="live fleet console over GET /metrics + /healthz: per-worker "
+        "throughput, queue depth, governor bytes, SLO burn (torch-free)",
+    )
+    tp.add_argument("--url", default="http://127.0.0.1:8000",
+                    help="fleet router (or single gateway) base URL")
+    tp.add_argument("--interval", type=float, default=2.0, metavar="SECONDS",
+                    help="refresh cadence")
+    tp.add_argument("--once", action="store_true",
+                    help="paint one frame and exit (two samples one interval "
+                    "apart, so the rates are real)")
+    tp.add_argument("--json", action="store_true",
+                    help="with --once: emit the view as one JSON object")
+
+    tr = sub.add_parser(
+        "trace",
+        help="distributed-trace tooling: fuse a fleet capture directory "
+        "(`fleet --trace-dir`) into one Perfetto-loadable timeline (torch-free)",
+    )
+    tr_sub = tr.add_subparsers(dest="trace_command", required=True)
+    trm = tr_sub.add_parser(
+        "merge",
+        help="merge per-worker capture files into one Chrome-trace JSON with "
+        "per-worker process tracks and clock offsets applied",
+    )
+    trm.add_argument("capture_dir", metavar="DIR",
+                     help="the `fleet --trace-dir` capture directory")
+    trm.add_argument("-o", "--output", default=None, metavar="FILE",
+                     help="merged trace path (default: DIR/merged.trace.json)")
+
+    dr = sub.add_parser(
+        "doctor",
+        help="flight-recorder postmortem: one session's causal journey across "
+        "workers from a trace capture, with typed findings (torch-free)",
+    )
+    dr.add_argument("capture", metavar="CAPTURE",
+                    help="a capture directory (`fleet --trace-dir`), a merged "
+                    "trace (`trace merge`), or a single written trace file")
+    dr.add_argument("--sid", default=None,
+                    help="the session id to reconstruct (a fleet sid like "
+                    "w0g1-s000003, or a worker-local sid)")
+    dr.add_argument("--trace-id", default=None,
+                    help="reconstruct by trace id directly")
+    dr.add_argument("--max-gap", type=float, default=None, metavar="SECONDS",
+                    help="bound on the kill -> resumed-on-survivor gap "
+                    "(default 60)")
+    dr.add_argument("--json", action="store_true",
+                    help="emit the journey report as one JSON object")
+    dr.add_argument("--slo", action="store_true",
+                    help="SLO postmortem: join every slo.breach to its cause; "
+                    "needs no --sid")
+    dr.add_argument("--scale", action="store_true",
+                    help="autoscaling postmortem: replay the scale.* decisions; "
+                    "needs no --sid")
+
+
+def _trace_merge(args) -> int:
+    """Fuse a fleet trace-capture directory into one Perfetto-loadable
+    Chrome-trace JSON; prints one JSON line naming the output and its
+    shape (events, incarnations, drops)."""
+    import json
+    from pathlib import Path
+
+    from tpu_life_torch.obs import journey
+
+    try:
+        doc = journey.merge_captures(args.capture_dir)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"trace merge: {e}", file=sys.stderr)
+        return 2
+    out = args.output or str(Path(args.capture_dir) / "merged.trace.json")
+    Path(out).parent.mkdir(parents=True, exist_ok=True)
+    with open(out, "w") as f:
+        json.dump(doc, f)
+    workers = doc["otherData"]["workers"]
+    print(
+        json.dumps(
+            {
+                "mode": "trace-merge",
+                "output": out,
+                "events": len(doc["traceEvents"]),
+                "incarnations": len(workers),
+                "dropped": sum(w.get("dropped", 0) for w in workers.values()),
+            }
+        )
+    )
+    return 0
+
+
+def _doctor(args) -> int:
+    """The flight-recorder postmortem: exit 0 when the journey is
+    anomaly-free, 1 when an invariant broke, 2 on usage or
+    unreadable-capture errors; ``--slo`` and ``--scale`` replay the
+    capture-wide breach and scaling postmortems (exit 0 when they ran)."""
+    import json
+
+    from tpu_life_torch.obs import journey
+
+    if args.slo and args.scale:
+        print("doctor: --slo and --scale are separate postmortems; "
+              "pick one", file=sys.stderr)
+        return 2
+    if args.slo or args.scale:
+        try:
+            doc = journey.load_merged(args.capture)
+        except (FileNotFoundError, ValueError, json.JSONDecodeError) as e:
+            print(f"doctor: {e}", file=sys.stderr)
+            return 2
+        if args.slo:
+            from tpu_life_torch.obs import slo as obs_slo
+
+            report, render = obs_slo.slo_report(doc), obs_slo.render_slo_report
+        else:
+            from tpu_life_torch.fleet.autoscaler import render_scale_report, scale_report
+
+            report, render = scale_report(doc), render_scale_report
+        print(json.dumps(report) if args.json else render(report))
+        # breaches and scale moves are findings, not failures
+        return 0
+    if args.sid is None and args.trace_id is None:
+        print("doctor: pass --sid or --trace-id", file=sys.stderr)
+        return 2
+    try:
+        doc = journey.load_merged(args.capture)
+    except (FileNotFoundError, ValueError, json.JSONDecodeError) as e:
+        print(f"doctor: {e}", file=sys.stderr)
+        return 2
+    kwargs = {}
+    if args.max_gap is not None:
+        kwargs["max_gap_s"] = args.max_gap
+    report = journey.doctor(doc, sid=args.sid, trace_id=args.trace_id, **kwargs)
+    print(json.dumps(report) if args.json else journey.render_report(report))
+    return 0 if report["ok"] else 1
+
+
+def _top(args) -> int:
+    """The live operator console: scrape the router's merged /metrics +
+    /healthz on a refresh loop; ``--once --json`` emits one view."""
+    import json
+    import time
+
+    from tpu_life_torch.obs import console
+
+    client = console.TopClient(args.url, timeout=max(1.0, args.interval))
+    if args.once:
+        # two samples one interval apart so the per-second rates are real
+        # deltas, not the all-zero first frame
+        try:
+            client.view()
+            time.sleep(min(args.interval, 2.0))
+            view = client.view()
+        except Exception as e:  # noqa: BLE001 — any scrape failure is exit 2
+            print(f"top: {e}", file=sys.stderr)
+            return 2
+        if args.json:
+            print(json.dumps(view))
+        else:
+            print(console.render_view(view, color=sys.stdout.isatty()))
+        return 0
+    if args.json:
+        print("top: --json requires --once", file=sys.stderr)
+        return 2
+    color = sys.stdout.isatty()
+    return console.refresh_loop(lambda: console.render_view(client.view(), color=color),
+                                args.interval)
+
+
+def _fleet(args) -> int:
+    """The horizontally scaled front tier: supervise N gateway workers
+    (``python -m tpu_life_torch gateway``, on the card unless ``--device
+    cpu``), route sessions across them, and drain the whole fleet on
+    SIGTERM/SIGINT.  One JSON line at startup, one summary line after the
+    drain: the JAX ``fleet``'s lines.  Exit 0 on a clean drain, 1 if any
+    worker ended with its circuit breaker open (a worker whose kernels fail
+    to build or launch dies typed and crash-loops into it), 2 on a bad
+    config."""
+    import json
+
+    from tpu_life_torch.fleet import Fleet, FleetConfig, WorkerState
+    from tpu_life_torch.fleet.placement import PlacementError, parse_devices_per_worker
+    from tpu_life_torch.runtime.metrics import configure_logging
+
+    configure_logging(args.verbose)
+    worker_args = [
+        "--capacity", str(args.capacity),
+        "--chunk-steps", str(args.chunk_steps),
+        "--max-queue", str(args.max_queue),
+        "--serve-backend", args.serve_backend,
+        "--api-rate", str(args.api_rate),
+        "--api-burst", str(args.api_burst),
+    ]
+    if args.sync_pump:
+        worker_args += ["--sync-pump"]
+    if args.stencil != "auto":
+        worker_args += ["--stencil", args.stencil]
+    if args.memory_budget_bytes is not None:
+        worker_args += ["--memory-budget-bytes", str(args.memory_budget_bytes)]
+    if args.mesh_devices:
+        worker_args += ["--mesh-devices", str(args.mesh_devices)]
+    if args.engine_max_restarts != 3:
+        worker_args += ["--engine-max-restarts", str(args.engine_max_restarts)]
+    if args.settle_deadline is not None:
+        worker_args += ["--settle-deadline", str(args.settle_deadline)]
+    if args.timeout is not None:
+        worker_args += ["--timeout", str(args.timeout)]
+    if args.device is not None:
+        worker_args += ["--device", args.device]
+    if args.verbose:
+        worker_args += ["--verbose"]
+    # tenant QoS rides to every worker as the policy FILE (validated here
+    # so a typo fails before spawn)
+    if args.qos is not None:
+        from tpu_life_torch.serve.qos import QosPolicy
+
+        try:
+            QosPolicy.load(args.qos)
+        except (OSError, ValueError) as e:
+            print(f"fleet: bad --qos: {e}", file=sys.stderr)
+            return 2
+        worker_args += ["--qos", args.qos]
+    if args.spill_replicas != 1:
+        if args.spill_dir is None:
+            print(
+                "fleet: --spill-replicas needs --spill-dir (replication "
+                "is a local-directory spill feature)",
+                file=sys.stderr,
+            )
+            return 2
+        worker_args += ["--spill-replicas", str(args.spill_replicas)]
+    if args.spill_dir is not None and args.spill_url is not None:
+        print(
+            "fleet: --spill-dir and --spill-url are mutually exclusive "
+            "(a fleet spills locally OR through the remote store)",
+            file=sys.stderr,
+        )
+        return 2
+    try:
+        if args.placement == "none" and (
+            args.devices_per_worker is not None or args.total_devices is not None
+        ):
+            raise PlacementError(
+                "--devices-per-worker/--total-devices have no effect "
+                "without --placement auto — pass it explicitly (refusing "
+                "to silently keep the shared spawning env)"
+            )
+        autoscale = None
+        if args.autoscale:
+            from tpu_life_torch.fleet.autoscaler import AutoscaleConfig
+
+            autoscale = AutoscaleConfig(
+                min_workers=args.scale_min,
+                max_workers=args.scale_max,
+                depth_high=args.scale_up_depth,
+                depth_low=args.scale_down_depth,
+                idle_grace_s=args.scale_idle_grace,
+                cooldown_up_s=args.scale_cooldown_up,
+                cooldown_down_s=args.scale_cooldown_down,
+            )
+        fleet = Fleet(
+            FleetConfig(
+                workers=args.workers,
+                host=args.host,
+                port=args.port,
+                worker_args=tuple(worker_args),
+                metrics_dir=args.metrics_dir,
+                log_dir=args.log_dir,
+                spill_dir=args.spill_dir,
+                spill_every=args.spill_every,
+                spill_url=args.spill_url,
+                site=args.site,
+                peers=tuple(args.peers or ()),
+                lease_ttl_s=args.lease_ttl,
+                trace_dir=args.trace_dir,
+                series_every_s=args.series_every,
+                slo_file=args.slo_file,
+                standby=args.standby,
+                autoscale=autoscale,
+                probe_interval_s=args.probe_interval,
+                backoff_base_s=args.restart_backoff,
+                # the flag counts RESTARTS; the breaker counts consecutive
+                # failures, of which the initial crash is the first
+                breaker_threshold=args.max_restarts + 1,
+                placement=args.placement,
+                devices_per_worker=parse_devices_per_worker(
+                    args.devices_per_worker, args.workers
+                ),
+                total_devices=args.total_devices,
+                placement_platform="cpu" if _device_is_cpu(args.device) else "cuda",
+            )
+        )
+    except PlacementError as e:
+        # a plan that can never come up healthy fails fast and typed,
+        # before any worker process exists
+        print(json.dumps({"mode": "fleet",
+                          "error": {"code": "placement_invalid", "message": str(e)}}),
+              flush=True)
+        print(f"fleet: placement error: {e}", file=sys.stderr)
+        return 2
+    except (ValueError, OSError) as e:
+        # e.g. a malformed --site prefix or an unreadable --slo file
+        print(f"fleet: {e}", file=sys.stderr)
+        return 2
+    fleet.install_signal_handlers()
+    fleet.start()
+    print(
+        json.dumps(
+            {
+                "mode": "fleet",
+                "url": f"http://{fleet.host}:{fleet.port}",
+                "run_id": fleet.run_id,
+                "workers": args.workers,
+                "backend": args.serve_backend,
+                "capacity": args.capacity,
+                "max_queue": args.max_queue,
+                "log_dir": str(fleet.supervisor.log_dir),
+                "placement": args.placement,
+                # planned devices per worker (workers overwrite with what
+                # their torch init resolved)
+                "devices": {w.name: w.devices for w in fleet.supervisor.workers},
+            }
+        ),
+        flush=True,
+    )
+    try:
+        fleet.wait()
+    finally:
+        fleet.close()
+    stats = fleet.stats()
+    failed = [name for name, state in stats["workers"].items()
+              if state == WorkerState.FAILED.value]
+    print(
+        json.dumps(
+            {
+                "mode": "fleet",
+                "run_id": stats["run_id"],
+                "workers": stats["workers"],
+                "generations": stats["generations"],
+                "restarts": stats["restarts"],
+                "routed": stats["routed"],
+                "retries": stats["retries"],
+                "sessions_pinned": stats["sessions_pinned"],
+                "capacity": stats["capacity"],
+                "devices_total": stats["devices_total"],
+                **({"migrations": stats["migrations"]} if "migrations" in stats else {}),
+                **({"scale": stats["scale"]} if "scale" in stats else {}),
+                # a breaker-open worker is a failure even after a tidy drain
+                "failed_workers": failed,
+            }
+        ),
+        flush=True,
+    )
+    return 1 if failed else 0
+
+
+def _chaos_drill(args) -> int:
+    """The seeded chaos drill: a real fleet under a deterministic fault
+    schedule, machine-verified invariants, one JSON summary line.  Exit 0
+    only when every invariant held; on failure the summary (and a stderr
+    line) carries the seed and plan digest that replay the run."""
+    import json
+    import tempfile
+
+    from tpu_life_torch import chaos
+    from tpu_life_torch.chaos.drill import DrillConfig, run_drill
+    from tpu_life_torch.runtime.metrics import configure_logging
+
+    configure_logging(args.verbose)
+    points = None
+    if args.plan is not None:
+        try:
+            points = json.loads(args.plan)
+            if not isinstance(points, dict):
+                raise ValueError("plan must be a JSON object of points")
+            # validate NOW, typed — before any worker is spawned
+            chaos.ChaosPlan(args.seed, points)
+        except (ValueError, chaos.ChaosError) as e:
+            print(f"chaos: bad --plan: {e}", file=sys.stderr)
+            return 2
+    if sum((args.governor, args.stream, args.surge)) > 1:
+        print("chaos: --governor, --stream and --surge are separate drills; pick one",
+              file=sys.stderr)
+        return 2
+    if args.cross_host:
+        if args.governor or args.stream or args.surge:
+            print("chaos: --governor/--stream/--surge and --cross-host are "
+                  "separate drills; pick one", file=sys.stderr)
+            return 2
+        return _chaos_cross_host(args, points)
+    cfg = DrillConfig(
+        seed=args.seed,
+        workers=args.workers,
+        det_sessions=args.sessions,
+        ising_sessions=args.ising_sessions,
+        size=args.size,
+        steps=args.steps,
+        kills=args.kills,
+        points=points,
+        backend=args.backend,
+        device=args.device,
+        capacity=args.capacity,
+        chunk_steps=args.chunk_steps,
+        spill_every=args.spill_every,
+        recovery_bound_s=args.recovery_bound,
+        wait_timeout_s=args.wait_timeout,
+        workdir=args.workdir or tempfile.mkdtemp(prefix="tpu-life-chaos-"),
+        summary_file=args.summary_file,
+        governor=args.governor,
+        settle_deadline_s=args.settle_deadline,
+        stream=args.stream,
+        lenia_sessions=args.lenia_sessions,
+        watchers_per_session=args.watchers,
+        surge=args.surge,
+        standby=args.surge_standby,
+        surge_factor=args.surge_factor,
+        qos_p99_bound_s=args.qos_p99_bound,
+    )
+    if cfg.surge:
+        # the surge drill's faults are the scale seams, not SIGKILLs; its
+        # session count is trickle + burst, both conway
+        cfg.kills = 0
+        cfg.ising_sessions = 0
+    print(
+        json.dumps(
+            {
+                "mode": "chaos",
+                "governor": cfg.governor,
+                "stream": cfg.stream,
+                "surge": cfg.surge,
+                "seed": cfg.seed,
+                "workers": cfg.workers,
+                "sessions": cfg.det_sessions
+                + cfg.ising_sessions
+                + (cfg.lenia_sessions if cfg.stream else 0)
+                + (cfg.surge_factor * cfg.det_sessions if cfg.surge else 0),
+                "kills": cfg.kills,
+                "workdir": cfg.workdir,
+            }
+        ),
+        flush=True,
+    )
+    summary = run_drill(cfg)
+    print(json.dumps(summary), flush=True)
+    if not summary["ok"]:
+        flag = next((f for f, on in ((" --governor", cfg.governor), (" --stream", cfg.stream),
+                                     (" --surge", cfg.surge)) if on), "")
+        print(
+            f"chaos: INVARIANT FAILURE — replay verbatim with: "
+            f"{PROG} chaos{flag} --seed {cfg.seed} "
+            f"(plan digest {summary['plan_digest']})",
+            file=sys.stderr,
+        )
+        return 1
+    return 0
+
+
+def _chaos_cross_host(args, points) -> int:
+    """The two-control-plane leg of ``chaos``: one startup JSON line, one
+    summary line, exit 0 only when every invariant held."""
+    import json
+    import tempfile
+
+    from tpu_life_torch.chaos.crosshost import CrossHostConfig, run_cross_host_drill
+
+    if args.kills != 1:
+        print(
+            "chaos: the cross-host drill performs exactly one adopter "
+            "SIGKILL (--kills must be 1); --kills N is the single-plane "
+            "drill's knob",
+            file=sys.stderr,
+        )
+        return 2
+    cfg = CrossHostConfig(
+        seed=args.seed,
+        workers=args.workers,
+        det_sessions=args.sessions,
+        ising_sessions=args.ising_sessions,
+        size=args.size,
+        steps=args.steps,
+        kills=args.kills,
+        points=points,
+        backend=args.backend,
+        device=args.device,
+        capacity=args.capacity,
+        chunk_steps=args.chunk_steps,
+        spill_every=args.spill_every,
+        lease_ttl_s=args.lease_ttl,
+        recovery_bound_s=args.recovery_bound,
+        wait_timeout_s=args.wait_timeout,
+        workdir=args.workdir or tempfile.mkdtemp(prefix="tpu-life-crosshost-"),
+        summary_file=args.summary_file,
+    )
+    print(
+        json.dumps(
+            {
+                "mode": "chaos",
+                "cross_host": True,
+                "seed": cfg.seed,
+                "workers_b": cfg.workers,
+                "sessions": cfg.det_sessions + cfg.ising_sessions,
+                "lease_ttl_s": cfg.lease_ttl_s,
+                "workdir": cfg.workdir,
+            }
+        ),
+        flush=True,
+    )
+    summary = run_cross_host_drill(cfg)
+    print(json.dumps(summary), flush=True)
+    if not summary["ok"]:
+        print(
+            f"chaos: CROSS-HOST INVARIANT FAILURE — replay verbatim with: "
+            f"{PROG} chaos --cross-host --seed {cfg.seed} "
+            f"(plan digest {summary['plan_digest']})",
+            file=sys.stderr,
+        )
+        return 1
+    return 0
 
 
 def console_main() -> int:

@@ -1,6 +1,6 @@
 """tpu_life_torch.obs: trace spans, the metrics registry, the flight
-recorder and the time series, tied to one ``run_id`` per invocation (the
-part of ``tpu_life/obs`` the run driver and the serving tier use).
+recorder, the time series and their read-back tools, tied to one
+``run_id`` per invocation (a copy of ``tpu_life/obs``).
 
 - :mod:`tpu_life_torch.obs.trace`: Chrome trace-event spans
   (``--trace-events FILE``) bracketing the driver's host phases and the
@@ -11,9 +11,15 @@ part of ``tpu_life/obs`` the run driver and the serving tier use).
   lifecycle events the service records.
 - :mod:`tpu_life_torch.obs.timeseries`: the bounded ring of registry
   snapshots the service's pump samples.
+- :mod:`tpu_life_torch.obs.stats`: the read-back toolchain behind
+  ``stats``.
+- :mod:`tpu_life_torch.obs.slo`: declarative SLO specs evaluated with
+  multi-window burn rates on the fleet supervisor's tick.
+- :mod:`tpu_life_torch.obs.console`: the ``top`` operator console and the
+  refresh loop ``stats --watch`` shares.
 
-The JAX package's console, SLOs, stats and journeys belong to entry points
-still queued.  This package imports neither torch nor numpy.
+:mod:`tpu_life_torch.obs.journey` (``trace merge``, ``doctor``) is imported
+by its users.  This package imports neither torch nor numpy.
 """
 
 from tpu_life_torch.obs.registry import (
@@ -46,7 +52,7 @@ from tpu_life_torch.obs.trace import (
     tracing,
     valid_trace_id,
 )
-from tpu_life_torch.obs import flight, timeseries
+from tpu_life_torch.obs import console, flight, slo, stats, timeseries
 
 __all__ = [
     "TELEMETRY_SCHEMA",
@@ -60,6 +66,8 @@ __all__ = [
     "Tracer",
     "activate",
     "active_tracer",
+    "console",
+    "slo",
     "async_begin",
     "async_end",
     "complete",
@@ -74,6 +82,7 @@ __all__ = [
     "span_count",
     "start_tracing",
     "stop_tracing",
+    "stats",
     "timeseries",
     "tracing",
     "valid_trace_id",

@@ -419,6 +419,9 @@ class BatchEngine(EngineBase):
                 self._allocate(capacity, *key.shape)
                 self._rem_dev = torch.zeros(capacity, dtype=torch.int32, device=self.device)
         self._prev: torch.Tensor | None = None  # the in-flight chunk's input batch
+        #: slots loaded since the newest dispatch: only ``_boards`` holds
+        #: them (the in-flight chunk's input never saw them)
+        self._fresh: set[int] = set()
         self._prev_ready = None  # event: every chunk but the newest is done
         self._done = None  # event: the newest chunk is done
         self._step = None  # the batched step (route ops), built at the first chunk
@@ -524,6 +527,7 @@ class BatchEngine(EngineBase):
         with self._on(), self._compute():
             self._prev_ready = self._event()
             self._prev = self._boards
+            self._fresh.clear()
             self._boards = self._run_chunk(self._boards)
             self._advance_budgets()
             self._done = self._event()
@@ -567,6 +571,7 @@ class BatchEngine(EngineBase):
         with self._on(), self._compute():
             self._boards[slot].copy_(host)
             self._rem_dev[slot] = int(steps)
+        self._fresh.add(slot)
 
     def _clear_slot(self, slot: int) -> None:
         with self._on(), self._compute():
@@ -579,8 +584,11 @@ class BatchEngine(EngineBase):
         # input as in its output, so it reads here instead of waiting for
         # the newest chunk; a slot the chunk IS stepping reads its
         # pre-chunk state, which peek_slot's lag accounts for.  A LOST
-        # chunk reads the same way.
-        if (self._inflight or self._lost) and self._prev is not None:
+        # chunk reads the same way.  A slot loaded after the chunk's
+        # dispatch is not in its input: it reads the newest batch (the
+        # JAX package's VmapEngine reads the stale input there, ROADMAP §C)
+        stale = self._inflight or self._lost
+        if stale and self._prev is not None and slot not in self._fresh:
             src, ready = self._prev, self._prev_ready
         else:
             src, ready = self._boards, None
