@@ -355,6 +355,7 @@ import gzip
 import hashlib
 import io
 import json
+import logging
 import os
 import re
 import shutil
@@ -585,11 +586,40 @@ P19_NATIVE_SIDE, P19_NATIVE_STEPS = 4096, 16
 # the session whose worker is SIGKILLed
 P20_SIDE, P20_STEPS, P20_SESSIONS, P20_ISING = 512, 64, 16, 2
 P20_KILL_SIDE, P20_KILL_STEPS, P20_KILL_SEED = 1024, 32768, 31
+# phase 21: the K1 batch-mode key and the route-ops key served side by side
+# (chunk P21_CHUNK, capacity 8); the free bytes left on the card while the
+# ops key is squeezed (less than one plain step of its batch needs, more
+# than the K1 key's per-chunk budgets tensor)
+P21_SIDE, P21_STEPS, P21_SESSIONS = 512, 128, 8
+P21_OPS_SIDE, P21_OPS_STEPS, P21_OPS_SESSIONS = 4096, 32, 4
+P21_CHUNK, P21_MARGIN = 8, 64 << 20
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     raise SystemExit(1)
+
+
+class DemotionWatch(logging.Handler):
+    """Records every in-place recovery the port's schedulers in this
+    process log with outcome ``oom_host_demoted``: a key moved to its host
+    twin would stand in for a kernel in phases 16-20."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.seen: list[str] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        msg = record.getMessage()
+        if "oom_host_demoted" in msg:
+            self.seen.append(msg)
+
+
+def no_demotion(where: str, watch: DemotionWatch, *texts: str) -> None:
+    """Fail if a key was demoted to the host: in this process (``watch``)
+    or in a child's logs, metrics or stats (``texts``)."""
+    if watch.seen or any("oom_host_demoted" in t for t in texts):
+        fail(f"{where}: a key was demoted to its host twin: {watch.seen or 'in a child'}")
 
 
 def nvidia_smi(fields: str) -> str:
@@ -2323,29 +2353,43 @@ def main() -> int:
                            cuda_ms=cuda_ms, counted=counted,
                            golden=golden, instances=mc_instances))
 
+    # phases 16-20 serve on the card: no key may move to its host twin there
+    watch = DemotionWatch()
+    logging.getLogger("tpu_life_torch").addHandler(watch)
+
     # -- 16. the serving tier: K1's batch mode, submit and serve --------------
     batch_row = phase16(dict(dev=dev, smi=smi, n_sm=n_sm, sm_clock_mhz=sm_clock_mhz,
                              instances=k1_instances))
+    no_demotion("phase 16", watch)
 
     # -- 17. the stochastic serving tier: K6's and K7's batch modes ----------
     mc_batch_rows = phase17(dict(dev=dev, smi=smi, n_sm=n_sm, sm_clock_mhz=sm_clock_mhz,
                                  instances=mc_instances,
-                                 device=batch_row.pop("mc_batch_device")))
+                                 device=batch_row.pop("mc_batch_device"), watch=watch))
+    no_demotion("phase 17", watch)
 
     # -- 18. the native codec and the autotuner on the card ------------------
     tuned = phase18(dict(smi=smi, counted=counted, spans_ms=spans_ms, a_sha=streamed["sha"],
                          golden=golden))
+    no_demotion("phase 18", watch)
 
     # -- 19. the network front door: gateway, client, spill store, stats ----
-    front = phase19(dict(smi=smi, counted=counted, golden=golden))
+    front = phase19(dict(smi=smi, counted=counted, golden=golden, watch=watch))
+    no_demotion("phase 19", watch)
 
     # -- 20. the fleet: router, supervisor and migrator over cuda workers ----
-    fleet = phase20(dict(smi=smi))
+    fleet = phase20(dict(smi=smi, watch=watch))
+    no_demotion("phase 20", watch)
+    logging.getLogger("tpu_life_torch").removeHandler(watch)
+
+    # -- 21. serving recovery: a real OOM mid-launch, the ladder to the host -
+    ladder = phase21(dict(smi=smi))
 
     batch_row.update(tuned_serve_launches=tuned["served_batch"],
                      tuned_serve_pick=tuned["served_pick"],
                      gateway_launches=front["k1_batch"],
-                     fleet_workers_built=fleet["k1_batch_workers"])
+                     fleet_workers_built=fleet["k1_batch_workers"],
+                     oom_phase_launches=ladder["k1_batch"])
     mc_batch_rows[0]["gateway_launches"] = front["k6_batch"]
     mc_batch_rows[0]["fleet_packed_steps"] = fleet["k6_packed_steps"]
     diamond = diamond_rows[DIAMOND]
@@ -4017,6 +4061,7 @@ def phase17(ctx: dict) -> list[dict]:
         child_s = time.perf_counter() - t0
         if proc.returncode != 0:
             fail(f"phase 17 (b): the sweep exited {proc.returncode}: {proc.stderr[-3000:]}")
+        no_demotion("phase 17 (b): the sweep child", ctx["watch"], proc.stderr)
         lines = proc.stdout.splitlines()
         rec = json.loads([ln for ln in lines if ln.startswith('{"mode": "sweep"')][-1])
         sweep_counts = json.loads([ln for ln in lines if ln.startswith("P17 ")][-1][4:])
@@ -4722,6 +4767,8 @@ def phase19(ctx: dict) -> dict:
                     "pump", "device_idle_fraction", "steps_advanced"}
             if not need <= set(serve) or serve["sessions_done"] < 1:
                 fail(f"phase 19 (c): stats --json has serve {serve}")
+            no_demotion("phase 19 (b): the gateways", ctx["watch"], proc.stdout,
+                        *((tmp / f"{name}.err").read_text() for name in ("gw_a", "gw_b")))
             rc, _ = stop(store, "store")
             if rc != 0:
                 fail(f"phase 19 (b): the spill store exited {rc} on SIGTERM")
@@ -4943,6 +4990,7 @@ def phase20(ctx: dict) -> dict:
                                     compile_key=f"B3/S23:{P20_SIDE}x{P20_SIDE}:cuda")
             steps = _prom_by_worker(metrics, "serve_steps_total")
             packed = _prom_by_worker(metrics, "serve_packed_steps_total")
+            no_demotion("phase 20 (a): the workers", ctx["watch"], metrics)
             if min(per_worker.values()) < 1 or sorted(built) != ["w0", "w1"] or \
                     min(steps.values()) <= 0 or any(packed.get(w, 0) <= 0 for w in ising_workers):
                 fail(f"phase 20 (a): sessions a worker {per_worker}, the cuda Conway engine built "
@@ -5058,6 +5106,8 @@ def phase20(ctx: dict) -> dict:
                         "--ising-sessions", "1", "--workdir", str(tmp / "drill")], "chaos")
             drill_s = time.perf_counter() - t0
             drill = json.loads(out.strip().splitlines()[-1])
+            no_demotion("phase 20 (d): the drill's workers", ctx["watch"],
+                        *(p.read_text() for p in (tmp / "drill").glob("**/*.log")))
             bad = [k for k, v in drill["invariants"].items() if not v["ok"]]
             if not drill["ok"] or bad or drill["delivered"] != drill["sessions"] or \
                     drill["plan_digest"] != chaos.ChaosPlan(7, DEFAULT_POINTS).digest():
@@ -5078,6 +5128,213 @@ def phase20(ctx: dict) -> dict:
           f"{drill['plan_digest']} ({drill_s:.1f} s); phase 20 took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"k1_batch_workers": sorted(built), "k6_packed_steps": packed}
+
+# phase 21's child: one cuda service under the pipelined pump with a K1
+# batch-mode key and a route-ops key; the card is left short of memory once
+# a chunk of the ops key is in flight, until the ladder demotes that key.
+# ``_run_chunk`` is wrapped to record each fault where it is raised (type,
+# first line, free bytes, the in-flight accounting) and raise it on
+P21_CHILD = """
+import json, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+from tpu_life_torch.kernels import packed_batch as kb
+from tpu_life_torch.serve import ServeConfig, SimulationService
+from tpu_life_torch.serve.engine import BatchEngine
+
+tmp = Path(sys.argv[1])
+steps, n, ops_side, ops_steps, n_ops, chunk, margin = map(int, sys.argv[2:9])
+conway = [np.load(tmp / f"c{i}.npy") for i in range(n)]
+ops = [np.load(tmp / f"t{i}.npy") for i in range(n_ops)]
+faults = []
+run_chunk = BatchEngine._run_chunk
+
+def probe(self, boards):
+    try:
+        return run_chunk(self, boards)
+    except BaseException as e:
+        text = str(e)
+        faults.append({"type": type(e).__name__,
+                       "oom": isinstance(e, torch.cuda.OutOfMemoryError),
+                       "first_line": text.splitlines()[0] if text else "",
+                       "free_bytes": torch.cuda.mem_get_info(self.device)[0],
+                       "inflight": {str(k): v for k, v in self._inflight.items()},
+                       "route": self.route, "chunk_steps": self.chunk_steps})
+        raise
+
+BatchEngine._run_chunk = probe
+svc = SimulationService(ServeConfig(backend="cuda", capacity=8, chunk_steps=chunk))
+assert svc.config.pipeline
+ballast = []
+
+def squeeze():
+    # the caching allocator would hand a chunk the blocks an earlier chunk
+    # freed: empty it, then leave the card ``margin`` free bytes
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    while free > margin:
+        try:
+            ballast.append(torch.empty(free - margin, dtype=torch.uint8, device="cuda"))
+        except torch.cuda.OutOfMemoryError:
+            free -= 16 << 20
+            continue
+        free = torch.cuda.mem_get_info()[0]
+
+def ops_engine():
+    return next((e for k, e in svc.scheduler.engines.items()
+                 if k.shape == (ops_side, ops_side)), None)
+
+def ops_done():
+    return sum(svc.poll(s).steps_done for s in osids)
+
+def pump_until(cond, what, limit=400):
+    for _ in range(limit):
+        if cond():
+            return
+        svc.pump()
+    raise SystemExit(f"never {what}")
+
+t_phase = time.perf_counter()
+kb.packed_batch_multi_step.launches = 0
+sids = [svc.submit(b, "conway", steps) for b in conway]
+osids = [svc.submit(b, "conway:T", ops_steps) for b in ops]
+# the card: the ops key's board-steps between two synchronized points,
+# its first chunk done and its second
+pump_until(lambda: ops_engine() is not None and ops_engine().chunks >= 1, "dispatched")
+torch.cuda.synchronize()
+t_a, s_a = time.perf_counter(), ops_done()
+pump_until(lambda: ops_engine().chunks >= 2, "dispatched a second chunk")
+torch.cuda.synchronize()
+card_rate = (ops_done() - s_a) / (time.perf_counter() - t_a)
+# a third chunk in flight, then the card left short
+pump_until(lambda: ops_engine().chunks >= 3 and ops_engine().inflight, "in flight")
+inflight_before = {str(k): v for k, v in ops_engine()._inflight.items()}
+launches_before = kb.packed_batch_multi_step.launches
+squeeze()
+rounds = 0
+while not svc.scheduler.demoted and rounds < 20:
+    svc.pump()
+    rounds += 1
+    squeeze()
+squeezed_launches = kb.packed_batch_multi_step.launches - launches_before
+ballast.clear()
+torch.cuda.empty_cache()
+host = ops_engine()
+(ops_key,) = svc.scheduler.demoted
+card_steps = [s.steps_done - host._inflight.get(slot, 0)
+              for slot, s in svc.scheduler.running[ops_key].items()]
+t_h = time.perf_counter()
+while not all(svc.poll(s).finished for s in osids):
+    svc.pump()
+host_s = time.perf_counter() - t_h
+svc.drain(max_rounds=400)
+views = [svc.poll(s) for s in [*sids, *osids]]
+for i, s in enumerate(sids):
+    np.save(tmp / f"c{i}_out.npy", svc.result(s))
+for i, s in enumerate(osids):
+    np.save(tmp / f"t{i}_out.npy", svc.result(s))
+engines = {f"{k.shape[0]}x{k.shape[1]}":
+           [type(e).__name__, getattr(e, "route", None), e.chunk_steps]
+           for k, e in svc.scheduler.engines.items()}
+stats = svc.stats()
+svc.close()
+print("P21 " + json.dumps({
+    "faults": faults, "inflight_before": inflight_before,
+    "recoveries": stats["engine_recoveries"],
+    "demoted": [f"{k.shape[0]}x{k.shape[1]}" for k in svc.scheduler.demoted],
+    "engines": engines, "states": [v.state.value for v in views],
+    "degraded": [v.degraded_reason for v in views],
+    "k1_batch": kb.packed_batch_multi_step.launches, "k1_batch_squeezed": squeezed_launches,
+    "squeeze_rounds": rounds, "card_rate": card_rate,
+    "host_rate": sum(ops_steps - c for c in card_steps) / host_s, "card_steps": card_steps,
+    "seconds": time.perf_counter() - t_phase}), flush=True)
+"""
+
+
+def phase21(ctx: dict) -> dict:
+    """Phase 21: serving recovery on the card (see the module docstring).
+    Returns the launches of K1's batch mode in the phase's child, counted
+    from 0 just before its sessions and read after they finished."""
+    import numpy as np
+
+    from tpu_life_torch.models.rules import get_rule
+    from tpu_life_torch.ops.reference import run_np
+
+    smi = ctx["smi"]
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        conway = [np.random.default_rng(2100 + i).integers(0, 2, (P21_SIDE, P21_SIDE))
+                  .astype(np.int8) for i in range(P21_SESSIONS)]
+        ops = [np.random.default_rng(2200 + i).integers(0, 2, (P21_OPS_SIDE, P21_OPS_SIDE))
+               .astype(np.int8) for i in range(P21_OPS_SESSIONS)]
+        for name, boards in (("c", conway), ("t", ops)):
+            for i, b in enumerate(boards):
+                np.save(tmp / f"{name}{i}.npy", b)
+        proc = subprocess.Popen(
+            [sys.executable, "-c", P21_CHILD, str(tmp), *map(str, (
+                P21_STEPS, P21_SESSIONS, P21_OPS_SIDE, P21_OPS_STEPS, P21_OPS_SESSIONS,
+                P21_CHUNK, P21_MARGIN))],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        # the numpy oracle meanwhile, a board a thread
+        with ThreadPoolExecutor(len(conway) + len(ops)) as pool:
+            want = list(pool.map(lambda a: run_np(*a), [
+                *((b, get_rule("conway"), P21_STEPS) for b in conway),
+                *((b, get_rule("conway:T"), P21_OPS_STEPS) for b in ops)]))
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        if proc.returncode != 0:
+            fail(f"phase 21: the child exited {proc.returncode}: {err[-3000:]}")
+        rec = json.loads([ln for ln in out.splitlines() if ln.startswith("P21 ")][-1][4:])
+        got = [np.load(tmp / f"c{i}_out.npy") for i in range(P21_SESSIONS)]
+        got += [np.load(tmp / f"t{i}_out.npy") for i in range(P21_OPS_SESSIONS)]
+        differ = [i for i, (g, w) in enumerate(zip(got, want)) if g.tobytes() != w.tobytes()]
+    faults = rec["faults"]
+    ops_key, k1_key = f"{P21_OPS_SIDE}x{P21_OPS_SIDE}", f"{P21_SIDE}x{P21_SIDE}"
+    n = P21_SESSIONS
+    if len(faults) != 2 or not all(f["oom"] and f["route"] == "ops" for f in faults) or \
+            not faults[0]["inflight"] or faults[1]["chunk_steps"] != P21_CHUNK // 2:
+        fail(f"phase 21: want two real torch.OutOfMemoryError from the ops key's _run_chunk, "
+             f"the first with a chunk in flight, the second at the halved chunk: {faults}")
+    if rec["recoveries"] != {"oom_halved_chunk": 1, "oom_host_demoted": 1} or \
+            rec["demoted"] != [ops_key] or rec["engines"].get(k1_key) != \
+            ["BatchEngine", "k1_batch", P21_CHUNK] or \
+            rec["engines"].get(ops_key, [None])[0] != "HostBatchEngine":
+        fail(f"phase 21: recoveries {rec['recoveries']}, demoted {rec['demoted']}, engines "
+             f"{rec['engines']}")
+    if rec["states"] != ["done"] * (n + P21_OPS_SESSIONS) or \
+            rec["degraded"] != [None] * n + ["oom_host_demoted"] * P21_OPS_SESSIONS:
+        fail(f"phase 21: states {rec['states']}, degraded_reason {rec['degraded']}")
+    if differ:
+        fail(f"phase 21: sessions {differ} differ from the numpy oracle's bytes")
+    if rec["k1_batch"] <= 0 or rec["k1_batch_squeezed"] <= 0:
+        fail(f"phase 21: K1's batch mode launched {rec['k1_batch']} times, "
+             f"{rec['k1_batch_squeezed']} while the card was short")
+    for i, f in enumerate(faults):
+        print(f"phase 21 fault {i + 1} (card: {smi}): {f['type']} from BatchEngine._run_chunk "
+              f"(route {f['route']}, chunk {f['chunk_steps']}): {f['first_line']!r}; free bytes "
+              f"at the fault {f['free_bytes']}; in-flight accounting {f['inflight']}", flush=True)
+    print(f"phase 21 (card: {smi}): one cuda service, pipelined pump, capacity 8, chunk "
+          f"{P21_CHUNK}: {n} conway {P21_SIDE}^2 x {P21_STEPS} (route k1_batch) beside "
+          f"{P21_OPS_SESSIONS} conway:T {P21_OPS_SIDE}^2 x {P21_OPS_STEPS} (route ops); the "
+          f"card left {P21_MARGIN} free bytes from when the ops key's chunk "
+          f"{rec['inflight_before']} was in flight; engine_recoveries {rec['recoveries']}; "
+          f"degraded_reason {rec['degraded']}; every session equal to the numpy oracle's bytes; "
+          f"the conway key stayed on K1's batch mode ({rec['k1_batch']} launches in the phase, "
+          f"{rec['k1_batch_squeezed']} in the {rec['squeeze_rounds']} rounds the card was "
+          f"short); the ops key {rec['card_rate']:.1f} board-steps/s on the card before the "
+          f"demotion (host clock between two synchronized points), {rec['host_rate']:.2f} on "
+          f"the host after it (from step {rec['card_steps']}); child {rec['seconds']:.1f} s, "
+          f"phase 21 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"k1_batch": rec["k1_batch"]}
+
 
 def cli_main_rc(args: list[str]) -> int:
     """The exit code of one in-process CLI call, its output discarded."""

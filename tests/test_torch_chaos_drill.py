@@ -337,14 +337,28 @@ def test_the_jax_device_engine_salvages_the_stale_input_there():
 # -- no fallback -------------------------------------------------------------------
 def test_no_card_and_no_device_cpu_fails_the_drill_at_worker_startup(tmp_path):
     # the card hidden: every worker refuses the CPU typed and its breaker
-    # opens; the drill cannot get a ready fleet and fails (the wait for
-    # readiness is cut to 30 s here, from 120)
+    # opens; the drill cannot get a ready fleet and fails.  The wait for
+    # readiness ends once every worker's log holds its refusal and every
+    # breaker is open (however slowly the workers import torch), within a
+    # limit of its own below the subprocess's
     code = (
-        "import json, sys\n"
+        "import json, time\n"
+        "from pathlib import Path\n"
         "import tpu_life_torch.fleet as F\n"
-        "wait = F.Fleet.wait_ready\n"
-        "F.Fleet.wait_ready = lambda self, timeout=60.0, min_workers=1: "
-        "wait(self, min(timeout, 30.0), min_workers)\n"
+        "def wait_ready(self, timeout=60.0, min_workers=1):\n"
+        "    deadline = time.monotonic() + 150.0\n"
+        "    while time.monotonic() < deadline:\n"
+        "        if len(self.supervisor.ready_workers()) >= min_workers:\n"
+        "            return True\n"
+        "        states = self.supervisor.states()\n"
+        f"        logs = [Path({str(tmp_path / 'logs')!r}) / f'{{w}}.log' for w in states]\n"
+        "        if all(v == 'failed' for v in states.values()) and all(\n"
+        "                p.exists() and 'no CUDA device is available' in p.read_text()\n"
+        "                for p in logs):\n"
+        "            return False\n"
+        "        time.sleep(0.2)\n"
+        "    return False\n"
+        "F.Fleet.wait_ready = wait_ready\n"
         "from tpu_life_torch.chaos.drill import DrillConfig, run_drill\n"
         "try:\n"
         f"    run_drill(DrillConfig(seed=7, det_sessions=1, ising_sessions=0, "
@@ -354,7 +368,7 @@ def test_no_card_and_no_device_cpu_fails_the_drill_at_worker_startup(tmp_path):
     )
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO_ROOT))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          env=env, cwd=tmp_path, timeout=110)
+                          env=env, cwd=tmp_path, timeout=240)
     assert proc.returncode == 0, proc.stderr
     err = json.loads(proc.stdout.strip().splitlines()[-1])["error"]
     assert err.startswith("fleet never became ready") and "failed" in err

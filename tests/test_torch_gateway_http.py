@@ -250,6 +250,11 @@ def test_session_lifecycle_and_typed_errors(make_twins, port_backend):
         c = t.client()
         steps = [_http(t.url, "GET", "/v1/sessions/s999999")]
         sid = c.submit(size=32, steps=200_000)  # stays in flight for the test
+        # both pumps admit it before its result is asked for (under load
+        # one may still hold it queued: a race, not a difference)
+        deadline = time.monotonic() + WAIT_S
+        while c.poll(sid)["state"] == "queued" and time.monotonic() < deadline:
+            time.sleep(0.01)
         steps.append(_http(t.url, "GET", f"/v1/sessions/{sid}/result"))
         steps.append(_http(t.url, "DELETE", f"/v1/sessions/{sid}"))
         steps.append(_http(t.url, "DELETE", f"/v1/sessions/{sid}"))

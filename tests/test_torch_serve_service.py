@@ -9,9 +9,9 @@ and session states, per-round admitted and retired counts under both
 pumps, backpressure, deadlines under an injected clock, cancel and
 ``edit_cells``, spill files (byte for byte) and resume from them, the
 governor's ``InsufficientMemory`` verdicts under the backend mapping, the
-mesh tier's placement and result, the OOM ladder's first rung through the
-chaos seam ``engine.oom`` (a second OOM fails the key typed, where the JAX
-package demotes it to the host), the refusal of what this slice does not
+mesh tier's placement and result, the OOM ladder through the chaos seam
+``engine.oom`` (the first OOM halves the chunk, the second demotes the key
+to its host twin; a FATAL error never takes the ladder), the refusal of what this slice does not
 serve yet, and of stochastic keys on ``sharded`` (the stochastic tier's
 own cases are ``test_torch_mc_serve.py``'s).
 Boards come from ``np.random.default_rng``.
@@ -24,6 +24,7 @@ import pytest
 
 from tpu_life import chaos as jchaos
 from tpu_life import serve as jserve
+from tpu_life.models import lenia as jlenia
 from tpu_life.models.rules import get_rule as jget_rule
 from tpu_life.ops.reference import run_np as jrun_np
 from tpu_life_torch import chaos, serve
@@ -269,48 +270,181 @@ def test_oom_ladder_first_rung_halves_the_chunk(pipeline, rule):
     assert out[0][2] == jrun_np(b, jget_rule(rule), 12).tobytes()
 
 
-def _second_oom_fails_typed(pipeline, rule):
-    # the port's departure: where the JAX package demotes the key to its
-    # host engine, the port fails the key's sessions typed and never
-    # moves their work off the device they were served on
+#: the rules of the host rung: K1's batch, K2's slot loop, the plain-op
+#: batch, K6's and K7's batch modes and the float batch; (board, kwargs)
+DEMOTED = {
+    "brians_brain": (lambda: boards(1, seed=7, states=3)[0], {}),
+    "conway:T": (lambda: boards(1, seed=7)[0], {}),
+    "ising": (lambda: boards(1, shape=(12, 14), seed=7)[0], {"temperature": 2.0, "seed": 3}),
+    "noisy:0.01/conway": (lambda: boards(1, seed=7)[0], {"seed": 3}),
+    "lenia:orbium": (lambda: jlenia.seeded_board(32, 32, seed=1), {}),
+}
+
+
+def _second_oom_demotes_to_the_host(pipeline, rule):
+    # both packages: the first OOM halves the chunk, the second demotes
+    # the key to its bit-identical host twin, and the session finishes
     plan = {"seed": 1, "points": {"engine.oom": {"mode": "oom", "times": 2}}}
-    b = boards(1, seed=7)[0]
-    (port, mod), (jax, jmod) = _oom_services(pipeline)
-    with mod.armed_plan(plan):
-        sid = port.submit(b, rule, 12)
-        port.drain(max_rounds=120)
-    v = port.poll(sid)
-    assert v.state is serve.SessionState.FAILED and "RESOURCE_EXHAUSTED" in v.error
-    assert v.degraded_reason == "oom_halved_chunk"
-    with pytest.raises(serve.SessionFailed):
-        port.result(sid)
-    assert all(type(e).__name__ != "HostBatchEngine" for e in port.scheduler.engines.values())
-    assert port.stats()["engine_recoveries"] == {"oom_halved_chunk": 1, "oom_failed": 1}
-    with jmod.armed_plan(plan):
-        jsid = jax.submit(b, rule, 12)
-        jax.drain(max_rounds=120)
-    assert jax.poll(jsid).degraded_reason == "oom_host_demoted"
-    # the key serves again at the halved chunk once the card has room
-    again = port.submit(b, rule, 12)
-    port.drain(max_rounds=120)
-    np.testing.assert_array_equal(port.result(again), jax.result(jsid))
-    assert [e.chunk_steps for e in port.scheduler.engines.values()] == [2]
-    port.close()
-    jax.close()
+    make, kw = DEMOTED.get(rule, (lambda: boards(1, seed=7)[0], {}))
+    b = make()
+    out = []
+    for svc, mod in _oom_services(pipeline):
+        with mod.armed_plan(plan):
+            sid = svc.submit(b, rule, 12, **kw)
+            svc.drain(max_rounds=120)
+        v = svc.poll(sid)
+        (eng,) = svc.scheduler.engines.values()
+        got = svc.result(sid)
+        # a re-minted engine of the key stays demoted
+        svc.scheduler.release_idle_engines()
+        again = svc.submit(b, rule, 12, **kw)
+        svc.drain(max_rounds=120)
+        (minted,) = svc.scheduler.engines.values()
+        assert type(minted) is type(eng)
+        np.testing.assert_allclose(svc.result(again), got, atol=jlenia.FLOAT_ATOL, rtol=0)
+        out.append(((v.state.value, v.degraded_reason, svc.stats()["engine_recoveries"],
+                     type(eng).__name__, eng.chunk_steps), got))
+        svc.close()
+    (port, got), (jax, want) = out
+    assert port == jax
+    assert port[:3] == ("done", "oom_host_demoted", {"oom_halved_chunk": 1, "oom_host_demoted": 1})
+    assert port[3] in ("HostBatchEngine", "MCHostEngine") and port[4] == 2
+    if rule.startswith("lenia"):
+        np.testing.assert_allclose(got, want, atol=jlenia.FLOAT_ATOL)
+    else:
+        assert got.tobytes() == want.tobytes()
 
 
 @pytest.mark.chaos
 @pytest.mark.parametrize("pipeline", [True, False])
 def test_oom_ladder_through_the_chaos_seam(pipeline):
-    _second_oom_fails_typed(pipeline, "conway")
+    _second_oom_demotes_to_the_host(pipeline, "conway")
 
 
 @pytest.mark.chaos
-@pytest.mark.parametrize("rule", ["brians_brain", "conway:T"])
+@pytest.mark.parametrize("rule", sorted(DEMOTED))
 @pytest.mark.parametrize("pipeline", [True, False])
-def test_a_second_oom_fails_the_key_typed_on_its_device(pipeline, rule):
-    # the K2 slot loop and the plain-op batch, beside K1's batch above
-    _second_oom_fails_typed(pipeline, rule)
+def test_a_second_oom_demotes_the_key_to_its_host_twin(pipeline, rule):
+    # the K2 slot loop, the plain-op batch, the stochastic and the float
+    # batches, beside K1's batch above
+    _second_oom_demotes_to_the_host(pipeline, rule)
+
+
+def _raising(monkeypatch, exc, times):
+    """``BatchEngine._run_chunk`` raises ``exc`` at its first ``times``
+    calls (0: at every call)."""
+    calls = []
+
+    def run_chunk(self, boards):
+        calls.append(1)
+        if not times or len(calls) <= times:
+            raise exc
+        return run(self, boards)
+
+    run = engine.BatchEngine._run_chunk
+    monkeypatch.setattr(engine.BatchEngine, "_run_chunk", run_chunk)
+
+
+def _cuda_on_cpu(pipeline):
+    return serve.SimulationService(serve.ServeConfig(
+        backend="cuda", device="cpu", capacity=2, chunk_steps=4, pipeline=pipeline))
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("fatal", ["KernelBuildError", "CudaUnavailableError"])
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_a_fatal_error_in_a_chunk_is_never_demoted(monkeypatch, pipeline, fatal):
+    # a FATAL error that reads like an OOM (nvcc killed for memory) never
+    # takes the ladder: it replays on the device engine until the budget
+    # fails the key typed, and no host engine stands in for the kernel
+    from tpu_life_torch.backends.base import CudaUnavailableError
+    from tpu_life_torch.kernels._build import KernelBuildError
+
+    cls = {"KernelBuildError": KernelBuildError, "CudaUnavailableError": CudaUnavailableError}
+    _raising(monkeypatch, cls[fatal]("nvcc failed: out of memory"), 0)
+    svc = _cuda_on_cpu(pipeline)
+    sid = svc.submit(boards(1, seed=7)[0], "conway", 12)
+    svc.drain(max_rounds=120)
+    v = svc.poll(sid)
+    assert v.state is serve.SessionState.FAILED and fatal in v.error
+    assert v.degraded_reason is None and not svc.scheduler.demoted
+    assert svc.stats()["engine_recoveries"] == {"replayed": 3, "budget_exhausted": 1}
+    assert {type(e).__name__ for e in svc.scheduler.engines.values()} <= {"BatchEngine"}
+    assert all(e.chunk_steps == 4 for e in svc.scheduler.engines.values())
+    svc.close()
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_a_non_oom_error_in_a_chunk_replays_on_the_device_engine(monkeypatch, pipeline):
+    _raising(monkeypatch, RuntimeError("CUDA error: an illegal memory access was encountered"), 2)
+    svc = _cuda_on_cpu(pipeline)
+    b = boards(1, seed=7)[0]
+    sid = svc.submit(b, "conway", 12)
+    svc.drain(max_rounds=120)
+    v = svc.poll(sid)
+    assert v.state is serve.SessionState.DONE and v.degraded_reason is None
+    assert svc.stats()["engine_recoveries"] == {"replayed": 2}
+    (eng,) = svc.scheduler.engines.values()
+    assert type(eng) is engine.BatchEngine and eng.chunk_steps == 4
+    assert svc.result(sid).tobytes() == jrun_np(b, jget_rule("conway"), 12).tobytes()
+    svc.close()
+
+
+@pytest.mark.chaos
+def test_a_demoted_key_reads_the_same_in_stats_prometheus_and_the_metrics_file(tmp_path):
+    # the outcome names of the JAX service in stats(), the Prometheus
+    # lines and the metrics file's stats summary
+    from tpu_life.obs import stats as jstats
+    from tpu_life_torch.obs import stats
+
+    plan = {"seed": 1, "points": {"engine.oom": {"mode": "oom", "times": 2}}}
+    got = []
+    for (svc_cls, cfg_cls, mod, summarize), d in (
+            ((serve.SimulationService, serve.ServeConfig, chaos, stats), tmp_path / "p"),
+            ((jserve.SimulationService, jserve.ServeConfig, jchaos, jstats), tmp_path / "j")):
+        d.mkdir()
+        cfg = dict(backend="cuda" if mod is chaos else "jax", capacity=2, chunk_steps=4,
+                   run_id="r0", metrics=True, metrics_file=str(d / "m.jsonl"),
+                   prom_file=str(d / "p.prom"))
+        if mod is chaos:
+            cfg["device"] = "cpu"
+        svc = svc_cls(cfg_cls(**cfg))
+        with mod.armed_plan(plan):
+            svc.submit(boards(1, seed=7)[0], "conway", 12)
+            svc.drain(max_rounds=120)
+        recoveries = svc.stats()["engine_recoveries"]
+        svc.close()
+        prom = sorted(line for line in (d / "p.prom").read_text().splitlines()
+                      if line.startswith("serve_engine_recoveries_total"))
+        summary = summarize.summarize(summarize.load_records(str(d / "m.jsonl")))
+        got.append((recoveries, prom, summary["serve"]["engine_recoveries_by_outcome"]))
+    assert got[0] == got[1]
+    assert got[0][0] == {"oom_halved_chunk": 1, "oom_host_demoted": 1}
+    assert any('outcome="oom_host_demoted"' in line for line in got[0][1])
+
+
+@pytest.mark.chaos
+def test_a_mesh_key_demotes_as_the_jax_package_does():
+    # a mega-board key (mesh:2x2) walks the same ladder: halved, then its
+    # host twin, the same board
+    plan = {"seed": 1, "points": {"engine.oom": {"mode": "oom", "times": 2}}}
+    port, jax = services("cuda", "jax", mesh_devices=4, memory_budget_bytes=20_000, capacity=8,
+                         chunk_steps=8)
+    board = boards(1, shape=(40, 48), seed=6)[0]
+    out = []
+    for svc, mod in ((port, chaos), (jax, jchaos)):
+        with mod.armed_plan(plan):
+            sid = svc.submit(board, "conway", 21)
+            svc.drain(max_rounds=120)
+        v = svc.poll(sid)
+        ((key, eng),) = svc.scheduler.engines.items()
+        out.append((key.backend, v.state.value, v.degraded_reason, type(eng).__name__,
+                    eng.chunk_steps, svc.stats()["engine_recoveries"], svc.result(sid).tobytes()))
+        svc.close()
+    assert out[0] == out[1]
+    assert out[0][:5] == ("mesh:2x2", "done", "oom_host_demoted", "HostBatchEngine", 4)
+    assert out[0][6] == jrun_np(board, jget_rule("conway"), 21).tobytes()
 
 
 def test_a_real_out_of_memory_error_walks_the_ladder():

@@ -429,12 +429,12 @@ class MCBatchEngine(BatchEngine):
             boards = self._step(boards, state, t)
         return boards
 
-    def _advance_budgets(self) -> None:
+    def _state_after(self) -> dict[str, torch.Tensor]:
         # a frozen slot's counter freezes with its board: the stream
         # position is a function of trajectory progress, not of how many
         # chunks the slot sat in the batch
-        self._counter.add_(self._rem_dev.clamp(max=self.chunk_steps))
-        super()._advance_budgets()
+        counter = self._counter + self._rem_dev.clamp(max=self.chunk_steps)
+        return {**super()._state_after(), "_counter": counter}
 
 
 class MCPackedBatchEngine(MCBatchEngine):

@@ -63,8 +63,11 @@ _OOM_MARKERS = ("RESOURCE_EXHAUSTED", "out of memory", "Out of memory")
 def is_oom(e: BaseException) -> bool:
     """True when a RECOVERABLE error is a device out-of-memory: the one
     failure shape the serving tier answers with its own ladder (halve the
-    chunk, then fail the key typed; the JAX package demotes it to the host
-    engine instead) rather than a plain rebuild-and-replay."""
+    chunk, then demote the key to its host engine) rather than a plain
+    rebuild-and-replay.  A FATAL error is never one, whatever its text
+    (an nvcc killed for memory): no demotion stands in for a kernel."""
+    if isinstance(e, FATAL):
+        return False
     msg = str(e)
     return any(m in msg for m in _OOM_MARKERS)
 

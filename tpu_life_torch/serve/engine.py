@@ -67,7 +67,11 @@ reads boards on a second one, which waits on an event recorded where the
 newest chunk began (``_prev`` ready) or at the read (the newest board).
 Every method names its device and streams itself, because the pipelined
 pump settles on another thread than the one that dispatched, and the
-current stream is per thread.
+current stream is per thread.  A chunk whose launch raises moves none of
+this: its output and state are committed only once every launch was
+issued, and the chunk in flight is waited for, so a salvage after the
+fault reads a board that matches its lag (the JAX package's
+``VmapEngine`` moves ``_prev`` first and replays a chunk twice there).
 """
 
 from __future__ import annotations
@@ -517,22 +521,47 @@ class BatchEngine(EngineBase):
             return self._chunk_k1_batch(boards)
         return self._chunk_ops(boards)
 
-    def _advance_budgets(self) -> None:
-        """The device state's advance over a chunk, after its launches."""
-        self._rem_dev.sub_(self.chunk_steps).clamp_(min=0)
+    def _state_after(self) -> dict[str, torch.Tensor]:
+        """The device state a chunk leaves behind, as new tensors by
+        attribute name, issued after its launches."""
+        return {"_rem_dev": (self._rem_dev - self.chunk_steps).clamp_(min=0)}
 
     def _dispatch_impl(self) -> None:
         if self.compile_count == 0:
             self._build_chunk()
+        # the chunk's output and state are locals until every launch was
+        # issued: a launch that raises leaves the engine as it was
         with self._on(), self._compute():
-            self._prev_ready = self._event()
-            self._prev = self._boards
-            self._fresh.clear()
-            self._boards = self._run_chunk(self._boards)
-            self._advance_budgets()
-            self._done = self._event()
+            ready = self._event()
+            try:
+                boards = self._run_chunk(self._boards)
+                state = self._state_after()
+            except BaseException:
+                self._settle_after_fault()
+                raise
+            done = self._event()
+        self._prev, self._prev_ready, self._done = self._boards, ready, done
+        self._boards = boards
+        for name, tensor in state.items():
+            setattr(self, name, tensor)
+        self._fresh.clear()
         self.chunks += 1
         BatchEngine.dispatched += 1
+
+    def _settle_after_fault(self) -> None:
+        """After a chunk whose launches raised: wait for the in-flight
+        chunk, so its slots read its output with no lag.  Its input
+        (``_prev``) is no longer safe to read, since the failed launches
+        may have written that buffer (routes that rotate three)."""
+        advanced, self._inflight = self._inflight, {}
+        if not advanced:
+            return
+        try:
+            self._collect_impl(advanced)
+        except RuntimeError:
+            # the context is poisoned: the in-flight chunk is lost too
+            for slot, n in advanced.items():
+                self._lost[slot] = self._lost.get(slot, 0) + n
 
     def _collect_impl(self, advanced: dict[int, int]) -> None:
         if self._done is not None:
@@ -688,6 +717,19 @@ class SlotLoopEngine(EngineBase):
 
     def _peek_board(self, slot: int) -> np.ndarray:
         return np.asarray(self._runners[slot].fetch())
+
+
+def make_host_engine(key: CompileKey, capacity: int, chunk_steps: int) -> EngineBase:
+    """The key's host twin, the bottom rung of the OOM ladder (the JAX
+    package's ``make_host_engine``): when a device engine OOMs even at a
+    halved chunk, the scheduler demotes the key to the bit-identical
+    numpy executor (``HostBatchEngine``, ``MCHostEngine`` for stochastic
+    keys) so its sessions finish, slower, instead of failing typed."""
+    if getattr(key.rule, "stochastic", False):
+        from tpu_life_torch.mc.engine import MCHostEngine
+
+        return MCHostEngine(key, capacity, chunk_steps)
+    return HostBatchEngine(key, capacity, chunk_steps)
 
 
 def cuda_route(rule: Rule) -> str:

@@ -59,6 +59,7 @@ from tpu_life_torch.serve.engine import (
     CompileKey,
     EngineBase,
     make_engine,
+    make_host_engine,
 )
 from tpu_life_torch.serve.errors import QueueFull, SessionTimeout
 from tpu_life_torch.serve.sessions import Session, SessionState
@@ -143,9 +144,11 @@ class Scheduler:
     _rotation: int = 0
     # the in-place recovery ladder's per-key state (docs/SERVING.md
     # "Resource governance"): recoveries consumed, a halved chunk size
-    # (the OOM rung), and the degraded_reason stamped onto their sessions
+    # (the first OOM rung), keys demoted to the host executor (the
+    # second), and the degraded_reason stamped onto their sessions
     restarts: dict = field(default_factory=dict)
     chunk_override: dict = field(default_factory=dict)
+    demoted: set = field(default_factory=set)
     degraded: dict = field(default_factory=dict)
 
     # -- ingestion ---------------------------------------------------------
@@ -476,10 +479,12 @@ class Scheduler:
 
     def _build_engine(self, key) -> EngineBase:
         """The key's engine, honoring the recovery ladder's per-key state:
-        a halved chunk after an OOM — so a rebuilt (or re-minted, after
-        release_idle_engines) engine for a degraded key stays degraded
-        instead of re-OOMing."""
+        a halved chunk after the first OOM, the host executor after the
+        second — so a rebuilt (or re-minted, after release_idle_engines)
+        engine for a degraded key stays degraded instead of re-OOMing."""
         chunk = self.chunk_override.get(key, self.chunk_steps)
+        if key in self.demoted:
+            return make_host_engine(key, self.capacity, chunk)
         return make_engine(
             key, self.capacity, chunk, mc_packed=self.mc_packed, device=self.device
         )
@@ -504,11 +509,12 @@ class Scheduler:
         A session whose compute is both finished AND materialized
         retires DONE right here.  A device OOM takes the **fallback
         ladder**: the first OOM halves the key's chunk (smaller scan
-        footprint, same trajectory) and stamps ``degraded_reason`` on the
-        key's sessions.  A second OOM fails the key's sessions typed
-        (``oom_failed``): where the JAX package demotes the key to the
-        host executor, the port keeps its work on the device it was
-        served on.  ``engine_max_restarts`` bounds recoveries per key —
+        footprint, same trajectory), a second demotes the key to the
+        bit-identical host executor; both stamp ``degraded_reason`` on
+        the key's sessions.  Only a device OOM takes the ladder: a FATAL
+        error (no card, a kernel that does not build) never reads as one
+        (``recovery.is_oom``), so no demotion stands in for the device or
+        a kernel.  ``engine_max_restarts`` bounds recoveries per key —
         past it (or with the budget set to 0) the fault falls back to
         today's typed failure.  Returns True when the key was recovered
         in place."""
@@ -525,15 +531,15 @@ class Scheduler:
             self.fail_engine_sessions(key, error, stats)
             return False
         outcome = "replayed"
-        if recovery.is_oom(exc):
+        if recovery.is_oom(exc) and key not in self.demoted:
             if key in self.chunk_override:
-                # the halved chunk still OOMed: the key's tenants fail
-                # typed rather than move off the card
-                self._notify_recovery(key, "oom_failed")
-                self.fail_engine_sessions(key, error, stats)
-                return False
-            self.chunk_override[key] = max(1, engine.chunk_steps // 2)
-            outcome = "oom_halved_chunk"
+                # the halved chunk still OOMed: demote to the host twin —
+                # sessions finish (slower) instead of failing typed
+                self.demoted.add(key)
+                outcome = "oom_host_demoted"
+            else:
+                self.chunk_override[key] = max(1, engine.chunk_steps // 2)
+                outcome = "oom_halved_chunk"
             self.degraded[key] = outcome
         # salvage each resident session's newest trustworthy state; a
         # slot whose board cannot materialize (poisoned device buffer)

@@ -171,7 +171,7 @@ class ServeConfig:
     memory_budget_bytes: int | None = None
     # in-place recovery budget per CompileKey: chunk-level RECOVERABLE
     # faults are masked by rebuild-and-replay (an OOM halves the chunk;
-    # a second OOM fails the key typed) this many times before falling
+    # a second demotes the key to the host) this many times before falling
     # back to the typed per-key failure.  0 = pure failure isolation.
     engine_max_restarts: int = 3
     # the wedge watchdog: a pipelined settle window still blocked after
@@ -409,7 +409,7 @@ class SimulationService:
         self._c_recoveries = self.registry.counter(
             "serve_engine_recoveries_total",
             "in-place engine recoveries by outcome (replayed / "
-            "oom_halved_chunk / oom_failed / budget_exhausted / "
+            "oom_halved_chunk / oom_host_demoted / budget_exhausted / "
             "rebuild_failed / wedged)",
             labels=("outcome",),
         )
