@@ -35,6 +35,7 @@ from tpu_life_torch.backends.base import (
     run_with_runner,
 )
 from tpu_life_torch.models.rules import Rule
+from tpu_life_torch.obs import profiler_span
 from tpu_life_torch.ops import bitlife
 from tpu_life_torch.ops.conv import resolve_stencil, validate_stencil
 from tpu_life_torch.ops.stencil import live_count_cells, make_step
@@ -57,6 +58,8 @@ class DeviceRunner:
     ``advance`` queues work with no host round-trip; ``sync`` waits for the
     card and reads one element back; ``to_np`` gathers the board to the
     host and ``count_live`` reduces its live cells on the device.
+    ``advance``, ``sync`` (its wait and its read-back) and ``snapshot``'s
+    copy are spans of a ``torch.profiler`` trace (``obs.profiler_span``).
     ``route`` names the executor ``advance`` runs: a kernel (``k1``,
     ``k1_diamond``, ``k2``) or plain ops (``packed``, ``packed_diamond``,
     ``packed_torus``, ``stencil``); ``stencil`` names how the ``stencil``
@@ -79,13 +82,17 @@ class DeviceRunner:
         self.stencil = stencil
 
     def advance(self, steps: int) -> None:
-        if steps > 0:
-            self.x = self._advance(self.x, steps)
+        with profiler_span("runner.advance"):
+            if steps > 0:
+                self.x = self._advance(self.x, steps)
 
     def sync(self) -> None:
-        if self.x.is_cuda:
-            torch.cuda.synchronize(self.x.device)
-        self.x[:1, :1].cpu()
+        with profiler_span("runner.sync"):
+            with profiler_span("runner.sync.wait"):
+                if self.x.is_cuda:
+                    torch.cuda.synchronize(self.x.device)
+            with profiler_span("runner.sync.readback"):
+                self.x[:1, :1].cpu()
 
     def fetch(self) -> np.ndarray:
         return self._to_np(self.x)
@@ -99,7 +106,9 @@ class DeviceRunner:
         """Thunk over a device copy of the current board: later advances
         (which may reuse the current buffer) leave it unchanged, like the
         reference Runner's immutable snapshots."""
-        return lambda x=self.x.clone(): self._to_np(x)
+        with profiler_span("runner.snapshot"):
+            x = self.x.clone()
+        return lambda x=x: self._to_np(x)
 
 
 class ShardedRunner:

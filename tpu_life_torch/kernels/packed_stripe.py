@@ -44,12 +44,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import operator
+from contextlib import nullcontext
 from pathlib import Path
 
 import torch
 
 from tpu_life_torch.kernels import _build
 from tpu_life_torch.models.rules import Rule
+from tpu_life_torch.obs import profiler_span
 from tpu_life_torch.ops import bitlife
 from tpu_life_torch.ops.boolmin import membership_rule_sop, rule_sop
 
@@ -323,42 +325,46 @@ def packed_multi_step(
     ping-ponging between ``x`` and ``scratch`` (allocated when None), and
     the function returns whichever holds the result: afterwards the
     contents of ``x`` and ``scratch`` are unspecified.  On a CPU tensor it
-    returns the plain version's new tensor.
+    returns the plain version's new tensor.  On the card, a
+    ``torch.profiler`` trace holds one ``k1.prepare`` span a call (entry to
+    just before the first launch) and one ``k1.issue`` (the launches).
     """
-    diamond = bitlife.supports_diamond(rule)
-    if not (diamond or bitlife.supports(rule)):
-        raise ValueError(
-            f"the packed stripe kernel runs clamped life-like rules and clamped "
-            f"2-state von Neumann rules of radius <= 2 only, got {rule}"
-        )
-    if not 1 <= block_steps <= MAX_BLOCK_STEPS:
-        raise ValueError(f"block_steps must be in [1, {MAX_BLOCK_STEPS}], got {block_steps}")
-    if steps < 0:
-        raise ValueError(f"steps must be >= 0, got {steps}")
-    _check(x, logical_shape, "x")
-    if x.device.type == "cpu":
-        return packed_multi_step_plain(x, rule, logical_shape, steps)
-    if x.device.type != "cuda":
-        raise ValueError(f"packed_multi_step runs on cuda or cpu tensors, got {x.device}")
-    if scratch is None:
-        scratch = torch.empty_like(x)
-    _check(scratch, logical_shape, "scratch")
-    if scratch.device != x.device or scratch.data_ptr() == x.data_ptr():
-        raise ValueError("scratch must be a second buffer on x's device")
-    lh, lw = logical_shape
-    block_steps = clamp_block_steps(rule, block_steps)
-    blocks, rem = divmod(steps, block_steps)
-    ks = [block_steps] * blocks + ([rem] if rem else [])
-    lib = _library()
-    compiled = compiled_rule(rule)
-    if diamond:
-        fn, mode = lib.packed_diamond_multi_step, (rule.radius, int(rule.include_center))
-    else:
-        fn, mode = lib.packed_stripe_multi_step, (int(compiled),)
-    sop = cached_sop_table(rule)
-    nwords = x.shape[1]
-    src, dst = x, scratch
-    with torch.cuda.device(x.device):
+    on_card = x.device.type == "cuda"
+    with profiler_span("k1.prepare") if on_card else nullcontext():
+        diamond = bitlife.supports_diamond(rule)
+        if not (diamond or bitlife.supports(rule)):
+            raise ValueError(
+                f"the packed stripe kernel runs clamped life-like rules and clamped "
+                f"2-state von Neumann rules of radius <= 2 only, got {rule}"
+            )
+        if not 1 <= block_steps <= MAX_BLOCK_STEPS:
+            raise ValueError(f"block_steps must be in [1, {MAX_BLOCK_STEPS}], got {block_steps}")
+        if steps < 0:
+            raise ValueError(f"steps must be >= 0, got {steps}")
+        _check(x, logical_shape, "x")
+        if x.device.type == "cpu":
+            return packed_multi_step_plain(x, rule, logical_shape, steps)
+        if not on_card:
+            raise ValueError(f"packed_multi_step runs on cuda or cpu tensors, got {x.device}")
+        if scratch is None:
+            scratch = torch.empty_like(x)
+        _check(scratch, logical_shape, "scratch")
+        if scratch.device != x.device or scratch.data_ptr() == x.data_ptr():
+            raise ValueError("scratch must be a second buffer on x's device")
+        lh, lw = logical_shape
+        block_steps = clamp_block_steps(rule, block_steps)
+        blocks, rem = divmod(steps, block_steps)
+        ks = [block_steps] * blocks + ([rem] if rem else [])
+        lib = _library()
+        compiled = compiled_rule(rule)
+        if diamond:
+            fn, mode = lib.packed_diamond_multi_step, (rule.radius, int(rule.include_center))
+        else:
+            fn, mode = lib.packed_stripe_multi_step, (int(compiled),)
+        sop = cached_sop_table(rule)
+        nwords = x.shape[1]
+        src, dst = x, scratch
+    with profiler_span("k1.issue"), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for k in ks:
             err = fn(

@@ -250,7 +250,9 @@ class MCPackedDeviceRunner(DeviceRunner):
     """Runner over the packed words (int32[H, ceil(W/32)], the ``pack_np``
     layout) on ``device``, route ``mc_packed``: a sweep is the even then the
     odd half-sweep, through kernel K6 (``kernels``: the ``cuda`` backend)
-    or its plain version.  Carries the wide two-word cell index."""
+    or its plain version.  Carries the wide two-word cell index.  Its
+    sweep loop is ``DeviceRunner.advance``'s ``runner.advance`` profiler
+    span, with no span a launch."""
 
     packed = True
     lanes = packed_mod.LANES

@@ -5,6 +5,8 @@ recorder, the time series and their read-back tools, tied to one
 - :mod:`tpu_life_torch.obs.trace`: Chrome trace-event spans
   (``--trace-events FILE``) bracketing the driver's host phases and the
   service's rounds, with async queue-wait intervals and trace ids.
+- :mod:`tpu_life_torch.obs.profiler`: ``profiler_span``, the Runners' and
+  kernel wrappers' spans on a ``torch.profiler`` trace's clock.
 - :mod:`tpu_life_torch.obs.registry`: ``Counter`` / ``Gauge`` /
   ``Histogram`` families, exported as records of the metrics JSONL sink.
 - :mod:`tpu_life_torch.obs.flight`: the bounded ring of structured
@@ -52,6 +54,7 @@ from tpu_life_torch.obs.trace import (
     tracing,
     valid_trace_id,
 )
+from tpu_life_torch.obs.profiler import profiler_span
 from tpu_life_torch.obs import console, flight, slo, stats, timeseries
 
 __all__ = [
@@ -77,6 +80,7 @@ __all__ = [
     "new_run_id",
     "new_trace_id",
     "now",
+    "profiler_span",
     "reset_span_count",
     "span",
     "span_count",

@@ -9,6 +9,12 @@ Composes with ``--trace-events`` span tracing (tpu_life_torch.obs): when
 both are on, the profile's extent appears as a ``torch-profile`` span in
 the host trace (the JAX package's ``jax-profile`` span under this port's
 name), so the two timelines can be aligned by run_id + offset.
+
+The program's own spans are on the profile's timeline itself, on the
+card's clock, named ``tpu_life_torch.*`` (``obs.profiler_span``): the
+Runner's ``runner.advance``, ``runner.sync`` (``.wait``, ``.readback``)
+and ``runner.snapshot``, and K1's wrapper's ``k1.prepare`` and
+``k1.issue``, one a call.
 """
 
 from __future__ import annotations
