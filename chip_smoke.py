@@ -13,14 +13,16 @@ Phases (any failure exits non-zero and prints no result line):
    ``tpu_life_torch/csrc`` (one nvcc each, started together, at first use),
    prints the build seconds and each ptxas report; for every instance of
    K1 and K3 (Moore with Conway's rule compiled in and with the rule as
-   data, clamped and on the torus, and the diamonds at radius 1 and 2),
+   data, clamped and on the torus, K1's Moore mode at 4, 8 and 16 rows a
+   warp, and the diamonds at radius 1 and 2),
    of K5 (built with them, at 4 and 8 rows a warp) and for K2 and K4 it
    prints the registers and fails on spill stores or loads; it counts
    ``LOP3``, ``SHF``, ``SHFL``, ``LDS``, ``STS``, ``BAR`` and all
    instructions in each K1, K3 and K5 instance's SASS (and in each of K1's
    batch mode: its strips and its segments), fails if the totals of K1's
-   ``<8, Conway>``, K3's ``<false, 8, Conway>`` and K5's ``<8>`` leave 496,
-   736 and 4392 (the tiles they share stay as they were), and the shared-memory
+   ``<8, Conway>`` and ``<16, Conway>`` (the Moore mode's own body), K3's
+   ``<false, 8, Conway>`` and K5's ``<8>`` leave 736, 1320, 736 and 4392
+   (the tiles K3 and K5 share stay as they were), and the shared-memory
    loads, stores and asynchronous copies (``LDS``, ``STS``, ``LDGSTS``) in
    K2's and K4's (``cuobjdump -sass`` on the built libraries); and
    ``mc_threefry.cu`` (K6's narrow and wide instances, K7 and their batch
@@ -33,7 +35,8 @@ Phases (any failure exits non-zero and prints no result line):
    data (``highlife``, ``day_and_night``, ``seeds``), ragged shapes up to
    16384^2, widths with W % 32 of 0, 1 and 31, a board whose live cells
    touch all four edges, and depths 1, 2, 8 and 32, each with a remainder
-   launch; K1's diamond
+   launch; every instance of K1's Moore mode (4, 8 and 16 rows a warp,
+   Conway and ``highlife``) at tiles forced through the C entry; K1's diamond
    mode over three von Neumann rules (r = 1, r = 2, r = 2 with the centre),
    shapes from 11x11 to 16384^2, widths with W % 32 of 0, 1 and 31, a
    board whose live cells touch all four edges, and depths 1, 2, 8 and the
@@ -60,7 +63,8 @@ Phases (any failure exits non-zero and prints no result line):
    updates per second through the Runner (host clock, delta timing), and
    the kernel timed with CUDA events against its plain version and its
    bound; at 16384^2 and at the reference's 1500x500 also its device time
-   from the profiler's kernel records, with the tiles ``tile_shape`` picks;
+   from the profiler's kernel records, with the tiles ``moore_tile_shape``
+   picks;
    and ``highlife`` (a rule the kernel runs as data) at 16384^2 beside
    Conway;
 6. full size, K2 — ``bugs`` (R5) at 8192^2 and ``brians_brain`` (C3) at
@@ -351,6 +355,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import ctypes
 import gzip
 import hashlib
 import io
@@ -396,8 +401,8 @@ DIAMOND_DEPTHS = (1, 2, BLOCK_STEPS, 32)
 K1_DEPTHS = (1, 2, BLOCK_STEPS, 32)
 DATA_RULE = "highlife"  # a Moore rule the kernels run as data, timed beside conway
 # the instances the kernels record names: each row's shape at k = 8
-K1_MAIN = "K1 packed_stripe_kernel<8, ConwayRule>"
-K1_DATA = "K1 packed_stripe_kernel<8, DataRule>"
+K1_MAIN = "K1 packed_stripe_kernel<16, ConwayRule>"
+K1_DATA = "K1 packed_stripe_kernel<16, DataRule>"
 K1_DIAMOND = "K1 packed_diamond_kernel<2, 8>"
 K3_MAIN = "K3 sharded_stripe_kernel<false, 8, ConwayRule>"
 K1_SMALL = "K1 packed_stripe_kernel<4, ConwayRule>"  # the reference board's tiles
@@ -512,11 +517,11 @@ K1_SASS_OPS = ("LOP3", "SHF", "SHFL", "LDS", "STS", "BAR")
 # mangled name): K1 Moore and K3 Moore (clamped, torus) with Conway's rule
 # compiled in and with the rule as data, the diamonds at radius 1 and 2,
 # K5, and K1's batch mode (Moore compiled in and as data, the diamonds),
-# each at 4 and 8 rows a warp
+# each at 4 and 8 rows a warp (K1's Moore mode at 16 as well)
 K5_MAIN = "K5 conway_int8_kernel<8>"
 STRIPE_INSTANCES = [
     *[(f"K1 packed_stripe_kernel<{n}, {r}Rule>", rf"packed_stripe_kernelILi{n}E\w*{r}Rule")
-      for n in (4, 8) for r in ("Conway", "Data")],
+      for n in (4, 8, 16) for r in ("Conway", "Data")],
     *[(f"K1 packed_diamond_kernel<{rad}, {n}>", rf"packed_diamond_kernelILi{rad}ELi{n}E")
       for rad in (1, 2) for n in (4, 8)],
     *[(f"K3 sharded_stripe_kernel<{t}, {n}, {r}Rule>",
@@ -536,9 +541,11 @@ K1_BATCH = "K1 batch packed_batch_kernel<0, 8, ConwayRule>"
 # the instance the serve mix's chunks run (8 x 512^2, k = 16: segments of 16
 # lanes, 4 rows a segment)
 K1_SEGMENT = "K1 batch packed_batch_segment_kernel<0, 4, ConwayRule>"
-# the SASS totals of the main instances of K1, K3 and K5, which share the
-# tiles K1's batch mode changed around them (PERF.md: PRs 9 and 10)
-SHARED_TILE_SASS = {"K1 packed_stripe_kernel<8, ConwayRule>": 496,
+# the SASS totals of the main instances of K1, K3 and K5: K3 and K5 share
+# the tiles K1's batch mode runs, K1's Moore mode has a body of its own (the
+# instance of 16 rows a warp runs 16384^2 at k = 8; PERF.md)
+SHARED_TILE_SASS = {"K1 packed_stripe_kernel<8, ConwayRule>": 736,
+                    "K1 packed_stripe_kernel<16, ConwayRule>": 1320,
                     "K3 sharded_stripe_kernel<false, 8, ConwayRule>": 736,
                     "K5 conway_int8_kernel<8>": 4392}
 # phase 16: K1's batch mode timed on 8 boards of these sides; the serve mix
@@ -823,6 +830,41 @@ def main() -> int:
     print(f"kernel vs plain: {cases} cases bit-identical ({time.perf_counter() - t0:.1f} s); "
           f"rules {', '.join(f'{n} ({'compiled' if ps.compiled_rule(get_rule(n)) else 'data'})' for n in rules)}",
           flush=True)
+
+    # every instance of K1's Moore mode (4, 8 and 16 rows a warp, Conway
+    # compiled in and as data) at tiles forced through the C entry, whatever
+    # the wrapper's pick takes: the most warps the instance allows and half
+    # of them, at depths 1, 8 and 32
+    stripe_fn = ps._library().packed_stripe_multi_step
+    forced = 0
+    t0 = time.perf_counter()
+    for h, w in ((300, 993), (257, 1000), (2000, 2048)):
+        x0 = words(rng.integers(0, 2, size=(h, w), dtype=np.int8))
+        nw = x0.shape[1]
+        for name in ("conway", "highlife"):
+            rule = get_rule(name)
+            for warp_rows in ps.MOORE_WARP_ROWS:
+                top = ps.moore_max_warps(warp_rows)
+                for warps in (top, top // 2):
+                    for k in (1, 8, 32):
+                        rows = min(warps * warp_rows - 2 * k, h)
+                        if rows < 1:
+                            continue
+                        got = torch.empty_like(x0)
+                        err = stripe_fn(x0.data_ptr(), got.data_ptr(), h, nw, w % bitlife.WORD, k,
+                                        rows, warp_rows, int(ps.compiled_rule(rule)),
+                                        ctypes.byref(ps.cached_sop_table(rule)),
+                                        torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            fail(f"packed_stripe_multi_step refused {rows}-row tiles of "
+                                 f"{warp_rows} rows a warp at k={k}: CUDA error {err}")
+                        if diff_cells(got, ps.packed_multi_step_plain(x0, rule, (h, w), k)):
+                            fail(f"K1 instance of {warp_rows} rows a warp != plain: rule {name}, "
+                                 f"{h}x{w}, {rows}-row tiles, k={k}")
+                        forced += 1
+    print(f"K1's Moore instances at forced tiles vs plain: {forced} cases bit-identical, rows a warp "
+          f"{', '.join(map(str, ps.MOORE_WARP_ROWS))}, conway and highlife "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     diamond_max_err = 0
     diamond_cases = 0
@@ -1340,9 +1382,13 @@ def main() -> int:
         ops_ms = ops / int_ops_per_s * 1e3
         return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
 
-    def tiles(rule, k: int, rows: int, nwords: int) -> str:
-        """The tiles of one K1 or K3 launch over rows x nwords words, in words."""
-        t, r = ps.launch_tile_shape(rule, k, rows, nwords)
+    def tiles(rule, k: int, rows: int, nwords: int, moore: bool = False) -> str:
+        """The tiles of one K1 or K3 launch over rows x nwords words, in words
+        (moore: K1's Moore mode, its own tiles)."""
+        if moore:
+            t, r = ps.moore_tile_shape(k, rows, nwords, n_sm)
+        else:
+            t, r = ps.launch_tile_shape(rule, k, rows, nwords)
         warps = -(-(t + 2 * rule.radius * k) // r)
         return f"{t}-row tiles of {warps} warps of {r} rows ({-(-rows // t)} a strip)"
 
@@ -1354,7 +1400,7 @@ def main() -> int:
     cells_per_s = FULL * FULL * BLOCK_STEPS / (ms * 1e-3)
     full_words = FULL * full_nw
     print(f"timing {FULL}^2 conway (rule compiled in), k={BLOCK_STEPS}, "
-          f"{tiles(rule, BLOCK_STEPS, FULL, full_nw)}: "
+          f"{tiles(rule, BLOCK_STEPS, FULL, full_nw, moore=True)}: "
           f"kernel {ms:.4f} ms/launch ({ms / BLOCK_STEPS:.4f} ms/step, "
           f"{cells_per_s:.4e} cells/s, {bound_ms / ms:.1%} of the bound); plain "
           f"{plain_ms / BLOCK_STEPS:.4f} ms/step; bound {bound_ms:.4f} ms/launch "
@@ -1390,7 +1436,7 @@ def main() -> int:
     ref_dev_ms = device_ms(ref, BLOCK_STEPS, 200)
     print(f"timing 1500x500 conway, k={BLOCK_STEPS}: {ref_ms:.4f} ms/launch by CUDA "
           f"events over back-to-back calls; device time {fmt(ref_dev_ms)} ms/launch "
-          f"with {tiles(rule, BLOCK_STEPS, ref[0], ref_nw)} (bound "
+          f"with {tiles(rule, BLOCK_STEPS, ref[0], ref_nw, moore=True)} (bound "
           f"{bound(ref, BLOCK_STEPS)[0]:.6f} ms)", flush=True)
 
     # -- 6. K2 at full size through the cuda backend ------------------------
@@ -1703,7 +1749,7 @@ def main() -> int:
              else "copy device time not measured (no memcpy records)")
           + f"; {fmt_breakdown(block_split)}; {-(-nw // ps.STRIP_WORDS)} strips of "
           f"{tiles(rule, BLOCK_STEPS, hl, nw)} per shard launch, of "
-          f"{tiles(rule, BLOCK_STEPS, FULL, nw)} per K1 launch", flush=True)
+          f"{tiles(rule, BLOCK_STEPS, FULL, nw, moore=True)} per K1 launch", flush=True)
     k3_row = dict(shape=[hl, FULL], ms=k3_ms, device_ms=k3_dev_ms, plain_ms=k3_plain_ms,
                   bound_ms=k3_bound, bound_by=k3_by)
     del runner, tops, bots, buffers, shard_launch

@@ -124,6 +124,9 @@ def test_cpu_tensor_takes_the_plain_version_without_launching():
 @pytest.mark.parametrize(
     "args,shape",
     [
+        # tile_shape, the tiles of K1's diamond mode, K3, K5's small boards
+        # and K1's batch mode on wide rows (the Moore mode has its own,
+        # moore_tile_shape, tests/test_torch_k1_moore_design.py).
         # (k, height, nwords, SMs, radius) -> (tile rows, rows a warp): runs
         # of two halos (2 r k rows) give no more warps than the 4 * SMs warp
         # schedulers, so four rows a warp and the tile that puts the fewest
@@ -156,6 +159,7 @@ def test_tile_shape_on_boards_that_leave_schedulers_idle(args, shape):
 @pytest.mark.parametrize(
     "args,rows",
     [
+        # tile_shape (K3, the diamond mode, K1's batch mode on wide rows).
         # (k, height, nwords, SMs, radius) -> the tile's output rows at eight
         # rows a warp: the fewest warps of 4, 8, 16 and 32 (32 to 256 rows)
         # whose halo of 2 r k rows is at most a sixth of their rows, else 32.

@@ -50,7 +50,34 @@
 // k = 8, 16384^2 moves 64 MiB per 8 steps, about 20 us at 3.35 TB/s,
 // against about 60 us of integer issue at 64 results per clock and SM).
 // So the design spends as few instructions beyond those as it can, and
-// keeps every row in registers.
+// keeps every row in registers.  K1's Moore mode on one board counts in
+// the other order and needs 12 (below).
+//
+// K1's Moore mode on one board (packed_stripe_kernel, moore_tile) has a
+// body of its own.  A substep takes each row's horizontal 3-sum once: two
+// shuffles, two funnel shifts, hs = L ^ C ^ R and hc = maj(L, C, R), one
+// LOP3 each.  The warps trade their first and last rows' (hs, hc) through
+// shared memory (one barrier), so no halo row's sum is made twice, and
+// three rows' pairs add vertically in two carry-save adds to the total
+// T = a0 + 2 (a1 + c0) + 4 c1.  Conway's rule reads those planes and the
+// cell in four LOP3 (PlaneRule<ConwayRule>); a rule as data takes the
+// total's planes b0..b3 from them, two rows at a time through the loop of
+// a rule of more than two terms.  So a word-step costs 12 integer-pipe
+// instructions and 2 shuffles, where the shared tiles spend about 17 and
+// 4.  Its strips start at word 0: strip s holds word columns 30 s .. 30 s
+// + 31, and lane 0 of the first strip and a lane 31 that holds the row's
+// last word are output words too, taking zero from off the board, so
+// 16384^2 takes 17 strips, not 18.  A block that touches the board's edge
+// (a tile or halo row off the board, the first strip, a lane at or past
+// the row's last word) runs the body with bounded loads and stores and
+// the row and column masks after every substep; every other block (87% at
+// 16384^2, k = 8) runs an instance of it with none, the branch uniform
+// over the block.  Rows a warp: 4, 8 or 16 (an instance each; 16 at most 8
+// warps a block, so that its rows stay in registers with two blocks an
+// SM).  The tiles come from packed_stripe.moore_tile_shape, measured by
+// experiments/stripe_sweep.py k1_tiles: at 16384^2 and k = 8, 8 warps of
+// 16 rows, 112 output rows a tile (PERF.md).  The other kernels keep the
+// tiles below, unchanged.
 //
 // The tiles.  A warp owns a strip of 32 word columns, one word a lane:
 // lanes 1..30 are its output words, lanes 0 and 31 the words beside them.
@@ -748,15 +775,266 @@ __device__ __forceinline__ void segment_kernel_body(const Io& io, int rows, int 
   segment_run<R, Substep, Rule>(io, rows, nwords, rem_bits, seg, k, n, tile_rows, center, sop);
 }
 
-// Each kernel comes in two instances, of R = 4 and 8 rows a warp.
-template <int R, class Rule>
-__global__ void __launch_bounds__(kLanes * kTileWarps, 1)
-packed_stripe_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int height,
-                     int nwords, int rem_bits, int k, int tile_rows, uint32_t center,
-                     const Sop sop) {
-  tile_kernel_body<R, MooreSubstep, Rule>(BoardIo{src, dst, height}, height, nwords, rem_bits, k,
-                                     k, tile_rows, center, sop);
+// ---- K1's Moore tiles on one board (packed_stripe_kernel) -------------------
+
+// The horizontal 3-sum L + C + R of a row as two planes: s (weight 1) and
+// c (weight 2), one LOP3 each after two shuffles and two funnel shifts.
+struct HSum {
+  uint32_t s, c;
+};
+
+__device__ __forceinline__ HSum to_hsum(uint2 p) { return {p.x, p.y}; }
+
+template <class Lanes>
+__device__ __forceinline__ HSum hsum(uint32_t v, const Lanes& lanes) {
+  // L[c] = v[c-1]: (v << 1) | (left word >> 31); R[c] = v[c+1]
+  const uint32_t l = __funnelshift_l(lanes.left(v), v, 1);
+  const uint32_t r = __funnelshift_r(v, lanes.right(v), 1);
+  return {l ^ v ^ r, (l & v) | (l & r) | (v & r)};
 }
+
+// A rule over the 3x3 total T = a0 + 2 (a1 + c0) + 4 c1 (the vertical
+// carry-save adds of three rows' sums and carries) and the cell x.  Any
+// rule of the total's planes (DataRule) takes b0 = a0, b1 = a1 ^ c0,
+// b2 = c1 ^ (a1 & c0), b3 = c1 & a1 & c0.
+template <class Rule>
+struct PlaneRule {
+  Rule rule;
+  __device__ __forceinline__ explicit PlaneRule(const Sop& sop) : rule(sop) {}
+  __device__ __forceinline__ uint32_t operator()(uint32_t a0, uint32_t a1, uint32_t c0,
+                                                 uint32_t c1, uint32_t x) const {
+    return rule(a0, a1 ^ c0, c1 ^ (a1 & c0), c1 & a1 & c0, x);
+  }
+};
+
+// A rule of more than two SOP terms loops over the rest (DataRule<true>),
+// and the loop keeps a row's instructions from interleaving with another
+// row's.  So two rows can go through it together (pair), their terms side
+// by side in one loop.
+struct ManyTermPlaneRule : PlaneRule<DataRule<true>> {
+  using PlaneRule::PlaneRule;
+  __device__ __forceinline__ void pair(const uint32_t (&a0)[2], const uint32_t (&a1)[2],
+                                       const uint32_t (&c0)[2], const uint32_t (&c1)[2],
+                                       uint32_t& x0, uint32_t& x1) const {
+    uint32_t b[2][4];
+    const uint32_t x[2] = {x0, x1};
+    uint32_t out[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      b[j][0] = a0[j];
+      b[j][1] = a1[j] ^ c0[j];
+      b[j][2] = c1[j] ^ (a1[j] & c0[j]);
+      b[j][3] = c1[j] & a1[j] & c0[j];
+      out[j] = rule.term(0, b[j][0], b[j][1], b[j][2], b[j][3], x[j]) |
+               rule.term(1, b[j][0], b[j][1], b[j][2], b[j][3], x[j]);
+    }
+#pragma unroll 1
+    for (int t = 2; t < rule.sop.n_terms; ++t) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) out[j] |= rule.term(t, b[j][0], b[j][1], b[j][2], b[j][3], x[j]);
+    }
+    x0 = out[0];
+    x1 = out[1];
+  }
+};
+
+// Conway on the planes, four LOP3: T == 3 | (x & T == 4).  With a0 set T
+// is odd and 3 where a1 + c0 == 1 and not c1; with a0 clear T is 4 where
+// a1 + c0 == 2 and not c1, or a1 + c0 == 0 and c1.
+template <>
+struct PlaneRule<ConwayRule> {
+  __device__ __forceinline__ explicit PlaneRule(const Sop&) {}
+  __device__ __forceinline__ uint32_t operator()(uint32_t a0, uint32_t a1, uint32_t c0,
+                                                 uint32_t c1, uint32_t x) const {
+    uint32_t three, four, born, out;
+    // (a1 ^ c0) & ~c1; a1 c0 ~c1 | ~a1 ~c0 c1; x & four & ~a0; a0 & three | born
+    asm("lop3.b32 %0, %1, %2, %3, 0x14;" : "=r"(three) : "r"(a1), "r"(c0), "r"(c1));
+    asm("lop3.b32 %0, %1, %2, %3, 0x42;" : "=r"(four) : "r"(a1), "r"(c0), "r"(c1));
+    asm("lop3.b32 %0, %1, %2, %3, 0x40;" : "=r"(born) : "r"(x), "r"(four), "r"(a0));
+    asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(out) : "r"(a0), "r"(three), "r"(born));
+    return out;
+  }
+};
+
+// The rows a warp keeps in the tall instance of K1's Moore tiles, and the
+// warps of its block, at most.
+constexpr int kMooreTallRows = 16;
+constexpr int kMooreTallWarps = 8;
+
+__host__ __device__ constexpr int moore_max_warps(int rows) {
+  return rows == kMooreTallRows ? kMooreTallWarps : kTileWarps;
+}
+
+// The strips of K1's Moore tiles: strip s holds word columns 30 s .. 30 s +
+// 31, one a lane.  Lanes 1..30 are its output words; so are lane 0 of the
+// first strip (word 0, whose left neighbour is off the board) and a lane 31
+// that holds the row's last word.  Every other lane 0 and 31 absorbs the
+// wrong bits a shuffle past the warp's edge brings.
+__host__ __device__ __forceinline__ int moore_strips(int nwords) {
+  return nwords <= 2 ? 1 : (nwords - 2 + kInterior - 1) / kInterior;
+}
+
+// The (hs, hc) pairs of the rows a tile's warps share: each warp's first
+// and last row, in two buffers that the substeps take in turns.
+__device__ __forceinline__ auto moore_edges() -> uint2 (*)[kTileWarps][2][kLanes] {
+  __shared__ uint2 edge[2][kTileWarps][2][kLanes];
+  return edge;
+}
+
+// k masked steps of the tile of output rows [t0, t0 + tile_rows) of strip
+// `strip` by the W warps of the block.  Warp w keeps R rows, board rows
+// t0 - k + w*R onwards, one register each.  A substep takes each row's
+// horizontal sum (hs, hc) once, trades the first and last rows' pairs with
+// the warps above and below through shared memory (one barrier), then adds
+// three rows' pairs vertically (two carry-save adds) and applies the rule
+// on the planes.  Edge: the block touches the board's edge (a tile row off
+// the board, a lane past its last word, or its first or last word), so the
+// loads and stores are bounded, the board's first and last words take zero
+// from beyond, and every substep keeps a row's bits where the row is on
+// the board and the column mask allows; an interior block needs none of it.
+template <int R, bool Edge, class Rule>
+__device__ __forceinline__ void moore_tile(const uint32_t* __restrict__ src,
+                                           uint32_t* __restrict__ dst, int height, int nwords,
+                                           int rem_bits, int k, int t0, int strip, int tile_rows,
+                                           const Sop& sop) {
+  auto edge = moore_edges();
+  const int w = static_cast<int>(threadIdx.x / kLanes);
+  const int lane = static_cast<int>(threadIdx.x % kLanes);
+  const int warps = static_cast<int>(blockDim.x / kLanes);
+  const int gw = strip * kInterior + lane;
+  const int base = t0 - k + w * R;  // board row of v[0]
+  // a rule of more than two terms takes two rows at a time through its
+  // loop, but in the edge body of the instance of 8 rows, which paired
+  // would need more than the 64 registers a block of 32 warps may have
+  constexpr bool kMany = std::is_same_v<Rule, DataRule<true>>;
+  constexpr bool kPairs = kMany && !(Edge && R == 8);
+  const std::conditional_t<kMany, ManyTermPlaneRule, PlaneRule<Rule>> rule(sop);
+  const SegmentLanes edge_lanes{gw == 0, gw == nwords - 1};
+  auto row_sum = [&](uint32_t x) {
+    if constexpr (Edge) {
+      return hsum(x, edge_lanes);
+    } else {
+      return hsum(x, StripLanes{});
+    }
+  };
+  const uint32_t cmask = Edge ? column_mask(gw, nwords, rem_bits) : kFull;
+  uint32_t v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = base + i;
+    if (Edge) {
+      v[i] = row >= 0 && row < height && gw < nwords ? src[static_cast<size_t>(row) * nwords + gw]
+                                                     : 0u;
+    } else {
+      v[i] = src[static_cast<size_t>(row) * nwords + gw];
+    }
+  }
+#pragma unroll 1
+  for (int s = 0; s < k; ++s) {
+    const HSum first = row_sum(v[0]);
+    const HSum last = row_sum(v[R - 1]);
+    uint2(&mine)[2][kLanes] = edge[s & 1][w];
+    mine[0][lane] = make_uint2(first.s, first.c);
+    mine[1][lane] = make_uint2(last.s, last.c);
+    __syncthreads();
+    const uint2 above = w > 0 ? edge[s & 1][w - 1][1][lane] : make_uint2(0u, 0u);
+    HSum up{above.x, above.y};
+    HSum mid = first;
+    if constexpr (kPairs) {
+      // rows i and i+1 from the pairs of rows i-1 .. i+2; the last row's
+      // pair and the one below it read back from shared memory when needed,
+      // not kept live through the loops
+#pragma unroll
+      for (int i = 0; i < R; i += 2) {
+        const HSum next = i + 2 < R ? row_sum(v[i + 1]) : to_hsum(edge[s & 1][w][1][lane]);
+        const HSum after = i + 2 < R       ? row_sum(v[i + 2])
+                           : w + 1 < warps ? to_hsum(edge[s & 1][w + 1][0][lane])
+                                           : HSum{0u, 0u};
+        uint32_t a0[2], c0[2], a1[2], c1[2];
+        csa(up.s, mid.s, next.s, a0[0], c0[0]);
+        csa(up.c, mid.c, next.c, a1[0], c1[0]);
+        csa(mid.s, next.s, after.s, a0[1], c0[1]);
+        csa(mid.c, next.c, after.c, a1[1], c1[1]);
+        rule.pair(a0, a1, c0, c1, v[i], v[i + 1]);
+        if (Edge) {
+          v[i] &= base + i >= 0 && base + i < height ? cmask : 0u;
+          v[i + 1] &= base + i + 1 >= 0 && base + i + 1 < height ? cmask : 0u;
+        }
+        up = next;
+        mid = after;
+      }
+    } else {
+      const uint2 below = w + 1 < warps ? edge[s & 1][w + 1][0][lane] : make_uint2(0u, 0u);
+      // row i from the pairs of rows i-1, i and i+1, each row's pair made
+      // once, just before it is first read; row i+1's from the old v[i+1]
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const HSum down = i + 1 == R       ? HSum{below.x, below.y}
+                          : i + 2 == R     ? last
+                                           : row_sum(v[i + 1]);
+        uint32_t a0, c0, a1, c1;
+        csa(up.s, mid.s, down.s, a0, c0);
+        csa(up.c, mid.c, down.c, a1, c1);
+        v[i] = rule(a0, a1, c0, c1, v[i]);
+        if (Edge) v[i] &= base + i >= 0 && base + i < height ? cmask : 0u;
+        up = mid;
+        mid = down;
+      }
+    }
+  }
+  const bool out_lane = Edge ? gw < nwords && (lane != 0 || gw == 0) &&
+                                   (lane != kLanes - 1 || gw == nwords - 1)
+                             : lane >= 1 && lane <= kInterior;
+  if (out_lane) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = base + i;
+      if (row >= t0 && row < t0 + tile_rows && (!Edge || row < height)) {
+        dst[static_cast<size_t>(row) * nwords + gw] = v[i];
+      }
+    }
+  }
+}
+
+// Block blockIdx.x is tile blockIdx.x / strips of strip blockIdx.x % strips;
+// the branch between the edge and the interior body is uniform over the
+// block.  A rule of more than two SOP terms takes DataRule's loop.
+template <int R, class Rule>
+__device__ __forceinline__ void moore_kernel_body(const uint32_t* __restrict__ src,
+                                                  uint32_t* __restrict__ dst, int height,
+                                                  int nwords, int rem_bits, int k, int tile_rows,
+                                                  const Sop& sop) {
+  if constexpr (std::is_same_v<Rule, DataRule<false>>) {
+    if (sop.n_terms > 2) {
+      moore_kernel_body<R, DataRule<true>>(src, dst, height, nwords, rem_bits, k, tile_rows, sop);
+      return;
+    }
+  }
+  const int strips = moore_strips(nwords);
+  const int strip = static_cast<int>(blockIdx.x) % strips;
+  const int t0 = static_cast<int>(blockIdx.x) / strips * tile_rows;
+  const int rows = static_cast<int>(blockDim.x / kLanes) * R;
+  const bool interior = t0 - k >= 0 && t0 - k + rows <= height && strip >= 1 &&
+                        strip * kInterior + kLanes < nwords;
+  if (interior) {
+    moore_tile<R, false, Rule>(src, dst, height, nwords, rem_bits, k, t0, strip, tile_rows, sop);
+  } else {
+    moore_tile<R, true, Rule>(src, dst, height, nwords, rem_bits, k, t0, strip, tile_rows, sop);
+  }
+}
+
+// K1's Moore mode, in instances of R = 4, 8 and 16 rows a warp; the
+// instance of 16 takes at most kMooreTallWarps warps, so that its rows and
+// their sums stay in registers (at most 128) with two blocks an SM.
+template <int R, class Rule>
+__global__ void __launch_bounds__(kLanes * moore_max_warps(R), R == kMooreTallRows ? 2 : 1)
+packed_stripe_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int height,
+                     int nwords, int rem_bits, int k, int tile_rows, uint32_t,
+                     const Sop sop) {
+  moore_kernel_body<R, Rule>(src, dst, height, nwords, rem_bits, k, tile_rows, sop);
+}
+
+// The other kernels come in two instances each, of R = 4 and 8 rows a warp.
 
 template <int Radius, int R>
 __global__ void __launch_bounds__(kLanes * kTileWarps, 1)
@@ -888,15 +1166,34 @@ int launch(Kernel kernel, int rows, int nwords, int tile_rows, int reach, int k,
   return launch_slots<R>(kernel, 1, rows, nwords, tile_rows, reach, k, stream, args...);
 }
 
+// Launch K1's Moore tiles over `rows` x `nwords` words: one block a tile of
+// tile_rows output rows and a strip (moore_strips), of the warps that keep
+// the tile and its halo of k rows at each end, R rows a warp.  kInvalid
+// where k is outside [1, 32] or the tile needs more than moore_max_warps(R)
+// warps; else cudaGetLastError().
+template <int R, typename Kernel, typename... Args>
+int launch_moore(Kernel kernel, int rows, int nwords, int tile_rows, int k, void* stream,
+                 Args... args) {
+  if (rows < 1 || nwords < 1 || tile_rows < 1 || k < 1 || k > 32) return kInvalid;
+  const int warps = (tile_rows + 2 * k + R - 1) / R;
+  if (warps > moore_max_warps(R)) return kInvalid;
+  const long long blocks =
+      static_cast<long long>(moore_strips(nwords)) * ((rows + tile_rows - 1) / tile_rows);
+  kernel<<<static_cast<unsigned>(blocks), kLanes * warps, 0, static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // k masked life-like steps from src into dst (distinct int32[height,
 // nwords] buffers on the current device) in tiles of tile_rows output
-// rows, warp_rows (4 or 8) rows a warp, on `stream`.  compiled != 0 runs
-// the instance with Conway's rule built in (the rule must be Conway's),
-// else the rule is `sop`.  Returns cudaGetLastError(), or
+// rows, warp_rows (4, 8 or 16) rows a warp, at most 32 warps (8 of 16
+// rows), on `stream`.  compiled != 0 runs the instance with Conway's rule
+// built in (the rule must be Conway's), else the rule is `sop`.  Returns
+// cudaGetLastError(), or
 // cudaErrorInvalidValue for k outside [1, 32], another warp_rows or a tile
 // too tall for one block.
 int packed_stripe_multi_step(const void* src, void* dst, int height, int nwords, int rem_bits,
@@ -904,14 +1201,17 @@ int packed_stripe_multi_step(const void* src, void* dst, int height, int nwords,
                              void* stream) {
   const auto s = static_cast<const uint32_t*>(src);
   const auto d = static_cast<uint32_t*>(dst);
-  return with_warp_rows(warp_rows, [&](auto rc) {
+  auto go = [&](auto rc) {
     constexpr int R = decltype(rc)::value;
-    return compiled
-               ? launch<R>(packed_stripe_kernel<R, ConwayRule>, height, nwords, tile_rows, 1, k,
-                           stream, s, d, height, nwords, rem_bits, k, tile_rows, 0u, *sop)
-               : launch<R>(packed_stripe_kernel<R, DataRule<false>>, height, nwords, tile_rows, 1,
-                           k, stream, s, d, height, nwords, rem_bits, k, tile_rows, 0u, *sop);
-  });
+    return compiled ? launch_moore<R>(packed_stripe_kernel<R, ConwayRule>, height, nwords,
+                                      tile_rows, k, stream, s, d, height, nwords, rem_bits, k,
+                                      tile_rows, 0u, *sop)
+                    : launch_moore<R>(packed_stripe_kernel<R, DataRule<false>>, height, nwords,
+                                      tile_rows, k, stream, s, d, height, nwords, rem_bits, k,
+                                      tile_rows, 0u, *sop);
+  };
+  if (warp_rows == kMooreTallRows) return go(std::integral_constant<int, kMooreTallRows>{});
+  return with_warp_rows(warp_rows, go);
 }
 
 // k masked von Neumann steps of `radius` 1 or 2 (k * radius <= 32), with

@@ -11,6 +11,7 @@ file runs against any tree of the port that has them::
     python -m tpu_life_torch.experiments.stripe_sweep            # every case
     python -m tpu_life_torch.experiments.stripe_sweep small      # 1500x500 only
     python -m tpu_life_torch.experiments.stripe_sweep k5_tiles   # K5 at every tile
+    python -m tpu_life_torch.experiments.stripe_sweep k1_tiles   # K1's Moore mode at every tile
     python -m tpu_life_torch.experiments.stripe_sweep ab         # three cases, three times
     python -m tpu_life_torch.experiments.stripe_sweep k6         # the stochastic tier's readings
     python -m tpu_life_torch.experiments.stripe_sweep k1b        # K1's batch mode a chunk at a time
@@ -21,10 +22,15 @@ Each case prints one JSON line ``{"kernel", "rule", "shape", "k", "ms"}``
 plain version exits 1.  ``k5_tiles`` times K5 at every tile shape that
 fits a block (``tiles``: output rows and rows a warp), through the C entry
 with the tile forced; it needs a tree whose K5 takes its tiles from the
-caller.  ``ab`` times K1 (16384^2), a K3 shard (16384^2 on 4) and K5
-(8192^2), Conway at k = 8, three times in turn: the cases a change to the
-tiles K1, K3 and K5 share must leave as they were, for a parent tree and a
-change run in one call.  ``k6`` reads what a change to kernel K6 must
+caller.  ``k1_tiles`` times K1's Moore mode the same way at every tile of
+2 to 32 warps of 4, 8 or 16 rows (``tiles``: output rows, rows a warp,
+warps; ``blocks``: the grid) on boards from 1500x500 to 16384^2; it needs
+a tree whose Moore mode takes 16 rows a warp (8 warps at most); a case
+the profiler records no kernel of twice prints ``ms`` null.  ``ab``
+times K1 (16384^2), a K3 shard (16384^2 on 4) and K5 (8192^2), Conway at
+k = 8, three times in turn: the cases a change to the tiles K1, K3 and K5
+share must leave as they were, for a parent tree and a change run in one
+call.  ``k6`` reads what a change to kernel K6 must
 move or leave: a 16384^2 Ising board (seeded, seed 1) through 256 sweeps
 of the ``cuda`` Runner at T = 2.27 (host clock, spin updates/s); K6's
 device time on that board and on the seeded 4096^2 board of seed 1 (parity
@@ -59,6 +65,7 @@ took.  Run it as a file from each tree's root, like ``k6``.  Every mode runs on 
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -82,7 +89,8 @@ R1 = "R1,C2,S2..3,B3,NN"
 K1_CASES = (
     ("conway", REF, (1, 2, 3, 4, 5, 8, 12, 16, 32)),
     ("conway", FULL, (1, 2, 3, 5, 8, 12, 16, 17, 24, 32)),
-    ("highlife", FULL, (8,)),
+    ("highlife", REF, (1, 4, 8, 16, 32)),
+    ("highlife", FULL, (1, 4, 8, 16, 32)),
     (R2, REF, (1, 5, 8, 16)),
     (R2, FULL, (1, 2, 5, 8, 12, 16)),
     (R1, REF, (1, 5, 8, 32)),
@@ -128,6 +136,23 @@ K1B_SESSIONS, K1B_STEPS, K1B_REPEATS = 32, 128, 7
 # the 512^2 tiles tried at k = 16: (output rows a block, rows a segment)
 K1B_TILES = ((32, 4), (32, 8), (32, 2), (16, 2), (8, 2), (64, 4), (64, 2), (16, 4))
 K5_TILE_DEPTHS = (1, 2, 4, 8, 16, 32)
+# the k1_tiles mode: (board, depths) of K1's Moore mode timed at every tile
+# of K1_TILE_WARPS warps of each instance's rows that leaves an output row
+K1_TILE_CASES = (
+    ("conway", FULL, (1, 2, 3, 4, 5, 8, 12, 16, 24, 32)),
+    ("highlife", FULL, (8,)),
+    ("conway", (12288, 12288), (8,)),
+    ("conway", (8192, 8192), (1, 8, 32)),
+    ("conway", (6144, 6144), (8,)),
+    ("conway", (4096, 4096), (1, 8, 32)),
+    ("conway", (3072, 3072), (8,)),
+    ("conway", (2048, 2048), (1, 8, 32)),
+    ("conway", (1024, 1024), (8,)),
+    ("conway", (16384, 2048), (8,)),
+    ("conway", (2048, 16384), (8,)),
+    ("conway", REF, (1, 2, 4, 8, 16, 32)),
+)
+K1_TILE_WARPS = (2, 3, 4, 5, 6, 7, 8, 10, 12, 16, 20, 24, 32)
 
 
 def _words(shape: tuple[int, int], rng: np.random.Generator, device: torch.device) -> torch.Tensor:
@@ -239,6 +264,58 @@ def k5_tile_cases(n: int, k: int, rng, device) -> list[tuple[int, int, float]]:
                 launch(bufs[1], bufs[0])
 
             out.append((rows, warp_rows, _device_ms(pingpong, _reps((n, n)), ("conway_",))))
+    return out
+
+
+def k1_tile_cases(shape: tuple[int, int], k: int, rng, device, rule_name: str = "conway"):
+    """``(tile_rows, warp_rows, warps, blocks, ms)`` of K1's Moore mode at
+    every tile of :data:`K1_TILE_WARPS` warps (as many as the instance
+    takes) of ``packed_stripe.MOORE_WARP_ROWS`` rows that leaves an output row (the tile's rows less its halo, at most the
+    board's), through the C entry with the tile forced, each held to the
+    plain version first."""
+    rule = get_rule(rule_name)
+    h, w = shape
+    x = _words(shape, rng, device)
+    nwords = x.shape[1]
+    want = ps.packed_multi_step_plain(x, rule, shape, k)
+    fn = ps._library().packed_stripe_multi_step
+    sop = ps.cached_sop_table(rule)
+    y = torch.empty_like(x)
+    out = []
+    seen = set()
+    for warp_rows in ps.MOORE_WARP_ROWS:
+        for warps in K1_TILE_WARPS:
+            if warps > ps.moore_max_warps(warp_rows):
+                continue
+            rows = min(warps * warp_rows - 2 * k, h)
+            if rows < 1 or (rows, warp_rows) in seen:
+                continue
+            seen.add((rows, warp_rows))
+
+            def launch(src, dst, rows=rows, warp_rows=warp_rows):
+                err = fn(src.data_ptr(), dst.data_ptr(), h, nwords, w % 32, k, rows, warp_rows,
+                         int(ps.compiled_rule(rule)), ctypes.byref(sop),
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"packed_stripe_multi_step failed: CUDA error {err}")
+
+            launch(x, y)
+            if not torch.equal(y, want):
+                print(f"K1 {rule_name} {shape} k={k} tiles {rows}x{warp_rows}: differs from the "
+                      "plain version", flush=True)
+                sys.exit(1)
+            bufs = [x.clone(), torch.empty_like(x)]
+
+            def pingpong(launch=launch, bufs=bufs):
+                bufs.reverse()
+                launch(bufs[1], bufs[0])
+
+            blocks = ps.moore_blocks(k, h, nwords, rows, warp_rows)[0]
+            try:
+                ms = _device_ms(pingpong, _reps(shape))
+            except RuntimeError:  # no kernel records twice: not measured
+                ms = None
+            out.append((rows, warp_rows, -(-(rows + 2 * k) // warp_rows), blocks, ms))
     return out
 
 
@@ -636,6 +713,16 @@ def main(argv: list[str]) -> None:
             for kernel, shape, case in cases:
                 print(json.dumps({"kernel": kernel, "rule": "conway", "shape": list(shape), "k": 8,
                                   "ms": round(case(), 5)}), flush=True)
+        return
+    if "k1_tiles" in argv:
+        for rule_name, shape, ks in K1_TILE_CASES:
+            for k in ks:
+                for rows, warp_rows, warps, blocks, ms in k1_tile_cases(shape, k, rng, device,
+                                                                         rule_name):
+                    print(json.dumps({"kernel": "K1", "rule": rule_name, "shape": list(shape),
+                                      "k": k, "tiles": [rows, warp_rows, warps],
+                                      "blocks": blocks,
+                                      "ms": None if ms is None else round(ms, 5)}), flush=True)
         return
     if "k5_tiles" in argv:
         for n in K5_TILE_SIDES:

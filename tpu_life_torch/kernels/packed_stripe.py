@@ -14,17 +14,23 @@ board — int32 words in the ``bitlife.pack_np`` layout, shape
 ``bitlife.make_masked_packed_step(rule, (lh, lw))``, which picks the Moore
 or the diamond step by the rule.
 
-What bounds the kernel on an H100 is integer issue (about 15 logic
-instructions a word and step for Conway, :func:`logic_ops_per_word_step`),
-so its design spends few instructions beyond those and keeps every row of
-a substep in registers: a warp owns a strip of 32 word columns, and a
-block keeps a tile of a strip's rows, four or eight a warp, computing all
-of them each substep (the CUDA source's note).  What the wrapper decides for a
-launch:
+What bounds the kernel on an H100 is integer issue (the benchmark counts
+15 logic instructions a word and step for Conway,
+:func:`logic_ops_per_word_step`), so its design spends few instructions
+beyond those and keeps every row of a substep in registers: a warp owns a
+strip of 32 word columns, and a block keeps a tile of a strip's rows,
+computing all of them each substep (the CUDA source's note).  The Moore
+mode counts in the other order: each row's horizontal 3-sum once, traded
+between warps as two planes, then two vertical carry-save adds and Conway's
+rule on the carry-save planes, 12 integer-pipe instructions and 2 shuffles
+a word and step; only the blocks that touch the board's edge mask rows and
+columns (:func:`moore_blocks`).  What the wrapper decides for a launch:
 
-- the tile (:func:`tile_shape`): its output rows and the rows a warp keeps
-  (4 or 8, a kernel instance each), and so its warps and halo, sized to the
-  board;
+- the tile: its output rows and the rows a warp keeps, and so its warps and
+  halo, sized to the board.  The Moore mode's (:func:`moore_tile_shape`)
+  take 4, 8 or 16 rows a warp, a kernel instance each, by depth, as
+  measured at 16384^2 (8 warps of 16 rows at depth 8); the diamond's
+  (:func:`tile_shape`, which K3, K5 and K1's batch mode share) 4 or 8;
 - the kernel instance: for the Moore mode, Conway's rule compiled in where
   the rule's minimized SOP is Conway's (:func:`compiled_rule`), else the
   rule as data (:func:`sop_table`).
@@ -61,6 +67,14 @@ STRIP_WORDS = 30  # output words of a warp's strip: kInterior in the CUDA source
 SCHEDULERS_PER_SM = 4  # warp schedulers of a Hopper SM
 SMALL_WARP_ROWS, LARGE_WARP_ROWS = 4, 8  # rows a warp keeps in a tile: the kernel's R
 TILE_WARPS = 32  # warps of a tile's block, at most: kTileWarps in the CUDA source
+# the Moore mode's rows a warp (an instance each), and the tall instance's
+# warps a block, at most (kMooreTallRows, kMooreTallWarps in the CUDA source)
+MOORE_WARP_ROWS = (4, 8, 16)
+MOORE_TALL_ROWS, MOORE_TALL_WARPS = 16, 8
+# the Moore mode's blocks on a board that fills the card: (deepest launch,
+# rows a warp, warps), and the warps an SM its grid must give (moore_tile_shape)
+MOORE_BLOCKS = ((2, 8, 8), (5, 16, 4), (12, 16, 8), (MAX_BLOCK_STEPS, 8, 32))
+MOORE_WARPS_PER_SM = 16
 CONWAY_SOP = ((7, 3), (23, 20))  # rule_sop of B3/S23, compiled into the Moore kernels
 _MAX_TERMS = 32
 _LITERALS = 5
@@ -147,7 +161,9 @@ def logic_ops_per_word_step(rule: Rule) -> int:
     s1, c2); the planes b1 = c1^s1, b2 = c2^(c1&s1), b3 = c2&c1&s1, one each;
     and the rule's SOP as one read-once formula of L literals, L // 2
     instructions.  A plane the SOP does not read is not counted.  The board
-    mask, needed only on a partial last word, is counted by the caller."""
+    mask, needed only on a partial last word, is counted by the caller.
+    This is the count of the shared tiles and of the benchmark's bound; the
+    Moore mode's own body needs 12 for Conway (the CUDA source's note)."""
     if bitlife.supports_diamond(rule):
         return _diamond_logic_ops(rule)
     return moore_logic_ops(rule.birth, rule.survive)
@@ -216,19 +232,77 @@ def tile_shape(
       rows, so that several blocks share an SM and hide each other's
       loads."""
     halo = 2 * radius * block_steps
-    strips = -(-nwords // STRIP_WORDS)
     if not fills_card(block_steps, height, nwords, n_sm, radius):
-        r, best = SMALL_WARP_ROWS, None
-        for warps in range(halo // r + 1, TILE_WARPS + 1):
-            rows = min(warps * r - halo, height)
-            per_scheduler = (-(-strips * -(-height // rows) // n_sm)
-                             * -(-warps // SCHEDULERS_PER_SM))
-            if best is None or per_scheduler < best[0]:
-                best = (per_scheduler, rows)
-        return best[1], r
+        return _critical_path_tile(halo, height, -(-nwords // STRIP_WORDS), n_sm)
     r = LARGE_WARP_ROWS
     warps = next((w for w in (4, 8, 16) if 6 * halo <= w * r), TILE_WARPS)
     return min(warps * r - halo, height), r
+
+
+def _critical_path_tile(halo: int, height: int, strips: int, n_sm: int) -> tuple[int, int]:
+    """The tile of a board too small to fill the card: four rows a warp and
+    the tile whose blocks put the fewest warps on a warp scheduler, ties to
+    the fewer warps."""
+    r, best = SMALL_WARP_ROWS, None
+    for warps in range(halo // r + 1, TILE_WARPS + 1):
+        rows = min(warps * r - halo, height)
+        per_scheduler = -(-strips * -(-height // rows) // n_sm) * -(-warps // SCHEDULERS_PER_SM)
+        if best is None or per_scheduler < best[0]:
+            best = (per_scheduler, rows)
+    return best[1], r
+
+
+def moore_strips(nwords: int) -> int:
+    """The strips of the Moore mode's tiles (``moore_strips`` in the CUDA
+    source): strip ``s`` holds word columns ``30 s .. 30 s + 31``, and its
+    output words are lanes 1..30, lane 0 of the first strip and a lane 31
+    that holds the row's last word."""
+    return 1 if nwords <= 2 else -(-(nwords - 2) // STRIP_WORDS)
+
+
+def moore_max_warps(warp_rows: int) -> int:
+    """The warps a block of the Moore mode's instance of ``warp_rows`` rows
+    a warp may have."""
+    return MOORE_TALL_WARPS if warp_rows == MOORE_TALL_ROWS else TILE_WARPS
+
+
+def moore_tile_shape(block_steps: int, height: int, nwords: int, n_sm: int) -> tuple[int, int]:
+    """``(tile_rows, warp_rows)`` of a Moore launch: the output rows of one
+    tile (the rows a block computes for a strip, less its halo of
+    ``block_steps`` rows at each end), and the rows each of its warps keeps.
+
+    The block by depth (:data:`MOORE_BLOCKS`, the fastest at 16384^2 on an
+    H100 at every depth, PERF.md): 8 warps of 8 rows at depths 1 and 2,
+    where the loads and stores weigh most; 4 warps of 16 rows up to depth 5;
+    8 warps of 16 up to depth 12; then 32 warps of 8, whose halo is the
+    smallest share of their rows.  A board whose grid of such blocks gives
+    fewer than :data:`MOORE_WARPS_PER_SM` warps an SM cannot fill the card:
+    its time is the critical path, and it takes the tile of
+    :func:`tile_shape`'s small boards."""
+    warp_rows, warps = next(b for depth, *b in MOORE_BLOCKS if block_steps <= depth)
+    rows = min(warps * warp_rows - 2 * block_steps, height)
+    strips = moore_strips(nwords)
+    if strips * -(-height // rows) * warps >= MOORE_WARPS_PER_SM * n_sm:
+        return rows, warp_rows
+    return _critical_path_tile(2 * block_steps, height, strips, n_sm)
+
+
+def moore_blocks(block_steps: int, height: int, nwords: int, tile_rows: int,
+                 warp_rows: int) -> tuple[int, int]:
+    """``(blocks, unmasked)`` of a Moore launch: its grid, and the blocks
+    that touch no edge of the board and so run the body with no mask: tile
+    ``t``'s rows and halo, from ``t * tile_rows - block_steps`` on, all on
+    the board, in a strip ``s >= 1`` whose lanes stop short of the row's
+    last word (``30 s + 32 < nwords``)."""
+    strips = moore_strips(nwords)
+    tiles = -(-height // tile_rows)
+    rows = -(-(tile_rows + 2 * block_steps) // warp_rows) * warp_rows
+    inner_strips = max(0, min(strips - 1, (nwords - 33) // STRIP_WORDS))
+    last = height - rows + block_steps  # the highest tile start whose rows end on the board
+    inner_tiles = 0
+    if last >= 0:
+        inner_tiles = max(0, min(tiles - 1, last // tile_rows) - -(-block_steps // tile_rows) + 1)
+    return strips * tiles, inner_strips * inner_tiles
 
 
 def build() -> Path:
@@ -279,6 +353,14 @@ def launch_tile_shape(rule: Rule, k: int, rows: int, nwords: int) -> tuple[int, 
     """:func:`tile_shape` of one launch of ``k`` substeps over ``rows`` x
     ``nwords`` words on the current card."""
     return tile_shape(k, rows, nwords, sm_count(torch.cuda.current_device()), rule.radius)
+
+
+@functools.cache
+def _moore_launch(k: int, rows: int, nwords: int, device: int) -> tuple[int, int, int, int]:
+    """``(tile_rows, warp_rows, blocks, unmasked)`` of one Moore launch on
+    card ``device``, reckoned once per shape and depth."""
+    tiles = moore_tile_shape(k, rows, nwords, sm_count(device))
+    return (*tiles, *moore_blocks(k, rows, nwords, *tiles))
 
 
 @functools.cache
@@ -367,18 +449,27 @@ def packed_multi_step(
     with profiler_span("k1.issue"), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for k in ks:
+            if diamond:
+                tiles, blocks, unmasked = launch_tile_shape(rule, k, lh, nwords), 0, 0
+            else:
+                *tiles, blocks, unmasked = _moore_launch(k, lh, nwords, x.device.index)
             err = fn(
                 src.data_ptr(), dst.data_ptr(), lh, nwords, lw % bitlife.WORD, k,
-                *launch_tile_shape(rule, k, lh, nwords), *mode, ctypes.byref(sop), stream,
+                *tiles, *mode, ctypes.byref(sop), stream,
             )
             if err != 0:
                 raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
             packed_multi_step.launches += 1
             packed_multi_step.diamond_launches += diamond
+            packed_multi_step.blocks += blocks
+            packed_multi_step.unmasked_blocks += unmasked
             src, dst = dst, src
     return src
 
 
-# launches of either mode, and those of them that ran the diamond mode
+# launches of either mode, and those of them that ran the diamond mode; the
+# Moore mode's blocks, and those of them that ran with no mask (moore_blocks)
 packed_multi_step.launches = 0
 packed_multi_step.diamond_launches = 0
+packed_multi_step.blocks = 0
+packed_multi_step.unmasked_blocks = 0
